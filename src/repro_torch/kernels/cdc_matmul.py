@@ -1,0 +1,171 @@
+"""Fused coded matmul + Eq. 12 decode + merge: the in-body coded GEMM.
+
+``cdc_coded_matmul`` runs, for x [rows, k], the T shard GEMMs of w [k, m]
+and the r parity GEMMs, rebuilds at most one dead shard from its
+per-column parity equation, and writes the merged [rows, T, m_l] output
+(its reshape to [rows, m] is free). On a CUDA tensor it launches the
+kernel in ``csrc/cdc_coded_matmul.cu``; on a CPU tensor it runs the plain
+version ``ref.cdc_coded_matmul_ref``. The decode plan comes from
+``eq12_plan``, a small tensor function.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.coded_layer import folded_slot_map, unfold_parity
+from repro_torch.core.coding import generator_tensor, host_mask
+from repro_torch.kernels import build, ref
+
+_BN, _RB = 32, 8          # the kernel's column tile and row tile
+_sem: dict[int, torch.Tensor] = {}   # per-device tile counters (see below)
+
+
+def eq12_plan(spec, valid: torch.Tensor, valid_parity: torch.Tensor,
+              m_l: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-column decode plan for the <= 1-erasure regime.
+
+    Returns (esel [m_l] int32, coef [m_l] f32): column c of the dead shard
+    d (the lowest-index dead shard, 0 when none is dead) is rebuilt as
+    coef[c] * (p_esel[c] - sum_i gen[esel[c], i] * y_i), coef =
+    1/gen[esel[c], d]. The folded layout picks, per slice, the lowest
+    parity j whose staggered slice survived (0 when none did); every other
+    case uses the sum row.
+    """
+    code = spec.code
+    T, r = code.n_shards, code.n_parity
+    valid = torch.as_tensor(valid, dtype=torch.bool)
+    valid_parity = torch.as_tensor(valid_parity, dtype=torch.bool,
+                                   device=valid.device)
+    dev = valid.device
+    gen = generator_tensor(code, dev)
+    idx = torch.arange(T, device=dev)
+    d = torch.where(valid, T, idx).min() % T   # first dead shard, else 0
+    if spec.layout == "folded" and r > 1 and m_l % T == 0:
+        smap = torch.as_tensor(folded_slot_map(T, r), device=dev)
+        alive = valid_parity[smap]                              # [r, T]
+        js = torch.arange(r, device=dev)[:, None]
+        lowest = torch.where(alive, js, r).min(0).values % r    # [T]
+        esel = lowest.repeat_interleave(m_l // T).to(torch.int32)
+    else:
+        esel = torch.zeros(m_l, dtype=torch.int32, device=dev)
+    coef = (1.0 / gen[esel.long(), d]).to(torch.float32)
+    return esel, coef
+
+
+def split_k(rows: int, k: int, m_l: int, n_sm: int) -> tuple[int, int]:
+    """(ksplit, kchunk): split the contraction across blocks until about
+    two blocks per SM are in flight, keeping chunks >= 128 deep."""
+    base = -(-m_l // _BN) * -(-rows // _RB)
+    ksplit = max(1, min(-(-2 * n_sm // base), k // 128))
+    kchunk = -(-k // ksplit)
+    return -(-k // kchunk), kchunk
+
+
+def _tile_counters(device: torch.device, n: int) -> torch.Tensor:
+    """Zeroed per-tile arrival counters. Each launch leaves them at zero
+    again, so one buffer per device serves every launch on its stream."""
+    sem = _sem.get(device.index)
+    if sem is None or sem.numel() < n:
+        sem = _sem[device.index] = torch.zeros(max(n, 4096),
+                                               dtype=torch.int32,
+                                               device=device)
+    return sem
+
+
+def _lib():
+    lib = build.load("cdc_coded_matmul")
+    fn = lib.cdc_coded_matmul_f32
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, p, ctypes.c_float, p, p, p,
+                       i, i, i, i, i, ctypes.c_longlong, i, ctypes.c_uint,
+                       i, i, p]
+        fn.restype = i
+    return fn
+
+
+def mask_bits(valid) -> int:
+    return sum(1 << t for t, ok in enumerate(host_mask(valid)) if ok)
+
+
+def coded_matmul_plain(x, w, w_cdc, layout, T, r, gen, esel, coef, valid,
+                       gamma=None, eps=1e-5):
+    """The plain version behind ``cdc_coded_matmul``, taking the same
+    arguments (weights in their stored layouts)."""
+    k, m = w.shape
+    w_st = w.reshape(k, T, m // T).permute(1, 0, 2)           # view
+    pw = w_cdc if layout == "dedicated" else unfold_parity(w_cdc, T, r)
+    return ref.cdc_coded_matmul_ref(
+        x, w_st, pw, gen, esel, coef,
+        torch.as_tensor(host_mask(valid)), gamma=gamma, eps=eps)
+
+
+def _check(cond: bool, msg: str):
+    if not cond:
+        raise ValueError(f"cdc_coded_matmul: {msg}")
+
+
+def cdc_coded_matmul(x: torch.Tensor, w: torch.Tensor, w_cdc: torch.Tensor,
+                     layout: str, T: int, r: int, gen: torch.Tensor,
+                     esel: torch.Tensor, coef: torch.Tensor, valid, *,
+                     gamma: torch.Tensor | None = None, eps: float = 1e-5
+                     ) -> torch.Tensor:
+    """(rmsnorm?) + coded shard GEMMs + Eq. 12 decode + merge.
+
+    x [rows, k]; w [k, T*m_l] (rows of w may be strided); w_cdc folded
+    [T, k, r*m_l/T] or dedicated [r, k, m_l]; gen [r, T]; esel/coef from
+    ``eq12_plan``; valid [T] host mask with at most one False. Returns
+    merged [rows, T, m_l] float32.
+    """
+    if x.device.type == "cpu":
+        return coded_matmul_plain(x, w, w_cdc, layout, T, r, gen, esel,
+                                  coef, valid, gamma, eps)
+    _check(x.device.type == "cuda", f"unsupported device {x.device}")
+    rows, k = x.shape
+    m_l = w.shape[1] // T
+    folded = layout == "folded"
+    tensors = [x, w, w_cdc, gen, coef] + ([gamma] if gamma is not None
+                                          else [])
+    _check(all(t.dtype == torch.float32 for t in tensors),
+           "x, w, parity, gen, coef and gamma must be float32")
+    _check(esel.dtype == torch.int32, "esel must be int32")
+    _check(all(t.device == x.device for t in tensors + [esel]),
+           "all tensors must be on one device")
+    _check(x.is_contiguous() and w.ndim == 2 and w.shape[0] == k
+           and w.stride(1) == 1 and w.shape[1] == T * m_l,
+           f"x {tuple(x.shape)} / w {tuple(w.shape)} layout")
+    pshape = (T, k, r * (m_l // T)) if folded else (r, k, m_l)
+    _check(w_cdc.is_contiguous() and tuple(w_cdc.shape) == pshape
+           and (not folded or m_l % T == 0),
+           f"parity {tuple(w_cdc.shape)} != {pshape}")
+    _check(gen.is_contiguous() and tuple(gen.shape) == (r, T),
+           "gen must be [r, T]")
+    _check(tuple(esel.shape) == (m_l,) and tuple(coef.shape) == (m_l,)
+           and esel.is_contiguous() and coef.is_contiguous(),
+           "esel/coef must be [m_l]")
+    _check(gamma is None or (gamma.is_contiguous()
+                             and tuple(gamma.shape) == (k,)),
+           "gamma must be [k]")
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    ksplit, kchunk = split_k(rows, k, m_l, n_sm)
+    out = torch.empty((rows, T, m_l), dtype=torch.float32, device=x.device)
+    ws = torch.empty((ksplit if ksplit > 1 else 0, rows, T * m_l),
+                     dtype=torch.float32, device=x.device)
+    sem = _tile_counters(x.device, -(-m_l // _BN) * -(-rows // _RB))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _lib()(x.data_ptr(), w.data_ptr(), w_cdc.data_ptr(),
+                 gen.data_ptr(), esel.data_ptr(), coef.data_ptr(),
+                 gamma.data_ptr() if gamma is not None else None, eps,
+                 out.data_ptr(), ws.data_ptr(), sem.data_ptr(), rows, k, T,
+                 r, m_l, w.stride(0), int(folded), mask_bits(valid), ksplit,
+                 kchunk, stream)
+    if err != 0:
+        raise RuntimeError(f"cdc_coded_matmul kernel launch failed: "
+                           f"cudaError {err}")
+    cdc_coded_matmul.launches += 1
+    return out
+
+
+cdc_coded_matmul.launches = 0

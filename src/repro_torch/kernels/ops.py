@@ -1,0 +1,109 @@
+"""Public wrappers of the port's kernels and their dispatch ladder.
+
+The device policy replaces the reference's interpret switch: a CPU tensor
+takes the kernel's plain version, a CUDA tensor launches the kernel or
+raises. Masks are host-side, so the <= 1-erasure gate is always decided
+here, before anything is launched:
+
+  * ``fused_coded_matmul``: no parity, no mask, or 2+ dead shards -> the
+    reference ``core.coded_matmul`` (full MDS recovery);
+  * ``fused_head_argmax``: 2+ dead shards raise (the sum parity cannot
+    solve for two unknowns); the caller takes the reference round.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from repro_torch.core import coded_layer
+from repro_torch.core.coding import generator_tensor, host_mask
+from repro_torch.kernels import ref
+from repro_torch.kernels.cdc_decode import cdc_fused_head_argmax
+from repro_torch.kernels.cdc_matmul import cdc_coded_matmul, eq12_plan
+
+
+# ------------------------------------------------------- kernel cost model --
+# Shape-based FLOP models of the ported kernels, keyed by wrapper name.
+# Each takes (out_shapes, operand_shapes), lists of (dtype, dims) in the
+# reference kernel's operand order, and returns dot-equivalent FLOPs.
+
+def _cost_cdc_coded_matmul(out, operands):
+    # operand order: [valid, esel, coef, gen, x, w_shards, parity_w, gamma?]
+    # out [rows, T, m_l]; T+r shard GEMMs of x [rows, k] @ [k, m_l]
+    if not out or len(out[0][1]) != 3:
+        return 0.0
+    rows, t, m_l = out[0][1]
+    rank3 = [d for _, d in operands if len(d) == 3]
+    if len(rank3) < 2:
+        return 0.0
+    return 2.0 * rows * rank3[0][1] * m_l * (t + rank3[1][0])
+
+
+def _cost_cdc_fused_head(out, operands):
+    # operand order: [valid, x [b, k], w_shards [T, k, m_l], parity_w
+    # [k, m_l]]; T shard GEMMs + 1 sum-parity GEMM of [b, k] @ [k, m_l]
+    b = out[0][1][0] if out and out[0][1] else 0
+    w = next((d for _, d in operands if len(d) == 3), None)
+    if w is None:
+        return 0.0
+    t, k, m_l = w
+    return 2.0 * b * k * m_l * (t + 1)
+
+
+KERNEL_COSTS: dict = {
+    "cdc_coded_matmul": _cost_cdc_coded_matmul,
+    "cdc_fused_head_argmax": _cost_cdc_fused_head,
+}
+
+
+def _dead(valid) -> int:
+    if valid is None:
+        return 0
+    v = host_mask(valid)
+    return int(v.size - v.sum())
+
+
+@functools.lru_cache(maxsize=256)
+def decode_plan(spec, valid: tuple, valid_parity: tuple, m_l: int,
+                device: str):
+    """Decode plan + generator on ``device``, computed once per mask."""
+    esel, coef = eq12_plan(spec, torch.tensor(valid),
+                           torch.tensor(valid_parity), m_l)
+    gen = generator_tensor(spec.code)
+    return esel.to(device), coef.to(device), gen.to(device)
+
+
+def fused_head_argmax(x, w_shards, parity_w, valid, *, vocab):
+    """Fused coded LM-head GEMM + Eq. 12 decode + greedy argmax for <= 1
+    dead shard; 2+ dead raise (take the reference round instead)."""
+    dead = _dead(valid)
+    if dead > 1:
+        raise ValueError(
+            f"fused_head_argmax recovers at most 1 erased shard (Eq. 12 "
+            f"sum-parity regime), got {dead} dead; use the reference "
+            f"decode path (full logits + MDS recovery) for this round")
+    return cdc_fused_head_argmax(x, w_shards, parity_w, valid, vocab=vocab)
+
+
+def fused_coded_matmul(x, w, w_cdc, spec, valid, *, valid_parity=None,
+                       gamma=None, eps=1e-5):
+    """Fused in-body coded GEMM: (rmsnorm?) + T shard GEMMs + r parity
+    GEMMs + Eq. 12 decode + merge. x: [..., k]; w: [k, m]; w_cdc in either
+    layout (read in place). Returns the merged [..., m] activation."""
+    code = spec.code
+    T, r = code.n_shards, code.n_parity
+    if w_cdc is None or r == 0 or valid is None or _dead(valid) > 1:
+        xn = ref.rmsnorm_ref(x, gamma, eps) if gamma is not None else x
+        return coded_layer.coded_matmul(xn, w, w_cdc, spec, valid,
+                                        valid_parity=valid_parity)
+    vh = tuple(bool(v) for v in host_mask(valid))
+    vph = vh if valid_parity is None else \
+        tuple(bool(v) for v in host_mask(valid_parity))
+    k, m = w.shape
+    esel, coef, gen = decode_plan(spec, vh, vph, m // T, str(x.device))
+    lead = x.shape[:-1]
+    out = cdc_coded_matmul(x.reshape(-1, k).contiguous(), w, w_cdc,
+                           spec.layout, T, r, gen, esel, coef, vh,
+                           gamma=gamma, eps=eps)
+    return out.reshape(lead + (m,)).to(x.dtype)

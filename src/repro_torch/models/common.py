@@ -1,0 +1,155 @@
+"""Shared model machinery: TP context, coded/plain dense, norms, RoPE, init.
+
+Models are plain functions over parameter dicts of tensors, laid out as
+the reference lays them out (stacked [L, ...] layer weights). The CDC
+behaviour is threaded through ``TPCtx``: in coded mode every
+column-parallel GEMM runs through ``core.coded_matmul``; row-parallel
+GEMMs (attention Wo, FFN W2) are never coded (paper Table 1). The port
+runs on one device, so the reference's mesh and sharding hints have no
+counterpart here.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.coded_layer import (CodedDenseSpec, coded_matmul,
+                                          make_parity_weights)
+from repro_torch.core.coding import CodeSpec
+
+Params = dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class TPCtx:
+    """Static tensor-parallel + CDC context for a model invocation."""
+
+    tp: int = 1                    # T: logical shards of every coded GEMM
+    mode: str = "plain"            # plain | coded
+    code_r: int = 2
+    code_layout: str = "folded"
+    fused_body: bool = False       # route coded GEMMs through the fused
+    #                                coded-GEMM kernel; only valid for
+    #                                <= 1 erasure (the executor gates it)
+
+    @property
+    def coded(self) -> bool:
+        return self.mode == "coded" and self.tp > 1
+
+    @property
+    def spec(self) -> CodedDenseSpec | None:
+        if not self.coded:
+            return None
+        return CodedDenseSpec(CodeSpec(self.tp, self.code_r),
+                              layout=self.code_layout)
+
+    def pad_dim(self, m: int) -> int:
+        """Column dims of coded GEMMs split into T x T slices; plain mode
+        pads the same so parameter shapes match across modes."""
+        q = self.tp * self.tp
+        return ((m + q - 1) // q) * q
+
+
+# ---------------------------------------------------------------- dense ----
+
+def linear_init(gen: torch.Generator, k: int, m: int, ctx: TPCtx, dtype,
+                scale: float | None = None, coded: bool = True,
+                layers: tuple[int, ...] = (), device=None) -> Params:
+    """A (possibly coded) linear layer's params, with optional leading
+    stacked-layer dims. Stores the padded weight; padded columns are 0."""
+    m_pad = ctx.pad_dim(m) if coded else m
+    scale = scale if scale is not None else 1.0 / math.sqrt(k)
+    w = torch.randn(layers + (k, m_pad), generator=gen, device=device,
+                    dtype=torch.float32)
+    w.mul_(scale)
+    if m_pad != m:
+        w[..., m:] = 0.0
+    p: Params = {"w": w.to(dtype)}
+    if coded and ctx.coded:
+        p["cdc"] = make_parity_weights(p["w"], ctx.spec)
+    return p
+
+
+def col_dense(ctx: TPCtx, p: Params, x: torch.Tensor, out_dim: int,
+              valid=None) -> torch.Tensor:
+    """Column-parallel (output-split) GEMM — codeable (paper Table 1)."""
+    w = p["w"]
+    if ctx.coded and "cdc" in p:
+        y = coded_matmul(x, w, p["cdc"], ctx.spec, valid,
+                         use_fused=ctx.fused_body)
+    else:
+        y = x @ w
+    return y[..., :out_dim] if y.shape[-1] != out_dim else y
+
+
+def row_dense(ctx: TPCtx, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Row-parallel (input-split) GEMM — not codeable (paper Eq. 13-14)."""
+    return x @ p["w"]
+
+
+def encode_tree(params: Params, ctx: TPCtx) -> Params:
+    """(Re)compute every parity leaf from its base weight — the paper's
+    offline encode. The returned tree SHARES every base tensor with
+    ``params`` (only the dict nodes holding parity are new): at full width
+    a copy of the base weights would not fit beside the parity."""
+    if not ctx.coded:
+        return params
+
+    def walk(node):
+        if isinstance(node, dict):
+            if "w" in node and "cdc" in node:
+                node = dict(node)
+                node["cdc"] = make_parity_weights(node["w"], ctx.spec)
+                return node
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return node
+
+    return walk(params)
+
+
+def tree_index(node, i: int):
+    """Slice layer ``i`` out of a stacked [L, ...] tree (views, no copy)."""
+    if isinstance(node, dict):
+        return {k: tree_index(v, i) for k, v in node.items()}
+    return node[i]
+
+
+# ---------------------------------------------------------------- norms ----
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)
+            * p["g"].to(torch.float32)).to(x.dtype)
+
+
+# ----------------------------------------------------------------- rope ----
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+         ) -> torch.Tensor:
+    """x: [..., S, H, hd]; positions: [..., S] (broadcastable)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions[..., None].to(torch.float32) * freqs
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:2 * half]
+    rot = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos,
+                     x[..., 2 * half:]], dim=-1)
+    return rot.to(x.dtype)
+
+
+def activation(name: str, x: torch.Tensor) -> torch.Tensor:
+    if name == "silu":
+        return F.silu(x)
+    if name == "gelu":
+        # jax.nn.gelu defaults to the tanh approximation
+        return F.gelu(x, approximate="tanh")
+    raise ValueError(name)

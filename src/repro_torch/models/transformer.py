@@ -1,0 +1,88 @@
+"""Decoder-only LM (dense family): init, decode state, decode step.
+
+Layer weights are stacked on a leading [L, ...] axis as in the reference;
+the reference's layer ``scan`` is a Python loop over that axis here, each
+layer reading views of its slice. The validity mask reaches every coded
+GEMM of every layer.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import ffn as ffn_mod
+from repro_torch.models.common import (Params, TPCtx, col_dense,
+                                       linear_init, rmsnorm, tree_index)
+
+
+def init_params(cfg, gen: torch.Generator, ctx: TPCtx,
+                dtype=torch.float32, device=None) -> Params:
+    """Random parameters drawn from ``gen`` on ``device``, in the
+    reference's layout. Dense family only."""
+    if cfg.family != "dense" or cfg.n_experts or cfg.ssm_kind:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (dense only)")
+    d, L = cfg.d_model, (cfg.n_layers,)
+    vocab_pad = ctx.pad_dim(cfg.vocab)
+    embed = torch.randn((vocab_pad, d), generator=gen, device=device)
+    params: Params = {
+        "embed": embed.mul_(0.02).to(dtype),
+        "ln_f": {"g": torch.ones(d, device=device)},
+        "lm_head": linear_init(gen, d, cfg.vocab, ctx, dtype,
+                               scale=1.0 / d ** 0.5, device=device),
+        "layers": {
+            "ln1": {"g": torch.ones(L + (d,), device=device)},
+            "attn": attn_mod.attn_init(gen, cfg, ctx, dtype, layers=L,
+                                       device=device),
+            "ln2": {"g": torch.ones(L + (d,), device=device)},
+            "ffn": ffn_mod.ffn_init(gen, cfg, ctx, dtype, layers=L,
+                                    device=device),
+        },
+    }
+    return params
+
+
+def _layer_fwd(cfg, ctx: TPCtx, p: Params, x, valid, cache, pos_offset,
+               q_chunk, kv_chunk):
+    xn = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    x = x + attn_mod.attention(ctx, p["attn"], cfg, xn, valid=valid,
+                               cache=cache, pos_offset=pos_offset,
+                               q_chunk=q_chunk, kv_chunk=kv_chunk)
+    return x + ffn_mod.ffn(ctx, p["ffn"], cfg,
+                           rmsnorm(p["ln2"], x, cfg.norm_eps), valid)
+
+
+def init_decode_state(cfg, ctx: TPCtx, batch: int, max_len: int,
+                      dtype=torch.float32, device=None) -> Params:
+    """{"kv": {"k","v": [L,B,C,Hkv,hd], "pos": [L,B,C], "len": [L,B]}},
+    the per-row (slot-batched) layout."""
+    return {"kv": attn_mod.init_cache(cfg, batch, max_len, dtype, tp=ctx.tp,
+                                      layers=(cfg.n_layers,),
+                                      device=device)}
+
+
+def decode_step(cfg, params: Params, ctx: TPCtx, state: Params,
+                tokens: torch.Tensor, valid=None, *, kv_chunk: int = 1024,
+                last_only: bool = False, return_hidden: bool = False):
+    """tokens: [B, s] -> (logits [B, s, V] f32, state); the KV cache in
+    ``state`` is updated in place and returned.
+
+    last_only: logits for the final position only. return_hidden: skip
+    the LM head and return the post-ln_f hidden states (the fused round
+    feeds them to the fused head kernel)."""
+    x = params["embed"][tokens.long()]
+    kv = state["kv"]
+    s = tokens.shape[1]
+    pos = kv["len"][0].clone()          # [B]; the same for every layer
+    for i in range(cfg.n_layers):
+        cache = {name: kv[name][i] for name in ("k", "v", "pos", "len")}
+        x = _layer_fwd(cfg, ctx, tree_index(params["layers"], i), x, valid,
+                       cache, pos, s, kv_chunk)
+    kv["len"] += s
+    if last_only:
+        x = x[:, -1:]
+    x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
+    if return_hidden:
+        return x, state
+    logits = col_dense(ctx, params["lm_head"], x, cfg.vocab, valid)
+    return logits.to(torch.float32), state

@@ -1,0 +1,125 @@
+"""Slot-pool executor: dispatch rounds, overlap host work, harvest tokens.
+
+The pool owns the stacked slot state and advances it one round per
+``step_round``. With ``overlap=True`` it pipelines host and device: round
+N is dispatched, and only then are round N-1's tokens harvested, so host
+work runs while the device computes. Each round's tokens are copied at
+dispatch into pinned host memory with ``non_blocking=True`` and an event
+is recorded behind the copy; harvest waits on that event alone, never on
+the kernels queued after it. ``overlap=False`` harvests the round it just
+dispatched. Each harvest appends to ``round_ms`` the wall time from the
+start of the round's dispatch to its tokens on the host; with overlap
+that includes the next round's dispatch, so it is a token latency and
+not the pipelined period.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.runtime.executor.slotbatch import (blank_state,
+                                                    request_batch,
+                                                    write_slot)
+from repro_torch.runtime.executor.vstep import VStep
+
+
+@dataclasses.dataclass(frozen=True)
+class RoundHandle:
+    """An in-flight round: its host token buffer [n_slots, 1], the event
+    that marks the copy done (None on the CPU), the (slot, tag) pairs
+    active at dispatch, and the dispatch time."""
+    toks: torch.Tensor
+    ready: Any
+    slots: tuple[tuple[int, Any], ...]
+    t0: float
+
+
+class SlotPoolExecutor:
+    """Batched execution engine over ``n_slots`` decode slots."""
+
+    def __init__(self, stepper, n_slots: int, *, overlap: bool = True,
+                 use_fused: bool | str = "auto"):
+        if n_slots < 1:
+            raise ValueError(f"n_slots must be >= 1, got {n_slots}")
+        self.stepper = stepper
+        self.n_slots = int(n_slots)
+        self.overlap = bool(overlap)
+        self.vstep = VStep(stepper, use_fused=use_fused)
+        self.state = blank_state(stepper, self.n_slots)
+        self.last_toks = torch.zeros((self.n_slots, 1), dtype=torch.int32,
+                                     device=stepper.device)
+        self.active = np.zeros(self.n_slots, bool)
+        self.tags: list[Any] = [None] * self.n_slots
+        self.round_ms: list[float] = []
+        self._pending: RoundHandle | None = None
+
+    @property
+    def n_active(self) -> int:
+        return int(self.active.sum())
+
+    def admit(self, slot: int, prompt, valid, tag: Any = None) -> int:
+        """Prefill ``prompt`` into ``slot`` and activate it; returns the
+        first generated token."""
+        logits, row = self.stepper.prefill(request_batch(prompt), valid)
+        tok = self.stepper.greedy(logits)                     # [1, 1]
+        self.state = write_slot(self.state, slot, row)
+        self.last_toks[slot] = tok[0]
+        self.active[slot] = True
+        self.tags[slot] = tag
+        return int(tok[0, 0])
+
+    def evict(self, slot: int):
+        self.active[slot] = False
+        self.tags[slot] = None
+
+    def evict_all(self):
+        self.active[:] = False
+        self.tags = [None] * self.n_slots
+
+    def drop_pending(self):
+        """Discard the in-flight round (its tokens must not be harvested)."""
+        self._pending = None
+
+    def _dispatch(self, valid) -> RoundHandle | None:
+        if not self.active.any():
+            return None
+        t0 = time.perf_counter()
+        new_state, toks, _ = self.vstep.round(self.state, self.last_toks,
+                                              valid)
+        self.state, self.last_toks = new_state, toks
+        if toks.device.type == "cuda":
+            host = torch.empty(toks.shape, dtype=toks.dtype,
+                               pin_memory=True)
+            host.copy_(toks, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+        else:
+            host, ready = toks.clone(), None
+        occupants = tuple((int(i), self.tags[int(i)])
+                          for i in np.flatnonzero(self.active))
+        return RoundHandle(host, ready, occupants, t0)
+
+    def _harvest(self, handle: RoundHandle | None
+                 ) -> list[tuple[int, Any, int]]:
+        if handle is None:
+            return []
+        if handle.ready is not None:
+            handle.ready.synchronize()
+        self.round_ms.append((time.perf_counter() - handle.t0) * 1e3)
+        arr = handle.toks.numpy()
+        return [(s, tag, int(arr[s, 0])) for s, tag in handle.slots]
+
+    def step_round(self, valid) -> list[tuple[int, Any, int]]:
+        """Dispatch one round; return harvested (slot, tag, token) triples
+        of this round (overlap off) or of the previous one (overlap on)."""
+        prev, self._pending = self._pending, None
+        self._pending = self._dispatch(valid)
+        if self.overlap:
+            return self._harvest(prev)
+        out = self._harvest(prev) + self._harvest(self._pending)
+        self._pending = None
+        return out

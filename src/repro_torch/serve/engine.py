@@ -1,0 +1,209 @@
+"""Serving stepper and the one-batch serving facade.
+
+  * ``ModelStepper`` owns the CDC-encoded params and exposes prefill /
+    decode-one-token / re-encode. The runtime feeds it the CURRENT host
+    validity mask on each call, so a shard lost mid-request is recovered
+    inside the same step (paper §5.2).
+  * ``ServingEngine`` is the one-batch-at-a-time facade; ``generate`` runs
+    through the batched ``SlotPoolExecutor`` (the serving hot path), and
+    ``_generate_sequential`` stays as the differential-test oracle.
+
+Prefill always runs the reference variant: the fused kernels serve decode
+rounds only.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core.failure import StragglerModel, request_latency
+from repro_torch.models.zoo import Model
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    max_len: int = 2048
+    batch: int = 8
+    cache_dtype: Any = torch.float32
+
+
+class ModelStepper:
+    """Thin model stepper the runtime drives. Slot states are caller-owned
+    dicts of tensors (the per-row KV cache layout)."""
+
+    def __init__(self, model: Model, params, max_len: int,
+                 cache_dtype: Any = torch.float32):
+        self.model = model
+        self.max_len = int(max_len)
+        self.cache_dtype = cache_dtype
+        self._raw_params = params
+        self.params = model.encode_offline(params)
+        self.coded = bool(model.ctx.coded)
+        self.n_shards = max(int(model.ctx.tp), 1)
+        spec = model.ctx.spec
+        self.erasure_budget = int(spec.max_device_failures) if spec else 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.params["embed"].device
+
+    # ------------------------------------------------------------ coding ----
+    def reencode(self):
+        """Offline parity re-encode (paper §5.1), after a heal or swap."""
+        self.params = self.model.encode_offline(self._raw_params)
+
+    def set_code_r(self, code_r: int) -> bool:
+        """Re-size the parity budget and re-encode; returns True iff the
+        code geometry changed. KV states are r-independent."""
+        code_r = int(code_r)
+        if code_r < 0:
+            raise ValueError(f"code_r must be >= 0, got {code_r}")
+        if not self.coded or code_r == int(self.model.ctx.code_r):
+            return False
+        ctx = dataclasses.replace(self.model.ctx, code_r=code_r)
+        self.model = dataclasses.replace(self.model, ctx=ctx)
+        self.params = self.model.encode_offline(self._raw_params)
+        spec = ctx.spec
+        self.erasure_budget = int(spec.max_device_failures) if spec else 0
+        return True
+
+    def _mask(self, valid) -> torch.Tensor | None:
+        """The host (CPU) bool mask the model layers consume."""
+        if valid is None:
+            return None
+        return torch.as_tensor(np.asarray(valid, bool))
+
+    def _tokens(self, tokens) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(tokens), dtype=torch.long,
+                               device=self.device)
+
+    # ---------------------------------------------------------- stepping ----
+    def prefill(self, batch: dict, valid=None) -> tuple[torch.Tensor, Any]:
+        """Run the prompt through the decode path into a fresh per-row
+        state. Returns (last-position logits [b, 1, V], state)."""
+        v = self._mask(valid) if self.coded else None
+        tokens = self._tokens(batch["tokens"])
+        state = self.model.init_decode(self.params, tokens.shape[0],
+                                       self.max_len, self.cache_dtype)
+        logits, state = self.model.decode(self.params, state, tokens, v)
+        return logits[:, -1:], state
+
+    def decode_one(self, state, tok, valid=None) -> tuple[torch.Tensor, Any]:
+        """One decode step: tok [b, 1] -> (logits [b, 1, V], state)."""
+        v = self._mask(valid) if self.coded else None
+        if not isinstance(tok, torch.Tensor):
+            tok = self._tokens(tok)
+        return self.model.decode(self.params, state, tok, v)
+
+    @staticmethod
+    def greedy(logits: torch.Tensor) -> torch.Tensor:
+        # first maximal index on ties, as jnp.argmax
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+
+    # ------------------------------------------------- straggler model ----
+    def straggler_latency(self, straggler: StragglerModel,
+                          n_trials: int = 10000, seed: int = 0) -> dict:
+        """First-T-of-(T+r) request latency (paper Fig. 14/15)."""
+        T = self.n_shards
+        r = int(self.model.ctx.code_r if self.coded else 0)
+        rng = np.random.default_rng(seed)
+        times = straggler.sample(rng, (n_trials, T + r))
+        coded = request_latency(times, T)
+        uncoded = request_latency(times[:, :T], T)
+        return {
+            "mean_coded_ms": float(coded.mean()),
+            "mean_uncoded_ms": float(uncoded.mean()),
+            "p99_coded_ms": float(np.percentile(coded, 99)),
+            "p99_uncoded_ms": float(np.percentile(uncoded, 99)),
+        }
+
+
+class ServingEngine:
+    """One batch at a time, caller-managed failure injection. ``generate``
+    runs through the batched ``SlotPoolExecutor`` (every batch row is a
+    slot); ``use_fused`` selects its round variant ("auto": the fused
+    kernels when the params live on a CUDA device)."""
+
+    def __init__(self, model: Model, params, scfg: ServeConfig,
+                 use_fused: bool | str = "auto"):
+        self.model = model
+        self.scfg = scfg
+        self.use_fused = use_fused
+        self.stepper = ModelStepper(model, params, scfg.max_len,
+                                    scfg.cache_dtype)
+        self.valid = np.ones(self.stepper.n_shards, bool)
+        self.metrics = {"requests": 0, "erasures_recovered": 0,
+                        "requeued": 0}
+        self._executors: dict[int, Any] = {}   # batch size -> executor
+
+    @property
+    def params(self):
+        return self.stepper.params
+
+    # -------------------------------------------------------- failures ----
+    def inject_failure(self, shard: int):
+        """Mark a TP shard dead. Subsequent steps recover via parity."""
+        self.valid = self.valid.copy()
+        self.valid[shard] = False
+        self.metrics["erasures_recovered"] += 1
+
+    def heal(self, shard: int | None = None):
+        self.valid = self.valid.copy()
+        if shard is None:
+            self.valid[:] = True
+        else:
+            self.valid[shard] = True
+        self.stepper.reencode()
+
+    # ---------------------------------------------------------- serving ----
+    def prefill(self, batch: dict):
+        return self.stepper.prefill(batch, self.valid)
+
+    def generate(self, batch: dict, n_tokens: int,
+                 fail_at: dict[int, int] | None = None) -> np.ndarray:
+        """Greedy generation; ``fail_at`` maps step -> shard to kill
+        mid-request (the paper's Case Study II)."""
+        from repro_torch.runtime.executor import SlotPoolExecutor
+        tokens = np.asarray(batch["tokens"])
+        b = tokens.shape[0]
+        ex = self._executors.get(b)
+        if ex is None:
+            ex = SlotPoolExecutor(self.stepper, n_slots=b, overlap=False,
+                                  use_fused=self.use_fused)
+            self._executors[b] = ex
+        else:
+            ex.drop_pending()
+            ex.evict_all()
+        out = np.zeros((b, n_tokens), np.int64)
+        for i in range(b):
+            out[i, 0] = ex.admit(i, tokens[i], self.valid, tag=i)
+        for t in range(n_tokens - 1):
+            if fail_at and t in fail_at:
+                self.inject_failure(fail_at[t])
+            for slot, _, tok in ex.step_round(self.valid):
+                out[slot, t + 1] = tok
+        self.metrics["requests"] += b
+        return out
+
+    def _generate_sequential(self, batch: dict, n_tokens: int,
+                             fail_at: dict[int, int] | None) -> np.ndarray:
+        """Sequential stepping of the whole batch — the oracle the batched
+        path is pinned against."""
+        logits, state = self.prefill(batch)
+        tok = self.stepper.greedy(logits)
+        out = [tok]
+        for t in range(n_tokens - 1):
+            if fail_at and t in fail_at:
+                self.inject_failure(fail_at[t])
+            logits, state = self.stepper.decode_one(state, tok, self.valid)
+            tok = self.stepper.greedy(logits)
+            out.append(tok)
+        self.metrics["requests"] += batch["tokens"].shape[0]
+        return np.concatenate([t.cpu().numpy() for t in out], axis=1)
+
+    def straggler_latency(self, straggler: StragglerModel,
+                          n_trials: int = 10000, seed: int = 0) -> dict:
+        return self.stepper.straggler_latency(straggler, n_trials, seed)

@@ -1,0 +1,36 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+These need a CUDA device (and nvcc, to build the kernels): without one
+they skip. On the card:
+
+  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def smoke():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode (their "
+                    "plain versions are tested in test_torch_kernels_plain)")
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from repro_torch.device import set_true_f32
+    set_true_f32()
+    return chip_smoke
+
+
+def test_coded_matmul_kernel_matches_plain(smoke):
+    assert smoke.check_coded_matmul() <= 1e-4
+
+
+def test_fused_head_kernel_matches_plain(smoke):
+    from repro_torch.configs import get_arch
+    assert smoke.check_fused_head(get_arch("granite-3-8b")) <= 1e-4

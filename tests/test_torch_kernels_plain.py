@@ -1,0 +1,286 @@
+"""The port's kernel layer on the CPU: the plain versions of the two CUDA
+kernels, the Eq. 12 decode plan and the dispatch ladder, against the
+reference package on the same numpy inputs.
+
+Tolerances: the plain versions repeat the reference oracles' float32
+arithmetic, so they agree to 1e-5; against the reference's Pallas kernels
+(run in interpret mode, as the reference's own tests run them) 1e-4, the
+reference's own kernel-vs-reference bound (TOL in
+tests/test_kernels_conformance.py).
+"""
+import itertools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import coded_layer as jcl
+from repro.core import coding as jcoding
+from repro.kernels import cdc_matmul as jcdc
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.core import coded_layer as tcl
+from repro_torch.core import coding as tcoding
+from repro_torch.kernels import cdc_decode, cdc_matmul as tcdc
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+KTOL = dict(rtol=1e-4, atol=1e-4)
+CASES = [(T, r, layout) for T in (2, 4) for r in (1, 2)
+         for layout in ("folded", "dedicated")]
+
+
+def masks(T, budget):
+    out = [(True,) * T]
+    for f in range(1, budget + 1):
+        for dead in itertools.combinations(range(T), f):
+            out.append(tuple(i not in dead for i in range(T)))
+    return out
+
+
+def specs(T, r, layout):
+    return (jcl.CodedDenseSpec(jcoding.CodeSpec(T, r), layout=layout),
+            tcl.CodedDenseSpec(tcoding.CodeSpec(T, r), layout=layout))
+
+
+def case(T, r, layout, *, rows=5, k=24, m=None, seed=0):
+    jspec, tspec = specs(T, r, layout)
+    m = m or (T * T * 2 if layout == "folded" else T * 7)
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(rows, k)).astype(np.float32)
+    w = (rng.normal(size=(k, m)) / np.sqrt(k)).astype(np.float32)
+    jp = np.asarray(jcl.make_parity_weights(jnp.asarray(w), jspec))
+    return jspec, tspec, x, w, jp
+
+
+def close(t, j, tol=TOL, msg=""):
+    np.testing.assert_allclose(np.asarray(t), np.asarray(j), err_msg=msg,
+                               **tol)
+
+
+@pytest.mark.parametrize("T,r,layout", CASES)
+def test_eq12_plan_matches_reference(T, r, layout):
+    jspec, tspec = specs(T, r, layout)
+    for m_l in (2 * T, 3 * T, 7):
+        for mask in masks(T, 1):
+            for pmask in (mask, (True,) * T):      # device / message erasure
+                je, jc = jcdc.eq12_plan(jspec, jnp.asarray(mask),
+                                        jnp.asarray(pmask), m_l)
+                te, tc = tcdc.eq12_plan(tspec, torch.tensor(mask),
+                                        torch.tensor(pmask), m_l)
+                np.testing.assert_array_equal(te.numpy(), np.asarray(je))
+                assert te.dtype == torch.int32 and tc.dtype == torch.float32
+                close(tc.numpy(), jc)
+
+
+@pytest.mark.parametrize("T,r,layout", CASES)
+def test_coded_matmul_plain_matches_reference_oracle(T, r, layout):
+    """The plain version of kernel 1 (as its wrapper runs it on a CPU
+    tensor: parity read in its stored layout) == the reference oracle."""
+    jspec, tspec, x, w, jp = case(T, r, layout)
+    k, m = w.shape
+    m_l = m // T
+    w_st = np.moveaxis(w.reshape(k, T, m_l), 1, 0)
+    pw = jp if layout == "dedicated" else \
+        np.asarray(jcl.unfold_parity(jnp.asarray(jp), T, r))
+    gamma = (1 + 0.1 * np.random.default_rng(9).normal(size=k)) \
+        .astype(np.float32)
+    for mask in masks(T, 1):
+        je, jc = jcdc.eq12_plan(jspec, jnp.asarray(mask), jnp.asarray(mask),
+                                m_l)
+        te, tc = tcdc.eq12_plan(tspec, torch.tensor(mask),
+                                torch.tensor(mask), m_l)
+        gen = tcoding.generator_tensor(tspec.code)
+        for g in (None, gamma):
+            j = jref.cdc_coded_matmul_ref(
+                jnp.asarray(x), jnp.asarray(w_st), jnp.asarray(pw),
+                jnp.asarray(jspec.code.generator, jnp.float32), je, jc,
+                jnp.asarray(mask), gamma=None if g is None else
+                jnp.asarray(g))
+            t = tcdc.cdc_coded_matmul(
+                torch.from_numpy(x), torch.from_numpy(w),
+                torch.from_numpy(jp.copy()), layout, T, r, gen, te, tc, mask,
+                gamma=None if g is None else torch.from_numpy(g))
+            assert t.shape == (x.shape[0], T, m_l)
+            close(t, j, msg=f"{layout} T={T} r={r} mask={mask} "
+                            f"gamma={g is not None}")
+
+
+@pytest.mark.parametrize("T,r,layout", CASES)
+def test_fused_coded_matmul_matches_reference_ops(T, r, layout):
+    """ops.fused_coded_matmul on the CPU == the reference's, both its
+    oracle and its Pallas kernel in interpret mode, under every in-budget
+    mask (2-dead masks take the reference path on both sides)."""
+    jspec, tspec, x, w, jp = case(T, r, layout, rows=4)
+    x3 = x.reshape(2, 2, -1)
+    tp = tcl.make_parity_weights(torch.from_numpy(w), tspec)
+    for mask in masks(T, jspec.max_device_failures):
+        v = jnp.asarray(mask)
+        t = tops.fused_coded_matmul(torch.from_numpy(x3),
+                                    torch.from_numpy(w), tp, tspec,
+                                    np.array(mask))
+        oracle = jops.fused_coded_matmul(jnp.asarray(x3), jnp.asarray(w),
+                                         jnp.asarray(jp), jspec, v,
+                                         use_pallas=False)
+        close(t, oracle, msg=f"{layout} T={T} r={r} mask={mask}")
+        if sum(mask) >= T - 1 and T == 4 and r == 2:
+            pallas = jops.fused_coded_matmul(jnp.asarray(x3),
+                                             jnp.asarray(w), jnp.asarray(jp),
+                                             jspec, v)
+            close(t, pallas, KTOL, msg=f"pallas-interpret mask={mask}")
+
+
+@pytest.mark.parametrize("T", [2, 4])
+def test_fused_head_plain_matches_reference(T):
+    rng = np.random.default_rng(5)
+    k, m_l, b = 32, 37, 3
+    vocab = T * m_l - 5
+    x = rng.normal(size=(b, k)).astype(np.float32)
+    w = rng.normal(size=(T, k, m_l)).astype(np.float32)
+    pw = w.sum(0)
+    for mask in masks(T, 1):
+        jt, jm = jref.fused_head_argmax_ref(jnp.asarray(x), jnp.asarray(w),
+                                            jnp.asarray(pw),
+                                            jnp.asarray(mask), vocab)
+        tt, tm = tops.fused_head_argmax(torch.from_numpy(x),
+                                        torch.from_numpy(w),
+                                        torch.from_numpy(pw),
+                                        np.array(mask), vocab=vocab)
+        assert tt.dtype == torch.int32
+        np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+        close(tm, jm)
+        if T == 4:
+            pt, pm = jops.fused_head_argmax(jnp.asarray(x), jnp.asarray(w),
+                                            jnp.asarray(pw),
+                                            jnp.asarray(mask), vocab=vocab)
+            np.testing.assert_array_equal(tt.numpy(), np.asarray(pt))
+            close(tm, pm, KTOL)
+
+
+def test_fused_head_ties_go_to_smallest_id():
+    """Equal logits in two shards: both packages pick the smaller id."""
+    T, k, m_l = 4, 8, 6
+    rng = np.random.default_rng(6)
+    x = np.abs(rng.normal(size=(2, k))).astype(np.float32)
+    w = rng.normal(size=(T, k, m_l)).astype(np.float32) * 0.01
+    w[2, :, 1] = 1.0                 # gid 13
+    w[1, :, 4] = 1.0                 # gid 10: the same logit, smaller id
+    pw = w.sum(0)
+    mask = (True,) * T
+    tt, _ = tops.fused_head_argmax(torch.from_numpy(x), torch.from_numpy(w),
+                                   torch.from_numpy(pw), np.array(mask),
+                                   vocab=T * m_l)
+    jt, _ = jref.fused_head_argmax_ref(jnp.asarray(x), jnp.asarray(w),
+                                       jnp.asarray(pw), jnp.asarray(mask),
+                                       T * m_l)
+    assert tt.tolist() == [10, 10] == np.asarray(jt).tolist()
+
+
+def test_plain_helpers_match_reference():
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(3, 16)).astype(np.float32)
+    g = rng.normal(size=16).astype(np.float32)
+    close(tref.rmsnorm_ref(torch.from_numpy(x), torch.from_numpy(g), 1e-5),
+          jref.rmsnorm_ref(jnp.asarray(x), jnp.asarray(g), 1e-5))
+    T, r, m_l = 4, 2, 8
+    y = rng.normal(size=(T, 3, m_l)).astype(np.float32)
+    p = rng.normal(size=(r, 3, m_l)).astype(np.float32)
+    gen = jcoding.generator_matrix(T, r).astype(np.float32)
+    mask = (True, False, True, True)
+    spec = jcl.CodedDenseSpec(jcoding.CodeSpec(T, r))
+    je, jc = jcdc.eq12_plan(spec, jnp.asarray(mask), jnp.asarray(mask), m_l)
+    j = jref._eq12_combine_ref(jnp.asarray(y), jnp.asarray(p),
+                               jnp.asarray(gen), jnp.asarray(mask), je, jc)
+    t = tref._eq12_combine_ref(torch.from_numpy(y), torch.from_numpy(p),
+                               torch.from_numpy(gen), torch.tensor(mask),
+                               torch.from_numpy(np.array(je)),
+                               torch.from_numpy(np.array(jc)))
+    close(t, j)
+
+
+def test_dispatch_ladder():
+    """Fallbacks and refusals exactly where the reference ops take them."""
+    T, r = 4, 2
+    jspec, tspec, x, w, jp = case(T, r, "dedicated")
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    tp = torch.from_numpy(jp.copy())
+    # 2 dead (in budget for dedicated r=2): the reference path verbatim
+    two_dead = np.array([True, False, True, False])
+    np.testing.assert_array_equal(
+        tops.fused_coded_matmul(xt, wt, tp, tspec, two_dead).numpy(),
+        tcl.coded_matmul(xt, wt, tp, tspec, two_dead).numpy())
+    # no parity / no mask: the plain merged product
+    for wc, v in ((None, np.ones(T, bool)), (tp, None)):
+        np.testing.assert_array_equal(
+            tops.fused_coded_matmul(xt, wt, wc, tspec, v).numpy(),
+            tcl.coded_matmul(xt, wt, wc, tspec, v).numpy())
+    # the fused head refuses 2+ dead, as the reference does
+    ws = torch.from_numpy(np.moveaxis(w.reshape(-1, T, w.shape[1] // T),
+                                      1, 0).copy())
+    with pytest.raises(ValueError, match="at most 1 erased"):
+        tops.fused_head_argmax(xt, ws, ws.sum(0), two_dead, vocab=8)
+    with pytest.raises(ValueError, match="at most 1 erased"):
+        jops.fused_head_argmax(jnp.asarray(x), jnp.asarray(ws.numpy()),
+                               jnp.asarray(ws.sum(0).numpy()),
+                               jnp.asarray(two_dead), vocab=8,
+                               use_pallas=False)
+    # a tensor that is neither on the CPU nor on a CUDA device is refused,
+    # never computed some other way
+    meta = xt.to("meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tcdc.cdc_coded_matmul(meta, wt.to("meta"), tp.to("meta"),
+                              "dedicated", T, r, torch.ones(r, T),
+                              torch.zeros(7, dtype=torch.int32),
+                              torch.ones(7), (True,) * T)
+    with pytest.raises(ValueError, match="unsupported device"):
+        cdc_decode.cdc_fused_head_argmax(meta, ws.to("meta"),
+                                         ws.sum(0).to("meta"), (True,) * T,
+                                         vocab=8)
+
+
+def test_dead_shard_nan_does_not_spread():
+    """Kernel 1's plain version zeroes a dead shard by select: NaNs in the
+    dead shard's weights leave the recovered output finite and exact."""
+    T, r = 4, 2
+    _, tspec, x, w, _ = case(T, r, "folded", m=T * T * 2)
+    m_l = w.shape[1] // T
+    clean = tops.fused_coded_matmul(torch.from_numpy(x), torch.from_numpy(w),
+                                    tcl.make_parity_weights(
+                                        torch.from_numpy(w), tspec),
+                                    tspec, np.ones(T, bool))
+    for d in range(T):
+        wn = w.copy()
+        wn[:, d * m_l:(d + 1) * m_l] = np.nan
+        # parity from the healthy weights; the dead shard's own folded
+        # parity slices are unreadable too
+        wc = tcl.make_parity_weights(torch.from_numpy(w), tspec)
+        wc[d] = float("nan")
+        mask = np.array([i != d for i in range(T)])
+        out = tops.fused_coded_matmul(torch.from_numpy(x),
+                                      torch.from_numpy(wn), wc, tspec, mask)
+        assert torch.isfinite(out).all(), f"NaN spread from dead shard {d}"
+        close(out, clean.numpy(), KTOL)
+
+
+def test_split_k_covers_the_contraction():
+    for rows, k, m_l in ((1, 4096, 256), (4, 4096, 1024), (16, 4096, 3200),
+                         (4, 24, 7), (8, 100, 33)):
+        ksplit, kchunk = tcdc.split_k(rows, k, m_l, n_sm=132)
+        assert ksplit >= 1 and kchunk >= 1
+        assert (ksplit - 1) * kchunk < k <= ksplit * kchunk
+
+
+def test_kernel_cost_models_match_reference():
+    out = [("float32", [4, 4, 256])]
+    ops_in = [("bool", [4]), ("int32", [256]), ("float32", [256]),
+              ("float32", [2, 4]), ("float32", [4, 4096]),
+              ("float32", [4, 4096, 256]), ("float32", [2, 4096, 256])]
+    assert tops.KERNEL_COSTS["cdc_coded_matmul"](out, ops_in) == \
+        jops.KERNEL_COSTS["cdc_coded_matmul_pallas"](out, ops_in)
+    out = [("float32", [4, 1]), ("int32", [4, 1])]
+    ops_in = [("bool", [4]), ("float32", [4, 4096]),
+              ("float32", [4, 4096, 12292]), ("float32", [4096, 12292])]
+    assert tops.KERNEL_COSTS["cdc_fused_head_argmax"](out, ops_in) == \
+        jops.KERNEL_COSTS["cdc_fused_head_argmax_pallas"](out, ops_in)
