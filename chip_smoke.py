@@ -7,9 +7,13 @@ Phases, each of which raises on failure (exit code non-zero):
   1. print the card's name and power limit; build the CUDA kernels from
      src/repro_torch/csrc (one nvcc per source, in parallel);
   2. hold each kernel against its plain PyTorch version on the card, at
-     granite-3-8b's full-width shapes, under the all-valid mask and every
-     single dead shard (float32, rtol = atol = 1e-4), plus an rmsnorm-fold
-     case and a constructed argmax tie across two vocabulary tiles;
+     granite-3-8b's full-width shapes: the parity encode (rtol = atol =
+     1e-5; wq, wk, w1 stacked over 40 layers and the head, r = 1..4, both
+     layouts, a ragged shape, T = 2 and 8), the coded GEMM and the fused
+     head under the all-valid mask and every single dead shard (float32,
+     rtol = atol = 1e-4; the coded GEMM also at (T, r) = (4, 3) dedicated
+     and (4, 4) folded), plus an rmsnorm-fold case and a constructed
+     argmax tie across two vocabulary tiles;
   3. serve granite-3-8b at full width (40 layers, d 4096, T=4, r=2 folded,
      float32, random weights from a seeded torch.Generator) through
      ServingEngine.generate: 4 requests, prompt 16, 16 new tokens, fault
@@ -17,8 +21,18 @@ Phases, each of which raises on failure (exit code non-zero):
      token streams must be identical and every fused round must launch the
      coded-GEMM kernel 200 times and the fused head once;
   4. time each kernel at its main-path shape with CUDA events beside its
-     plain version, one library call and its bandwidth/compute bound.
-The line before the last is the kernel table as JSON; the last line is
+     plain version, one library call and its bandwidth/compute bound;
+  5. serve granite-3-8b at full width through the port's serving entry
+     point (launch.serve: the continuous-batching scheduler, SimClock, 4
+     slots, 8 requests 2 ms apart, prompt 16, 16 new tokens) fault-free,
+     under --chaos "exp:mtbf=800,mttr=120" and with --adapt-r as well; every
+     request completes with the fault-free run's tokens, the counters equal
+     those of the same runs at smoke size on the CPU, the chaos run
+     recovers in-step, requeues beyond the budget and re-encodes, the
+     planner reaches r=4, every encode launches the encode kernel once per
+     parity leaf, and a re-encode of unchanged weights is bitwise equal;
+     the re-encode is timed per leaf and whole.
+Peak device memory is printed per phase. The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
@@ -56,11 +70,11 @@ def card_line() -> str:
 # ------------------------------------------------------------ phase 2 ----
 
 def _coded_case(m_l: int, rows: int, layout: str, gen: torch.Generator,
-                k: int = K):
+                k: int = K, r: int = R):
     from repro_torch.core.coded_layer import (CodedDenseSpec,
                                               make_parity_weights)
     from repro_torch.core.coding import CodeSpec
-    spec = CodedDenseSpec(CodeSpec(T, R), layout=layout)
+    spec = CodedDenseSpec(CodeSpec(T, r), layout=layout)
     x = torch.randn((rows, k), generator=gen, device="cuda")
     w = torch.randn((k, T * m_l), generator=gen, device="cuda") / k ** 0.5
     return spec, x, w, make_parity_weights(w, spec)
@@ -72,11 +86,12 @@ def _run_coded(x, w, wc, spec, valid, gamma=None, plain=False):
     from repro_torch.kernels import cdc_matmul, ops
     vh = tuple(bool(v) for v in valid)
     m_l = w.shape[1] // T
+    r = spec.code.n_parity
     esel, coef, g = ops.decode_plan(spec, vh, vh, m_l, str(x.device))
     if plain:
-        return cdc_matmul.coded_matmul_plain(x, w, wc, spec.layout, T, R, g,
+        return cdc_matmul.coded_matmul_plain(x, w, wc, spec.layout, T, r, g,
                                              esel, coef, vh, gamma)
-    return cdc_matmul.cdc_coded_matmul(x, w, wc, spec.layout, T, R, g, esel,
+    return cdc_matmul.cdc_coded_matmul(x, w, wc, spec.layout, T, r, g, esel,
                                        coef, vh, gamma=gamma)
 
 
@@ -178,6 +193,86 @@ def check_fused_head(cfg) -> float:
         f"within 1e-4 (max abs err {worst:.3e}); cross-tile tie -> id "
         f"{min(ids)}")
     return worst
+
+
+def check_coded_matmul_r34() -> float:
+    """Kernel 1 at the two cases the planner reaches beyond r=2 at T=4:
+    (4, 3) dedicated and (4, 4) folded, at the main path's GEMM widths and
+    4 rows, under the all-valid mask and every single dead shard."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    worst, n = 0.0, 0
+    for r, layout in ((3, "dedicated"), (4, "folded")):
+        for m_l in sorted(set(GEMMS.values())):
+            spec, x, w, wc = _coded_case(m_l, 4, layout, gen, r=r)
+            for valid in _masks():
+                got = _run_coded(x, w, wc, spec, valid)
+                want = _run_coded(x, w, wc, spec, valid, plain=True)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got, want, **TOL, msg=lambda m: (
+                    f"coded matmul (4, {r}) {layout} m_l={m_l} mask={valid}"
+                    f": {m}"))
+                worst = max(worst, float((got - want).abs().max()))
+                n += 1
+    log(f"kernel cdc_coded_matmul at (T, r) = (4, 3) dedicated and (4, 4) "
+        f"folded: {n} cases within rtol=atol=1e-4 of the plain version, "
+        f"max abs err {worst:.3e}")
+    return worst
+
+
+def _shards(w: torch.Tensor, t: int) -> torch.Tensor:
+    """[(L,) k, m] -> the [(L,) t, k, m/t] column-shard view (no copy)."""
+    return w.reshape(w.shape[:-1] + (t, w.shape[-1] // t)).movedim(-2, -3)
+
+
+def check_encode(cfg) -> float:
+    """Kernel 4 vs its plain version (rtol = atol = 1e-5): wq, wk and w1
+    stacked over all layers and the head at T=4, r in {1, 2, 3, 4}, both
+    layouts; a ragged shape (m_l = 100, k = 1000); T = 2 and T = 8."""
+    from repro_torch.core.coding import generator_matrix
+    from repro_torch.kernels import cdc_encode as enc
+    from repro_torch.models.common import TPCtx
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    L = cfg.n_layers
+    leaves = [("wq", (L, K, T * GEMMS["wq"])), ("wk", (L, K, T * GEMMS["wk"])),
+              ("w1", (L, K, T * GEMMS["w1"])),
+              ("lm_head", (K, TPCtx(tp=T).pad_dim(cfg.vocab)))]
+    cases = [(name, shape, T, r, layout) for name, shape in leaves
+             for r in range(1, T + 1) for layout in ("folded", "dedicated")]
+    cases += [("ragged", (1000, T * 100), T, 2, "folded"),
+              ("ragged", (1000, T * 100), T, 3, "dedicated"),
+              ("T=2", (K, 2 * 1024), 2, 1, "dedicated"),
+              ("T=8", (K, 8 * 256), 8, 4, "folded")]
+    worst, w, current = 0.0, None, None
+    for name, shape, t, r, layout in cases:
+        if current != (name, shape):
+            w = None                       # free the previous leaf first
+            w = torch.randn(shape, generator=gen, device="cuda")
+            current = (name, shape)
+        sh = _shards(w, t)
+        g = generator_matrix(t, r)
+        got = enc.cdc_encode(sh, g, layout=layout)
+        want = enc.encode_plain(sh, g, layout)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5,
+                                   msg=lambda m: (
+                                       f"encode {name} {tuple(shape)} T={t} "
+                                       f"r={r} {layout}: {m}"))
+        worst = max(worst, float((got - want).abs().max()))
+        del got, want
+    del w, sh
+    torch.cuda.empty_cache()
+    log(f"kernel cdc_encode: {len(cases)} cases (wq, wk, w1 stacked over "
+        f"{L} layers and the head at T=4, r=1..4, both layouts; ragged "
+        f"m_l=100, k=1000; T=2; T=8) within rtol=atol=1e-5 of the plain "
+        f"version, max abs err {worst:.3e}")
+    return worst
+
+
+def _phase_memory(name: str):
+    log(f"{name}: max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
 
 
 # ------------------------------------------------------------ phase 3 ----
@@ -352,24 +447,26 @@ def time_kernels(cfg, rows: int = 4) -> list[dict]:
     scratch = torch.empty(64 * 2 ** 20, device="cuda")   # 256 MB > L2
     flush = scratch.zero_
     out = []
-    for name, m_l in (("w1", 3200), ("wq", 1024), ("wk", 256)):
-        spec, x, w, wc = _coded_case(m_l, rows, "folded", gen)
+    # r=2 is the main path's geometry; w1 at r=4 is the planner's
+    for name, m_l, r in (("w1", 3200, R), ("wq", 1024, R), ("wk", 256, R),
+                         ("w1", 3200, 4)):
+        spec, x, w, wc = _coded_case(m_l, rows, "folded", gen, r=r)
         valid = (True,) * T
-        wcat = torch.cat([w, unfold_parity(wc, T, R).permute(1, 0, 2)
-                          .reshape(K, R * m_l)], dim=1)
+        wcat = torch.cat([w, unfold_parity(wc, T, r).permute(1, 0, 2)
+                          .reshape(K, r * m_l)], dim=1)
         ms = _time(lambda: _run_coded(x, w, wc, spec, valid), flush)
         plain = _time(lambda: _run_coded(x, w, wc, spec, valid, plain=True),
                       flush)
         lib = _time(lambda: torch.matmul(x, wcat), flush)
-        nbytes = 4 * (rows * K + (T + R) * K * m_l + rows * T * m_l
+        nbytes = 4 * (rows * K + (T + r) * K * m_l + rows * T * m_l
                       + 2 * m_l)
-        bound, by = _bound(nbytes, 2.0 * rows * K * m_l * (T + R))
-        out.append({"gemm": name, "rows": rows, "m_l": m_l, "ms": ms,
-                    "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
-                    "bound_by": by})
-        log(f"cdc_coded_matmul {name} [rows={rows}, k={K}, m_l={m_l}]: "
-            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library matmul "
-            f"{lib:.4f} ms, bound {bound:.4f} ms ({by})")
+        bound, by = _bound(nbytes, 2.0 * rows * K * m_l * (T + r))
+        out.append({"gemm": name, "r": r, "rows": rows, "m_l": m_l,
+                    "ms": ms, "plain_ms": plain, "library_ms": lib,
+                    "bound_ms": bound, "bound_by": by})
+        log(f"cdc_coded_matmul {name} [rows={rows}, k={K}, m_l={m_l}, "
+            f"T={T}, r={r}]: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"library matmul {lib:.4f} ms, bound {bound:.4f} ms ({by})")
     w = _head(cfg, gen)
     w_shards, pw = _head_views(w)
     m_l = w_shards.shape[2]
@@ -391,6 +488,212 @@ def time_kernels(cfg, rows: int = 4) -> list[dict]:
         f"{ms:.4f} ms, plain {plain:.4f} ms, library matmul {lib:.4f} ms, "
         f"bound {bound:.4f} ms ({by})")
     return out
+
+
+# ------------------------------------------------------------ phase 5 ----
+
+CHAOS = "exp:mtbf=800,mttr=120"
+CHAOS_SEED = 2     # its schedule has in-step recoveries, beyond-budget
+#                    requeues and re-encodes, and drives the planner to r=4
+SCHED_ARGS = ["--coded", "--tp", str(T), "--batch", "4", "--requests", "8",
+              "--arrival-gap-ms", "2", "--prompt-len", "16",
+              "--gen-tokens", "16", "--seed", str(CHAOS_SEED)]
+RUNS = {"fault-free": [], "chaos": ["--chaos", CHAOS],
+        "chaos+adapt-r": ["--chaos", CHAOS, "--adapt-r"]}
+
+
+def _kernel_wrappers():
+    from repro_torch.kernels import cdc_decode, cdc_encode, cdc_matmul
+    return {"cdc_coded_matmul": cdc_matmul.cdc_coded_matmul,
+            "cdc_fused_head_argmax": cdc_decode.cdc_fused_head_argmax,
+            "cdc_encode": cdc_encode.cdc_encode}
+
+
+def _scheduler_run(model, params, vocab: int, argv: list[str], device: str):
+    """One run of the port's serving entry point (``launch.serve``): the
+    stepper (whose build encodes the parity), the scheduler with the
+    chaos injector and planner the flags ask for, and the request stream."""
+    from repro_torch.launch import serve
+    from repro_torch.serve import ModelStepper
+    args = serve.parser().parse_args(argv + ["--device", device])
+    stepper = ModelStepper(model, params,
+                           max_len=args.prompt_len + args.gen_tokens + 8)
+    sched = serve.build_scheduler(args, stepper, model.ctx.code_layout)
+    done = serve.serve_requests(args, sched, vocab)
+    return stepper, sched, done
+
+
+def scheduler_counters_cpu() -> dict:
+    """The three runs' counters and planner r series at smoke size on the
+    CPU: the schedule depends on the seed and the arrivals, not on the
+    model's width, so the full-width runs must give the same ones."""
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.models import TPCtx, build
+    cfg = smoke_config(get_arch("granite-3-8b"))
+    model = build(cfg, TPCtx(tp=T, mode="coded", code_r=R))
+    params = model.init(0, device="cpu")
+    out = {}
+    for name, extra in RUNS.items():
+        _, sched, done = _scheduler_run(model, params, cfg.vocab,
+                                        SCHED_ARGS + extra, "cpu")
+        out[name] = {"counters": dict(sched.metrics.counters),
+                     "r_series": [p["r"] for p in sched.metrics.plan_log],
+                     "completed": len(done)}
+    return out
+
+
+def _parity_leaves(params) -> list[torch.Tensor]:
+    out = []
+    for v in params.values():
+        if isinstance(v, dict):
+            out += _parity_leaves(v)
+    if "cdc" in params:
+        out.append(params["cdc"])
+    return out
+
+
+def serve_scheduler(cfg, device: str = "cuda") -> dict:
+    """granite-3-8b at full width through the continuous-batching
+    scheduler: fault-free, under seeded chaos, and under chaos with the
+    adaptive planner, the same 8 requests each time."""
+    from repro_torch.models import TPCtx, build
+    t0 = time.perf_counter()
+    expect = scheduler_counters_cpu()
+    log(f"scheduler, smoke size on the CPU ({time.perf_counter() - t0:.1f} "
+        f"s): " + "; ".join(
+            f"{n}: {e['counters']['decode_rounds']} rounds, "
+            f"{e['counters']['erasures_recovered']} recovered in-step, "
+            f"{e['counters']['beyond_budget_failures']} beyond budget, "
+            f"{e['counters']['parity_reencodes']} re-encodes, r series "
+            f"{e['r_series']}" for n, e in expect.items()))
+    model = build(cfg, TPCtx(tp=T, mode="coded", code_r=R))
+    params = model.init(torch.Generator(device=device).manual_seed(0),
+                        device=device)
+    wrappers = _kernel_wrappers()
+    runs, timing = {}, None
+    for name, extra in RUNS.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in wrappers.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        stepper, sched, done = _scheduler_run(model, params, cfg.vocab,
+                                              SCHED_ARGS + extra, device)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        c = dict(sched.metrics.counters)
+        rs = [p["r"] for p in sched.metrics.plan_log]
+        n_leaves = len(_parity_leaves(stepper.params))
+        res = {"tokens": {q.rid: list(q.tokens) for q in done},
+               "counters": c, "r_series": rs, "seconds": secs,
+               "launches": launches,
+               "round_ms": float(np.median(sched.executor.round_ms)),
+               "reencode_wall_ms": stepper.last_reencode_wall_ms,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        runs[name] = res
+        want = expect[name]
+        if len(done) != 8 or any(len(q.tokens) != 16 for q in done):
+            raise AssertionError(f"{name}: {len(done)}/8 requests completed")
+        if c != want["counters"] or rs != want["r_series"]:
+            raise AssertionError(
+                f"{name}: counters {c} / r series {rs} differ from the "
+                f"CPU run's {want['counters']} / {want['r_series']}")
+        if launches["cdc_encode"] != n_leaves * (1 + c["parity_reencodes"]):
+            raise AssertionError(
+                f"{name}: {launches['cdc_encode']} encode launches for "
+                f"{1 + c['parity_reencodes']} encodes of {n_leaves} leaves")
+        if not (launches["cdc_coded_matmul"] and
+                launches["cdc_fused_head_argmax"]):
+            raise AssertionError(f"{name}: no fused round ran: {launches}")
+        if name != "fault-free" and res["tokens"] != runs["fault-free"][
+                "tokens"]:
+            raise AssertionError(f"{name}: token streams differ from the "
+                                 f"fault-free run")
+        log(f"scheduler {name}: {c['requests_completed']}/8 completed, "
+            f"{c['decode_rounds']} rounds in {secs:.2f} s, round_ms median "
+            f"{res['round_ms']:.3f}, {c['erasures_recovered']} recovered "
+            f"in-step, {c['beyond_budget_failures']} beyond budget, "
+            f"{c['requests_requeued']} requeued, {c['parity_reencodes']} "
+            f"re-encodes (last {res['reencode_wall_ms']:.3f} ms wall), r "
+            f"series {rs}, launches {launches}, max_memory_allocated "
+            f"{res['peak_gib']:.2f} GiB")
+        if name == "fault-free":
+            # before the chaos runs, so that only one parity set is alive
+            timing = reencode_and_time(stepper)
+        del stepper, sched, done
+    chaos, adapt = runs["chaos"]["counters"], runs["chaos+adapt-r"]
+    if not (chaos["erasures_recovered"] and chaos["beyond_budget_failures"]
+            and chaos["parity_reencodes"]):
+        raise AssertionError(f"chaos run lacks a recovery, a requeue or a "
+                             f"re-encode: {chaos}")
+    if 4 not in adapt["r_series"]:
+        raise AssertionError(f"the planner never reached r=4: "
+                             f"{adapt['r_series']}")
+    log("scheduler: every request completed in all three runs, token "
+        "streams identical to the fault-free run, counters equal to the "
+        "CPU run's")
+    return {"runs": runs, "timing": timing}
+
+
+def reencode_and_time(stepper) -> dict:
+    """A re-encode of unchanged weights must give bitwise-equal parity;
+    then kernel 4 per leaf and for the whole re-encode, its bound, its
+    plain version (the tensordot-and-fold path) and torch.matmul on a
+    contiguous copy of the shards (the yardstick)."""
+    from repro_torch.core.coding import generator_matrix
+    from repro_torch.kernels import cdc_encode as enc
+    before = [p.clone() for p in _parity_leaves(stepper.params)]
+    walls = []
+    for _ in range(3):
+        stepper.reencode()
+        walls.append(stepper.last_reencode_wall_ms)
+    after = _parity_leaves(stepper.params)
+    if len(after) != len(before) or not all(
+            torch.equal(a, b) for a, b in zip(after, before)):
+        raise AssertionError("re-encoding unchanged weights changed the "
+                             "parity bits")
+    del before, after
+    torch.cuda.empty_cache()
+    log(f"re-encode of unchanged weights: every parity leaf bitwise equal; "
+        f"last_reencode_wall_ms {', '.join(f'{x:.3f}' for x in walls)}")
+    scratch = torch.empty(64 * 2 ** 20, device="cuda")   # 256 MB > L2
+    flush = scratch.zero_
+    g = generator_matrix(T, R)
+    gt = torch.as_tensor(g.astype(np.float32), device="cuda")
+    raw = stepper._raw_params
+    leaves = [("wq", raw["layers"]["attn"]["wq"]["w"]),
+              ("wk", raw["layers"]["attn"]["wk"]["w"]),
+              ("wv", raw["layers"]["attn"]["wv"]["w"]),
+              ("w1", raw["layers"]["ffn"]["w1"]["w"]),
+              ("w3", raw["layers"]["ffn"]["w3"]["w"]),
+              ("lm_head", raw["lm_head"]["w"])]
+    rows = []
+    for name, w in leaves:
+        sh = _shards(w, T)
+        ms = _time(lambda: enc.cdc_encode(sh, g, layout="folded"), flush, 10)
+        plain = _time(lambda: enc.encode_plain(sh, g, "folded"), flush, 5)
+        flat = sh.contiguous().reshape(sh.shape[:-2] + (-1,))
+        lib = _time(lambda: torch.matmul(gt, flat), flush, 10)
+        del flat
+        n = sh.numel()                     # T * (L *) k * m_l
+        bound, by = _bound(4.0 * n * (T + R) / T, 2.0 * n * R)
+        rows.append({"leaf": name, "shape": list(w.shape), "ms": ms,
+                     "plain_ms": plain, "library_ms": lib,
+                     "bound_ms": bound, "bound_by": by})
+        log(f"cdc_encode {name} {list(w.shape)} T={T} r={R} folded: kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, library matmul {lib:.4f} "
+            f"ms, bound {bound:.4f} ms ({by})")
+    whole = _time(lambda: stepper.model.encode_offline(raw), flush, 10)
+    total = {k: sum(r[k] for r in rows)
+             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    log(f"whole re-encode ({len(rows)} launches): {whole:.4f} ms by events "
+        f"around encode_offline; per-leaf sums: kernel {total['ms']:.4f} "
+        f"ms, plain {total['plain_ms']:.4f} ms, library "
+        f"{total['library_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms")
+    return {"leaves": rows, "whole_ms": whole, "total": total,
+            "reencode_wall_ms": walls}
 
 
 # --------------------------------------------------------------- main ----
@@ -420,12 +723,19 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     cfg = get_arch("granite-3-8b")
-    err1 = check_coded_matmul()
+    torch.cuda.reset_peak_memory_stats()
+    err4 = check_encode(cfg)
+    err1 = max(check_coded_matmul(), check_coded_matmul_r34())
     err2 = check_fused_head(cfg)
+    _phase_memory("kernel checks")
     served = serve_full_width(cfg)
+    torch.cuda.empty_cache()
     timed = time_kernels(cfg)
+    torch.cuda.empty_cache()
+    sched = serve_scheduler(cfg)
     w1 = timed[0]
     head = timed[-1]
+    enc = sched["timing"]["total"]
     kernels = [
         {"name": "cdc_coded_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/cdc_coded_matmul.cu",
@@ -441,9 +751,19 @@ def main() -> int:
          "ms": head["ms"], "plain_ms": head["plain_ms"],
          "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
          "library_ms": head["library_ms"]},
+        {"name": "cdc_encode", "route": "cuda",
+         "source": "src/repro_torch/csrc/cdc_encode.cu",
+         "replaces": "src/repro/kernels/cdc_encode.py:30",
+         "launches": sched["runs"]["chaos"]["launches"]["cdc_encode"],
+         "max_abs_err": err4, "ms": enc["ms"], "plain_ms": enc["plain_ms"],
+         "bound_ms": enc["bound_ms"], "bound_by": "bytes",
+         "library_ms": enc["library_ms"]},
     ]
     log(card)
-    log(json.dumps({"shapes": timed, "round": served["breakdown"]}))
+    runs = {n: {k: v for k, v in r.items() if k != "tokens"}
+            for n, r in sched["runs"].items()}
+    log(json.dumps({"shapes": timed, "round": served["breakdown"],
+                    "encode": sched["timing"], "scheduler": runs}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -88,25 +88,19 @@ def unfold_parity(p_slots: torch.Tensor, T: int, r: int) -> torch.Tensor:
 def make_parity_weights(w: torch.Tensor, spec: CodedDenseSpec
                         ) -> torch.Tensor:
     """Offline encode. w: [k, m] -> dedicated [r, k, m_l] or folded slots
-    [T, k, r*m_l/T]; stacked [L, k, m] is encoded one layer at a time so
-    the temporaries stay one layer big."""
-    if w.ndim == 3:
-        first = make_parity_weights(w[0], spec)
-        out = first.new_empty((w.shape[0],) + tuple(first.shape))
-        out[0] = first
-        for i in range(1, w.shape[0]):
-            out[i] = make_parity_weights(w[i], spec)
-        return out
+    [T, k, r*m_l/T]; stacked [L, k, m] -> the same with a leading [L].
+    Runs ``ops.cdc_encode`` on a view of w's T column shards (no copy): the
+    encode kernel on a CUDA tensor (one launch per leaf), its plain version
+    one layer at a time on a CPU tensor."""
+    from repro_torch.kernels import ops  # deferred: ops imports us
     code = spec.code
     T = code.n_shards
-    k, m = w.shape
+    m = w.shape[-1]
     if m % T:
         raise ValueError(f"output dim {m} not divisible by T={T}")
-    shards = w.reshape(k, T, m // T).permute(1, 0, 2)    # [T, k, m_l] view
-    parity = coding.encode_weights(shards, code)          # [r, k, m_l]
-    if spec.layout == "dedicated":
-        return parity
-    return fold_parity_slots(parity, T)
+    # [(L,) k, m] -> [(L,) T, k, m_l] view
+    shards = w.reshape(w.shape[:-1] + (T, m // T)).movedim(-2, -3)
+    return ops.cdc_encode(shards, code.generator, layout=spec.layout)
 
 
 def merge_shards(ys: torch.Tensor) -> torch.Tensor:

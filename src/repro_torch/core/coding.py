@@ -82,9 +82,9 @@ def encode_weights(w_shards: torch.Tensor, spec: CodeSpec) -> torch.Tensor:
     if w_shards.shape[0] != spec.n_shards:
         raise ValueError(
             f"w_shards leading dim {w_shards.shape[0]} != T={spec.n_shards}")
-    gen = generator_tensor(spec, w_shards.device)
-    acc = torch.tensordot(gen, w_shards.to(torch.float32), dims=([1], [0]))
-    return acc.to(w_shards.dtype)
+    from repro_torch.kernels import ref
+    return ref.cdc_encode_ref(w_shards, generator_tensor(spec,
+                                                         w_shards.device))
 
 
 def decode_outputs(y_shards: torch.Tensor, parity: torch.Tensor, valid,

@@ -165,6 +165,8 @@ extern "C" int cdc_coded_matmul_f32(
     CDC_CASE(2, 2)
     CDC_CASE(4, 1)
     CDC_CASE(4, 2)
+    CDC_CASE(4, 3)
+    CDC_CASE(4, 4)
     CDC_CASE(8, 1)
     CDC_CASE(8, 2)
     default:

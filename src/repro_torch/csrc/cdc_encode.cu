@@ -1,0 +1,171 @@
+// Offline CDC parity encode, float32, sm_90a.
+//
+// Replaces the TPU kernel cdc_encode_pallas (src/repro/kernels/cdc_encode.py):
+// parity[j] = sum_i gen[j, i] * W_i over the T column shards W_i [k, m_l]
+// of a weight, for j < r, accumulated in float32 in ascending i.
+//
+// What bounds it: a contraction of only T <= 8 per output element, so it
+// is bound by the bytes it moves -- T * k * m_l weights read once and
+// r * k * m_l parities written once (granite-3-8b, one layer's wq..w3 at
+// T=4, r=2: 780 MB, ~0.23 ms at 3.35 TB/s).
+// What the design does about it:
+//  * the shards are read IN PLACE from the raw weight: shard i is the
+//    weight at column offset i * m_l (stride ld_t), rows at stride ld_k,
+//    stacked layers at stride ld_l, so no permuted copy of the weight is
+//    made; a stacked [L, k, m] leaf is ONE launch (grid.y over L);
+//  * each thread owns VEC consecutive columns of one row (16-byte loads
+//    and stores when the shapes allow, else one column), so a warp reads
+//    512 contiguous bytes of every shard;
+//  * the parity is written straight into the layout the stepper holds:
+//    dedicated [r, k, m_l], or the folded slots [T, k, r * m_l / T] through
+//    the same folded_slot_map arithmetic kernel 1 reads them with (column
+//    c of parity j -> slot (c / wd + j + 1) % T, column j * wd + c % wd),
+//    so no fold copy is made either;
+//  * the generator rides in the kernel's parameter space (constant bank);
+//  * no atomics and a fixed summation order: encoding the same weights
+//    twice gives the same bits.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace cdc_enc {
+
+constexpr int THREADS = 256;
+constexpr int MAX_T = 8;
+
+struct Gen {
+  float g[MAX_T * MAX_T];  // row j at g[j * T]
+};
+
+template <int VEC>
+struct Vec;
+template <>
+struct Vec<1> {
+  static __device__ __forceinline__ void load(const float* p, float* v) {
+    v[0] = __ldg(p);
+  }
+  static __device__ __forceinline__ void store(float* p, const float* v) {
+    p[0] = v[0];
+  }
+};
+template <>
+struct Vec<4> {
+  static __device__ __forceinline__ void load(const float* p, float* v) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float* v) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+
+// One thread: VEC columns starting at c of row `row` of layer blockIdx.y.
+// For VEC = 4 the wrapper guarantees m_l % 4 == 0, 16-byte aligned rows
+// and shard offsets, and (folded) a slice width wd % 4 == 0, so the four
+// columns never straddle a slice.
+template <int T, int R, int VEC>
+__global__ void __launch_bounds__(THREADS)
+encode_kernel(const float* __restrict__ w, float* __restrict__ out,
+              const Gen gen, int k, int m_l, int64_t ld_t, int64_t ld_k,
+              int64_t ld_l, int folded) {
+  const int nv = m_l / VEC + (m_l % VEC != 0);
+  const uint32_t item = blockIdx.x * THREADS + threadIdx.x;
+  if (item >= (uint32_t)k * (uint32_t)nv) return;
+  const int row = (int)(item / (uint32_t)nv);
+  const int c = (int)(item % (uint32_t)nv) * VEC;
+  const int64_t l = blockIdx.y;
+  const float* src = w + l * ld_l + (int64_t)row * ld_k + c;
+
+  float acc[R][VEC];
+#pragma unroll
+  for (int j = 0; j < R; ++j)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[j][e] = 0.f;
+#pragma unroll
+  for (int i = 0; i < T; ++i) {
+    float v[VEC];
+    Vec<VEC>::load(src + i * ld_t, v);
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        acc[j][e] = fmaf(gen.g[j * T + i], v[e], acc[j][e]);
+  }
+
+  if (!folded) {
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+      Vec<VEC>::store(out + ((l * R + j) * k + row) * m_l + c, acc[j]);
+    return;
+  }
+  const int wd = m_l / T, s = c / wd, o = c % wd;
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const int slot = (s + j + 1) % T;
+    Vec<VEC>::store(
+        out + ((l * T + slot) * k + row) * (int64_t)(R * wd) + j * wd + o,
+        acc[j]);
+  }
+}
+
+template <int T, int R>
+static int launch(int vec, dim3 grid, cudaStream_t st, const float* w,
+                  float* out, const Gen& gen, int k, int m_l, int64_t ld_t,
+                  int64_t ld_k, int64_t ld_l, int folded) {
+  if (vec == 4)
+    encode_kernel<T, R, 4><<<grid, THREADS, 0, st>>>(
+        w, out, gen, k, m_l, ld_t, ld_k, ld_l, folded);
+  else if (vec == 1)
+    encode_kernel<T, R, 1><<<grid, THREADS, 0, st>>>(
+        w, out, gen, k, m_l, ld_t, ld_k, ld_l, folded);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace cdc_enc
+
+// C interface (loaded with ctypes). gen_host is a host array [R, T] of
+// float32; returns the cudaError_t of the launch. Cases: T in {2, 4, 8},
+// 1 <= R <= T; anything else returns cudaErrorInvalidValue.
+extern "C" int cdc_encode_f32(const float* w, float* out,
+                              const float* gen_host, int L, int k, int T,
+                              int R, int m_l, long long ld_t, long long ld_k,
+                              long long ld_l, int folded, int vec,
+                              void* stream) {
+  using namespace cdc_enc;
+  if (T > MAX_T || R < 1 || R > T || vec < 1) return (int)cudaErrorInvalidValue;
+  Gen gen;
+  for (int i = 0; i < R * T; ++i) gen.g[i] = gen_host[i];
+  const int64_t nv = m_l / vec + (m_l % vec != 0);
+  const int64_t items = (int64_t)k * nv;
+  if (items >= (int64_t)1 << 31 || L > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((items + THREADS - 1) / THREADS), L);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define ENC_CASE(TT, RR)                                                  \
+  case TT * 16 + RR:                                                      \
+    return launch<TT, RR>(vec, grid, st, w, out, gen, k, m_l, ld_t, ld_k, \
+                          ld_l, folded);
+  switch (T * 16 + R) {
+    ENC_CASE(2, 1)
+    ENC_CASE(2, 2)
+    ENC_CASE(4, 1)
+    ENC_CASE(4, 2)
+    ENC_CASE(4, 3)
+    ENC_CASE(4, 4)
+    ENC_CASE(8, 1)
+    ENC_CASE(8, 2)
+    ENC_CASE(8, 3)
+    ENC_CASE(8, 4)
+    ENC_CASE(8, 5)
+    ENC_CASE(8, 6)
+    ENC_CASE(8, 7)
+    ENC_CASE(8, 8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef ENC_CASE
+}

@@ -1,0 +1,111 @@
+"""Offline CDC parity encode (paper Eq. 7/11): parity[j] = Σ_i gen[j,i]·W_i.
+
+``cdc_encode`` takes the T column shards of a weight as a strided view
+[T, k, m_l] (or a stacked [L, T, k, m_l]), usually a view of the raw
+[k, T·m_l] weight with no copy, and a host generator [r, T]; it returns
+the parity in the layout the coded layers hold: dedicated [r, k, m_l] or
+folded slots [T, k, r·m_l/T] (with the leading [L] when stacked). On a
+CUDA tensor it launches the kernel in ``csrc/cdc_encode.cu`` (one launch
+per call, stacked layers included) or raises; on a CPU tensor it runs the
+plain version, ``ref.cdc_encode_ref`` per layer followed by
+``fold_parity_slots``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.core.coded_layer import fold_parity_slots
+from repro_torch.kernels import build, ref
+
+_TS = (2, 4, 8)          # the shard counts the kernel is built for
+
+
+def _lib():
+    fn = build.load("cdc_encode").cdc_encode_f32
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, p, p, i, i, i, i, i, ll, ll, ll, i, i, p]
+        fn.restype = i
+    return fn
+
+
+def _check(cond: bool, msg: str):
+    if not cond:
+        raise ValueError(f"cdc_encode: {msg}")
+
+
+def host_generator(gen) -> np.ndarray:
+    """The host generator as a float32 [r, T] array (the cast the parity
+    math uses)."""
+    return np.ascontiguousarray(np.asarray(gen, np.float32))
+
+
+def encode_plain(w_shards: torch.Tensor, gen, layout: str) -> torch.Tensor:
+    """The plain version behind ``cdc_encode``, with the same arguments:
+    one layer at a time, so the temporaries stay one layer big."""
+    g = torch.as_tensor(host_generator(gen), device=w_shards.device)
+    if w_shards.ndim == 4:
+        first = encode_plain(w_shards[0], gen, layout)
+        out = first.new_empty((w_shards.shape[0],) + tuple(first.shape))
+        out[0] = first
+        for i in range(1, w_shards.shape[0]):
+            out[i] = encode_plain(w_shards[i], gen, layout)
+        return out
+    parity = ref.cdc_encode_ref(w_shards, g)              # [r, k, m_l]
+    if layout == "dedicated":
+        return parity
+    return fold_parity_slots(parity, w_shards.shape[0])
+
+
+def cdc_encode(w_shards: torch.Tensor, gen, *, layout: str = "dedicated"
+               ) -> torch.Tensor:
+    """Parity weights of the shards [T, k, m_l] or [L, T, k, m_l] (unit
+    column stride; any shard, row and layer strides) under the host
+    generator ``gen`` [r, T]: dedicated [(L,) r, k, m_l] or folded
+    [(L,) T, k, r·m_l/T], float32."""
+    _check(layout in ("folded", "dedicated"), f"unknown layout {layout!r}")
+    if w_shards.device.type == "cpu":
+        return encode_plain(w_shards, gen, layout)
+    _check(w_shards.device.type == "cuda",
+           f"unsupported device {w_shards.device}")
+    _check(w_shards.dtype == torch.float32, "w_shards must be float32")
+    _check(w_shards.ndim in (3, 4), "w_shards must be [T, k, m_l] or "
+           "[L, T, k, m_l]")
+    g = host_generator(gen)
+    stacked = w_shards.ndim == 4
+    L = w_shards.shape[0] if stacked else 1
+    T, k, m_l = w_shards.shape[-3:]
+    r = g.shape[0]
+    _check(g.ndim == 2 and g.shape[1] == T, f"gen {g.shape} is not [r, {T}]")
+    _check(T in _TS and 0 <= r <= T, f"no kernel case for T={T}, r={r}")
+    _check(w_shards.stride(-1) == 1, "shards need a unit column stride")
+    folded = layout == "folded"
+    _check(not folded or m_l % T == 0,
+           f"shard width {m_l} not divisible by T={T}")
+    lead = (L,) if stacked else ()
+    shape = (T, k, r * m_l // T) if folded else (r, k, m_l)
+    out = torch.empty(lead + shape, dtype=torch.float32,
+                      device=w_shards.device)
+    if r == 0 or out.numel() == 0:
+        return out
+    ld_t, ld_k = w_shards.stride(-3), w_shards.stride(-2)
+    ld_l = w_shards.stride(0) if stacked else 0
+    aligned = (m_l % 4 == 0 and w_shards.data_ptr() % 16 == 0
+               and ld_t % 4 == 0 and ld_k % 4 == 0 and ld_l % 4 == 0
+               and (not folded or (m_l // T) % 4 == 0))
+    gen_host = (ctypes.c_float * g.size)(*g.ravel().tolist())
+    stream = torch.cuda.current_stream(w_shards.device).cuda_stream
+    err = _lib()(w_shards.data_ptr(), out.data_ptr(), gen_host, L, k, T, r,
+                 m_l, ld_t, ld_k, ld_l, int(folded), 4 if aligned else 1,
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"cdc_encode kernel launch failed: cudaError "
+                           f"{err}")
+    cdc_encode.launches += 1
+    return out
+
+
+cdc_encode.launches = 0

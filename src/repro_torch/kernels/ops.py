@@ -8,7 +8,10 @@ here, before anything is launched:
   * ``fused_coded_matmul``: no parity, no mask, or 2+ dead shards -> the
     reference ``core.coded_matmul`` (full MDS recovery);
   * ``fused_head_argmax``: 2+ dead shards raise (the sum parity cannot
-    solve for two unknowns); the caller takes the reference round.
+    solve for two unknowns); the caller takes the reference round;
+  * ``cdc_encode`` (re-exported from ``kernels.cdc_encode``): no ladder;
+    the offline parity encode of every coded weight
+    (``core.coded_layer.make_parity_weights``) goes through it.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from repro_torch.core import coded_layer
 from repro_torch.core.coding import generator_tensor, host_mask
 from repro_torch.kernels import ref
 from repro_torch.kernels.cdc_decode import cdc_fused_head_argmax
+from repro_torch.kernels.cdc_encode import cdc_encode  # noqa: F401
 from repro_torch.kernels.cdc_matmul import cdc_coded_matmul, eq12_plan
 
 
@@ -27,6 +31,19 @@ from repro_torch.kernels.cdc_matmul import cdc_coded_matmul, eq12_plan
 # Shape-based FLOP models of the ported kernels, keyed by wrapper name.
 # Each takes (out_shapes, operand_shapes), lists of (dtype, dims) in the
 # reference kernel's operand order, and returns dot-equivalent FLOPs.
+
+def _elems(dims) -> int:
+    n = 1
+    for d in dims:
+        n *= d
+    return n
+
+
+def _cost_cdc_encode(out, operands):
+    # parity [r, ...] = gen [r, T] @ shards: 2 * out_elems * T
+    t = next((d[1] for _, d in operands if len(d) == 2), 0)
+    return 2.0 * sum(_elems(d) for _, d in out) * t
+
 
 def _cost_cdc_coded_matmul(out, operands):
     # operand order: [valid, esel, coef, gen, x, w_shards, parity_w, gamma?]
@@ -52,6 +69,7 @@ def _cost_cdc_fused_head(out, operands):
 
 
 KERNEL_COSTS: dict = {
+    "cdc_encode": _cost_cdc_encode,
     "cdc_coded_matmul": _cost_cdc_coded_matmul,
     "cdc_fused_head_argmax": _cost_cdc_fused_head,
 }

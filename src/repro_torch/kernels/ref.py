@@ -10,6 +10,15 @@ from __future__ import annotations
 import torch
 
 
+def cdc_encode_ref(w_shards: torch.Tensor, gen: torch.Tensor
+                   ) -> torch.Tensor:
+    """Offline parity encode: [T, k, n] shards x [r, T] generator ->
+    [r, k, n], accumulated in float32 and cast to the shards' dtype."""
+    acc = torch.tensordot(gen.to(torch.float32), w_shards.to(torch.float32),
+                          dims=([1], [0]))
+    return acc.to(w_shards.dtype)
+
+
 def fused_head_argmax_ref(x: torch.Tensor, w_shards: torch.Tensor,
                           parity_w: torch.Tensor, valid: torch.Tensor,
                           vocab: int) -> tuple[torch.Tensor, torch.Tensor]:

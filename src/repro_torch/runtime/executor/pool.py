@@ -10,7 +10,12 @@ the kernels queued after it. ``overlap=False`` harvests the round it just
 dispatched. Each harvest appends to ``round_ms`` the wall time from the
 start of the round's dispatch to its tokens on the host; with overlap
 that includes the next round's dispatch, so it is a token latency and
-not the pipelined period.
+not the pipelined period; the same time goes to ``metrics.round_ms``
+when the pool is given a ``RuntimeMetrics``.
+
+``round_hooks`` are called as ``hook(executor, valid)`` on the host right
+before each dispatch (the chaos harness replays modelled stalls into the
+measured round series there).
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.obs.tracer import NULL_RECORDER
 from repro_torch.runtime.executor.slotbatch import (blank_state,
                                                     request_batch,
                                                     write_slot)
@@ -42,7 +48,7 @@ class SlotPoolExecutor:
     """Batched execution engine over ``n_slots`` decode slots."""
 
     def __init__(self, stepper, n_slots: int, *, overlap: bool = True,
-                 use_fused: bool | str = "auto"):
+                 use_fused: bool | str = "auto", metrics=None, tracer=None):
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
         self.stepper = stepper
@@ -55,7 +61,10 @@ class SlotPoolExecutor:
         self.active = np.zeros(self.n_slots, bool)
         self.tags: list[Any] = [None] * self.n_slots
         self.round_ms: list[float] = []
+        self.metrics = metrics
+        self.tracer = tracer if tracer is not None else NULL_RECORDER
         self._pending: RoundHandle | None = None
+        self.round_hooks: list[Any] = []
 
     @property
     def n_active(self) -> int:
@@ -87,6 +96,9 @@ class SlotPoolExecutor:
     def _dispatch(self, valid) -> RoundHandle | None:
         if not self.active.any():
             return None
+        t_host = time.perf_counter()
+        for hook in self.round_hooks:
+            hook(self, valid)
         t0 = time.perf_counter()
         new_state, toks, _ = self.vstep.round(self.state, self.last_toks,
                                               valid)
@@ -101,15 +113,35 @@ class SlotPoolExecutor:
             host, ready = toks.clone(), None
         occupants = tuple((int(i), self.tags[int(i)])
                           for i in np.flatnonzero(self.active))
+        if self.tracer.enabled:
+            self.tracer.emit(
+                "round.dispatch", track="rounds",
+                round=self.vstep.n_dispatches, n_active=len(occupants),
+                dead=[int(i) for i in np.flatnonzero(
+                    ~np.asarray(valid, bool))],
+                wall_args={"dispatch_host_ms":
+                           (time.perf_counter() - t_host) * 1e3})
         return RoundHandle(host, ready, occupants, t0)
 
     def _harvest(self, handle: RoundHandle | None
                  ) -> list[tuple[int, Any, int]]:
         if handle is None:
             return []
+        t_block = time.perf_counter()
         if handle.ready is not None:
             handle.ready.synchronize()
-        self.round_ms.append((time.perf_counter() - handle.t0) * 1e3)
+        t_ready = time.perf_counter()
+        period = (t_ready - handle.t0) * 1e3
+        self.round_ms.append(period)
+        if self.metrics is not None:
+            self.metrics.observe_round_ms(period)
+        if self.tracer.enabled:
+            block = (t_ready - t_block) * 1e3
+            self.tracer.emit(
+                "round.harvest", track="rounds", overlap=self.overlap,
+                n_harvested=len(handle.slots), wall_dur_ms=period,
+                wall_args={"block_ms": block,
+                           "host_overlapped_ms": period - block})
         arr = handle.toks.numpy()
         return [(s, tag, int(arr[s, 0])) for s, tag in handle.slots]
 

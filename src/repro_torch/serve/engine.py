@@ -14,6 +14,7 @@ rounds only.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any
 
 import numpy as np
@@ -21,6 +22,7 @@ import torch
 
 from repro_torch.core.failure import StragglerModel, request_latency
 from repro_torch.models.zoo import Model
+from repro_torch.obs.tracer import NULL_RECORDER
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,25 +37,49 @@ class ModelStepper:
     dicts of tensors (the per-row KV cache layout)."""
 
     def __init__(self, model: Model, params, max_len: int,
-                 cache_dtype: Any = torch.float32):
+                 cache_dtype: Any = torch.float32, tracer=None):
         self.model = model
         self.max_len = int(max_len)
         self.cache_dtype = cache_dtype
+        # flight recorder; the scheduler re-binds its own so code-geometry
+        # changes land in the same event stream
+        self.tracer = tracer if tracer is not None else NULL_RECORDER
         self._raw_params = params
         self.params = model.encode_offline(params)
         self.coded = bool(model.ctx.coded)
         self.n_shards = max(int(model.ctx.tp), 1)
         spec = model.ctx.spec
         self.erasure_budget = int(spec.max_device_failures) if spec else 0
+        # wall time of the last parity re-encode (on a CUDA device measured
+        # to the end of its kernels)
+        self.last_reencode_wall_ms: float = 0.0
 
     @property
     def device(self) -> torch.device:
-        return self.params["embed"].device
+        return self._raw_params["embed"].device
 
     # ------------------------------------------------------------ coding ----
+    def _encode(self):
+        """Drop the current parity leaves, then encode new ones from the
+        raw params, recording the wall time. Dropping first keeps one
+        parity set alive instead of two (at full width ~10 GiB at r=2,
+        ~20 GiB at r=4 folded). The caller guarantees that no host code
+        still reads the old leaves; device rounds already queued on the
+        stream keep their memory until they have run (the caching
+        allocator hands freed blocks only to work queued after them)."""
+        self.params = None
+        sync = self.device.type == "cuda"
+        if sync:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.params = self.model.encode_offline(self._raw_params)
+        if sync:
+            torch.cuda.synchronize()
+        self.last_reencode_wall_ms = (time.perf_counter() - t0) * 1e3
+
     def reencode(self):
         """Offline parity re-encode (paper §5.1), after a heal or swap."""
-        self.params = self.model.encode_offline(self._raw_params)
+        self._encode()
 
     def set_code_r(self, code_r: int) -> bool:
         """Re-size the parity budget and re-encode; returns True iff the
@@ -63,11 +89,15 @@ class ModelStepper:
             raise ValueError(f"code_r must be >= 0, got {code_r}")
         if not self.coded or code_r == int(self.model.ctx.code_r):
             return False
+        r_old = int(self.model.ctx.code_r)
         ctx = dataclasses.replace(self.model.ctx, code_r=code_r)
         self.model = dataclasses.replace(self.model, ctx=ctx)
-        self.params = self.model.encode_offline(self._raw_params)
+        self._encode()
         spec = ctx.spec
         self.erasure_budget = int(spec.max_device_failures) if spec else 0
+        if self.tracer.enabled:
+            self.tracer.emit("code.resize", track="rounds", r_old=r_old,
+                             r_new=code_r, budget=self.erasure_budget)
         return True
 
     def _mask(self, valid) -> torch.Tensor | None:

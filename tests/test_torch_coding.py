@@ -1,8 +1,13 @@
 """The port's coding core against the reference, on the same numpy inputs.
 
-T in {2, 4} x r in {1, 2} x both parity layouts x every in-budget mask,
+T in {2, 4} x r in {1, 2}, and T = 4 x r in {3, 4} (the geometries the
+adaptive planner reaches), x both parity layouts x every in-budget mask,
 float32, atol = rtol = 1e-5 (both sides accumulate in float32; only the
-summation order differs).
+summation order differs). A solve for 2+ dead shards with r >= 3 is
+held at 1e-4 (``solve_tol``): the generator rows of degree >= 2 make the
+system ill-conditioned (condition number ~1e3), which amplifies the
+float32 rounding of the residuals, so the two packages' last bits differ
+by up to ~3e-5 there, while both stay within 1e-4 of x @ w.
 """
 import itertools
 
@@ -17,8 +22,14 @@ from repro_torch.core import coded_layer as tcl
 from repro_torch.core import coding as tcoding
 
 TOL = dict(rtol=1e-5, atol=1e-5)
-CASES = [(T, r, layout) for T in (2, 4) for r in (1, 2)
-         for layout in ("folded", "dedicated")]
+
+
+def solve_tol(r: int, mask) -> dict:
+    if r >= 3 and len(mask) - sum(mask) >= 2:
+        return dict(rtol=1e-4, atol=1e-4)
+    return TOL
+TR = [(2, 1), (2, 2), (4, 1), (4, 2), (4, 3), (4, 4)]
+CASES = [(T, r, layout) for T, r in TR for layout in ("folded", "dedicated")]
 
 
 def inbudget_masks(T, budget):
@@ -34,9 +45,9 @@ def _specs(T, r, layout):
             tcl.CodedDenseSpec(tcoding.CodeSpec(T, r), layout=layout))
 
 
-def _close(t, j, msg=""):
+def _close(t, j, msg="", tol=TOL):
     np.testing.assert_allclose(t.detach().cpu().numpy(), np.asarray(j),
-                               err_msg=msg, **TOL)
+                               err_msg=msg, **tol)
 
 
 @pytest.mark.parametrize("T,r", [(T, r) for T in (1, 2, 4, 8)
@@ -46,7 +57,7 @@ def test_generator_matrix_equal(T, r):
                                   jcoding.generator_matrix(T, r))
 
 
-@pytest.mark.parametrize("T,r", [(2, 1), (2, 2), (4, 1), (4, 2)])
+@pytest.mark.parametrize("T,r", TR)
 def test_encode_weights(T, r):
     w = np.random.default_rng(0).normal(size=(T, 16, 12)).astype(np.float32)
     _close(tcoding.encode_weights(torch.from_numpy(w),
@@ -54,7 +65,7 @@ def test_encode_weights(T, r):
            jcoding.encode_weights(jnp.asarray(w), jcoding.CodeSpec(T, r)))
 
 
-@pytest.mark.parametrize("T,r", [(2, 1), (2, 2), (4, 1), (4, 2)])
+@pytest.mark.parametrize("T,r", TR)
 def test_decode_outputs_every_mask(T, r):
     rng = np.random.default_rng(1)
     y = rng.normal(size=(T, 3, 5)).astype(np.float32)
@@ -91,7 +102,7 @@ def test_parity_weights_and_unfold(T, r, layout):
                                       jcl.folded_slot_map(T, r))
 
 
-@pytest.mark.parametrize("T,r", [(2, 1), (2, 2), (4, 1), (4, 2)])
+@pytest.mark.parametrize("T,r", TR)
 def test_decode_folded_every_mask(T, r):
     jspec, tspec = _specs(T, r, "folded")
     rng = np.random.default_rng(3)
@@ -122,7 +133,8 @@ def test_coded_matmul_every_mask(T, r, layout):
                              jnp.asarray(mask))
         t = tcl.coded_matmul(torch.from_numpy(x), torch.from_numpy(w), tp,
                              tspec, np.array(mask))
-        _close(t, j, f"{layout} T={T} r={r} mask={mask}")
+        _close(t, j, f"{layout} T={T} r={r} mask={mask}",
+               solve_tol(r, mask))
         np.testing.assert_allclose(t.numpy(), x @ w, rtol=1e-4, atol=1e-4)
     # uncoded: no mask is a plain merge of x @ w
     _close(tcl.coded_matmul(torch.from_numpy(x), torch.from_numpy(w), tp,

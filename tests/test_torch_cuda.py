@@ -34,3 +34,12 @@ def test_coded_matmul_kernel_matches_plain(smoke):
 def test_fused_head_kernel_matches_plain(smoke):
     from repro_torch.configs import get_arch
     assert smoke.check_fused_head(get_arch("granite-3-8b")) <= 1e-4
+
+
+def test_encode_kernel_matches_plain(smoke):
+    from repro_torch.configs import get_arch
+    assert smoke.check_encode(get_arch("granite-3-8b")) <= 1e-5
+
+
+def test_coded_matmul_kernel_at_r3_r4_matches_plain(smoke):
+    assert smoke.check_coded_matmul_r34() <= 1e-4

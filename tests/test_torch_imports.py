@@ -72,3 +72,26 @@ def test_serve_runs_on_cpu_when_asked(capsys):
                        "--fail-step", "1", "--fail-shard", "2"])
     assert toks.shape == (2, 4)
     assert "erasures_recovered': 1" in capsys.readouterr().out
+
+
+def test_loading_every_port_module_loads_neither_jax_nor_reference():
+    """Import every module of the port in a fresh interpreter: neither jax
+    nor the reference package may end up in sys.modules, whatever the
+    import graph pulls in at run time."""
+    import os
+    import subprocess
+    import sys
+    mods = sorted(
+        ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+        .removesuffix(".__init__")
+        for p in (ROOT / "src" / "repro_torch").rglob("*.py"))
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr
+    assert len(mods) >= 30

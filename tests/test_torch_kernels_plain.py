@@ -3,7 +3,9 @@ kernels, the Eq. 12 decode plan and the dispatch ladder, against the
 reference package on the same numpy inputs.
 
 Tolerances: the plain versions repeat the reference oracles' float32
-arithmetic, so they agree to 1e-5; against the reference's Pallas kernels
+arithmetic, so they agree to 1e-5 (1e-4 for a solve for 2+ dead shards
+at r >= 3, whose conditioning amplifies rounding; see
+tests/test_torch_coding.py); against the reference's Pallas kernels
 (run in interpret mode, as the reference's own tests run them) 1e-4, the
 reference's own kernel-vs-reference bound (TOL in
 tests/test_kernels_conformance.py).
@@ -28,7 +30,8 @@ from repro_torch.kernels import ref as tref
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 KTOL = dict(rtol=1e-4, atol=1e-4)
-CASES = [(T, r, layout) for T in (2, 4) for r in (1, 2)
+CASES = [(T, r, layout)
+         for T, r in ((2, 1), (2, 2), (4, 1), (4, 2), (4, 3), (4, 4))
          for layout in ("folded", "dedicated")]
 
 
@@ -124,7 +127,8 @@ def test_fused_coded_matmul_matches_reference_ops(T, r, layout):
         oracle = jops.fused_coded_matmul(jnp.asarray(x3), jnp.asarray(w),
                                          jnp.asarray(jp), jspec, v,
                                          use_pallas=False)
-        close(t, oracle, msg=f"{layout} T={T} r={r} mask={mask}")
+        close(t, oracle, KTOL if r >= 3 and T - sum(mask) >= 2 else TOL,
+              msg=f"{layout} T={T} r={r} mask={mask}")
         if sum(mask) >= T - 1 and T == 4 and r == 2:
             pallas = jops.fused_coded_matmul(jnp.asarray(x3),
                                              jnp.asarray(w), jnp.asarray(jp),
@@ -284,3 +288,69 @@ def test_kernel_cost_models_match_reference():
               ("float32", [4, 4096, 12292]), ("float32", [4096, 12292])]
     assert tops.KERNEL_COSTS["cdc_fused_head_argmax"](out, ops_in) == \
         jops.KERNEL_COSTS["cdc_fused_head_argmax_pallas"](out, ops_in)
+
+
+# ------------------------------------------------------ parity encode ----
+
+ETOL = dict(rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("T,r", [(T, r) for T in (2, 4)
+                                 for r in range(1, T + 1)])
+def test_encode_plain_matches_reference_kernel(T, r):
+    """ref.cdc_encode_ref and ops.cdc_encode on CPU tensors == the
+    reference's ops.cdc_encode (its Pallas kernel in interpret mode) at
+    the Pallas blocks, k = m_l = 256, within 1e-6; a stacked [L, T, k,
+    m_l] input encodes every layer in one call."""
+    rng = np.random.default_rng(10 + 8 * T + r)
+    w = rng.normal(size=(T, 256, 256)).astype(np.float32)
+    gen = jcoding.generator_matrix(T, r)
+    want = np.asarray(jops.cdc_encode(jnp.asarray(w), gen))
+    g32 = torch.from_numpy(gen.astype(np.float32))
+    close(tref.cdc_encode_ref(torch.from_numpy(w), g32), want, ETOL)
+    close(tops.cdc_encode(torch.from_numpy(w), gen), want, ETOL)
+    stacked = tops.cdc_encode(torch.from_numpy(np.stack([w, -w])), gen)
+    assert stacked.shape == (2, r, 256, 256)
+    close(stacked[1], -want, ETOL)
+
+
+@pytest.mark.parametrize("T,r,layout", [(2, 2, "folded")] + [
+    (4, r, layout) for r in (1, 2, 3, 4)
+    for layout in ("folded", "dedicated")])
+def test_encode_layouts_match_reference_parity_weights(T, r, layout):
+    """Ragged shapes (k = 37, m_l = 5 T) in both layouts: the port's
+    make_parity_weights (through ops.cdc_encode) equals the reference's,
+    for one layer and stacked, and ops.cdc_encode reads the shards as a
+    strided view of the raw weight."""
+    jspec, tspec = specs(T, r, layout)
+    rng = np.random.default_rng(20 + r)
+    w = rng.normal(size=(37, T * T * 5)).astype(np.float32)
+    want = np.asarray(jcl.make_parity_weights(jnp.asarray(w), jspec))
+    got = tcl.make_parity_weights(torch.from_numpy(w), tspec)
+    close(got, want)
+    view = torch.from_numpy(w).reshape(37, T, -1).permute(1, 0, 2)
+    assert not view.is_contiguous()
+    close(tops.cdc_encode(view, tspec.code.generator, layout=layout), want)
+    w3 = np.stack([w, 2 * w])
+    close(tcl.make_parity_weights(torch.from_numpy(w3), tspec),
+          jcl.make_parity_weights(jnp.asarray(w3), jspec))
+
+
+def test_encode_refuses_what_it_cannot_run():
+    T, r = 4, 2
+    gen = jcoding.generator_matrix(T, r)
+    w = torch.zeros((T, 8, 8))
+    with pytest.raises(ValueError, match="unsupported device"):
+        tops.cdc_encode(w.to("meta"), gen)
+    with pytest.raises(ValueError, match="unknown layout"):
+        tops.cdc_encode(w, gen, layout="striped")
+    with pytest.raises(ValueError, match="not divisible"):
+        tcl.make_parity_weights(torch.zeros((8, 10)),
+                                tcl.CodedDenseSpec(tcoding.CodeSpec(T, r)))
+
+
+def test_encode_cost_model_matches_reference():
+    out = [("float32", [2, 4096, 3200])]
+    ops_in = [("float32", [2, 4]), ("float32", [4, 4096, 3200])]
+    assert tops.KERNEL_COSTS["cdc_encode"](out, ops_in) == \
+        jops.KERNEL_COSTS["cdc_encode_pallas"](out, ops_in)
