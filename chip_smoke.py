@@ -9,11 +9,15 @@ Phases, each of which raises on failure (exit code non-zero):
   2. hold each kernel against its plain PyTorch version on the card, at
      granite-3-8b's full-width shapes: the parity encode (rtol = atol =
      1e-5; wq, wk, w1 stacked over 40 layers and the head, r = 1..4, both
-     layouts, a ragged shape, T = 2 and 8), the coded GEMM and the fused
-     head under the all-valid mask and every single dead shard (float32,
-     rtol = atol = 1e-4; the coded GEMM also at (T, r) = (4, 3) dedicated
-     and (4, 4) folded), plus an rmsnorm-fold case and a constructed
-     argmax tie across two vocabulary tiles;
+     layouts, a ragged shape, T = 2, 8 and 16), the coded GEMM and the
+     fused head under the all-valid mask and every single dead shard
+     (float32, rtol = atol = 1e-4; the coded GEMM also at (T, r) = (4, 3)
+     dedicated, (4, 4) folded, and (8, 3) and (8, 4) in both layouts),
+     plus an rmsnorm-fold case and a constructed argmax tie across two
+     vocabulary tiles; the decode-and-merge and the r=1 decode (1e-5,
+     every mask with <= 1 dead, a NaN in the dead shard), the RMSNorm
+     (1e-5) and the blocked GEMM (1e-4, TF32 off), bf16 where a kernel
+     takes it (2e-2, GEMM 5e-2);
   3. serve granite-3-8b at full width (40 layers, d 4096, T=4, r=2 folded,
      float32, random weights from a seeded torch.Generator) through
      ServingEngine.generate: 4 requests, prompt 16, 16 new tokens, fault
@@ -21,7 +25,8 @@ Phases, each of which raises on failure (exit code non-zero):
      token streams must be identical and every fused round must launch the
      coded-GEMM kernel 200 times and the fused head once;
   4. time each kernel at its main-path shape with CUDA events beside its
-     plain version, one library call and its bandwidth/compute bound;
+     plain version, one library call and its bandwidth/compute bound
+     (kernels 3, 5, 6 and 7 at the shapes of their own paths);
   5. serve granite-3-8b at full width through the port's serving entry
      point (launch.serve: the continuous-batching scheduler, SimClock, 4
      slots, 8 requests 2 ms apart, prompt 16, 16 new tokens) fault-free,
@@ -31,7 +36,17 @@ Phases, each of which raises on failure (exit code non-zero):
      recovers in-step, requeues beyond the budget and re-encodes, the
      planner reaches r=4, every encode launches the encode kernel once per
      parity leaf, and a re-encode of unchanged weights is bitwise equal;
-     the re-encode is timed per leaf and whole.
+     the re-encode is timed per leaf and whole;
+  6. run the paper's coded-cost study through its port
+     (launch.coded_overhead: run() and run_kernels() at the reference's
+     defaults, T in {4, 8, 16} x r in {1, 2}), print its rows, require the
+     r=1 decode, GEMM and encode kernels to have launched and the coded
+     outputs to equal x @ w (within the budget);
+  7. drive decode_and_merge(use_fused=True), the decode-and-merge kernel's
+     library entry, on a coded GEMM's shard outputs at granite widths with
+     each shard dead in turn.
+Phases 3 and 5 also count the RMSNorm kernel: 2 x 40 + 1 = 81 launches
+per decode round (fused and reference variants) and per prefill.
 Peak device memory is printed per phase. The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 """
@@ -70,13 +85,13 @@ def card_line() -> str:
 # ------------------------------------------------------------ phase 2 ----
 
 def _coded_case(m_l: int, rows: int, layout: str, gen: torch.Generator,
-                k: int = K, r: int = R):
+                k: int = K, r: int = R, t: int = T):
     from repro_torch.core.coded_layer import (CodedDenseSpec,
                                               make_parity_weights)
     from repro_torch.core.coding import CodeSpec
-    spec = CodedDenseSpec(CodeSpec(T, r), layout=layout)
+    spec = CodedDenseSpec(CodeSpec(t, r), layout=layout)
     x = torch.randn((rows, k), generator=gen, device="cuda")
-    w = torch.randn((k, T * m_l), generator=gen, device="cuda") / k ** 0.5
+    w = torch.randn((k, t * m_l), generator=gen, device="cuda") / k ** 0.5
     return spec, x, w, make_parity_weights(w, spec)
 
 
@@ -85,20 +100,21 @@ def _run_coded(x, w, wc, spec, valid, gamma=None, plain=False):
     tensors) behind ops.fused_coded_matmul, for one mask."""
     from repro_torch.kernels import cdc_matmul, ops
     vh = tuple(bool(v) for v in valid)
-    m_l = w.shape[1] // T
-    r = spec.code.n_parity
+    t, r = spec.code.n_shards, spec.code.n_parity
+    m_l = w.shape[1] // t
     esel, coef, g = ops.decode_plan(spec, vh, vh, m_l, str(x.device))
     if plain:
-        return cdc_matmul.coded_matmul_plain(x, w, wc, spec.layout, T, r, g,
+        return cdc_matmul.coded_matmul_plain(x, w, wc, spec.layout, t, r, g,
                                              esel, coef, vh, gamma)
-    return cdc_matmul.cdc_coded_matmul(x, w, wc, spec.layout, T, r, g, esel,
+    return cdc_matmul.cdc_coded_matmul(x, w, wc, spec.layout, t, r, g, esel,
                                        coef, vh, gamma=gamma)
 
 
-def _masks():
-    yield (True,) * T
-    for d in range(T):
-        yield tuple(i != d for i in range(T))
+def _masks(t: int = T):
+    """The all-valid mask and every single dead shard."""
+    yield (True,) * t
+    for d in range(t):
+        yield tuple(i != d for i in range(t))
 
 
 def check_coded_matmul() -> float:
@@ -219,6 +235,223 @@ def check_coded_matmul_r34() -> float:
     return worst
 
 
+def check_coded_matmul_t8() -> float:
+    """Kernel 1 at the cases the planner reaches at T=8 folded (r = 2 x
+    the default budget of 2 = 4) and (8, 3): both layouts, granite-3-8b's
+    coded GEMM widths divided by 8 (wq 512, wk 128, w1 1600), 4 rows, the
+    all-valid mask and every single dead shard."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    worst, n = 0.0, 0
+    for r in (3, 4):
+        for layout in ("folded", "dedicated"):
+            for m_l in (512, 128, 1600):
+                spec, x, w, wc = _coded_case(m_l, 4, layout, gen, r=r, t=8)
+                for valid in _masks(8):
+                    got = _run_coded(x, w, wc, spec, valid)
+                    want = _run_coded(x, w, wc, spec, valid, plain=True)
+                    torch.cuda.synchronize()
+                    torch.testing.assert_close(got, want, **TOL,
+                                               msg=lambda m: (
+                        f"coded matmul (8, {r}) {layout} m_l={m_l} "
+                        f"mask={valid}: {m}"))
+                    worst = max(worst, float((got - want).abs().max()))
+                    n += 1
+    log(f"kernel cdc_coded_matmul at (T, r) = (8, 3) and (8, 4), both "
+        f"layouts: {n} cases within rtol=atol=1e-4 of the plain version, "
+        f"max abs err {worst:.3e}")
+    return worst
+
+
+def _dm_plan(spec, valid, m_l):
+    from repro_torch.kernels import ops
+    vh = tuple(bool(v) for v in valid)
+    esel, coef, g = ops.decode_plan(spec, vh, vh, m_l, "cuda")
+    return vh, esel, coef, g
+
+
+def check_decode_merge() -> float:
+    """Kernel 3 vs its plain version (rtol = atol = 1e-5 at float32, 2e-2
+    at bf16): T in {2, 4, 8} x r in {1, 2} x both layouts x every mask
+    with <= 1 dead x rows in {4, 64} x m_l in {3200 (granite w1), 1024
+    (wq), 100 (ragged; 104 folded at T=8, which needs m_l % 8 == 0)}. The
+    dead shard's outputs are NaN: the select must keep them out. 2 dead
+    shards must take the reference decode_and_merge, launching nothing."""
+    from repro_torch.core.coded_layer import CodedDenseSpec, decode_and_merge
+    from repro_torch.core.coding import CodeSpec
+    from repro_torch.kernels import cdc_matmul, ops
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    worst, n = 0.0, 0
+    cases = [(t, r, layout, rows, m_l, torch.float32)
+             for t in (2, 4, 8) for r in (1, 2)
+             for layout in ("folded", "dedicated") for rows in (4, 64)
+             for m_l in (3200, 1024, 104 if layout == "folded" and t == 8
+                         else 100)]
+    cases += [(4, 2, "folded", 4, 3200, torch.bfloat16),
+              (8, 1, "dedicated", 64, 100, torch.bfloat16)]
+    for t, r, layout, rows, m_l, dt in cases:
+        spec = CodedDenseSpec(CodeSpec(t, r), layout=layout)
+        ys = torch.randn((t, rows, m_l), generator=gen, device="cuda")
+        pshape = (t, rows, r * m_l // t) if layout == "folded" \
+            else (r, rows, m_l)
+        par = torch.randn(pshape, generator=gen, device="cuda").to(dt)
+        for valid in _masks(t):
+            yv = ys.clone()
+            for d in range(t):
+                if not valid[d]:
+                    yv[d] = float("nan")
+            yv = yv.to(dt)
+            vh, esel, coef, g = _dm_plan(spec, valid, m_l)
+            got = cdc_matmul.cdc_decode_merge(yv, par, layout, t, r, g, esel,
+                                              coef, vh)
+            want = cdc_matmul.decode_merge_plain(yv, par, layout, t, r, g,
+                                                 esel, coef, vh)
+            torch.cuda.synchronize()
+            tol = 1e-5 if dt == torch.float32 else 2e-2
+            torch.testing.assert_close(got, want, rtol=tol, atol=tol,
+                                       msg=lambda m: (
+                f"decode_merge T={t} r={r} {layout} rows={rows} m_l={m_l} "
+                f"{dt} mask={valid}: {m}"))
+            if dt == torch.float32:
+                worst = max(worst, float((got - want).abs().max()))
+            n += 1
+    # 2 dead shards (in budget for dedicated r=2): the reference path,
+    # bit for bit, and no kernel launch
+    spec = CodedDenseSpec(CodeSpec(4, 2), layout="dedicated")
+    ys = torch.randn((4, 2, 3, 1024), generator=gen, device="cuda")
+    par = torch.randn((2, 2, 3, 1024), generator=gen, device="cuda")
+    two_dead = np.array([True, False, True, False])
+    before = cdc_matmul.cdc_decode_merge.launches
+    got = ops.fused_decode_merge(ys, par, spec, two_dead)
+    if cdc_matmul.cdc_decode_merge.launches != before or not torch.equal(
+            got, decode_and_merge(ys, par, spec, two_dead)):
+        raise AssertionError("2 dead shards must take the reference "
+                             "decode_and_merge without a kernel launch")
+    log(f"kernel cdc_decode_merge: {n} cases (T = 2, 4, 8; r = 1, 2; both "
+        f"layouts; rows 4, 64; m_l 3200, 1024, ragged; NaN in the dead "
+        f"shard; 2 bf16 sets) within rtol=atol=1e-5 (bf16 2e-2) of the "
+        f"plain version, max abs err {worst:.3e}; 2 dead -> the reference "
+        f"path")
+    return worst
+
+
+def check_decode() -> float:
+    """Kernel 5 vs its plain version (rtol = atol = 1e-5 at float32, 2e-2
+    at bf16): T in {2, 4, 8, 16} at [T, 256, 512] (the study's shape) and
+    [T, 4, 3200], all valid and every single dead shard; a NaN in the dead
+    shard must propagate exactly as in the plain version (multiply
+    semantics); 2 dead shards must raise."""
+    from repro_torch.kernels import cdc_decode, ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    worst, n = 0.0, 0
+    cases = [(t, shape, torch.float32) for t in (2, 4, 8, 16)
+             for shape in ((256, 512), (4, 3200))]
+    cases += [(8, (256, 512), torch.bfloat16), (4, (4, 3200), torch.bfloat16)]
+    for t, shape, dt in cases:
+        y = torch.randn((t,) + shape, generator=gen, device="cuda")
+        p = y.sum(0).to(dt)
+        y = y.to(dt)
+        for valid in _masks(t):
+            got = cdc_decode.cdc_decode(y, p, valid)
+            want = ref.cdc_decode_ref(y, p, torch.tensor(valid,
+                                                          device="cuda"))
+            torch.cuda.synchronize()
+            tol = 1e-5 if dt == torch.float32 else 2e-2
+            torch.testing.assert_close(got, want, rtol=tol, atol=tol,
+                                       msg=lambda m: (
+                f"decode T={t} {shape} {dt} mask={valid}: {m}"))
+            if dt == torch.float32:
+                worst = max(worst, float((got - want).abs().max()))
+            n += 1
+    y = torch.randn((4, 4, 3200), generator=gen, device="cuda")
+    p = y.sum(0)
+    y[1, :, ::7] = float("nan")
+    valid = (True, False, True, True)
+    got = cdc_decode.cdc_decode(y, p, valid)
+    want = ref.cdc_decode_ref(y, p, torch.tensor(valid, device="cuda"))
+    torch.cuda.synchronize()
+    if not (torch.equal(got.isnan(), want.isnan()) and got.isnan().any()):
+        raise AssertionError("a NaN in the dead shard must propagate as in "
+                             "the plain version")
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5,
+                               equal_nan=True)
+    try:
+        ops.cdc_decode(y, p, (True, False, False, True))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("cdc_decode must refuse 2 dead shards")
+    log(f"kernel cdc_decode: {n} cases (T = 2, 4, 8, 16 at [T, 256, 512] "
+        f"and [T, 4, 3200], every single erasure, 2 bf16 sets) within "
+        f"rtol=atol=1e-5 (bf16 2e-2), max abs err {worst:.3e}; NaN in the "
+        f"dead shard propagates as in the plain version; 2 dead raise")
+    return worst
+
+
+def check_rmsnorm() -> float:
+    """Kernel 6 vs its plain version at d = 4096, eps = 1e-5: rows in {1,
+    4, 64, 3000} at float32 (rtol = atol = 1e-5), a [4, 16, 4096] input
+    (leading dimensions flattened) and its last positions (rows at a
+    stride), and bf16 at 4 and 64 rows (2e-2)."""
+    from repro_torch.kernels import ref, rmsnorm
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    g = 1.0 + 0.1 * torch.randn(K, generator=gen, device="cuda")
+    worst, n = 0.0, 0
+    cases = [((rows, K), torch.float32) for rows in (1, 4, 64, 3000)]
+    cases += [((4, 16, K), torch.float32), ((4, 16, K), "last"),
+              ((4, K), torch.bfloat16), ((64, K), torch.bfloat16)]
+    for shape, dt in cases:
+        x = 3.0 * torch.randn(shape, generator=gen, device="cuda")
+        if dt == "last":       # the last position of each row: strided rows
+            x, dt = x[:, -1:], torch.float32
+        x = x.to(dt)
+        got = rmsnorm.rmsnorm(x, g, eps=1e-5)
+        want = ref.rmsnorm_ref(x, g, 1e-5)
+        torch.cuda.synchronize()
+        tol = 1e-5 if dt == torch.float32 else 2e-2
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol,
+                                   msg=lambda m: f"rmsnorm {shape} {dt}: {m}")
+        if dt == torch.float32:
+            worst = max(worst, float((got - want).abs().max()))
+        n += 1
+    log(f"kernel rmsnorm: {n} cases (rows 1, 4, 64, 3000, [4, 16, 4096] "
+        f"and its strided last positions at float32, d = 4096, eps = 1e-5; "
+        f"bf16 at 4 and 64 rows) within "
+        f"rtol=atol=1e-5 (bf16 2e-2), max abs err {worst:.3e}")
+    return worst
+
+
+def check_matmul() -> float:
+    """Kernel 7 vs its plain version with TF32 off (rtol = atol = 1e-4):
+    (512, 512, 512), granite's Wo at 4 rows (4, 4096, 4096) and a ragged
+    (100, 300, 70); bf16 in with bf16 and float32 out at 512^3 (5e-2)."""
+    from repro_torch.kernels import matmul, ref
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    worst, n = 0.0, 0
+    cases = [((512, 512, 512), torch.float32, None),
+             ((4, 4096, 4096), torch.float32, None),
+             ((100, 300, 70), torch.float32, None),
+             ((512, 512, 512), torch.bfloat16, None),
+             ((512, 512, 512), torch.bfloat16, torch.float32)]
+    for (m, k, nn), dt, odt in cases:
+        x = torch.randn((m, k), generator=gen, device="cuda").to(dt)
+        w = (torch.randn((k, nn), generator=gen, device="cuda")
+             / k ** 0.5).to(dt)
+        got = matmul.matmul(x, w, out_dtype=odt)
+        want = ref.matmul_ref(x, w, odt)
+        torch.cuda.synchronize()
+        tol = 1e-4 if dt == torch.float32 else 5e-2
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol,
+                                   msg=lambda s: (f"matmul ({m}, {k}, {nn}) "
+                                                  f"{dt} -> {odt}: {s}"))
+        if dt == torch.float32:
+            worst = max(worst, float((got - want).abs().max()))
+        n += 1
+    log(f"kernel matmul: {n} cases ((512, 512, 512), (4, 4096, 4096), "
+        f"ragged (100, 300, 70) at float32 with TF32 off; bf16 in at 512^3) "
+        f"within rtol=atol=1e-4 (bf16 5e-2), max abs err {worst:.3e}")
+    return worst
+
+
 def _shards(w: torch.Tensor, t: int) -> torch.Tensor:
     """[(L,) k, m] -> the [(L,) t, k, m/t] column-shard view (no copy)."""
     return w.reshape(w.shape[:-1] + (t, w.shape[-1] // t)).movedim(-2, -3)
@@ -242,6 +475,9 @@ def check_encode(cfg) -> float:
               ("ragged", (1000, T * 100), T, 3, "dedicated"),
               ("T=2", (K, 2 * 1024), 2, 1, "dedicated"),
               ("T=8", (K, 8 * 256), 8, 4, "folded")]
+    # T=16 (the coded-overhead study's widest code), r = 1..4
+    cases += [("T=16", (K, 16 * 256), 16, r, layout) for r in range(1, 5)
+              for layout in ("folded", "dedicated")]
     worst, w, current = 0.0, None, None
     for name, shape, t, r, layout in cases:
         if current != (name, shape):
@@ -263,8 +499,8 @@ def check_encode(cfg) -> float:
     torch.cuda.empty_cache()
     log(f"kernel cdc_encode: {len(cases)} cases (wq, wk, w1 stacked over "
         f"{L} layers and the head at T=4, r=1..4, both layouts; ragged "
-        f"m_l=100, k=1000; T=2; T=8) within rtol=atol=1e-5 of the plain "
-        f"version, max abs err {worst:.3e}")
+        f"m_l=100, k=1000; T=2; T=8; T=16 at r=1..4, both layouts) within "
+        f"rtol=atol=1e-5 of the plain version, max abs err {worst:.3e}")
     return worst
 
 
@@ -277,8 +513,14 @@ def _phase_memory(name: str):
 
 # ------------------------------------------------------------ phase 3 ----
 
+def norms_per_pass(cfg) -> int:
+    """RMSNorm launches of one model pass (a decode round or a prefill):
+    two per layer and the final norm."""
+    return 2 * cfg.n_layers + 1
+
+
 def serve_full_width(cfg) -> dict:
-    from repro_torch.kernels import cdc_decode, cdc_matmul
+    from repro_torch.kernels import cdc_decode, cdc_matmul, rmsnorm
     from repro_torch.models import TPCtx, build
     from repro_torch.serve import ServeConfig, ServingEngine
     model = build(cfg, TPCtx(tp=T, mode="coded", code_r=R))
@@ -297,6 +539,7 @@ def serve_full_width(cfg) -> dict:
     def run(eng, fail_at=None):
         cdc_matmul.cdc_coded_matmul.launches = 0
         cdc_decode.cdc_fused_head_argmax.launches = 0
+        rmsnorm.rmsnorm.launches = 0
         torch.cuda.synchronize()
         t = time.perf_counter()
         toks = eng.generate(batch, n_tok, fail_at=fail_at)
@@ -305,6 +548,7 @@ def serve_full_width(cfg) -> dict:
         return {"tokens": toks, "seconds": time.perf_counter() - t,
                 "k1": cdc_matmul.cdc_coded_matmul.launches,
                 "k2": cdc_decode.cdc_fused_head_argmax.launches,
+                "k6": rmsnorm.rmsnorm.launches,
                 "round_ms": list(ex.round_ms[-(n_tok - 1):]),
                 "variants": ex.vstep.last_variant}
 
@@ -324,15 +568,25 @@ def serve_full_width(cfg) -> dict:
     del ref_eng
     peak = torch.cuda.max_memory_allocated()
     rounds = n_tok - 1
+    gemms = 5 * cfg.n_layers          # wq, wk, wv, w1, w3 in every layer
     for name, res in (("fault-free", clean), ("shard 2 dead at step 4",
                                               faulty)):
-        if res["k1"] != 200 * rounds or res["k2"] != rounds:
+        if res["k1"] != gemms * rounds or res["k2"] != rounds:
             raise AssertionError(
                 f"{name}: {res['k1']} coded-GEMM and {res['k2']} head "
                 f"launches over {rounds} fused rounds; expected "
-                f"{200 * rounds} and {rounds}")
+                f"{gemms * rounds} and {rounds}")
     if reference["k1"] or reference["k2"]:
         raise AssertionError("the reference variant launched a kernel")
+    # every round and every prefill (one per request) runs its norms
+    # through kernel 6, in the fused and the reference variant alike
+    norms = norms_per_pass(cfg)
+    for name, res in (("fault-free", clean), ("erasure", faulty),
+                      ("reference", reference)):
+        if res["k6"] != norms * (rounds + 4):
+            raise AssertionError(
+                f"{name}: {res['k6']} rmsnorm launches; expected {norms} "
+                f"per round x {rounds} rounds + {norms} per prefill x 4")
     for name, res in (("erasure", faulty), ("reference", reference)):
         if not np.array_equal(res["tokens"], clean["tokens"]):
             raise AssertionError(
@@ -349,13 +603,15 @@ def serve_full_width(cfg) -> dict:
         f"streams, {overlapped['period_ms']:.3f} ms per round (wall time "
         f"of {n_tok} steps / {n_tok})")
     log(f"launches per fused round: {clean['k1'] // rounds} coded-GEMM + "
-        f"{clean['k2'] // rounds} fused head")
+        f"{clean['k2'] // rounds} fused head + {norms} rmsnorm (and {norms} "
+        f"rmsnorm per prefill; the reference variant {norms} per round)")
     log(f"fused round median {med:.3f} ms (erasure run "
         f"{float(np.median(faulty['round_ms'])):.3f} ms, reference variant "
         f"{float(np.median(reference['round_ms'])):.3f} ms); "
         f"{4 * 1e3 / med:.1f} tokens/s at 4 slots; "
         f"max_memory_allocated {peak / 2 ** 30:.2f} GiB")
-    return {"k1": clean["k1"], "k2": clean["k2"], "breakdown": breakdown}
+    return {"k1": clean["k1"], "k2": clean["k2"], "k6": clean["k6"],
+            "breakdown": breakdown}
 
 
 def run_overlapped(stepper, batch, n_tok: int) -> dict:
@@ -487,7 +743,168 @@ def time_kernels(cfg, rows: int = 4) -> list[dict]:
     log(f"cdc_fused_head_argmax [b={rows}, k={K}, m_l={m_l}]: kernel "
         f"{ms:.4f} ms, plain {plain:.4f} ms, library matmul {lib:.4f} ms, "
         f"bound {bound:.4f} ms ({by})")
+    del w, w_shards, pw, wcat
+    out += time_small_kernels(gen, flush)
     return out
+
+
+def _row(out: list, kernel: str, shape: str, ms: float, plain: float,
+         lib: float | None, nbytes: float, flops: float):
+    bound, by = _bound(nbytes, flops)
+    out.append({"kernel": kernel, "shape": shape, "ms": ms,
+                "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
+                "bound_by": by})
+    log(f"{kernel} {shape}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"library {'none' if lib is None else f'{lib:.4f} ms'}, bound "
+        f"{bound:.4f} ms ({by})")
+
+
+def time_small_kernels(gen, flush) -> list[dict]:
+    """Kernels 3, 5, 6 and 7 at the shapes of their paths: the decode +
+    merge at granite w1 (T=4, r=2 folded, shard 2 dead), the r=1 decode
+    at the study's shape and at w1's, the norm at the serving round's 4
+    and a prefill's 64 rows, the GEMM at the study's 512^3 and at
+    granite's Wo with 4 rows. Bounds count the bytes these inputs need:
+    the decodes read the live shards and the one selected parity (kernel
+    3) or every shard and the parity (kernel 5)."""
+    import torch.nn.functional as F
+    from repro_torch.core.coded_layer import CodedDenseSpec
+    from repro_torch.core.coding import CodeSpec
+    from repro_torch.kernels import (cdc_decode, cdc_matmul, matmul, ref,
+                                     rmsnorm)
+    out: list[dict] = []
+    spec = CodedDenseSpec(CodeSpec(T, R))
+    m_l = GEMMS["w1"]
+    dead2 = (True, True, False, True)
+    vh, esel, coef, g = _dm_plan(spec, dead2, m_l)
+    for rows in (4, 64):
+        ys = torch.randn((T, rows, m_l), generator=gen, device="cuda")
+        par = torch.randn((T, rows, R * m_l // T), generator=gen,
+                          device="cuda")
+        ms = _time(lambda: cdc_matmul.cdc_decode_merge(
+            ys, par, "folded", T, R, g, esel, coef, vh), flush)
+        plain = _time(lambda: cdc_matmul.decode_merge_plain(
+            ys, par, "folded", T, R, g, esel, coef, vh), flush)
+        _row(out, "cdc_decode_merge", f"[{T}, {rows}, {m_l}] r={R} folded",
+             ms, plain, None, 4.0 * (2 * T * rows * m_l) + 8.0 * m_l,
+             rows * m_l * (2.0 * T + 2))
+    for t, shape in ((8, (256, 512)), (4, (4, 3200))):
+        y = torch.randn((t,) + shape, generator=gen, device="cuda")
+        p = y.sum(0)
+        valid = tuple(i != t // 2 for i in range(t))
+        vt = torch.tensor(valid, device="cuda")
+        n = p.numel()
+        ms = _time(lambda: cdc_decode.cdc_decode(y, p, valid), flush)
+        plain = _time(lambda: ref.cdc_decode_ref(y, p, vt), flush)
+        _row(out, "cdc_decode", str([t, *shape]), ms, plain, None,
+             4.0 * (2 * t + 1) * n, n * (3.0 * t + 1))
+    gam = 1.0 + 0.1 * torch.randn(K, generator=gen, device="cuda")
+    for rows in (4, 64):
+        x = torch.randn((rows, K), generator=gen, device="cuda")
+        ms = _time(lambda: rmsnorm.rmsnorm(x, gam, eps=1e-5), flush)
+        plain = _time(lambda: ref.rmsnorm_ref(x, gam, 1e-5), flush)
+        lib = _time(lambda: F.rms_norm(x, (K,), gam, 1e-5), flush)
+        _row(out, "rmsnorm", f"[{rows}, {K}]", ms, plain, lib,
+             4.0 * (2 * rows * K + K), 4.0 * rows * K)
+    for m, k, n in ((512, 512, 512), (4, K, K)):
+        x = torch.randn((m, k), generator=gen, device="cuda")
+        w = torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5
+        ms = _time(lambda: matmul.matmul(x, w), flush)
+        plain = _time(lambda: ref.matmul_ref(x, w), flush)
+        lib = _time(lambda: torch.matmul(x, w), flush)
+        _row(out, "matmul", f"[{m}, {k}] @ [{k}, {n}]", ms, plain, lib,
+             4.0 * (m * k + k * n + m * n), 2.0 * m * k * n)
+    return out
+
+
+# ------------------------------------------------------- phase 6 ----
+
+def run_study(device: str = "cuda") -> dict:
+    """The paper's coded-cost study through its port
+    (``launch.coded_overhead``), at the reference's defaults: ``run``
+    (T in {4, 8, 16} x r in {1, 2} folded, the encode kernel at T = 16
+    included) and ``run_kernels`` (kernels 5 and 7). The counts are read
+    around the two calls. The coded outputs are checked against x @ w:
+    exact to 1e-4 with every shard alive, and with shard 1 dead at r = 2;
+    at r = 1 folded (no device failure in budget) the 'recovering' output
+    is beyond the budget, in this port as in the reference, and only its
+    distance from x @ w is reported."""
+    from repro_torch.launch import coded_overhead as study
+    wrappers = _kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = study.run(device=device)
+    krows = study.run_kernels(device)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    for name in ("cdc_decode", "matmul", "cdc_encode"):
+        if not launches[name]:
+            raise AssertionError(f"the study launched no {name}: {launches}")
+    if [(r["T"], r["r"]) for r in rows] != [(t, r) for t in (4, 8, 16)
+                                            for r in (1, 2)]:
+        raise AssertionError(f"study sweep {rows}")
+    errs = {}
+    for c in study.study_cases(device=device):
+        exact = c.x @ c.w
+        coded = float((c.coded(c.x) - exact).abs().max())
+        rec = float((c.recovering(c.x) - exact).abs().max())
+        if coded > 1e-4 or (c.r == 2 and rec > 1e-4):
+            raise AssertionError(f"study T={c.T} r={c.r}: coded err {coded}"
+                                 f", recovering err {rec}")
+        errs[f"T={c.T},r={c.r}"] = {"coded": coded, "recovering": rec}
+    log(f"coded-overhead study on the card ({secs:.1f} s, launches "
+        f"{launches}):")
+    for r in rows + krows:
+        log(f"  {r}")
+    log("  max |out - x @ w|: " + "; ".join(
+        f"{k} coded {v['coded']:.2e} recovering {v['recovering']:.2e}"
+        for k, v in errs.items()) + " (r=1 folded with shard 1 dead is "
+        "beyond the budget)")
+    return {"run": rows, "kernels": krows, "launches": launches,
+            "errors": errs}
+
+
+def decode_merge_entry() -> dict:
+    """``core.decode_and_merge(use_fused=True)``, kernel 3's library entry,
+    on a coded GEMM's own shard and parity outputs at granite's w1 and wq
+    widths (4 rows, T=4, r=2 folded), each shard dead in turn with NaN
+    outputs: it must rebuild x @ w, equal the reference decode_and_merge
+    to 1e-5 and launch kernel 3 once per call."""
+    from repro_torch.core.coded_layer import decode_and_merge
+    from repro_torch.kernels import cdc_matmul
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    cdc_matmul.cdc_decode_merge.launches = 0
+    n, worst = 0, 0.0
+    for m_l in (GEMMS["w1"], GEMMS["wq"]):
+        spec, x, w, wc = _coded_case(m_l, 4, "folded", gen)
+        exact = x @ w
+        ys = exact.reshape(4, T, m_l).movedim(1, 0).contiguous()
+        par = torch.matmul(x[None], wc)
+        for valid in _masks():
+            yd = ys.clone()
+            for d in range(T):
+                if not valid[d]:
+                    yd[d] = float("nan")
+            v = np.array(valid)
+            got = decode_and_merge(yd, par, spec, v, use_fused=True)
+            want = decode_and_merge(yd, par, spec, v)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(got, exact, rtol=1e-4, atol=1e-4)
+            worst = max(worst, float((got - want).abs().max()))
+            n += 1
+    launches = cdc_matmul.cdc_decode_merge.launches
+    if launches != n:
+        raise AssertionError(f"{launches} decode-merge launches for {n} "
+                             f"calls of decode_and_merge(use_fused=True)")
+    log(f"decode_and_merge(use_fused=True): {n} calls (w1, wq; every "
+        f"single dead shard) launched kernel 3 {launches} times, equal to "
+        f"the reference decode_and_merge within 1e-5 (max abs err "
+        f"{worst:.3e}) and to x @ w within 1e-4")
+    return {"launches": launches, "max_abs_err": worst}
 
 
 # ------------------------------------------------------------ phase 5 ----
@@ -503,10 +920,14 @@ RUNS = {"fault-free": [], "chaos": ["--chaos", CHAOS],
 
 
 def _kernel_wrappers():
-    from repro_torch.kernels import cdc_decode, cdc_encode, cdc_matmul
+    from repro_torch.kernels import (cdc_decode, cdc_encode, cdc_matmul,
+                                     matmul, rmsnorm)
     return {"cdc_coded_matmul": cdc_matmul.cdc_coded_matmul,
             "cdc_fused_head_argmax": cdc_decode.cdc_fused_head_argmax,
-            "cdc_encode": cdc_encode.cdc_encode}
+            "cdc_encode": cdc_encode.cdc_encode,
+            "cdc_decode_merge": cdc_matmul.cdc_decode_merge,
+            "cdc_decode": cdc_decode.cdc_decode,
+            "rmsnorm": rmsnorm.rmsnorm, "matmul": matmul.matmul}
 
 
 def _scheduler_run(model, params, vocab: int, argv: list[str], device: str):
@@ -607,6 +1028,16 @@ def serve_scheduler(cfg, device: str = "cuda") -> dict:
         if not (launches["cdc_coded_matmul"] and
                 launches["cdc_fused_head_argmax"]):
             raise AssertionError(f"{name}: no fused round ran: {launches}")
+        # every dispatched round (fused or reference) and every prefill
+        # (one per admission, requeued requests' second ones included)
+        # runs its norms through kernel 6
+        passes = sched.executor.vstep.n_dispatches + c["requests_admitted"]
+        res["passes"] = {"rounds": sched.executor.vstep.n_dispatches,
+                         "prefills": c["requests_admitted"]}
+        if launches["rmsnorm"] != norms_per_pass(cfg) * passes:
+            raise AssertionError(
+                f"{name}: {launches['rmsnorm']} rmsnorm launches for "
+                f"{res['passes']}; expected {norms_per_pass(cfg)} each")
         if name != "fault-free" and res["tokens"] != runs["fault-free"][
                 "tokens"]:
             raise AssertionError(f"{name}: token streams differ from the "
@@ -718,52 +1149,81 @@ def main() -> int:
     report = build.build_all()
     log(f"built {sorted(report)} in {time.perf_counter() - t0:.1f} s")
     for name, rep in report.items():
+        entry = ""
         for line in rep["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
+            elif "registers" in line or "spill" in line:
+                log(f"  {name} {entry}: {line.split(':', 2)[-1].strip()}")
 
     cfg = get_arch("granite-3-8b")
     torch.cuda.reset_peak_memory_stats()
     err4 = check_encode(cfg)
-    err1 = max(check_coded_matmul(), check_coded_matmul_r34())
+    err1 = max(check_coded_matmul(), check_coded_matmul_r34(),
+               check_coded_matmul_t8())
     err2 = check_fused_head(cfg)
+    err3 = check_decode_merge()
+    err5 = check_decode()
+    err6 = check_rmsnorm()
+    err7 = check_matmul()
     _phase_memory("kernel checks")
     served = serve_full_width(cfg)
     torch.cuda.empty_cache()
     timed = time_kernels(cfg)
     torch.cuda.empty_cache()
     sched = serve_scheduler(cfg)
+    torch.cuda.empty_cache()
+    study = run_study()
+    entry = decode_merge_entry()
+    _phase_memory("study and library entry")
     w1 = timed[0]
-    head = timed[-1]
+    head = next(t for t in timed if t.get("gemm") == "lm_head")
+    small = {(t["kernel"], t["shape"]): t for t in timed if "kernel" in t}
     enc = sched["timing"]["total"]
+
+    def entry_of(name, src, replaces, launches, err, row):
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/csrc/{src}.cu",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"]}
+
+    # launches: kernels 1, 2 and 6 from the fused serving run (phase 3),
+    # kernel 4 from the chaos run (phase 5), kernels 5 and 7 from the
+    # study (phase 6), kernel 3 from its library entry (phase 7)
     kernels = [
-        {"name": "cdc_coded_matmul", "route": "cuda",
-         "source": "src/repro_torch/csrc/cdc_coded_matmul.cu",
-         "replaces": "src/repro/kernels/cdc_matmul.py:130",
-         "launches": served["k1"], "max_abs_err": err1,
-         "ms": w1["ms"], "plain_ms": w1["plain_ms"],
-         "bound_ms": w1["bound_ms"], "bound_by": w1["bound_by"],
-         "library_ms": w1["library_ms"]},
-        {"name": "cdc_fused_head_argmax", "route": "cuda",
-         "source": "src/repro_torch/csrc/cdc_fused_head.cu",
-         "replaces": "src/repro/kernels/cdc_decode.py:138",
-         "launches": served["k2"], "max_abs_err": err2,
-         "ms": head["ms"], "plain_ms": head["plain_ms"],
-         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-         "library_ms": head["library_ms"]},
-        {"name": "cdc_encode", "route": "cuda",
-         "source": "src/repro_torch/csrc/cdc_encode.cu",
-         "replaces": "src/repro/kernels/cdc_encode.py:30",
-         "launches": sched["runs"]["chaos"]["launches"]["cdc_encode"],
-         "max_abs_err": err4, "ms": enc["ms"], "plain_ms": enc["plain_ms"],
-         "bound_ms": enc["bound_ms"], "bound_by": "bytes",
-         "library_ms": enc["library_ms"]},
+        entry_of("cdc_coded_matmul", "cdc_coded_matmul",
+                 "src/repro/kernels/cdc_matmul.py:130", served["k1"], err1,
+                 w1),
+        entry_of("cdc_fused_head_argmax", "cdc_fused_head",
+                 "src/repro/kernels/cdc_decode.py:138", served["k2"], err2,
+                 head),
+        entry_of("cdc_decode_merge", "cdc_decode_merge",
+                 "src/repro/kernels/cdc_matmul.py:208", entry["launches"],
+                 err3, small[("cdc_decode_merge",
+                              f"[{T}, 4, {GEMMS['w1']}] r={R} folded")]),
+        entry_of("cdc_encode", "cdc_encode",
+                 "src/repro/kernels/cdc_encode.py:30",
+                 sched["runs"]["chaos"]["launches"]["cdc_encode"], err4,
+                 {**enc, "bound_by": "bytes"}),
+        entry_of("cdc_decode", "cdc_decode",
+                 "src/repro/kernels/cdc_decode.py:56",
+                 study["launches"]["cdc_decode"], err5,
+                 small[("cdc_decode", "[8, 256, 512]")]),
+        entry_of("rmsnorm", "rmsnorm", "src/repro/kernels/rmsnorm.py:25",
+                 served["k6"], err6, small[("rmsnorm", f"[4, {K}]")]),
+        entry_of("matmul", "matmul", "src/repro/kernels/matmul.py:31",
+                 study["launches"]["matmul"], err7,
+                 small[("matmul", "[512, 512] @ [512, 512]")]),
     ]
     log(card)
     runs = {n: {k: v for k, v in r.items() if k != "tokens"}
             for n, r in sched["runs"].items()}
     log(json.dumps({"shapes": timed, "round": served["breakdown"],
-                    "encode": sched["timing"], "scheduler": runs}))
+                    "encode": sched["timing"], "scheduler": runs,
+                    "study": study, "decode_merge_entry": entry}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

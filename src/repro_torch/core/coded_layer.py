@@ -118,17 +118,24 @@ def _shardwise_matmul(x: torch.Tensor, w_stacked: torch.Tensor
 
 
 def decode_and_merge(ys: torch.Tensor, parity: torch.Tensor | None,
-                     spec: CodedDenseSpec, valid, *, valid_parity=None
-                     ) -> torch.Tensor:
-    """Recovery + merge of already-computed shard outputs (reference path).
+                     spec: CodedDenseSpec, valid, *, valid_parity=None,
+                     use_fused: bool = False) -> torch.Tensor:
+    """Recovery + merge of already-computed shard outputs.
 
     ys: [T, ..., m_l]; parity: [r, ..., m_l] (dedicated) or [T, ..., r*w]
     slots (folded); None => plain merge. Erased entries may hold garbage:
-    they are zeroed by select before the decode.
+    they are zeroed by select before the decode. ``use_fused`` routes
+    through ``kernels.ops.fused_decode_merge`` (the decode-and-merge
+    kernel on a CUDA tensor, its plain version on a CPU tensor; 2+ dead
+    shards come back here); the default is the reference path.
     """
     code = spec.code
     if parity is None or code.n_parity == 0 or valid is None:
         return merge_shards(ys)
+    if use_fused:
+        from repro_torch.kernels import ops  # deferred: ops imports us
+        return ops.fused_decode_merge(ys, parity, spec, valid,
+                                      valid_parity=valid_parity)
     if valid_parity is None:
         valid_parity = valid
     zero = torch.zeros((), dtype=ys.dtype, device=ys.device)

@@ -96,16 +96,11 @@ coded_matmul_kernel(const float* __restrict__ x, const float* __restrict__ w,
   float o[T];
   if (live) {
     float y[T];
-    float sum = 0.f;
     const int e = esel[c];
 #pragma unroll
-    for (int t = 0; t < T; ++t) {
-      y[t] = ((valid_bits >> t) & 1u) ? tot[t][rr][lane] : 0.f;
-      sum = fmaf(gen[e * T + t], y[t], sum);
-    }
-    const float miss = (tot[T + e][rr][lane] - sum) * coef[c];
-#pragma unroll
-    for (int t = 0; t < T; ++t) o[t] = ((valid_bits >> t) & 1u) ? y[t] : miss;
+    for (int t = 0; t < T; ++t) y[t] = tot[t][rr][lane];
+    eq12_decode<T>(y, tot[T + e][rr][lane], gen + e * T, coef[c], valid_bits,
+                   o);
   }
   const int64_t m = (int64_t)T * m_l;
   if (nsplit == 1) {
@@ -146,6 +141,8 @@ static void launch(dim3 grid, cudaStream_t st, const float* x, const float* w,
 }  // namespace cdc
 
 // C interface (loaded with ctypes). Returns the cudaError_t of the launch.
+// Cases (T, R): (2, 1-2), (4, 1-4), (8, 1-4); anything else returns
+// cudaErrorInvalidValue. The case key T * 16 + R is unique because R < 16.
 extern "C" int cdc_coded_matmul_f32(
     const float* x, const float* w, const float* pw, const float* gen,
     const int* esel, const float* coef, const float* gamma, float eps,
@@ -169,6 +166,8 @@ extern "C" int cdc_coded_matmul_f32(
     CDC_CASE(4, 4)
     CDC_CASE(8, 1)
     CDC_CASE(8, 2)
+    CDC_CASE(8, 3)
+    CDC_CASE(8, 4)
     default:
       return (int)cudaErrorInvalidValue;
   }

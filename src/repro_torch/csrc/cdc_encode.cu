@@ -4,7 +4,7 @@
 // parity[j] = sum_i gen[j, i] * W_i over the T column shards W_i [k, m_l]
 // of a weight, for j < r, accumulated in float32 in ascending i.
 //
-// What bounds it: a contraction of only T <= 8 per output element, so it
+// What bounds it: a contraction of only T <= 16 per output element, so it
 // is bound by the bytes it moves -- T * k * m_l weights read once and
 // r * k * m_l parities written once (granite-3-8b, one layer's wq..w3 at
 // T=4, r=2: 780 MB, ~0.23 ms at 3.35 TB/s).
@@ -30,7 +30,7 @@
 namespace cdc_enc {
 
 constexpr int THREADS = 256;
-constexpr int MAX_T = 8;
+constexpr int MAX_T = 16;
 
 struct Gen {
   float g[MAX_T * MAX_T];  // row j at g[j * T]
@@ -128,8 +128,9 @@ static int launch(int vec, dim3 grid, cudaStream_t st, const float* w,
 }  // namespace cdc_enc
 
 // C interface (loaded with ctypes). gen_host is a host array [R, T] of
-// float32; returns the cudaError_t of the launch. Cases: T in {2, 4, 8},
-// 1 <= R <= T; anything else returns cudaErrorInvalidValue.
+// float32; returns the cudaError_t of the launch. Cases: T in {2, 4, 8} with
+// 1 <= R <= T, and T = 16 with 1 <= R <= 4; anything else returns
+// cudaErrorInvalidValue. The case key T * 16 + R is unique because R < 16.
 extern "C" int cdc_encode_f32(const float* w, float* out,
                               const float* gen_host, int L, int k, int T,
                               int R, int m_l, long long ld_t, long long ld_k,
@@ -164,6 +165,10 @@ extern "C" int cdc_encode_f32(const float* w, float* out,
     ENC_CASE(8, 6)
     ENC_CASE(8, 7)
     ENC_CASE(8, 8)
+    ENC_CASE(16, 1)
+    ENC_CASE(16, 2)
+    ENC_CASE(16, 3)
+    ENC_CASE(16, 4)
     default:
       return (int)cudaErrorInvalidValue;
   }

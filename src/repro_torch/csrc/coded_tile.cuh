@@ -13,6 +13,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "scalar.cuh"
+
 namespace cdc {
 
 constexpr int BN = 32;     // output columns per block, one per lane
@@ -21,13 +23,6 @@ constexpr int RB = 8;      // rows per block; warp w decodes row w
 constexpr int KC = 256;    // activations staged per chunk of k
 
 static_assert(RB == WARPS, "the epilogue maps one warp to one row");
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
 
 // (value, id) argmax step: larger value wins, ties go to the smaller id.
 __device__ __forceinline__ void argmax_merge(float& v, int& id, float ov,
@@ -118,6 +113,29 @@ __device__ inline void reduce_warps(const float (&acc)[RB][S],
     }
     __syncthreads();
   }
+}
+
+// Eq. 12 decode of one output column across the T shards, shared by the
+// coded GEMM's epilogue and the decode-and-merge kernel: dead shards are
+// zeroed by SELECT (a NaN in a dead shard cannot spread), and every dead
+// shard takes (p_e - sum_t gen_e[t] * y[t]) * coef, where p_e is the
+// column's selected parity equation e and gen_e its generator row. y[] of
+// a dead shard is ignored: it may hold anything.
+template <int T>
+__device__ __forceinline__ void eq12_decode(const float (&y)[T], float p_e,
+                                            const float* __restrict__ gen_e,
+                                            float coef, unsigned valid_bits,
+                                            float (&o)[T]) {
+  float yz[T];
+  float sum = 0.f;
+#pragma unroll
+  for (int t = 0; t < T; ++t) {
+    yz[t] = ((valid_bits >> t) & 1u) ? y[t] : 0.f;
+    sum = fmaf(gen_e[t], yz[t], sum);
+  }
+  const float miss = (p_e - sum) * coef;
+#pragma unroll
+  for (int t = 0; t < T; ++t) o[t] = ((valid_bits >> t) & 1u) ? yz[t] : miss;
 }
 
 // Cross-block completion: every block calls this after writing its

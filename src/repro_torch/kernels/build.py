@@ -16,9 +16,12 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("cdc_coded_matmul", "cdc_fused_head", "cdc_encode")
+SOURCES = ("cdc_coded_matmul", "cdc_fused_head", "cdc_encode",
+           "cdc_decode_merge", "cdc_decode", "rmsnorm", "matmul")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
@@ -70,6 +73,15 @@ def build_all(names=SOURCES) -> dict[str, dict]:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return report
+
+
+def bf16_flag(dtype: torch.dtype, who: str) -> int:
+    """The C interfaces' storage-type argument: 0 for float32, 1 for
+    bfloat16; any other dtype is refused."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{who}: dtype {dtype} is neither float32 nor "
+                         f"bfloat16")
+    return int(dtype == torch.bfloat16)
 
 
 def load(name: str) -> ctypes.CDLL:

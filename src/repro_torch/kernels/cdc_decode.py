@@ -1,4 +1,10 @@
-"""Fused coded LM head + Eq. 12 parity decode + greedy argmax.
+"""The r=1 Eq. 12 decode, and the fused coded LM head + decode + argmax.
+
+``cdc_decode`` takes stacked shard outputs y [T, m, n], their sum parity
+[m, n] and a [T] host mask with at most one False, and returns all T
+shards with the dead one rebuilt (dead shards zeroed by multiply, as the
+reference writes it). On a CUDA tensor it launches the kernel in
+``csrc/cdc_decode.cu``; on a CPU tensor it runs ``ref.cdc_decode_ref``.
 
 ``cdc_fused_head_argmax`` takes the last-position hidden states x [b, k],
 the T head shards [T, k, m_l] (a strided view of ``lm_head.w``, read in
@@ -17,6 +23,51 @@ from repro_torch.core.coding import host_mask
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.cdc_matmul import (_BN, _RB, _tile_counters,
                                             mask_bits)
+
+
+def _decode_lib():
+    fn = build.load("cdc_decode").cdc_decode
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, i, ctypes.c_longlong, ctypes.c_uint, i, p]
+        fn.restype = i
+    return fn
+
+
+def cdc_decode(y_shards: torch.Tensor, parity: torch.Tensor, valid
+               ) -> torch.Tensor:
+    """y [T, m, n] (any trailing shape), parity [m, n] of y's dtype, valid
+    [T] host mask with at most one False -> [T, m, n] in y's dtype."""
+    vh = host_mask(valid)
+    if y_shards.device.type == "cpu":
+        return ref.cdc_decode_ref(y_shards, parity, torch.as_tensor(vh))
+    who = "cdc_decode"
+    if y_shards.device.type != "cuda":
+        raise ValueError(f"{who}: unsupported device {y_shards.device}")
+    bf16 = build.bf16_flag(y_shards.dtype, who)
+    T = y_shards.shape[0]
+    if not (parity.dtype == y_shards.dtype
+            and parity.device == y_shards.device
+            and tuple(parity.shape) == tuple(y_shards.shape[1:])
+            and y_shards.is_contiguous() and parity.is_contiguous()
+            and vh.shape == (T,)):
+        raise ValueError(f"{who}: y {tuple(y_shards.shape)} / parity "
+                         f"{tuple(parity.shape)} / valid {vh.shape}: want "
+                         f"contiguous [T, ...] and [...] of one dtype, [T]")
+    out = torch.empty_like(y_shards)
+    n = parity.numel()
+    if n == 0:
+        return out
+    stream = torch.cuda.current_stream(y_shards.device).cuda_stream
+    err = _decode_lib()(y_shards.data_ptr(), parity.data_ptr(),
+                        out.data_ptr(), T, n, mask_bits(vh), bf16, stream)
+    if err != 0:
+        raise RuntimeError(f"{who} kernel launch failed: cudaError {err}")
+    cdc_decode.launches += 1
+    return out
+
+
+cdc_decode.launches = 0
 
 
 def _lib():

@@ -20,7 +20,9 @@ import torch
 from repro_torch.core.coded_layer import fold_parity_slots
 from repro_torch.kernels import build, ref
 
-_TS = (2, 4, 8)          # the shard counts the kernel is built for
+# the (T, r) cases the kernel is built for: r <= T at T in {2, 4, 8}, and
+# r <= 4 at T = 16 (the coded-overhead study's T = 16 and the planner's r)
+_MAX_R = {2: 2, 4: 4, 8: 8, 16: 4}
 
 
 def _lib():
@@ -80,7 +82,7 @@ def cdc_encode(w_shards: torch.Tensor, gen, *, layout: str = "dedicated"
     T, k, m_l = w_shards.shape[-3:]
     r = g.shape[0]
     _check(g.ndim == 2 and g.shape[1] == T, f"gen {g.shape} is not [r, {T}]")
-    _check(T in _TS and 0 <= r <= T, f"no kernel case for T={T}, r={r}")
+    _check(0 <= r <= _MAX_R.get(T, -1), f"no kernel case for T={T}, r={r}")
     _check(w_shards.stride(-1) == 1, "shards need a unit column stride")
     folded = layout == "folded"
     _check(not folded or m_l % T == 0,

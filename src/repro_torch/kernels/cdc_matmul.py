@@ -1,4 +1,4 @@
-"""Fused coded matmul + Eq. 12 decode + merge: the in-body coded GEMM.
+"""Fused coded matmul + Eq. 12 decode + merge, and the decode + merge alone.
 
 ``cdc_coded_matmul`` runs, for x [rows, k], the T shard GEMMs of w [k, m]
 and the r parity GEMMs, rebuilds at most one dead shard from its
@@ -7,6 +7,11 @@ per-column parity equation, and writes the merged [rows, T, m_l] output
 kernel in ``csrc/cdc_coded_matmul.cu``; on a CPU tensor it runs the plain
 version ``ref.cdc_coded_matmul_ref``. The decode plan comes from
 ``eq12_plan``, a small tensor function.
+
+``cdc_decode_merge`` is the same decode and merge on shard outputs that
+were already computed (``core.decode_and_merge(use_fused=True)``): the
+kernel in ``csrc/cdc_decode_merge.cu`` on a CUDA tensor, the plain
+version ``ref.cdc_decode_merge_ref`` on a CPU tensor.
 """
 from __future__ import annotations
 
@@ -169,3 +174,71 @@ def cdc_coded_matmul(x: torch.Tensor, w: torch.Tensor, w_cdc: torch.Tensor,
 
 
 cdc_coded_matmul.launches = 0
+
+
+# ------------------------------------------------------- decode + merge --
+
+def _dm_lib():
+    fn = build.load("cdc_decode_merge").cdc_decode_merge
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, ctypes.c_uint, i, p]
+        fn.restype = i
+    return fn
+
+
+def decode_merge_plain(ys, parity, layout, T, r, gen, esel, coef, valid):
+    """The plain version behind ``cdc_decode_merge``, taking the same
+    arguments (parity in its stored layout)."""
+    par = parity if layout == "dedicated" else unfold_parity(parity, T, r)
+    return ref.cdc_decode_merge_ref(ys, par, gen, esel, coef,
+                                    torch.as_tensor(host_mask(valid)))
+
+
+def cdc_decode_merge(ys: torch.Tensor, parity: torch.Tensor, layout: str,
+                     T: int, r: int, gen: torch.Tensor, esel: torch.Tensor,
+                     coef: torch.Tensor, valid) -> torch.Tensor:
+    """Eq. 12 decode + merge of shard outputs ys [T, rows, m_l] with the
+    parity outputs in their stored layout (dedicated [r, rows, m_l] or
+    folded [T, rows, r*m_l/T], read in place); gen [r, T]; esel/coef from
+    ``eq12_plan``; valid [T] host mask with at most one False. Returns
+    merged [rows, T, m_l] in ys' dtype."""
+    if ys.device.type == "cpu":
+        return decode_merge_plain(ys, parity, layout, T, r, gen, esel, coef,
+                                  valid)
+    who = "cdc_decode_merge"
+    if ys.device.type != "cuda":
+        raise ValueError(f"{who}: unsupported device {ys.device}")
+    folded = layout == "folded"
+    _, rows, m_l = ys.shape
+    bf16 = build.bf16_flag(ys.dtype, who)
+    pshape = (T, rows, r * (m_l // T)) if folded else (r, rows, m_l)
+    if not (ys.shape[0] == T and parity.dtype == ys.dtype
+            and ys.is_contiguous() and parity.is_contiguous()
+            and tuple(parity.shape) == pshape
+            and (not folded or m_l % T == 0)):
+        raise ValueError(f"{who}: ys {tuple(ys.shape)} {ys.dtype} / parity "
+                         f"{tuple(parity.shape)} {parity.dtype}; want "
+                         f"contiguous [{T}, rows, m_l] and {pshape} of one "
+                         f"dtype")
+    if not (gen.dtype == torch.float32 and tuple(gen.shape) == (r, T)
+            and esel.dtype == torch.int32 and coef.dtype == torch.float32
+            and tuple(esel.shape) == (m_l,) and tuple(coef.shape) == (m_l,)
+            and all(t.is_contiguous() and t.device == ys.device
+                    for t in (gen, esel, coef, parity))):
+        raise ValueError(f"{who}: gen [r, T] f32, esel [m_l] int32 and coef "
+                         f"[m_l] f32 must be contiguous on {ys.device}")
+    out = torch.empty((rows, T, m_l), dtype=ys.dtype, device=ys.device)
+    if out.numel() == 0:
+        return out
+    stream = torch.cuda.current_stream(ys.device).cuda_stream
+    err = _dm_lib()(ys.data_ptr(), parity.data_ptr(), gen.data_ptr(),
+                    esel.data_ptr(), coef.data_ptr(), out.data_ptr(), rows,
+                    m_l, T, r, int(folded), mask_bits(valid), bf16, stream)
+    if err != 0:
+        raise RuntimeError(f"{who} kernel launch failed: cudaError {err}")
+    cdc_decode_merge.launches += 1
+    return out
+
+
+cdc_decode_merge.launches = 0

@@ -9,9 +9,15 @@ here, before anything is launched:
     reference ``core.coded_matmul`` (full MDS recovery);
   * ``fused_head_argmax``: 2+ dead shards raise (the sum parity cannot
     solve for two unknowns); the caller takes the reference round;
+  * ``fused_decode_merge``: no parity, no mask, or 2+ dead shards -> the
+    reference ``core.decode_and_merge``;
+  * ``cdc_decode``: 2+ dead shards raise (one sum parity, one unknown);
   * ``cdc_encode`` (re-exported from ``kernels.cdc_encode``): no ladder;
     the offline parity encode of every coded weight
-    (``core.coded_layer.make_parity_weights``) goes through it.
+    (``core.coded_layer.make_parity_weights``) goes through it;
+  * ``rmsnorm`` and ``matmul`` (re-exported from ``kernels.rmsnorm`` and
+    ``kernels.matmul``): no ladder (the serving round's norms, and the
+    coded-overhead study's GEMM).
 """
 from __future__ import annotations
 
@@ -21,10 +27,14 @@ import torch
 
 from repro_torch.core import coded_layer
 from repro_torch.core.coding import generator_tensor, host_mask
+from repro_torch.kernels import cdc_decode as _decode
 from repro_torch.kernels import ref
 from repro_torch.kernels.cdc_decode import cdc_fused_head_argmax
 from repro_torch.kernels.cdc_encode import cdc_encode  # noqa: F401
-from repro_torch.kernels.cdc_matmul import cdc_coded_matmul, eq12_plan
+from repro_torch.kernels.cdc_matmul import (cdc_coded_matmul,
+                                            cdc_decode_merge, eq12_plan)
+from repro_torch.kernels.matmul import matmul  # noqa: F401
+from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: F401
 
 
 # ------------------------------------------------------- kernel cost model --
@@ -37,6 +47,20 @@ def _elems(dims) -> int:
     for d in dims:
         n *= d
     return n
+
+
+def _cost_matmul(out, operands):
+    # x [m, k] @ w [k, n] -> [m, n]
+    if not out or len(out[0][1]) != 2 or not operands:
+        return 0.0
+    m, n = out[0][1]
+    k = operands[0][1][-1] if operands[0][1] else 0
+    return 2.0 * m * n * k
+
+
+def _zero_cost(out, operands):
+    # elementwise / reduction kernels: no dot-equivalent FLOPs
+    return 0.0
 
 
 def _cost_cdc_encode(out, operands):
@@ -69,9 +93,13 @@ def _cost_cdc_fused_head(out, operands):
 
 
 KERNEL_COSTS: dict = {
+    "matmul": _cost_matmul,
     "cdc_encode": _cost_cdc_encode,
     "cdc_coded_matmul": _cost_cdc_coded_matmul,
     "cdc_fused_head_argmax": _cost_cdc_fused_head,
+    "cdc_decode_merge": _zero_cost,
+    "cdc_decode": _zero_cost,
+    "rmsnorm": _zero_cost,
 }
 
 
@@ -90,6 +118,19 @@ def decode_plan(spec, valid: tuple, valid_parity: tuple, m_l: int,
                            torch.tensor(valid_parity), m_l)
     gen = generator_tensor(spec.code)
     return esel.to(device), coef.to(device), gen.to(device)
+
+
+def cdc_decode(y_shards, parity, valid):
+    """r=1 Eq. 12 recovery combine; <= 1 erased shard by construction. A
+    mask with 2+ erasures raises (a single sum parity cannot solve for two
+    unknowns); the r > 1 MDS layouts decode through ``core.coded_layer``
+    or ``fused_decode_merge`` instead."""
+    dead = _dead(valid)
+    if dead > 1:
+        raise ValueError(
+            f"cdc_decode is the r=1 Eq. 12 combine (one parity equation) "
+            f"and recovers at most 1 erased shard, got {dead} dead")
+    return _decode.cdc_decode(y_shards, parity, valid)
 
 
 def fused_head_argmax(x, w_shards, parity_w, valid, *, vocab):
@@ -125,3 +166,29 @@ def fused_coded_matmul(x, w, w_cdc, spec, valid, *, valid_parity=None,
                            spec.layout, T, r, gen, esel, coef, vh,
                            gamma=gamma, eps=eps)
     return out.reshape(lead + (m,)).to(x.dtype)
+
+
+def fused_decode_merge(ys, parity, spec, valid, *, valid_parity=None):
+    """Fused Eq. 12 decode + merge of already-computed shard outputs: the
+    ``core.decode_and_merge`` tail as one kernel pass.
+
+    ys: [T, ..., m_l]; parity: dedicated [r, ..., m_l] or folded slots
+    [T, ..., r*w] (read in place). Same <= 1-erasure regime and fallback
+    ladder as ``fused_coded_matmul``. Returns the merged [..., T*m_l] in
+    ys' dtype."""
+    code = spec.code
+    T, r = code.n_shards, code.n_parity
+    if parity is None or r == 0 or valid is None or _dead(valid) > 1:
+        return coded_layer.decode_and_merge(ys, parity, spec, valid,
+                                            valid_parity=valid_parity)
+    vh = tuple(bool(v) for v in host_mask(valid))
+    vph = vh if valid_parity is None else \
+        tuple(bool(v) for v in host_mask(valid_parity))
+    m_l = ys.shape[-1]
+    mid = ys.shape[1:-1]
+    esel, coef, gen = decode_plan(spec, vh, vph, m_l, str(ys.device))
+    out = cdc_decode_merge(ys.reshape(T, -1, m_l).contiguous(),
+                           parity.reshape(parity.shape[0], -1,
+                                          parity.shape[-1]).contiguous(),
+                           spec.layout, T, r, gen, esel, coef, vh)
+    return out.reshape(mid + (T * m_l,))

@@ -10,6 +10,27 @@ from __future__ import annotations
 import torch
 
 
+def matmul_ref(x: torch.Tensor, w: torch.Tensor, out_dtype=None
+               ) -> torch.Tensor:
+    """x [m, k] @ w [k, n] accumulated in float32, cast to ``out_dtype``
+    (x's dtype by default)."""
+    return torch.matmul(x.to(torch.float32), w.to(torch.float32)) \
+        .to(out_dtype or x.dtype)
+
+
+def cdc_decode_ref(y_shards: torch.Tensor, parity: torch.Tensor,
+                   valid: torch.Tensor) -> torch.Tensor:
+    """r=1 recovery, paper Eq. 12, with dead shards zeroed by MULTIPLY as
+    the reference oracle writes it (a NaN in a dead shard propagates).
+    y [T, m, n], parity [m, n], valid [T] bool -> [T, m, n], y's dtype."""
+    vmask = valid.to(device=y_shards.device,
+                     dtype=torch.float32)[:, None, None]
+    y = y_shards.to(torch.float32) * vmask
+    missing = parity.to(torch.float32) - y.sum(0)
+    out = y + (1.0 - vmask) * missing[None]
+    return out.to(y_shards.dtype)
+
+
 def cdc_encode_ref(w_shards: torch.Tensor, gen: torch.Tensor
                    ) -> torch.Tensor:
     """Offline parity encode: [T, k, n] shards x [r, T] generator ->
@@ -77,6 +98,18 @@ def cdc_coded_matmul_ref(x: torch.Tensor, w_shards: torch.Tensor,
     p = torch.matmul(xf[None], parity_w.to(torch.float32))
     out = _eq12_combine_ref(y, p, gen, valid, esel, coef)
     return out.to(out_dtype or x.dtype)
+
+
+def cdc_decode_merge_ref(ys: torch.Tensor, parity: torch.Tensor,
+                         gen: torch.Tensor, esel: torch.Tensor,
+                         coef: torch.Tensor, valid: torch.Tensor
+                         ) -> torch.Tensor:
+    """Eq. 12 decode + merge of already-computed shard outputs ys
+    [T, rows, m_l] with UNFOLDED parity [r, rows, m_l] (dead shards zeroed
+    by SELECT). Returns merged [rows, T, m_l] in ys' dtype."""
+    out = _eq12_combine_ref(ys.to(torch.float32), parity.to(torch.float32),
+                            gen, valid, esel, coef)
+    return out.to(ys.dtype)
 
 
 def rmsnorm_ref(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6

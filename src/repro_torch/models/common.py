@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from repro_torch.core.coded_layer import (CodedDenseSpec, coded_matmul,
                                           make_parity_weights)
 from repro_torch.core.coding import CodeSpec
+from repro_torch.kernels import ops
 
 Params = dict[str, Any]
 
@@ -123,10 +124,10 @@ def tree_index(node, i: int):
 # ---------------------------------------------------------------- norms ----
 
 def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    xf = x.to(torch.float32)
-    var = (xf * xf).mean(-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps)
-            * p["g"].to(torch.float32)).to(x.dtype)
+    """Row RMSNorm with float32 math: the rmsnorm kernel on a CUDA tensor
+    (one launch), its plain version (the reference's arithmetic) on a CPU
+    tensor."""
+    return ops.rmsnorm(x, p["g"], eps=eps)
 
 
 # ----------------------------------------------------------------- rope ----

@@ -43,3 +43,23 @@ def test_encode_kernel_matches_plain(smoke):
 
 def test_coded_matmul_kernel_at_r3_r4_matches_plain(smoke):
     assert smoke.check_coded_matmul_r34() <= 1e-4
+
+
+def test_coded_matmul_kernel_at_t8_r3_r4_matches_plain(smoke):
+    assert smoke.check_coded_matmul_t8() <= 1e-4
+
+
+def test_decode_merge_kernel_matches_plain(smoke):
+    assert smoke.check_decode_merge() <= 1e-5
+
+
+def test_decode_kernel_matches_plain(smoke):
+    assert smoke.check_decode() <= 1e-5
+
+
+def test_rmsnorm_kernel_matches_plain(smoke):
+    assert smoke.check_rmsnorm() <= 1e-5
+
+
+def test_matmul_kernel_matches_plain(smoke):
+    assert smoke.check_matmul() <= 1e-4

@@ -122,8 +122,9 @@ def test_injected_latency_series_equals_reference(r):
 # ------------------------------------------------------------ planner ----
 
 def _plans(mod, cfg, windows, suitable=True, layout="folded"):
-    p = mod.AdaptiveRedundancyPlanner(mod.PlannerConfig(**cfg), 4,
-                                      layout=layout, suitable=suitable)
+    p = mod.AdaptiveRedundancyPlanner(mod.PlannerConfig(**cfg),
+                                      len(windows[0]), layout=layout,
+                                      suitable=suitable)
     out = []
     for w, mask in enumerate(windows):
         for t in range(11):
@@ -152,6 +153,20 @@ def test_planner_decisions_equal_reference(layout, suitable):
         assert got[0]["r"] == (4 if layout == "folded" else 2)
     else:
         assert got[0]["r"] == 0 and got[0]["standby_replicas"] == 2
+
+
+def test_planner_at_t8_folded_plans_r4():
+    """At T=8 folded the default cap (max_budget=2) plans r = 2 x 2 = 4
+    on a 2-dead storm, as the reference does: kernel 1 has a (8, 4) case
+    for that round (and (8, 3) beside it)."""
+    storm = [True] * 8
+    storm[2] = storm[5] = False
+    windows = [storm, [True] * 8, [True] * 8]
+    cfg = dict(window_ms=10.0, ewma=1.0)
+    got = _plans(tf, cfg, windows)
+    assert got == _plans(jf, cfg, windows)
+    assert tf.PlannerConfig().max_budget == 2
+    assert got[0]["budget"] == 2 and got[0]["r"] == 4
 
 
 def test_binomial_tail_and_required_budget():

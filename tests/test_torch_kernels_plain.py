@@ -136,6 +136,25 @@ def test_fused_coded_matmul_matches_reference_ops(T, r, layout):
             close(t, pallas, KTOL, msg=f"pallas-interpret mask={mask}")
 
 
+@pytest.mark.parametrize("r", [3, 4])
+def test_fused_coded_matmul_t8_matches_reference_pallas(r):
+    """T=8 folded at r = 3 and 4 (the planner's r=4 at T=8, kernel 1's
+    (8, 3) and (8, 4) cases): ops.fused_coded_matmul on the CPU == the
+    reference's Pallas kernel (interpret) under every mask with <= 1 dead,
+    within 1e-4."""
+    T = 8
+    jspec, tspec, x, w, jp = case(T, r, "folded", rows=4)
+    tp = tcl.make_parity_weights(torch.from_numpy(w), tspec)
+    close(tp, jp)
+    for mask in masks(T, 1):
+        t = tops.fused_coded_matmul(torch.from_numpy(x), torch.from_numpy(w),
+                                    tp, tspec, np.array(mask))
+        pallas = jops.fused_coded_matmul(jnp.asarray(x), jnp.asarray(w),
+                                         jnp.asarray(jp), jspec,
+                                         jnp.asarray(mask))
+        close(t, pallas, KTOL, msg=f"(8, {r}) folded mask={mask}")
+
+
 @pytest.mark.parametrize("T", [2, 4])
 def test_fused_head_plain_matches_reference(T):
     rng = np.random.default_rng(5)
