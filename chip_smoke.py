@@ -21,7 +21,8 @@ Phases, each of which raises on failure (exit code non-zero):
   3. serve granite-3-8b at full width (40 layers, d 4096, T=4, r=2 folded,
      float32, random weights from a seeded torch.Generator) through
      ServingEngine.generate: 4 requests, prompt 16, 16 new tokens, fault
-     free, with shard 2 killed at step 4, and on the reference variant; the
+     free, with shard 2 killed at step 4, on the reference variant, and on
+     it with the norms on their plain version (no kernel at all); the
      token streams must be identical and every fused round must launch the
      coded-GEMM kernel 200 times and the fused head once;
   4. time each kernel at its main-path shape with CUDA events beside its
@@ -520,8 +521,8 @@ def norms_per_pass(cfg) -> int:
 
 
 def serve_full_width(cfg) -> dict:
-    from repro_torch.kernels import cdc_decode, cdc_matmul, rmsnorm
-    from repro_torch.models import TPCtx, build
+    from repro_torch.kernels import cdc_decode, cdc_matmul, ref, rmsnorm
+    from repro_torch.models import TPCtx, build, transformer
     from repro_torch.serve import ServeConfig, ServingEngine
     model = build(cfg, TPCtx(tp=T, mode="coded", code_r=R))
     t0 = time.perf_counter()
@@ -565,6 +566,15 @@ def serve_full_width(cfg) -> dict:
     del eng
     ref_eng = ServingEngine(model, params, scfg, use_fused=False)
     reference = run(ref_eng)
+    # the same reference variant with the norms on their plain version (the
+    # model resolves ``rmsnorm`` in the transformer module): a run with no
+    # kernel at all, the oracle for the fused tokens
+    norm = transformer.rmsnorm
+    transformer.rmsnorm = lambda p, x, eps: ref.rmsnorm_ref(x, p["g"], eps)
+    try:
+        plain = run(ref_eng)
+    finally:
+        transformer.rmsnorm = norm
     del ref_eng
     peak = torch.cuda.max_memory_allocated()
     rounds = n_tok - 1
@@ -578,6 +588,10 @@ def serve_full_width(cfg) -> dict:
                 f"{gemms * rounds} and {rounds}")
     if reference["k1"] or reference["k2"]:
         raise AssertionError("the reference variant launched a kernel")
+    if plain["k1"] or plain["k2"] or plain["k6"]:
+        raise AssertionError(
+            f"the kernel-free run launched {plain['k1']} coded-GEMM, "
+            f"{plain['k2']} head and {plain['k6']} rmsnorm kernels")
     # every round and every prefill (one per request) runs its norms
     # through kernel 6, in the fused and the reference variant alike
     norms = norms_per_pass(cfg)
@@ -587,7 +601,8 @@ def serve_full_width(cfg) -> dict:
             raise AssertionError(
                 f"{name}: {res['k6']} rmsnorm launches; expected {norms} "
                 f"per round x {rounds} rounds + {norms} per prefill x 4")
-    for name, res in (("erasure", faulty), ("reference", reference)):
+    for name, res in (("erasure", faulty), ("reference", reference),
+                      ("kernel-free", plain)):
         if not np.array_equal(res["tokens"], clean["tokens"]):
             raise AssertionError(
                 f"{name} run tokens differ from the fault-free fused run:\n"
@@ -597,7 +612,8 @@ def serve_full_width(cfg) -> dict:
         raise AssertionError(f"bad token stream {toks}")
     med = float(np.median(clean["round_ms"]))
     log(f"served 4 requests x {n_tok} tokens: identical streams fault-free, "
-        f"with shard 2 erased at step 4, and on the reference variant")
+        f"with shard 2 erased at step 4, on the reference variant, and on "
+        f"it with plain norms (no kernel launched)")
     log("first stream:", toks[0].tolist())
     log(f"overlapped executor (dispatch N, then harvest N-1): same "
         f"streams, {overlapped['period_ms']:.3f} ms per round (wall time "
@@ -607,7 +623,8 @@ def serve_full_width(cfg) -> dict:
         f"rmsnorm per prefill; the reference variant {norms} per round)")
     log(f"fused round median {med:.3f} ms (erasure run "
         f"{float(np.median(faulty['round_ms'])):.3f} ms, reference variant "
-        f"{float(np.median(reference['round_ms'])):.3f} ms); "
+        f"{float(np.median(reference['round_ms'])):.3f} ms, with plain "
+        f"norms {float(np.median(plain['round_ms'])):.3f} ms); "
         f"{4 * 1e3 / med:.1f} tokens/s at 4 slots; "
         f"max_memory_allocated {peak / 2 ** 30:.2f} GiB")
     return {"k1": clean["k1"], "k2": clean["k2"], "k6": clean["k6"],

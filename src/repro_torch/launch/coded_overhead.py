@@ -147,9 +147,6 @@ def run_kernels(device="cuda") -> list[dict]:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--batch", type=int, default=32)
-    ap.add_argument("--k", type=int, default=2048)
-    ap.add_argument("--m", type=int, default=4096)
     ap.add_argument("--out", default=None,
                     help="also write the rows as JSON to this path")
     args = ap.parse_args(argv)
@@ -158,7 +155,7 @@ def main(argv=None) -> dict:
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"device: {name}")
     res = {"device": name,
-           "run": run(args.batch, args.k, args.m, dev),
+           "run": run(device=dev),
            "kernels": run_kernels(dev)}
     for row in res["run"] + res["kernels"]:
         print(row)
