@@ -5,7 +5,8 @@
 
 Phases, each of which raises on failure (exit code non-zero):
   1. print the card's name and power limit; build the CUDA kernels from
-     src/repro_torch/csrc (one nvcc per source, in parallel);
+     src/repro_torch/csrc (one nvcc per source, in parallel); any ptxas
+     spill fails;
   2. hold each kernel against its plain PyTorch version on the card, at
      granite-3-8b's full-width shapes: the parity encode (rtol = atol =
      1e-5; wq, wk, w1 stacked over 40 layers and the head, r = 1..4, both
@@ -17,7 +18,10 @@ Phases, each of which raises on failure (exit code non-zero):
      vocabulary tiles; the decode-and-merge and the r=1 decode (1e-5,
      every mask with <= 1 dead, a NaN in the dead shard), the RMSNorm
      (1e-5) and the blocked GEMM (1e-4, TF32 off), bf16 where a kernel
-     takes it (2e-2, GEMM 5e-2);
+     takes it (2e-2, GEMM 5e-2); kernels 1 and 7 also at the edges of
+     their launch plans (row blocks, tile and stage remainders, misaligned
+     views), where every instantiation (bulk copies or ordinary loads,
+     4/8/16 rows a block) must launch and repeats must be bitwise equal;
   3. serve granite-3-8b at full width (40 layers, d 4096, T=4, r=2 folded,
      float32, random weights from a seeded torch.Generator) through
      ServingEngine.generate: 4 requests, prompt 16, 16 new tokens, fault
@@ -27,7 +31,9 @@ Phases, each of which raises on failure (exit code non-zero):
      coded-GEMM kernel 200 times and the fused head once;
   4. time each kernel at its main-path shape with CUDA events beside its
      plain version, one library call and its bandwidth/compute bound
-     (kernels 3, 5, 6 and 7 at the shapes of their own paths);
+     (kernel 1 also at 64 rows, kernels 3, 5, 6 and 7 at the shapes of
+     their own paths), printing the instantiation each took and its ptxas
+     usage;
   5. serve granite-3-8b at full width through the port's serving entry
      point (launch.serve: the continuous-batching scheduler, SimClock, 4
      slots, 8 requests 2 ms apart, prompt 16, 16 new tokens) fault-free,
@@ -48,8 +54,9 @@ Phases, each of which raises on failure (exit code non-zero):
      each shard dead in turn.
 Phases 3 and 5 also count the RMSNorm kernel: 2 x 40 + 1 = 81 launches
 per decode round (fused and reference variants) and per prefill.
-Peak device memory is printed per phase. The line before the last is the kernel table as JSON; the last line is
-{"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
+Peak device memory is printed per phase. The line before the last is the
+kernel table as JSON; the last line is {"ok": true, "device": {...}}.
+Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
 
@@ -261,6 +268,113 @@ def check_coded_matmul_t8() -> float:
         f"layouts: {n} cases within rtol=atol=1e-4 of the plain version, "
         f"max abs err {worst:.3e}")
     return worst
+
+
+CODED_VARIANTS = tuple(f"rb{rb}-{p}" for rb in (4, 8, 16)
+                       for p in ("async", "loads"))
+MATMUL_VARIANTS = tuple(f"rows-{v}" for v in CODED_VARIANTS) + (
+    "square-async", "square-loads")
+
+
+def check_stream_edges() -> tuple[float, float]:
+    """Kernels 1 and 7 at the edges of their launch plans, against their
+    plain versions (1e-4, TF32 off): kernel 1 at rows 5, 8 and 9 (the row
+    block boundaries 4 | 8 | 16), m_l = 1000 dedicated (not a multiple of
+    the column tile), k = 4093 (not a multiple of the stage depth), w's
+    rows at an odd stride and offset (the ordinary-load instantiation, at
+    granite's wq and w1 widths), (4, 4) and (8, 4) folded; kernel 7 at
+    m = 1, 5, 8, 9, 12, 16 and 17, n = 1000, 2048, 2050 and 70, k = 4093
+    and 300, bf16 in. Each instantiation of both kernels must have run, and
+    two launches on the same inputs must give bitwise the same output.
+    Returns the two kernels' max abs errors."""
+    from repro_torch.kernels import cdc_matmul, matmul, ref
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    cdc_matmul.cdc_coded_matmul.variants.clear()
+    matmul.matmul.variants.clear()
+    worst, n = 0.0, 0
+    cases = [(m_l, rows, "folded", K, R, T) for m_l in (1024, 3200)
+             for rows in (5, 8, 9)]
+    cases += [(1000, 4, "dedicated", K, R, T), (1024, 4, "folded", 4093, R, T),
+              (1024, 5, "folded", 4093, R, T), (3200, 5, "folded", K, 4, T),
+              (3200, 9, "folded", K, 4, T), (512, 9, "folded", K, 4, 8),
+              (100, 5, "folded", 1000, R, T)]
+    for m_l, rows, layout, k, r, t in cases:
+        spec, x, w, wc = _coded_case(m_l, rows, layout, gen, k, r, t)
+        for valid in ((True,) * t, tuple(i != 1 for i in range(t))):
+            got = _run_coded(x, w, wc, spec, valid)
+            want = _run_coded(x, w, wc, spec, valid, plain=True)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, **TOL, msg=lambda m: (
+                f"coded matmul ({t}, {r}) {layout} m_l={m_l} rows={rows} "
+                f"k={k} mask={valid}: {m}"))
+            worst = max(worst, float((got - want).abs().max()))
+            n += 1
+    # w's rows at an odd stride and a 4-byte offset: no tensor map can take
+    # them, so the same kernel runs with ordinary loads
+    for rows, m_l in ((4, 1024), (9, 1024), (9, 3200)):
+        spec, x, w, _ = _coded_case(m_l, rows, "folded", gen)
+        wide = torch.zeros((K, T * m_l + 1), device="cuda")
+        wide[:, 1:] = w
+        wv = wide[:, 1:]
+        from repro_torch.core.coded_layer import make_parity_weights
+        wc = make_parity_weights(wv.contiguous(), spec)
+        got = _run_coded(x, wv, wc, spec, (True,) * T)
+        want = _run_coded(x, w, wc, spec, (True,) * T, plain=True)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **TOL)
+        worst = max(worst, float((got - want).abs().max()))
+        n += 1
+    # bitwise repeat at split plans (w1 and wk at 4 rows)
+    for m_l in (3200, 256):
+        spec, x, w, wc = _coded_case(m_l, 4, "folded", gen)
+        a = _run_coded(x, w, wc, spec, (True, True, False, True))
+        b = _run_coded(x, w, wc, spec, (True, True, False, True))
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"coded matmul m_l={m_l}: two launches on "
+                                 f"the same inputs differ")
+    worst1, worst = worst, 0.0
+    mm_cases = [((m, K, 1000), torch.float32, None) for m in (1, 5, 8, 9, 16)]
+    mm_cases += [((4, 4093, 4096), torch.float32, None),
+                 ((4, 300, 70), torch.float32, None),
+                 ((5, 300, 70), torch.float32, None),
+                 ((12, 300, 70), torch.float32, None),
+                 ((9, 512, 2048), torch.float32, None),
+                 ((12, 300, 2050), torch.float32, None),
+                 ((17, 300, 96), torch.float32, None),
+                 ((100, 300, 70), torch.float32, None),
+                 ((4, 512, 512), torch.bfloat16, torch.float32)]
+    for (m, k, nn), dt, odt in mm_cases:
+        x = torch.randn((m, k), generator=gen, device="cuda").to(dt)
+        w = (torch.randn((k, nn), generator=gen, device="cuda")
+             / k ** 0.5).to(dt)
+        got = matmul.matmul(x, w, out_dtype=odt)
+        want = ref.matmul_ref(x, w, odt)
+        torch.cuda.synchronize()
+        tol = 1e-4 if dt == torch.float32 else 5e-2
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol,
+                                   msg=lambda s: f"matmul ({m}, {k}, {nn}) "
+                                                 f"{dt}: {s}")
+        if dt == torch.float32:
+            worst = max(worst, float((got - want).abs().max()))
+        n += 1
+    x = torch.randn((4, K), generator=gen, device="cuda")
+    w = torch.randn((K, K), generator=gen, device="cuda")
+    if not torch.equal(matmul.matmul(x, w), matmul.matmul(x, w)):
+        raise AssertionError("matmul (4, 4096, 4096): two launches on the "
+                             "same inputs differ")
+    seen = (dict(cdc_matmul.cdc_coded_matmul.variants),
+            dict(matmul.matmul.variants))
+    missing = [v for v in CODED_VARIANTS if v not in seen[0]] + \
+        [v for v in MATMUL_VARIANTS if v not in seen[1]]
+    if missing:
+        raise AssertionError(f"instantiations never launched: {missing} "
+                             f"(launched {seen})")
+    log(f"kernels cdc_coded_matmul and matmul at their plans' edges: {n} "
+        f"cases within rtol=atol=1e-4 (bf16 5e-2) of the plain versions, "
+        f"max abs err {worst1:.3e} / {worst:.3e}; repeats bitwise equal; "
+        f"launches per instantiation {seen[0]} / {seen[1]}")
+    return worst1, worst
 
 
 def _dm_plan(spec, valid, m_l):
@@ -539,6 +653,7 @@ def serve_full_width(cfg) -> dict:
 
     def run(eng, fail_at=None):
         cdc_matmul.cdc_coded_matmul.launches = 0
+        cdc_matmul.cdc_coded_matmul.variants.clear()
         cdc_decode.cdc_fused_head_argmax.launches = 0
         rmsnorm.rmsnorm.launches = 0
         torch.cuda.synchronize()
@@ -550,6 +665,7 @@ def serve_full_width(cfg) -> dict:
                 "k1": cdc_matmul.cdc_coded_matmul.launches,
                 "k2": cdc_decode.cdc_fused_head_argmax.launches,
                 "k6": rmsnorm.rmsnorm.launches,
+                "k1_variants": dict(cdc_matmul.cdc_coded_matmul.variants),
                 "round_ms": list(ex.round_ms[-(n_tok - 1):]),
                 "variants": ex.vstep.last_variant}
 
@@ -588,6 +704,11 @@ def serve_full_width(cfg) -> dict:
                 f"{gemms * rounds} and {rounds}")
     if reference["k1"] or reference["k2"]:
         raise AssertionError("the reference variant launched a kernel")
+    # granite's GEMMs are aligned: every launch takes the copy engine
+    for name, res in (("fault-free", clean), ("erasure", faulty)):
+        if not all(v.endswith("-async") for v in res["k1_variants"]):
+            raise AssertionError(f"{name}: coded-GEMM instantiations "
+                                 f"{res['k1_variants']}; want only -async")
     if plain["k1"] or plain["k2"] or plain["k6"]:
         raise AssertionError(
             f"the kernel-free run launched {plain['k1']} coded-GEMM, "
@@ -618,7 +739,8 @@ def serve_full_width(cfg) -> dict:
     log(f"overlapped executor (dispatch N, then harvest N-1): same "
         f"streams, {overlapped['period_ms']:.3f} ms per round (wall time "
         f"of {n_tok} steps / {n_tok})")
-    log(f"launches per fused round: {clean['k1'] // rounds} coded-GEMM + "
+    log(f"launches per fused round: {clean['k1'] // rounds} coded-GEMM "
+        f"({clean['k1_variants']}) + "
         f"{clean['k2'] // rounds} fused head + {norms} rmsnorm (and {norms} "
         f"rmsnorm per prefill; the reference variant {norms} per round)")
     log(f"fused round median {med:.3f} ms (erasure run "
@@ -713,33 +835,63 @@ def _bound(bytes_moved: float, flops: float) -> tuple[float, str]:
     return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
 
 
+PTXAS: dict[str, str] = {}     # kernel entry -> ptxas usage (phase 1)
+
+
+def _usage(entry: str, rb: int | None = None) -> str:
+    """ptxas's registers and static shared memory of the first kernel
+    entry containing ``entry``, and, for a streaming kernel with ``rb``
+    rows a block, its dynamic shared memory (stream_tile.cuh's Geo<RB>:
+    the ring, the staged activations, the row statistics, the barriers)."""
+    line = next((v for k, v in PTXAS.items() if entry in k),
+                "ptxas usage not recorded (kernels not rebuilt)")
+    if rb is not None:
+        from repro_torch.kernels import stream_plan as sp
+        dyn = (sp.NSTAGE[rb] * sp.STAGE_FLOATS + sp.XS_FLOATS[rb] + 16) * 4 \
+            + 2 * sp.NSTAGE[rb] * 8
+        line += f", {dyn} bytes dynamic smem"
+    return line
+
+
 def time_kernels(cfg, rows: int = 4) -> list[dict]:
     from repro_torch.core.coded_layer import unfold_parity
-    from repro_torch.kernels import cdc_decode, ref
+    from repro_torch.kernels import cdc_decode, cdc_matmul, ref
     gen = torch.Generator(device="cuda").manual_seed(13)
     scratch = torch.empty(64 * 2 ** 20, device="cuda")   # 256 MB > L2
     flush = scratch.zero_
     out = []
-    # r=2 is the main path's geometry; w1 at r=4 is the planner's
-    for name, m_l, r in (("w1", 3200, R), ("wq", 1024, R), ("wk", 256, R),
-                         ("w1", 3200, 4)):
-        spec, x, w, wc = _coded_case(m_l, rows, "folded", gen, r=r)
+    # r=2 is the main path's geometry; w1 at r=4 is the planner's; 64 rows
+    # is a prefill's
+    for rws, name, m_l, r in [(rw, n, m, rr) for rw in (rows, 64)
+                              for n, m, rr in (("w1", 3200, R),
+                                               ("wq", 1024, R),
+                                               ("wk", 256, R),
+                                               ("w1", 3200, 4))]:
+        spec, x, w, wc = _coded_case(m_l, rws, "folded", gen, r=r)
         valid = (True,) * T
         wcat = torch.cat([w, unfold_parity(wc, T, r).permute(1, 0, 2)
                           .reshape(K, r * m_l)], dim=1)
+        cdc_matmul.cdc_coded_matmul.variants.clear()
         ms = _time(lambda: _run_coded(x, w, wc, spec, valid), flush)
+        variant, = cdc_matmul.cdc_coded_matmul.variants
         plain = _time(lambda: _run_coded(x, w, wc, spec, valid, plain=True),
                       flush)
         lib = _time(lambda: torch.matmul(x, wcat), flush)
-        nbytes = 4 * (rows * K + (T + r) * K * m_l + rows * T * m_l
+        nbytes = 4 * (rws * K + (T + r) * K * m_l + rws * T * m_l
                       + 2 * m_l)
-        bound, by = _bound(nbytes, 2.0 * rows * K * m_l * (T + r))
-        out.append({"gemm": name, "r": r, "rows": rows, "m_l": m_l,
+        bound, by = _bound(nbytes, 2.0 * rws * K * m_l * (T + r))
+        rb = int(variant.split("-")[0][2:])
+        usage = _usage(f"coded_stream_kernelILi{T}ELi{r}ELi{rb}ELb"
+                       f"{int(variant.endswith('async'))}E", rb)
+        out.append({"gemm": name, "r": r, "rows": rws, "m_l": m_l,
                     "ms": ms, "plain_ms": plain, "library_ms": lib,
-                    "bound_ms": bound, "bound_by": by})
-        log(f"cdc_coded_matmul {name} [rows={rows}, k={K}, m_l={m_l}, "
+                    "bound_ms": bound, "bound_by": by, "variant": variant,
+                    "ptxas": usage})
+        log(f"cdc_coded_matmul {name} [rows={rws}, k={K}, m_l={m_l}, "
             f"T={T}, r={r}]: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"library matmul {lib:.4f} ms, bound {bound:.4f} ms ({by})")
+            f"library matmul {lib:.4f} ms, bound {bound:.4f} ms ({by}); "
+            f"{variant}: {usage}")
+        del x, w, wc, wcat
     w = _head(cfg, gen)
     w_shards, pw = _head_views(w)
     m_l = w_shards.shape[2]
@@ -826,11 +978,20 @@ def time_small_kernels(gen, flush) -> list[dict]:
     for m, k, n in ((512, 512, 512), (4, K, K)):
         x = torch.randn((m, k), generator=gen, device="cuda")
         w = torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5
+        matmul.matmul.variants.clear()
         ms = _time(lambda: matmul.matmul(x, w), flush)
+        variant, = matmul.matmul.variants
         plain = _time(lambda: ref.matmul_ref(x, w), flush)
         lib = _time(lambda: torch.matmul(x, w), flush)
+        a = int(variant.endswith("async"))
+        rb = None if variant.startswith("square") else \
+            int(variant.split("-")[1][2:])
+        usage = (_usage(f"matmul_square_kernelIffLb{a}E") if rb is None else
+                 _usage(f"matmul_rows_kernelILi{rb}EfLb{a}E", rb))
         _row(out, "matmul", f"[{m}, {k}] @ [{k}, {n}]", ms, plain, lib,
              4.0 * (m * k + k * n + m * n), 2.0 * m * k * n)
+        out[-1].update(variant=variant, ptxas=usage)
+        log(f"  matmul {variant}: {usage}")
     return out
 
 
@@ -850,6 +1011,7 @@ def run_study(device: str = "cuda") -> dict:
     wrappers = _kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
+    wrappers["matmul"].variants.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rows = study.run(device=device)
@@ -860,6 +1022,9 @@ def run_study(device: str = "cuda") -> dict:
     for name in ("cdc_decode", "matmul", "cdc_encode"):
         if not launches[name]:
             raise AssertionError(f"the study launched no {name}: {launches}")
+    mm_variants = dict(wrappers["matmul"].variants)
+    if set(mm_variants) != {"square-async"}:
+        raise AssertionError(f"the study's 512^3 GEMM took {mm_variants}")
     if [(r["T"], r["r"]) for r in rows] != [(t, r) for t in (4, 8, 16)
                                             for r in (1, 2)]:
         raise AssertionError(f"study sweep {rows}")
@@ -873,7 +1038,7 @@ def run_study(device: str = "cuda") -> dict:
                                  f", recovering err {rec}")
         errs[f"T={c.T},r={c.r}"] = {"coded": coded, "recovering": rec}
     log(f"coded-overhead study on the card ({secs:.1f} s, launches "
-        f"{launches}):")
+        f"{launches}; GEMM instantiations {mm_variants}):")
     for r in rows + krows:
         log(f"  {r}")
     log("  max |out - x @ w|: " + "; ".join(
@@ -1165,24 +1330,35 @@ def main() -> int:
     t0 = time.perf_counter()
     report = build.build_all()
     log(f"built {sorted(report)} in {time.perf_counter() - t0:.1f} s")
+    spills = []
     for name, rep in report.items():
         entry = ""
         for line in rep["ptxas"].splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1] if "'" in line else line
             elif "registers" in line or "spill" in line:
-                log(f"  {name} {entry}: {line.split(':', 2)[-1].strip()}")
+                use = line.split(":", 2)[-1].strip()
+                if "spill" in line and \
+                        "0 bytes spill stores, 0 bytes spill loads" not in use:
+                    spills.append(f"{entry}: {use}")
+                if "registers" in line:
+                    PTXAS[entry] = use
+                log(f"  {name} {entry}: {use}")
+    if spills:
+        raise AssertionError(f"ptxas spills: {spills}")
 
     cfg = get_arch("granite-3-8b")
     torch.cuda.reset_peak_memory_stats()
     err4 = check_encode(cfg)
     err1 = max(check_coded_matmul(), check_coded_matmul_r34(),
                check_coded_matmul_t8())
+    edge1, edge7 = check_stream_edges()
     err2 = check_fused_head(cfg)
     err3 = check_decode_merge()
     err5 = check_decode()
     err6 = check_rmsnorm()
-    err7 = check_matmul()
+    err7 = max(check_matmul(), edge7)
+    err1 = max(err1, edge1)
     _phase_memory("kernel checks")
     served = serve_full_width(cfg)
     torch.cuda.empty_cache()

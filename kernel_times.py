@@ -1,0 +1,118 @@
+#!/usr/bin/env python3
+"""Time kernels 1, 2 and 7 of one checkout of the port on one CUDA card.
+
+  python3 kernel_times.py [--src DIR] [--tag NAME]
+
+DIR is the ``src`` directory of the checkout to time (default: this
+one's). To compare two commits on the same card, unpack the other one
+(``git archive``) under ``results/`` and run, in one call, parent, change,
+change, parent. Each run builds that checkout's kernels and prints one
+JSON line per shape: the kernel's median device ms over 30 calls (CUDA
+events, a 256 MB buffer zeroed before each call so the weights start
+cold, a spin kernel covering the host's enqueue), beside one
+``torch.matmul`` over the same weights. Kernel 1 at granite-3-8b's w1
+((T, r) = (4, 2) and (4, 4) folded), wq and wk at rows 4, 16 and 64;
+kernel 2 (the fused head) at 4 rows; kernel 7 at 512^3 and granite's Wo
+at 4 rows. Needs only the wrappers' public signatures, which both sides
+share.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+K, T = 4096, 4
+SPIN_CYCLES = 4_000_000
+
+
+def _time(fn, flush, n=30) -> float:
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(n):
+        flush()
+        torch.cuda._sleep(SPIN_CYCLES)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--src", default=str(Path(__file__).resolve().parent
+                                         / "src"))
+    ap.add_argument("--tag", default="this")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_times: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(args.src).resolve()))
+    from repro_torch.core.coded_layer import (CodedDenseSpec,
+                                              make_parity_weights,
+                                              unfold_parity)
+    from repro_torch.core.coding import CodeSpec
+    from repro_torch.device import set_true_f32
+    from repro_torch.kernels import build, cdc_decode, cdc_matmul, matmul, ops
+    set_true_f32()
+    build.build_all()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip().splitlines()[0]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    flush = torch.empty(64 * 2 ** 20, device="cuda").zero_
+
+    def emit(**row):
+        print(json.dumps({"tag": args.tag, "card": card, **row}), flush=True)
+
+    for name, m_l, r, rows in [("w1", 3200, 2, 4), ("w1", 3200, 4, 4),
+                               ("wq", 1024, 2, 4), ("wk", 256, 2, 4),
+                               ("w1", 3200, 2, 16), ("wq", 1024, 2, 16),
+                               ("wk", 256, 2, 16), ("w1", 3200, 2, 64),
+                               ("wq", 1024, 2, 64), ("wk", 256, 2, 64)]:
+        spec = CodedDenseSpec(CodeSpec(T, r), layout="folded")
+        x = torch.randn((rows, K), generator=gen, device="cuda")
+        w = torch.randn((K, T * m_l), generator=gen, device="cuda") / K ** .5
+        wc = make_parity_weights(w, spec)
+        vh = (True,) * T
+        esel, coef, g = ops.decode_plan(spec, vh, vh, m_l, "cuda")
+        wcat = torch.cat([w, unfold_parity(wc, T, r).permute(1, 0, 2)
+                          .reshape(K, r * m_l)], dim=1)
+        ms = _time(lambda: cdc_matmul.cdc_coded_matmul(
+            x, w, wc, "folded", T, r, g, esel, coef, vh), flush)
+        lib = _time(lambda: torch.matmul(x, wcat), flush)
+        emit(kernel="cdc_coded_matmul", gemm=name, r=r, rows=rows, ms=ms,
+             library_ms=lib)
+        del w, wc, wcat
+    m_l = 12292                            # granite's head shard at T = 4
+    w = torch.randn((K, T * m_l), generator=gen, device="cuda") / K ** .5
+    w_shards = w.view(K, T, m_l).permute(1, 0, 2)
+    pw = w_shards.sum(0).contiguous()
+    x = torch.randn((4, K), generator=gen, device="cuda")
+    ms = _time(lambda: cdc_decode.cdc_fused_head_argmax(
+        x, w_shards, pw, (True,) * T, vocab=49155), flush)
+    wcat = torch.cat([w, pw], dim=1)
+    lib = _time(lambda: torch.matmul(x, wcat), flush)
+    emit(kernel="cdc_fused_head_argmax", rows=4, ms=ms, library_ms=lib)
+    del w, w_shards, pw, wcat
+    for m, k, n in ((512, 512, 512), (4, K, K)):
+        x = torch.randn((m, k), generator=gen, device="cuda")
+        w = torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5
+        ms = _time(lambda: matmul.matmul(x, w), flush)
+        lib = _time(lambda: torch.matmul(x, w), flush)
+        emit(kernel="matmul", shape=[m, k, n], ms=ms, library_ms=lib)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

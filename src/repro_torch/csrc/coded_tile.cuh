@@ -1,8 +1,11 @@
-// Shared tile machinery of the coded-GEMM kernels (float32, CUDA cores).
+// Tile machinery of the fused coded head (kernel 2), and the Eq. 12
+// decode and cross-block completion that kernels 1, 2, 3 and 7 share
+// (float32, CUDA cores). Kernel 1 streams its weights through
+// stream_tile.cuh instead.
 //
-// A block owns BN = 32 output columns (one per lane) of EVERY shard of a
-// coded GEMM -- the T weight shards and the parity shards -- for RB = 8
-// rows. Its 8 warps split the contraction: warp g takes k indices
+// In kernel 2 a block owns BN = 32 output columns (one per lane) of EVERY
+// shard of a coded GEMM -- the T weight shards and the parity shards --
+// for RB = 8 rows. Its 8 warps split the contraction: warp g takes k indices
 // g, g + 8, g + 16, ... of each chunk of KC staged activations, so each
 // weight load is one 128-byte row segment per warp. The per-warp partial
 // sums are then added in warp order in shared memory (deterministic), and
@@ -40,20 +43,6 @@ __device__ __forceinline__ void warp_argmax(float& v, int& id) {
     int oid = __shfl_xor_sync(0xffffffffu, id, off);
     argmax_merge(v, id, ov, oid);
   }
-}
-
-// inv[rr] = rsqrt(mean(x[r0 + rr, :]^2) + eps) for the block's rows
-// (the rmsnorm fold's statistics pass; warp rr reduces row r0 + rr).
-__device__ inline void row_rms(const float* __restrict__ x, int rows, int k,
-                               int r0, float eps, float* inv) {
-  const int lane = threadIdx.x, rr = threadIdx.y;
-  float ss = 0.f;
-  if (r0 + rr < rows) {
-    const float* xr = x + (int64_t)(r0 + rr) * k;
-    for (int kk = lane; kk < k; kk += 32) ss = fmaf(xr[kk], xr[kk], ss);
-  }
-  ss = warp_sum(ss);
-  if (lane == 0) inv[rr] = rsqrtf(ss / (float)k + eps);
 }
 
 // acc[rr][s] += x'[r0 + rr, kk] * W_s[kk, column] over kk in [kb0, kb1),

@@ -84,6 +84,13 @@ def bf16_flag(dtype: torch.dtype, who: str) -> int:
     return int(dtype == torch.bfloat16)
 
 
+def raw_stream(device: torch.device) -> int:
+    """The handle of PyTorch's current stream on ``device`` (what
+    ``torch.cuda.current_stream(device).cuda_stream`` gives, without
+    building a Stream object on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     lib = _loaded.get(name)

@@ -21,8 +21,9 @@ import torch
 
 from repro_torch.core.coding import host_mask
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.cdc_matmul import (_BN, _RB, _tile_counters,
-                                            mask_bits)
+from repro_torch.kernels.cdc_matmul import _tile_counters, mask_bits
+
+_BN, _RB = 32, 8     # kernel 2's column tile and row tile (coded_tile.cuh)
 
 
 def _decode_lib():

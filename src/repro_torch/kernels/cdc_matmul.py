@@ -15,16 +15,19 @@ version ``ref.cdc_decode_merge_ref`` on a CPU tensor.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.core.coded_layer import folded_slot_map, unfold_parity
 from repro_torch.core.coding import generator_tensor, host_mask
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ref, stream_plan
 
-_BN, _RB = 32, 8          # the kernel's column tile and row tile
 _sem: dict[int, torch.Tensor] = {}   # per-device tile counters (see below)
+_sms: dict[int, int] = {}            # SMs per device
+_occ: dict[tuple, int] = {}          # resident blocks per SM per variant
 
 
 def eq12_plan(spec, valid: torch.Tensor, valid_parity: torch.Tensor,
@@ -59,13 +62,63 @@ def eq12_plan(spec, valid: torch.Tensor, valid_parity: torch.Tensor,
     return esel, coef
 
 
-def split_k(rows: int, k: int, m_l: int, n_sm: int) -> tuple[int, int]:
-    """(ksplit, kchunk): split the contraction across blocks until about
-    two blocks per SM are in flight, keeping chunks >= 128 deep."""
-    base = -(-m_l // _BN) * -(-rows // _RB)
-    ksplit = max(1, min(-(-2 * n_sm // base), k // 128))
-    kchunk = -(-k // ksplit)
-    return -(-k // kchunk), kchunk
+def coded_variant(rows: int, m_l: int, T: int, layout: str,
+                  ldw: int | None = None, ptr_aligned: bool = True
+                  ) -> tuple[int, bool]:
+    """(rows a block, bulk copies?) of the kernel instantiation a call
+    takes. The copy engine needs every row segment, stride and column
+    offset in 16-byte units: m_l, the slice width and w's row stride
+    multiples of 4 floats, and 16-byte aligned bases (``ptr_aligned``)."""
+    folded = layout == "folded"
+    wd = m_l // T if folded else m_l
+    ldw = T * m_l if ldw is None else ldw
+    aligned = (ptr_aligned and m_l % 4 == 0 and wd % 4 == 0
+               and ldw % 4 == 0)
+    return stream_plan.row_block(rows, wd, T if folded else 1), aligned
+
+
+@functools.lru_cache(maxsize=1024)
+def coded_plan(rows: int, k: int, m_l: int, T: int, r: int, layout: str,
+               n_sm: int, occupancy: int, ldw: int | None = None,
+               ptr_aligned: bool = True) -> stream_plan.StreamPlan:
+    """The launch plan of one ``cdc_coded_matmul`` call: T + r weight
+    streams, column tiles cut inside each folded parity slice (or across
+    m_l for the dedicated layout), RB = 4 for rows <= 4, and k split so
+    that the blocks fill whole waves of ``n_sm * occupancy`` resident
+    blocks (the occupancy of the instantiation ``coded_variant`` names,
+    as the C interface reports it)."""
+    folded = layout == "folded"
+    _, aligned = coded_variant(rows, m_l, T, layout, ldw, ptr_aligned)
+    return stream_plan.plan(rows, k, m_l // T if folded else m_l,
+                            T if folded else 1, T + r, n_sm * occupancy,
+                            aligned)
+
+
+def _n_sm(device: torch.device) -> int:
+    n = _sms.get(device.index)
+    if n is None:
+        n = _sms[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
+
+
+def _occupancy(T: int, r: int, rb: int, aligned: bool) -> int:
+    """Resident blocks per SM of one instantiation, from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor (once per instantiation
+    and process)."""
+    key = (T, r, rb, aligned)
+    occ = _occ.get(key)
+    if occ is None:
+        fn = build.load("cdc_coded_matmul").cdc_coded_matmul_occupancy
+        fn.argtypes = [ctypes.c_int] * 4
+        fn.restype = ctypes.c_int
+        occ = fn(T, r, rb, int(aligned))
+        if occ <= 0:
+            raise RuntimeError(f"cdc_coded_matmul: occupancy query for "
+                               f"(T, r, rb, async) = {key} failed: "
+                               f"{-occ if occ < 0 else 'no resident block'}")
+        _occ[key] = occ
+    return occ
 
 
 def _tile_counters(device: torch.device, n: int) -> torch.Tensor:
@@ -86,7 +139,7 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, p, ctypes.c_float, p, p, p,
                        i, i, i, i, i, ctypes.c_longlong, i, ctypes.c_uint,
-                       i, i, p]
+                       i, i, i, i, i, i, i, i, i, p]
         fn.restype = i
     return fn
 
@@ -153,27 +206,33 @@ def cdc_coded_matmul(x: torch.Tensor, w: torch.Tensor, w_cdc: torch.Tensor,
     _check(gamma is None or (gamma.is_contiguous()
                              and tuple(gamma.shape) == (k,)),
            "gamma must be [k]")
-    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    ksplit, kchunk = split_k(rows, k, m_l, n_sm)
+    ldw = w.stride(0)
+    ptr_ok = (w.data_ptr() | w_cdc.data_ptr()) % 16 == 0
+    rb, aligned = coded_variant(rows, m_l, T, layout, ldw, ptr_ok)
+    plan = coded_plan(rows, k, m_l, T, r, layout, _n_sm(x.device),
+                      _occupancy(T, r, rb, aligned), ldw, ptr_ok)
     out = torch.empty((rows, T, m_l), dtype=torch.float32, device=x.device)
-    ws = torch.empty((ksplit if ksplit > 1 else 0, rows, T * m_l),
+    ws = torch.empty((plan.ksplit if plan.ksplit > 1 else 0, rows, T * m_l),
                      dtype=torch.float32, device=x.device)
-    sem = _tile_counters(x.device, -(-m_l // _BN) * -(-rows // _RB))
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    sem = _tile_counters(x.device, plan.counters)
+    stream = build.raw_stream(x.device)
     err = _lib()(x.data_ptr(), w.data_ptr(), w_cdc.data_ptr(),
                  gen.data_ptr(), esel.data_ptr(), coef.data_ptr(),
                  gamma.data_ptr() if gamma is not None else None, eps,
                  out.data_ptr(), ws.data_ptr(), sem.data_ptr(), rows, k, T,
-                 r, m_l, w.stride(0), int(folded), mask_bits(valid), ksplit,
-                 kchunk, stream)
+                 r, m_l, ldw, int(folded), mask_bits(valid), plan.rb,
+                 int(plan.aligned), plan.bn, plan.tps, plan.wd, plan.nrb,
+                 plan.ksplit, plan.kchunk, plan.ks, stream)
     if err != 0:
         raise RuntimeError(f"cdc_coded_matmul kernel launch failed: "
-                           f"cudaError {err}")
+                           f"cudaError {err} (plan {plan})")
     cdc_coded_matmul.launches += 1
+    cdc_coded_matmul.variants[plan.variant] += 1
     return out
 
 
 cdc_coded_matmul.launches = 0
+cdc_coded_matmul.variants = collections.Counter()   # launches per variant
 
 
 # ------------------------------------------------------- decode + merge --

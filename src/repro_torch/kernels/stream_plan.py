@@ -1,0 +1,167 @@
+"""Launch plans of the weight-streaming kernels (``csrc/stream_tile.cuh``).
+
+A plan cuts the work of one launch into units, one block each: a column
+tile of at most ``BN[rb]`` columns inside one slice of width ``wd`` (a
+folded parity slice, or the whole output width), a row block of ``rb``
+rows and a range of k. The CUDA side decodes ``blockIdx.x`` exactly as ``units``
+does (row block fastest, then tile, then split) and refuses a plan that
+breaks its limits, so the two cannot disagree silently. The constants
+mirror ``stream_tile.cuh``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+STAGE_FLOATS = 8192   # floats a stage (32 KB)
+# per rows a block (Geo<RB> in stream_tile.cuh): stages in the ring, the
+# widest column tile (8 columns a lane at 4 rows, else 4), and the floats
+# of staged activations (kmax(rb) x rb)
+NSTAGE = {4: 4, 8: 2, 16: 2}
+BN = {4: 256, 8: 128, 16: 128}
+XS_FLOATS = {4: 4096, 8: 8192, 16: 8192}
+WAVE_EFFICIENCY = 0.9  # the split count stops at the first plan this full
+MAX_SPLITS = 32       # most k splits a plan tries
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def row_block(rows: int, wd: int, n_slices: int = 1) -> int:
+    """Rows a block owns: 4 for a decode round's <= 4 rows, 8 up to 8
+    rows; beyond, 16 when the output has at least 16 column tiles of 128
+    (fewer row blocks stream the weights fewer times: granite's w1 at 64
+    rows), else 8 (more blocks to fill the card and to share the split
+    reduction: wq, wk)."""
+    if rows <= 4:
+        return 4
+    if rows <= 8 or n_slices * _cdiv(wd, 128) < 16:
+        return 8
+    return 16
+
+
+def kmax(rb: int) -> int:
+    """Deepest k range of one block with ``rb`` rows (its activations are
+    staged in shared memory)."""
+    return XS_FLOATS[rb] // rb
+
+
+def box_floats(ks: int, pitch: int) -> int:
+    """Floats of one stream's [ks, pitch] box in a stage, rounded up to 128
+    bytes (the tensor copies' shared-memory alignment)."""
+    return -(-ks * pitch // 32) * 32
+
+
+def stage_rows(streams: int, pitch: int) -> int:
+    """The most k rows a stage holds of each of ``streams`` boxes (at most
+    256, the tensor copies' box limit)."""
+    ks = min(256, STAGE_FLOATS // (streams * pitch))
+    while ks > 1 and streams * box_floats(ks, pitch) > STAGE_FLOATS:
+        ks -= 1
+    return max(1, ks)
+
+
+def tile_width(wd: int, aligned: bool, bn_max: int) -> int:
+    """The widest tile that cuts a slice of ``wd`` columns into equal tiles
+    of at most ``bn_max`` columns (a multiple of 4 on the copy engine's
+    path)."""
+    bn = _cdiv(wd, _cdiv(wd, bn_max))
+    return min(bn_max, -(-bn // 4) * 4) if aligned else bn
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamPlan:
+    rows: int
+    k: int
+    rb: int          # rows a block
+    aligned: bool    # bulk copies (True) or the ordinary-load producer
+    wd: int          # slice width; tiles never straddle a slice
+    n_slices: int
+    bn: int          # column tile width
+    ks: int          # k rows a stage
+    ksplit: int
+    kchunk: int      # k rows a split
+
+    @property
+    def nrb(self) -> int:
+        return _cdiv(self.rows, self.rb)
+
+    @property
+    def tps(self) -> int:
+        return _cdiv(self.wd, self.bn)
+
+    @property
+    def tiles(self) -> int:
+        return self.n_slices * self.tps
+
+    @property
+    def counters(self) -> int:
+        """Arrival counters the split reduction needs (one per tile and
+        row block)."""
+        return self.tiles * self.nrb
+
+    @property
+    def blocks(self) -> int:
+        return self.counters * self.ksplit
+
+    @property
+    def variant(self) -> str:
+        return f"rb{self.rb}-{'async' if self.aligned else 'loads'}"
+
+    def units(self):
+        """(c0, width, r0, kb0, kb1) of every block in launch order (row
+        blocks fastest, then tiles, then splits): c0 the first column
+        (slice-major), r0 the first row, [kb0, kb1) the k range."""
+        out = []
+        for u in range(self.blocks):
+            rbi, rest = u % self.nrb, u // self.nrb
+            tile, split = rest % self.tiles, rest // self.tiles
+            s, o0 = tile // self.tps, (tile % self.tps) * self.bn
+            kb0 = split * self.kchunk
+            out.append((s * self.wd + o0, min(self.bn, self.wd - o0),
+                        rbi * self.rb, kb0, min(self.k, kb0 + self.kchunk)))
+        return out
+
+
+def plan(rows: int, k: int, wd: int, n_slices: int, streams: int,
+         slots: int, aligned: bool) -> StreamPlan:
+    """The plan for ``streams`` weight streams of ``n_slices`` slices of
+    ``wd`` columns over k, on a card with ``slots`` resident blocks (SMs x
+    blocks per SM). k is split (each split at most kmax(rb) deep and a
+    whole number of stages, each stage as deep as the split needs, at most
+    as deep as a stage holds) until the blocks fill whole waves of the
+    slots to WAVE_EFFICIENCY, or as near as MAX_SPLITS get."""
+    rb = row_block(rows, wd, n_slices)
+    # 256-column tiles only where they still give every slot work within
+    # MAX_SPLITS (narrower than 128, row segments get short for DRAM)
+    bn = tile_width(wd, aligned, BN[rb])
+    if (bn > 128 and n_slices * _cdiv(wd, bn) * _cdiv(rows, rb) * MAX_SPLITS
+            < slots):
+        bn = tile_width(wd, aligned, 128)
+    pitch = -(-bn // 4) * 4
+    ks_max = stage_rows(streams, pitch)
+    base = n_slices * _cdiv(wd, bn) * _cdiv(rows, rb)
+    kdeep = kmax(rb)
+    nmax = max(_cdiv(k, kdeep), min(MAX_SPLITS, _cdiv(k, 2 * ks_max)))
+    best, n = None, _cdiv(k, kdeep)
+    while best is None or n <= nmax:
+        # n splits of whole stages, each stage as deep as a split of this
+        # depth needs (at most ks_max rows)
+        kc = _cdiv(k, n)
+        nst = _cdiv(kc, ks_max)
+        ks = _cdiv(kc, nst)
+        kchunk = nst * ks
+        n += 1
+        if kchunk > kdeep:
+            continue
+        ksplit = _cdiv(k, kchunk)
+        u = base * ksplit
+        eff = u / (_cdiv(u, slots) * slots)
+        if best is None or eff > best[0] + 1e-9:
+            best = (eff, ksplit, kchunk, ks)
+        if eff >= WAVE_EFFICIENCY:
+            break
+    _, ksplit, kchunk, ks = best
+    return StreamPlan(rows=rows, k=k, rb=rb, aligned=aligned, wd=wd,
+                      n_slices=n_slices, bn=bn, ks=ks, ksplit=ksplit,
+                      kchunk=kchunk)

@@ -61,5 +61,9 @@ def test_rmsnorm_kernel_matches_plain(smoke):
     assert smoke.check_rmsnorm() <= 1e-5
 
 
+def test_stream_plan_edges_match_plain(smoke):
+    assert max(smoke.check_stream_edges()) <= 1e-4
+
+
 def test_matmul_kernel_matches_plain(smoke):
     assert smoke.check_matmul() <= 1e-4

@@ -288,11 +288,13 @@ def test_dead_shard_nan_does_not_spread():
 
 
 def test_split_k_covers_the_contraction():
+    """Kernel 1's launch plan (which replaced split_k) splits k into
+    in-order ranges that cover [0, k) once."""
     for rows, k, m_l in ((1, 4096, 256), (4, 4096, 1024), (16, 4096, 3200),
                          (4, 24, 7), (8, 100, 33)):
-        ksplit, kchunk = tcdc.split_k(rows, k, m_l, n_sm=132)
-        assert ksplit >= 1 and kchunk >= 1
-        assert (ksplit - 1) * kchunk < k <= ksplit * kchunk
+        plan = tcdc.coded_plan(rows, k, m_l, 4, 2, "dedicated", 132, 2)
+        assert plan.ksplit >= 1 and plan.kchunk >= 1
+        assert (plan.ksplit - 1) * plan.kchunk < k <= plan.ksplit * plan.kchunk
 
 
 def test_kernel_cost_models_match_reference():
