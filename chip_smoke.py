@@ -22,18 +22,26 @@ Phases, each of which raises on failure (exit code non-zero):
      their launch plans (row blocks, tile and stage remainders, misaligned
      views), where every instantiation (bulk copies or ordinary loads,
      4/8/16 rows a block) must launch and repeats must be bitwise equal;
+     kernel 2 also at its plan's edges (T = 2, 4, 8; rows 1-17; ragged
+     m_l, k = 4093, an offset head; integer-valued inputs, so tokens and
+     max equal the plain version's to the bit) with ties across tiles and
+     across k splits resolving to the smaller id, every (T, instantiation)
+     launched, and kernel 6 at rows 1-1000, d 4096/12800/4093, bf16,
+     strided rows and every block shape, bitwise repeatable;
   3. serve granite-3-8b at full width (40 layers, d 4096, T=4, r=2 folded,
      float32, random weights from a seeded torch.Generator) through
      ServingEngine.generate: 4 requests, prompt 16, 16 new tokens, fault
      free, with shard 2 killed at step 4, on the reference variant, and on
      it with the norms on their plain version (no kernel at all); the
      token streams must be identical and every fused round must launch the
-     coded-GEMM kernel 200 times and the fused head once;
+     coded-GEMM kernel 200 times and the fused head once (its 4-row,
+     bulk-copy instantiation); torch.profiler gives the device time per
+     round by kernel and per launch of kernels 2 and 6;
   4. time each kernel at its main-path shape with CUDA events beside its
      plain version, one library call and its bandwidth/compute bound
-     (kernel 1 also at 64 rows, kernels 3, 5, 6 and 7 at the shapes of
-     their own paths), printing the instantiation each took and its ptxas
-     usage;
+     (kernel 1 also at 64 rows, kernel 2 at 16, kernels 3, 5, 6 and 7 at
+     the shapes of their own paths), printing the instantiation each took
+     and its ptxas usage;
   5. serve granite-3-8b at full width through the port's serving entry
      point (launch.serve: the continuous-batching scheduler, SimClock, 4
      slots, 8 requests 2 ms apart, prompt 16, 16 new tokens) fault-free,
@@ -171,10 +179,39 @@ def _head_views(w):
     return w_shards, w_shards.sum(0).contiguous()
 
 
-def check_fused_head(cfg) -> float:
-    """Kernel 2 vs its plain version under every mask, and a tie across
-    two vocabulary tiles that must resolve to the smaller id."""
+def _int_head(shape, gen, lo=-1, hi=1):
+    """Integer-valued float32 in [lo, hi]: every sum of the fused head's
+    inputs is then exact in float32, in any order, so the kernel and its
+    plain version must agree to the bit, ties included."""
+    return torch.randint(lo, hi + 1, shape, generator=gen,
+                         device="cuda").to(torch.float32)
+
+
+def _head_pair(x, w_shards, pw, valid, vocab):
+    """Kernel 2 and its plain version on the same card tensors: their
+    tokens must be equal; returns (tokens, max abs err of the max)."""
     from repro_torch.kernels import cdc_decode, ref
+    tok, vmax = cdc_decode.cdc_fused_head_argmax(x, w_shards, pw, valid,
+                                                 vocab=vocab)
+    rtok, rmax = ref.fused_head_argmax_ref(x, w_shards, pw,
+                                           torch.tensor(valid), vocab)
+    torch.cuda.synchronize()
+    if not torch.equal(tok, rtok):
+        raise AssertionError(f"fused head tokens {tok.tolist()} != plain "
+                             f"{rtok.tolist()} (mask {valid}, rows "
+                             f"{x.shape[0]}, shards {tuple(w_shards.shape)}, "
+                             f"vocab {vocab})")
+    torch.testing.assert_close(vmax, rmax, **TOL)
+    return tok, float((vmax - rmax).abs().max())
+
+
+def check_fused_head(cfg) -> float:
+    """Kernel 2 vs its plain version under every mask at granite's head
+    (4 and 12 rows, Gaussian weights), and two planted ties that must
+    resolve to the smaller id under every mask: across two column tiles
+    and across two k splits (integer-valued weights, so the tie is exact
+    on both sides)."""
+    from repro_torch.kernels import cdc_decode, cdc_matmul
     gen = torch.Generator(device="cuda").manual_seed(12)
     w = _head(cfg, gen)
     x = torch.randn((4, K), generator=gen, device="cuda")
@@ -183,40 +220,122 @@ def check_fused_head(cfg) -> float:
     # every mask at the main path's 4 rows, and 12 rows (two row blocks)
     x12 = torch.randn((12, K), generator=gen, device="cuda")
     for xs, valid in [(x, m) for m in _masks()] + [(x12, (True,) * T)]:
-        tok, vmax = cdc_decode.cdc_fused_head_argmax(xs, w_shards, pw, valid,
-                                                     vocab=cfg.vocab)
-        rtok, rmax = ref.fused_head_argmax_ref(
-            xs, w_shards, pw, torch.tensor(valid), cfg.vocab)
-        torch.cuda.synchronize()
-        if not torch.equal(tok, rtok):
-            raise AssertionError(f"fused head tokens {tok.tolist()} != "
-                                 f"plain {rtok.tolist()} (mask {valid})")
-        torch.testing.assert_close(vmax, rmax, **TOL)
-        worst = max(worst, float((vmax - rmax).abs().max()))
+        worst = max(worst, _head_pair(xs, w_shards, pw, valid,
+                                      cfg.vocab)[1])
     m_l = w.shape[1] // T
-    # the same column twice, clearly the best for every row: once in an
-    # EARLY tile of shard 1 and once in a LATE tile of shard 0, whose
-    # global id (9000) is the smaller one
-    col = torch.sign(x).mean(0) * 0.5
-    ids = (1 * m_l + 10, 0 * m_l + 9000)
-    for gid in ids:
-        w[:, gid] = col
-    w_shards, pw = _head_views(w)
-    # masks that keep both tied shards alive: a rebuilt shard's column is
-    # the parity minus the others, equal to the original only to rounding
-    for valid in [m for m in _masks() if m[0] and m[1]]:
-        tok, _ = cdc_decode.cdc_fused_head_argmax(x, w_shards, pw, valid,
-                                                  vocab=cfg.vocab)
-        rtok, _ = ref.fused_head_argmax_ref(x, w_shards, pw,
-                                            torch.tensor(valid), cfg.vocab)
-        torch.cuda.synchronize()
-        if tok.tolist() != [min(ids)] * 4 or rtok.tolist() != [min(ids)] * 4:
-            raise AssertionError(f"tie must resolve to id {min(ids)}: kernel "
-                                 f"{tok.tolist()}, plain {rtok.tolist()}")
+    plan = cdc_decode.head_plan(4, K, m_l, T, cdc_matmul._n_sm(x.device),
+                                cdc_decode._occupancy(T, 4, True))
+    kc = plan.kchunk
+    if plan.ksplit < 2 or plan.bn > 9000:
+        raise AssertionError(f"the tie cases need split k and several "
+                             f"tiles: {plan}")
+    # a tie across tiles: gid 1 * m_l + 10 (shard 1, tile 0) and gid 9000
+    # (shard 0, a late tile); across splits: gid 3 * m_l + 20 with weights
+    # only in split 0's k range and gid 2 * m_l + 40 with them only in
+    # split 1's, x repeating itself there. Planted 8s beat every other
+    # column (|w| <= 1) by far.
+    ties = {"tiles": ((1 * m_l + 10, None), (9000, None)),
+            "splits": ((3 * m_l + 20, (0, kc)), (2 * m_l + 40, (kc, 2 * kc)))}
+    for name, cols in ties.items():
+        w = _int_head((K, T * m_l), gen)
+        x = _int_head((4, K), gen, 1, 2)
+        for gid, ks in cols:
+            w[:, gid] = 0.0 if ks else 8.0
+            if ks:
+                w[ks[0]:ks[1], gid] = 8.0
+        if name == "splits":
+            x[:, kc:2 * kc] = x[:, :kc]
+        w_shards, pw = _head_views(w)
+        want = min(gid for gid, _ in cols)
+        for valid in _masks():
+            tok, _ = _head_pair(x, w_shards, pw, valid, cfg.vocab)
+            if tok.tolist() != [want] * 4:
+                raise AssertionError(f"tie across {name} must resolve to "
+                                     f"id {want}: {tok.tolist()} (mask "
+                                     f"{valid})")
+        del w, w_shards, pw
     log(f"kernel cdc_fused_head_argmax: {T + 2} cases equal tokens, max "
-        f"within 1e-4 (max abs err {worst:.3e}); cross-tile tie -> id "
-        f"{min(ids)}")
+        f"within 1e-4 (max abs err {worst:.3e}); ties across tiles and "
+        f"across splits -> the smaller id under every mask")
     return worst
+
+
+HEAD_VARIANTS = tuple((t, f"rb{rb}-{p}") for t in (2, 4, 8)
+                      for rb in (4, 8, 16) for p in ("async", "loads"))
+
+
+def check_head_edges() -> float:
+    """Kernel 2 at the edges of its launch plan, against its plain version
+    under every mask with <= 1 dead shard: granite's head at T = 2, 4 and
+    8 (T = 2's m_l = 24578 takes the ordinary loads) and rows 1, 4, 5, 8,
+    9, 12 and 17 (the row blocks 4 | 8 | 16 and their remainders), vocab
+    49155 (it cuts the last shard's last tile); T = 2 at an aligned
+    m_l = 12292; ragged m_l 1001 and 2051 (ordinary loads, each row
+    block) with the vocab cut 7 columns short; k = 4093; the head at a
+    4-byte offset (ordinary loads at granite's width). Integer-valued
+    inputs: tokens and max must equal the plain version's to the bit,
+    ties (frequent here) included. Every (T, instantiation) must launch,
+    and two launches on the same inputs give the same bits."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import cdc_decode
+    vocab = get_arch("granite-3-8b").vocab
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    rows_all = (1, 4, 5, 8, 9, 12, 17)
+    cases = [(t, _pad_head(vocab, t), K, rows_all, 0, vocab)
+             for t in (2, 4, 8)]
+    cases += [(2, 12292, K, (4, 5, 9), 0, 2 * 12292 - 5)]
+    cases += [(t, 1001, 4093, (4, 5), 0, t * 1001 - 7) for t in (2, 4, 8)]
+    cases += [(t, 2051, K, (17,), 0, t * 2051 - 7) for t in (2, 4, 8)]
+    cases += [(4, 12292, 4093, (4,), 0, vocab), (4, 12292, K, (4, 9), 1,
+                                                 vocab)]
+    seen, worst, n = set(), 0.0, 0
+    for t, m_l, k, rows_list, offset, voc in cases:
+        buf = _int_head((k, t * m_l + offset), gen)
+        w_shards = buf[:, offset:].reshape(k, t, m_l).permute(1, 0, 2)
+        pw = w_shards.sum(0).contiguous()
+        for rows in rows_list:
+            x = _int_head((rows, k), gen, -2, 2)
+            for valid in _masks(t):
+                cdc_decode.cdc_fused_head_argmax.variants.clear()
+                _, err = _head_pair(x, w_shards, pw, valid, voc)
+                variant, = cdc_decode.cdc_fused_head_argmax.variants
+                seen.add((t, variant))
+                if err != 0.0:
+                    raise AssertionError(f"fused head max differs by {err} "
+                                         f"on exact inputs (T={t}, m_l="
+                                         f"{m_l}, k={k}, rows={rows})")
+                worst, n = max(worst, err), n + 1
+        del buf, w_shards, pw
+    missing = [v for v in HEAD_VARIANTS if v not in seen]
+    if missing:
+        raise AssertionError(f"kernel 2 instantiations never launched: "
+                             f"{missing} (launched {sorted(seen)})")
+    # bitwise repeat at the decode round's split plan, Gaussian inputs
+    w = torch.randn((K, T * 12292), generator=gen, device="cuda") / K ** 0.5
+    w_shards, pw = _head_views(w)
+    x = torch.randn((4, K), generator=gen, device="cuda")
+    a = cdc_decode.cdc_fused_head_argmax(x, w_shards, pw,
+                                         (True, False, True, True),
+                                         vocab=vocab)
+    b = cdc_decode.cdc_fused_head_argmax(x, w_shards, pw,
+                                         (True, False, True, True),
+                                         vocab=vocab)
+    torch.cuda.synchronize()
+    if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+        raise AssertionError("fused head: two launches on the same inputs "
+                             "differ")
+    log(f"kernel cdc_fused_head_argmax at its plan's edges: {n} cases "
+        f"(T 2/4/8, rows 1-17, m_l 1001/2051/12292/granite, k 4093, "
+        f"offset head, every mask) equal to the plain version to the bit; "
+        f"repeats bitwise equal; (T, instantiation) launched "
+        f"{sorted(seen)}")
+    return worst
+
+
+def _pad_head(vocab: int, t: int) -> int:
+    """m_l of the head shards at t (the vocabulary padded to t * t)."""
+    from repro_torch.models.common import TPCtx
+    return TPCtx(tp=t).pad_dim(vocab) // t
 
 
 def check_coded_matmul_r34() -> float:
@@ -535,6 +654,61 @@ def check_rmsnorm() -> float:
     return worst
 
 
+def check_rmsnorm_edges() -> float:
+    """Kernel 6 at the edges of its plan, against its plain version (1e-5,
+    bf16 2e-2): rows 1, 4, 64 and 1000 at d = 4096, 12800 and 4093
+    (4093: the scalar instantiation), bf16 at 4 and 1000 rows, rows at a
+    stride of d + 8 (vectors) and d + 1 (scalar), and every block shape
+    (threads a row in TPRS) at d = 4096. Every instantiation the plan
+    names must launch, and a second launch on the same inputs gives the
+    same bits."""
+    from repro_torch.kernels import ref, rmsnorm
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    rmsnorm.rmsnorm.variants.clear()
+    cases = [((rows, d), torch.float32, 0, rmsnorm.TPR)
+             for d in (4096, 12800, 4093) for rows in (1, 4, 64, 1000)]
+    cases += [((rows, d), torch.bfloat16, 0, rmsnorm.TPR)
+              for d in (4096, 12800, 4093) for rows in (4, 1000)]
+    cases += [((64, d), torch.float32, pad, rmsnorm.TPR)
+              for d in (4096, 12800) for pad in (8, 1)]
+    cases += [((rows, K), dt, 0, tpr) for tpr in rmsnorm.TPRS
+              for rows, dt in ((4, torch.float32), (64, torch.float32),
+                               (4, torch.bfloat16))]
+    want, worst = set(), 0.0
+    for (rows, d), dt, pad, tpr in cases:
+        g = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+        base = 3.0 * torch.randn((rows, d + pad), generator=gen,
+                                 device="cuda")
+        x = base.to(dt)[:, :d]
+        got = rmsnorm.rmsnorm(x, g, eps=1e-5, tpr=tpr)
+        again = rmsnorm.rmsnorm(x, g, eps=1e-5, tpr=tpr)
+        plain = ref.rmsnorm_ref(x, g, 1e-5)
+        torch.cuda.synchronize()
+        tol = 1e-5 if dt == torch.float32 else 2e-2
+        torch.testing.assert_close(got, plain, rtol=tol, atol=tol,
+                                   msg=lambda m: (f"rmsnorm [{rows}, {d}] "
+                                                  f"{dt} pad {pad} tpr "
+                                                  f"{tpr}: {m}"))
+        if not torch.equal(got, again):
+            raise AssertionError(f"rmsnorm [{rows}, {d}] {dt} pad {pad} tpr "
+                                 f"{tpr}: two launches differ")
+        if dt == torch.float32:
+            worst = max(worst, float((got - plain).abs().max()))
+        ldx = d + pad if rows > 1 else d
+        want.add(rmsnorm.variant(*rmsnorm.rmsnorm_plan(
+            d, ldx, dt == torch.bfloat16, True, tpr)))
+    seen = dict(rmsnorm.rmsnorm.variants)
+    if set(seen) != want or not any(v.endswith("scalar") for v in seen):
+        raise AssertionError(f"rmsnorm instantiations launched {seen}; the "
+                             f"plan names {sorted(want)}")
+    log(f"kernel rmsnorm at its plan's edges: {len(cases)} cases (rows "
+        f"1-1000, d 4096/12800/4093, bf16, strided rows, threads a row "
+        f"{rmsnorm.TPRS}) within rtol=atol=1e-5 (bf16 2e-2), max abs err "
+        f"{worst:.3e}; repeats bitwise equal; launches per instantiation "
+        f"{seen}")
+    return worst
+
+
 def check_matmul() -> float:
     """Kernel 7 vs its plain version with TF32 off (rtol = atol = 1e-4):
     (512, 512, 512), granite's Wo at 4 rows (4, 4096, 4096) and a ragged
@@ -655,7 +829,9 @@ def serve_full_width(cfg) -> dict:
         cdc_matmul.cdc_coded_matmul.launches = 0
         cdc_matmul.cdc_coded_matmul.variants.clear()
         cdc_decode.cdc_fused_head_argmax.launches = 0
+        cdc_decode.cdc_fused_head_argmax.variants.clear()
         rmsnorm.rmsnorm.launches = 0
+        rmsnorm.rmsnorm.variants.clear()
         torch.cuda.synchronize()
         t = time.perf_counter()
         toks = eng.generate(batch, n_tok, fail_at=fail_at)
@@ -666,6 +842,8 @@ def serve_full_width(cfg) -> dict:
                 "k2": cdc_decode.cdc_fused_head_argmax.launches,
                 "k6": rmsnorm.rmsnorm.launches,
                 "k1_variants": dict(cdc_matmul.cdc_coded_matmul.variants),
+                "k2_variants": dict(cdc_decode.cdc_fused_head_argmax.variants),
+                "k6_variants": dict(rmsnorm.rmsnorm.variants),
                 "round_ms": list(ex.round_ms[-(n_tok - 1):]),
                 "variants": ex.vstep.last_variant}
 
@@ -704,11 +882,16 @@ def serve_full_width(cfg) -> dict:
                 f"{gemms * rounds} and {rounds}")
     if reference["k1"] or reference["k2"]:
         raise AssertionError("the reference variant launched a kernel")
-    # granite's GEMMs are aligned: every launch takes the copy engine
+    # granite's GEMMs and head are aligned: every launch takes the copy
+    # engine, and the head's 4 rows one block of 4 rows each
     for name, res in (("fault-free", clean), ("erasure", faulty)):
         if not all(v.endswith("-async") for v in res["k1_variants"]):
             raise AssertionError(f"{name}: coded-GEMM instantiations "
                                  f"{res['k1_variants']}; want only -async")
+        if res["k2_variants"] != {"rb4-async": rounds}:
+            raise AssertionError(f"{name}: fused-head instantiations "
+                                 f"{res['k2_variants']}; want rb4-async "
+                                 f"x {rounds}")
     if plain["k1"] or plain["k2"] or plain["k6"]:
         raise AssertionError(
             f"the kernel-free run launched {plain['k1']} coded-GEMM, "
@@ -741,8 +924,9 @@ def serve_full_width(cfg) -> dict:
         f"of {n_tok} steps / {n_tok})")
     log(f"launches per fused round: {clean['k1'] // rounds} coded-GEMM "
         f"({clean['k1_variants']}) + "
-        f"{clean['k2'] // rounds} fused head + {norms} rmsnorm (and {norms} "
-        f"rmsnorm per prefill; the reference variant {norms} per round)")
+        f"{clean['k2'] // rounds} fused head ({clean['k2_variants']}) + "
+        f"{norms} rmsnorm ({clean['k6_variants']}; and {norms} rmsnorm per "
+        f"prefill; the reference variant {norms} per round)")
     log(f"fused round median {med:.3f} ms (erasure run "
         f"{float(np.median(faulty['round_ms'])):.3f} ms, reference variant "
         f"{float(np.median(reference['round_ms'])):.3f} ms, with plain "
@@ -801,9 +985,17 @@ def profile_rounds(ex, valid, round_ms: float, n: int = 3) -> dict:
         f"{1 - device_ms / round_ms:.3f}); by kernel:")
     for key, ms, count in rows[:10]:
         log(f"  {ms:8.3f} ms  x{count:<4d} {key[:90]}")
+    per_launch = {name: (ms, count) for key, ms, count in rows
+                  for name in ("rmsnorm_kernel", "head_stream_kernel")
+                  if name in key}
+    for name, (ms, count) in per_launch.items():
+        log(f"  {name}: {ms * 1e3 / max(count, 1):.3f} us a launch "
+            f"({count} a round)")
     return {"device_ms": device_ms, "round_ms": round_ms,
             "top": [{"kernel": k[:90], "ms": ms, "count": c}
-                    for k, ms, c in rows[:10]]}
+                    for k, ms, c in rows[:10]],
+            "us_per_launch": {n: ms * 1e3 / max(c, 1)
+                              for n, (ms, c) in per_launch.items()}}
 
 
 # ------------------------------------------------------------ phase 4 ----
@@ -895,23 +1087,30 @@ def time_kernels(cfg, rows: int = 4) -> list[dict]:
     w = _head(cfg, gen)
     w_shards, pw = _head_views(w)
     m_l = w_shards.shape[2]
-    x = torch.randn((rows, K), generator=gen, device="cuda")
-    valid = (True,) * T
-    ms = _time(lambda: cdc_decode.cdc_fused_head_argmax(
-        x, w_shards, pw, valid, vocab=cfg.vocab), flush)
-    vt = torch.tensor(valid)
-    plain = _time(lambda: ref.fused_head_argmax_ref(x, w_shards, pw, vt,
-                                                    cfg.vocab), flush)
     wcat = torch.cat([w, pw], dim=1)
-    lib = _time(lambda: torch.matmul(x, wcat), flush)
-    nbytes = 4 * (rows * K + (T + 1) * K * m_l + 2 * rows)
-    bound, by = _bound(nbytes, 2.0 * rows * K * m_l * (T + 1))
-    out.append({"gemm": "lm_head", "rows": rows, "m_l": m_l, "ms": ms,
-                "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
-                "bound_by": by})
-    log(f"cdc_fused_head_argmax [b={rows}, k={K}, m_l={m_l}]: kernel "
-        f"{ms:.4f} ms, plain {plain:.4f} ms, library matmul {lib:.4f} ms, "
-        f"bound {bound:.4f} ms ({by})")
+    valid = (True,) * T
+    vt = torch.tensor(valid)
+    # the decode round's rows, and 16 (four times the slots)
+    for rws in (rows, 16):
+        x = torch.randn((rws, K), generator=gen, device="cuda")
+        cdc_decode.cdc_fused_head_argmax.variants.clear()
+        ms = _time(lambda: cdc_decode.cdc_fused_head_argmax(
+            x, w_shards, pw, valid, vocab=cfg.vocab), flush)
+        variant, = cdc_decode.cdc_fused_head_argmax.variants
+        plain = _time(lambda: ref.fused_head_argmax_ref(x, w_shards, pw, vt,
+                                                        cfg.vocab), flush)
+        lib = _time(lambda: torch.matmul(x, wcat), flush)
+        nbytes = 4 * (rws * K + (T + 1) * K * m_l + 2 * rws)
+        bound, by = _bound(nbytes, 2.0 * rws * K * m_l * (T + 1))
+        rb = int(variant.split("-")[0][2:])
+        usage = _usage(f"head_stream_kernelILi{T}ELi{rb}ELb"
+                       f"{int(variant.endswith('async'))}E", rb)
+        out.append({"gemm": "lm_head", "rows": rws, "m_l": m_l, "ms": ms,
+                    "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
+                    "bound_by": by, "variant": variant, "ptxas": usage})
+        log(f"cdc_fused_head_argmax [b={rws}, k={K}, m_l={m_l}]: kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, library matmul {lib:.4f} "
+            f"ms, bound {bound:.4f} ms ({by}); {variant}: {usage}")
     del w, w_shards, pw, wcat
     out += time_small_kernels(gen, flush)
     return out
@@ -970,11 +1169,18 @@ def time_small_kernels(gen, flush) -> list[dict]:
     gam = 1.0 + 0.1 * torch.randn(K, generator=gen, device="cuda")
     for rows in (4, 64):
         x = torch.randn((rows, K), generator=gen, device="cuda")
+        rmsnorm.rmsnorm.variants.clear()
         ms = _time(lambda: rmsnorm.rmsnorm(x, gam, eps=1e-5), flush)
+        variant, = rmsnorm.rmsnorm.variants
         plain = _time(lambda: ref.rmsnorm_ref(x, gam, 1e-5), flush)
         lib = _time(lambda: F.rms_norm(x, (K,), gam, 1e-5), flush)
         _row(out, "rmsnorm", f"[{rows}, {K}]", ms, plain, lib,
              4.0 * (2 * rows * K + K), 4.0 * rows * K)
+        tpr, nv = variant[1:].split("-")
+        nv = 0 if nv == "scalar" else int(nv[2:])
+        usage = _usage(f"rmsnorm_kernelIfLi{nv}ELi{tpr}E")
+        out[-1].update(variant=variant, ptxas=usage)
+        log(f"  rmsnorm {variant}: {usage}")
     for m, k, n in ((512, 512, 512), (4, K, K)):
         x = torch.randn((m, k), generator=gen, device="cuda")
         w = torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5
@@ -1353,10 +1559,10 @@ def main() -> int:
     err1 = max(check_coded_matmul(), check_coded_matmul_r34(),
                check_coded_matmul_t8())
     edge1, edge7 = check_stream_edges()
-    err2 = check_fused_head(cfg)
+    err2 = max(check_fused_head(cfg), check_head_edges())
     err3 = check_decode_merge()
     err5 = check_decode()
-    err6 = check_rmsnorm()
+    err6 = max(check_rmsnorm(), check_rmsnorm_edges())
     err7 = max(check_matmul(), edge7)
     err1 = max(err1, edge1)
     _phase_memory("kernel checks")

@@ -5,53 +5,253 @@
 // transformer block and the final one (models/common.rmsnorm on a CUDA
 // tensor), in one launch each instead of about six PyTorch ops.
 //
-// What bounds it: two passes over a row with a reduction between them; at
-// decode sizes (a few rows of d = 4096) the launch itself, and beyond
-// that the bytes (x read once, gamma once, out written once).
+// What bounds it: at decode sizes (a few rows of d = 4096) the latency of
+// the launch and of the row's loads; beyond that the bytes (x read once,
+// gamma once, out written once).
 // What the design does about it:
-//  * one block of 256 threads per row: the sum of squares is taken per
-//    thread over a fixed stride, then by a butterfly within each warp and
-//    over the 8 warps in warp order, so the result is deterministic;
-//  * the second pass re-reads the row, which a block just brought into L1;
+//  * TPR threads own a row (TPR = 32: one row a warp, four rows a block;
+//    else one row a block). In the register instantiations (NV > 0) each
+//    thread issues all its NV 16-byte loads of the row (float4, or 8 bf16)
+//    -- and, while they fit in registers, those of gamma -- before its
+//    first FMA, so the row costs one memory latency, not d / TPR of them;
+//    the row stays in registers and is scaled from there and stored with
+//    16-byte stores: x is read once;
+//  * the sum of squares is added per thread in a fixed order, then by a
+//    butterfly within each warp and across the row's warps in warp order
+//    through shared memory (double-buffered: one barrier a row), so the
+//    result is deterministic;
+//  * rows whose d or stride is not a whole number of 16-byte vectors, or
+//    whose d exceeds the registers (NV = 0), take the scalar instantiation:
+//    the same reduction over a loop of 8 independent loads a thread, and a
+//    second pass over the row;
 //  * math in float32 whatever the storage type (float32 or bf16), cast
 //    back to x's type, as the reference computes it.
 #include "scalar.cuh"
 
 namespace cdc {
 
-constexpr int RMS_THREADS = 256;
-constexpr int RMS_WARPS = RMS_THREADS / 32;
-
+// 16 bytes of the storage type: load, unpack to float32, pack and store.
 template <typename TV>
-__global__ void __launch_bounds__(RMS_THREADS)
+struct Pack;
+
+template <>
+struct Pack<float> {
+  static constexpr int N = 4;
+  using R = float4;
+  __device__ static R load(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  __device__ static void unpack(const R& r, float (&f)[N]) {
+    f[0] = r.x;
+    f[1] = r.y;
+    f[2] = r.z;
+    f[3] = r.w;
+  }
+  __device__ static void store(float* p, const float (&f)[N]) {
+    *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+  }
+};
+
+template <>
+struct Pack<__nv_bfloat16> {
+  static constexpr int N = 8;
+  using R = uint4;
+  __device__ static R load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ static void unpack(const R& r, float (&f)[N]) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 v = __bfloat1622float2(h[i]);
+      f[2 * i] = v.x;
+      f[2 * i + 1] = v.y;
+    }
+  }
+  __device__ static void store(__nv_bfloat16* p, const float (&f)[N]) {
+    R r;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    *reinterpret_cast<R*>(p) = r;
+  }
+};
+
+// Threads of a block: at least 128 (TPR = 32 packs four rows a block).
+__host__ __device__ constexpr int rms_threads(int tpr) {
+  return tpr < 128 ? 128 : tpr;
+}
+
+// The most values of the row a thread holds: 128, or 64 in a block of 512
+// threads (at most 128 registers a thread).
+__host__ __device__ constexpr int rms_max_values(int tpr) {
+  return rms_threads(tpr) >= 512 ? 64 : 128;
+}
+
+template <typename TV, int NV, int TPR>
+__global__ void __launch_bounds__(rms_threads(TPR))
 rmsnorm_kernel(const TV* __restrict__ x, const float* __restrict__ gamma,
                TV* __restrict__ out, int rows, int d, int64_t ldx,
                float eps) {
-  __shared__ float part[RMS_WARPS];
-  __shared__ float inv_s;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
+  constexpr int NT = rms_threads(TPR), RPB = NT / TPR, W = TPR / 32;
+  using P = Pack<TV>;
+  constexpr int E = P::N;
+  // gamma rides with x's loads while both fit in 64 registers
+  constexpr bool EARLY_G = NV > 0 && NV * E <= 32;
+  __shared__ float part[2][RPB][W];
+  const int g = threadIdx.x / TPR, t = threadIdx.x % TPR;
+  const int lane = t & 31, wr = t >> 5;
+  int phase = 0;
+  for (int64_t blk = blockIdx.x; blk * RPB < rows; blk += gridDim.x) {
+    const int64_t row = blk * RPB + g;
+    const bool live = row < rows;
     const TV* xr = x + row * ldx;
+    TV* orow = out + row * d;
+    typename P::R v[NV > 0 ? NV : 1];
+    float4 gv[EARLY_G ? NV * E / 4 : 1];
     float ss = 0.f;
-    for (int i = threadIdx.x; i < d; i += RMS_THREADS) {
-      const float v = ld(xr + i);
-      ss = fmaf(v, v, ss);
+    if constexpr (NV > 0) {
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        const int i = (t + j * TPR) * E;
+        if (live && i < d) v[j] = P::load(xr + i);
+        else v[j] = typename P::R{};
+      }
+      if constexpr (EARLY_G) {
+#pragma unroll
+        for (int j = 0; j < NV; ++j) {
+          const int i = (t + j * TPR) * E;
+#pragma unroll
+          for (int q = 0; q < E / 4; ++q)
+            gv[j * (E / 4) + q] =
+                i < d ? __ldg(reinterpret_cast<const float4*>(gamma + i) + q)
+                      : float4{};
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        float f[E];
+        P::unpack(v[j], f);
+#pragma unroll
+        for (int q = 0; q < E; ++q) ss = fmaf(f[q], f[q], ss);
+      }
+    } else {
+      for (int i0 = t; i0 < d; i0 += 8 * TPR) {
+        float a[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int i = i0 + q * TPR;
+          a[q] = live && i < d ? ld(xr + i) : 0.f;
+        }
+#pragma unroll
+        for (int q = 0; q < 8; ++q) ss = fmaf(a[q], a[q], ss);
+      }
     }
     ss = warp_sum(ss);
-    if (lane == 0) part[warp] = ss;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      float tot = 0.f;
+    if constexpr (W > 1) {
+      if (lane == 0) part[phase][g][wr] = ss;
+      __syncthreads();
+      ss = 0.f;
 #pragma unroll
-      for (int w = 0; w < RMS_WARPS; ++w) tot += part[w];
-      inv_s = rsqrtf(tot / (float)d + eps);
+      for (int w = 0; w < W; ++w) ss += part[phase][g][w];
+      phase ^= 1;
     }
-    __syncthreads();
-    const float inv = inv_s;
-    TV* orow = out + (int64_t)row * d;
-    for (int i = threadIdx.x; i < d; i += RMS_THREADS)
-      st(orow + i, ld(xr + i) * inv * __ldg(gamma + i));
-    __syncthreads();  // part / inv_s are reused by the next row
+    const float inv = rsqrtf(ss / (float)d + eps);
+    if (!live) continue;
+    if constexpr (NV > 0) {
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        const int i = (t + j * TPR) * E;
+        if (i >= d) continue;
+        float f[E], gf[E];
+        P::unpack(v[j], f);
+#pragma unroll
+        for (int q = 0; q < E / 4; ++q) {
+          float4 g4;
+          if constexpr (EARLY_G)
+            g4 = gv[j * (E / 4) + q];
+          else
+            g4 = __ldg(reinterpret_cast<const float4*>(gamma + i) + q);
+          gf[4 * q] = g4.x;
+          gf[4 * q + 1] = g4.y;
+          gf[4 * q + 2] = g4.z;
+          gf[4 * q + 3] = g4.w;
+        }
+#pragma unroll
+        for (int q = 0; q < E; ++q) f[q] = f[q] * inv * gf[q];
+        P::store(orow + i, f);
+      }
+    } else {
+      for (int i = t; i < d; i += TPR)
+        st(orow + i, ld(xr + i) * inv * __ldg(gamma + i));
+    }
+  }
+}
+
+template <typename TV, int NV, int TPR>
+static int launch(const void* x, const float* gamma, void* out, int rows,
+                  int d, long long ldx, float eps, cudaStream_t s) {
+  constexpr int rpb = rms_threads(TPR) / TPR;
+  const long long blocks = (rows + rpb - 1) / rpb;
+  const dim3 grid(blocks < 1048576 ? (unsigned)blocks : 1048576u);
+  rmsnorm_kernel<TV, NV, TPR><<<grid, rms_threads(TPR), 0, s>>>(
+      static_cast<const TV*>(x), gamma, static_cast<TV*>(out), rows, d, ldx,
+      eps);
+  return (int)cudaGetLastError();
+}
+
+// An instantiation that holds NV vectors of the row, where they fit.
+template <typename TV, int NV, int TPR>
+static int launch_held(const void* x, const float* gamma, void* out,
+                       int rows, int d, long long ldx, float eps,
+                       cudaStream_t s) {
+  if constexpr (NV * Pack<TV>::N <= rms_max_values(TPR))
+    return launch<TV, NV, TPR>(x, gamma, out, rows, d, ldx, eps, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The instantiations: NV in {0 (scalar), 1, 2, 4, 8, 16, 32} 16-byte
+// vectors a thread, up to rms_max_values(TPR) values.
+template <typename TV, int TPR>
+static int pick_nv(int nv, const void* x, const float* gamma, void* out,
+                   int rows, int d, long long ldx, float eps,
+                   cudaStream_t s) {
+  switch (nv) {
+    case 0:
+      return launch<TV, 0, TPR>(x, gamma, out, rows, d, ldx, eps, s);
+    case 1:
+      return launch_held<TV, 1, TPR>(x, gamma, out, rows, d, ldx, eps, s);
+    case 2:
+      return launch_held<TV, 2, TPR>(x, gamma, out, rows, d, ldx, eps, s);
+    case 4:
+      return launch_held<TV, 4, TPR>(x, gamma, out, rows, d, ldx, eps, s);
+    case 8:
+      return launch_held<TV, 8, TPR>(x, gamma, out, rows, d, ldx, eps, s);
+    case 16:
+      return launch_held<TV, 16, TPR>(x, gamma, out, rows, d, ldx, eps, s);
+    case 32:
+      return launch_held<TV, 32, TPR>(x, gamma, out, rows, d, ldx, eps, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename TV>
+static int pick_tpr(int tpr, int nv, const void* x, const float* gamma,
+                    void* out, int rows, int d, long long ldx, float eps,
+                    cudaStream_t s) {
+  switch (tpr) {
+    case 32:
+      return pick_nv<TV, 32>(nv, x, gamma, out, rows, d, ldx, eps, s);
+    case 128:
+      return pick_nv<TV, 128>(nv, x, gamma, out, rows, d, ldx, eps, s);
+    case 256:
+      return pick_nv<TV, 256>(nv, x, gamma, out, rows, d, ldx, eps, s);
+    case 512:
+      return pick_nv<TV, 512>(nv, x, gamma, out, rows, d, ldx, eps, s);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -59,22 +259,28 @@ rmsnorm_kernel(const TV* __restrict__ x, const float* __restrict__ gamma,
 
 // C interface (loaded with ctypes). x [rows, d] with contiguous rows at
 // stride ldx (elements) and out [rows, d] contiguous, of one storage type
-// (bf16 = 1: bfloat16, else float32); gamma [d] float32. Returns the
-// cudaError_t of the launch.
+// (bf16 = 1: bfloat16, else float32); gamma [d] float32. (nv, tpr) is the
+// plan of kernels/rmsnorm.py: rmsnorm_plan; a plan the kernel cannot run
+// (nv vectors of 16 bytes a thread that miss d, a d or stride that is not
+// whole vectors, a base that is not 16-byte aligned) returns
+// cudaErrorInvalidValue. Otherwise the cudaError_t of the launch.
 extern "C" int cdc_rmsnorm(const void* x, const float* gamma, void* out,
                            int rows, int d, long long ldx, float eps,
-                           int bf16, void* stream) {
+                           int bf16, int nv, int tpr, void* stream) {
   using namespace cdc;
-  if (rows < 1 || d < 1 || ldx < d) return (int)cudaErrorInvalidValue;
-  const dim3 grid(rows < 1048576 ? rows : 1048576);
+  if (rows < 1 || d < 1 || ldx < d || nv < 0)
+    return (int)cudaErrorInvalidValue;
+  if (nv > 0) {
+    const int e = bf16 ? 8 : 4;
+    const bool ok = d % e == 0 && ldx % e == 0 &&
+                    (long long)nv * tpr * e >= d &&
+                    ((uintptr_t)x | (uintptr_t)out | (uintptr_t)gamma) % 16 ==
+                        0;
+    if (!ok) return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    rmsnorm_kernel<__nv_bfloat16><<<grid, RMS_THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), gamma,
-        static_cast<__nv_bfloat16*>(out), rows, d, ldx, eps);
-  else
-    rmsnorm_kernel<float><<<grid, RMS_THREADS, 0, s>>>(
-        static_cast<const float*>(x), gamma, static_cast<float*>(out), rows,
-        d, ldx, eps);
-  return (int)cudaGetLastError();
+    return pick_tpr<__nv_bfloat16>(tpr, nv, x, gamma, out, rows, d, ldx, eps,
+                                   s);
+  return pick_tpr<float>(tpr, nv, x, gamma, out, rows, d, ldx, eps, s);
 }

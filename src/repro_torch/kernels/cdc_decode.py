@@ -10,20 +10,24 @@ reference writes it). On a CUDA tensor it launches the kernel in
 the T head shards [T, k, m_l] (a strided view of ``lm_head.w``, read in
 place) and the sum-parity head weight [k, m_l], and returns the greedy
 token and its logit per row without materialising the [b, vocab] logits.
-On a CUDA tensor it launches the kernel in ``csrc/cdc_fused_head.cu``; on
-a CPU tensor it runs the plain version ``ref.fused_head_argmax_ref``.
+On a CUDA tensor it launches the kernel in ``csrc/cdc_fused_head.cu`` with
+the launch plan ``head_plan`` (the weight-streaming plan of
+``stream_plan``, T + 1 streams); on a CPU tensor it runs the plain version
+``ref.fused_head_argmax_ref``.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.core.coding import host_mask
-from repro_torch.kernels import build, ref
-from repro_torch.kernels.cdc_matmul import _tile_counters, mask_bits
+from repro_torch.kernels import build, ref, stream_plan
+from repro_torch.kernels.cdc_matmul import _n_sm, _tile_counters, mask_bits
 
-_BN, _RB = 32, 8     # kernel 2's column tile and row tile (coded_tile.cuh)
+_occ: dict[tuple, int] = {}          # resident blocks per SM per variant
 
 
 def _decode_lib():
@@ -71,12 +75,53 @@ def cdc_decode(y_shards: torch.Tensor, parity: torch.Tensor, valid
 cdc_decode.launches = 0
 
 
+def head_variant(b: int, m_l: int, ldw: int, shard_stride: int,
+                 ptr_aligned: bool = True) -> tuple[int, bool]:
+    """(rows a block, bulk copies?) of the kernel instantiation a call
+    takes. The copy engine needs m_l, the shards' row stride ``ldw`` and
+    their offset ``shard_stride`` in whole 16-byte units and 16-byte
+    aligned bases (``ptr_aligned``)."""
+    aligned = (ptr_aligned and m_l % 4 == 0 and ldw % 4 == 0
+               and shard_stride % 4 == 0)
+    return stream_plan.row_block(b, m_l), aligned
+
+
+@functools.lru_cache(maxsize=256)
+def head_plan(b: int, k: int, m_l: int, T: int, n_sm: int, occupancy: int,
+              aligned: bool = True) -> stream_plan.StreamPlan:
+    """The launch plan of one ``cdc_fused_head_argmax`` call: T + 1 weight
+    streams (the head shards and the sum parity) of column tiles across
+    m_l, and k split so that the blocks fill whole waves of ``n_sm *
+    occupancy`` resident blocks (the occupancy of the instantiation
+    ``head_variant`` names, as the C interface reports it)."""
+    return stream_plan.plan(b, k, m_l, 1, T + 1, n_sm * occupancy, aligned)
+
+
+def _occupancy(T: int, rb: int, aligned: bool) -> int:
+    """Resident blocks per SM of one instantiation, from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor (once per instantiation
+    and process)."""
+    key = (T, rb, aligned)
+    occ = _occ.get(key)
+    if occ is None:
+        fn = build.load("cdc_fused_head").cdc_fused_head_occupancy
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_int
+        occ = fn(T, rb, int(aligned))
+        if occ <= 0:
+            raise RuntimeError(f"cdc_fused_head_argmax: occupancy query for "
+                               f"(T, rb, async) = {key} failed: "
+                               f"{-occ if occ < 0 else 'no resident block'}")
+        _occ[key] = occ
+    return occ
+
+
 def _lib():
     fn = build.load("cdc_fused_head").cdc_fused_head_argmax_f32
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, ll, ll, i,
-                       ctypes.c_uint, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, ll, ll, i,
+                       ctypes.c_uint, i, i, i, i, i, i, i, i, p]
         fn.restype = i
     return fn
 
@@ -87,11 +132,14 @@ def _check(cond: bool, msg: str):
 
 
 def cdc_fused_head_argmax(x: torch.Tensor, w_shards: torch.Tensor,
-                          parity_w: torch.Tensor, valid, *, vocab: int
+                          parity_w: torch.Tensor, valid, *, vocab: int,
+                          plan: stream_plan.StreamPlan | None = None
                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """x [b, k] f32; w_shards [T, k, m_l] (unit column stride); parity_w
     [k, m_l]; valid [T] host mask with at most one False. Returns
-    (token int32 [b], max logit f32 [b]); ties go to the smallest id."""
+    (token int32 [b], max logit f32 [b]); ties go to the smallest id.
+    ``plan``: a launch plan other than ``head_plan``'s (a measurement
+    knob; the C side refuses one it cannot run)."""
     if x.device.type == "cpu":
         return ref.fused_head_argmax_ref(
             x, w_shards, parity_w, torch.as_tensor(host_mask(valid)), vocab)
@@ -106,24 +154,34 @@ def cdc_fused_head_argmax(x: torch.Tensor, w_shards: torch.Tensor,
            f"x {tuple(x.shape)} / w_shards {tuple(w_shards.shape)} layout")
     _check(parity_w.is_contiguous() and tuple(parity_w.shape) == (k, m_l),
            f"parity_w {tuple(parity_w.shape)} != {(k, m_l)}")
-    n_tiles = -(-m_l // _BN)
-    tok = torch.empty(b, dtype=torch.int32, device=x.device)
-    vmax = torch.empty(b, dtype=torch.float32, device=x.device)
-    part_val = torch.empty((n_tiles, b), dtype=torch.float32,
-                           device=x.device)
-    part_idx = torch.empty((n_tiles, b), dtype=torch.int32, device=x.device)
-    sem = _tile_counters(x.device, -(-b // _RB))
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    ldw, sstr = w_shards.stride(1), w_shards.stride(0)
+    ptr_ok = (w_shards.data_ptr() | parity_w.data_ptr()) % 16 == 0
+    if plan is None:
+        rb, aligned = head_variant(b, m_l, ldw, sstr, ptr_ok)
+        plan = head_plan(b, k, m_l, T, _n_sm(x.device),
+                         _occupancy(T, rb, aligned), aligned)
+    dev = x.device
+    tok = torch.empty(b, dtype=torch.int32, device=dev)
+    vmax = torch.empty(b, dtype=torch.float32, device=dev)
+    part_val = torch.empty((plan.tiles, b), dtype=torch.float32, device=dev)
+    part_idx = torch.empty((plan.tiles, b), dtype=torch.int32, device=dev)
+    ws = torch.empty(plan.ksplit * plan.counters * (T + 1) * plan.rb
+                     * stream_plan.BN[plan.rb] if plan.ksplit > 1 else 0,
+                     dtype=torch.float32, device=dev)
+    sem = _tile_counters(dev, plan.counters + plan.nrb)
     err = _lib()(x.data_ptr(), w_shards.data_ptr(), parity_w.data_ptr(),
-                 part_val.data_ptr(), part_idx.data_ptr(), sem.data_ptr(),
-                 tok.data_ptr(), vmax.data_ptr(), b, k, T, m_l,
-                 w_shards.stride(0), w_shards.stride(1), vocab,
-                 mask_bits(valid), stream)
+                 ws.data_ptr(), part_val.data_ptr(), part_idx.data_ptr(),
+                 sem.data_ptr(), tok.data_ptr(), vmax.data_ptr(), b, k, T,
+                 m_l, sstr, ldw, vocab, mask_bits(valid), plan.rb,
+                 int(plan.aligned), plan.bn, plan.tps, plan.nrb,
+                 plan.ksplit, plan.kchunk, plan.ks, build.raw_stream(dev))
     if err != 0:
         raise RuntimeError(f"cdc_fused_head_argmax kernel launch failed: "
-                           f"cudaError {err}")
+                           f"cudaError {err} (plan {plan})")
     cdc_fused_head_argmax.launches += 1
+    cdc_fused_head_argmax.variants[plan.variant] += 1
     return tok, vmax
 
 
 cdc_fused_head_argmax.launches = 0
+cdc_fused_head_argmax.variants = collections.Counter()  # launches per variant

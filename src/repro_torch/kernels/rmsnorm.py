@@ -2,19 +2,52 @@
 
 ``rmsnorm`` flattens the leading dimensions of x [..., d] (rows may sit
 at any stride, e.g. the last position of each sequence) and, on a CUDA
-tensor, launches the kernel in ``csrc/rmsnorm.cu`` (one launch per call);
-on a CPU tensor it runs the plain version ``ref.rmsnorm_ref``. The
+tensor, launches the kernel in ``csrc/rmsnorm.cu`` (one launch per call)
+with the plan ``rmsnorm_plan``; on a CPU tensor it runs the plain version
+``ref.rmsnorm_ref``. The
 serving round's norms (``models.common.rmsnorm``) go through it on the
 card. The default eps is the reference kernel's 1e-6; the models pass
 their ``norm_eps``.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
 
 from repro_torch.kernels import build, ref
+
+TPR = 256            # threads a row (csrc/rmsnorm.cu; chosen on the H100)
+TPRS = (32, 128, 256, 512)
+
+
+def nv_options(bf16: bool, tpr: int) -> tuple[int, ...]:
+    """16-byte vectors a thread of the register instantiations: powers of
+    two up to 32 whose values (4 float32 or 8 bf16 a vector) stay within
+    128 a thread, 64 in a block of 512 threads (rms_max_values in
+    csrc/rmsnorm.cu). 0, the scalar instantiation, is not among them."""
+    cap = 64 if tpr >= 512 else 128
+    return tuple(nv for nv in (1, 2, 4, 8, 16, 32)
+                 if nv * (8 if bf16 else 4) <= cap)
+
+
+def rmsnorm_plan(d: int, ldx: int, bf16: bool, ptr_aligned: bool = True,
+                 tpr: int = TPR) -> tuple[int, int]:
+    """(nv, tpr) of the instantiation a call takes: the fewest 16-byte
+    vectors a thread that hold a row of d when d, the row stride ``ldx``
+    and the bases (``ptr_aligned``) are whole vectors; else, or when no
+    register count holds d, the scalar instantiation (nv = 0)."""
+    e = 8 if bf16 else 4
+    if ptr_aligned and d % e == 0 and ldx % e == 0:
+        for nv in nv_options(bf16, tpr):
+            if nv * tpr * e >= d:
+                return nv, tpr
+    return 0, tpr
+
+
+def variant(nv: int, tpr: int) -> str:
+    return f"t{tpr}-{'scalar' if nv == 0 else f'nv{nv}'}"
 
 
 def _lib():
@@ -22,14 +55,15 @@ def _lib():
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, i, i, ctypes.c_longlong, ctypes.c_float, i,
-                       p]
+                       i, i, p]
         fn.restype = i
     return fn
 
 
-def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, *, eps: float = 1e-6
-            ) -> torch.Tensor:
-    """x [..., d] (float32 or bf16), gamma [d] -> x's shape and dtype."""
+def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, *, eps: float = 1e-6,
+            tpr: int = TPR) -> torch.Tensor:
+    """x [..., d] (float32 or bf16), gamma [d] -> x's shape and dtype.
+    ``tpr``: threads a row, one of ``TPRS`` (a measurement knob)."""
     if x.device.type == "cpu":
         return ref.rmsnorm_ref(x, gamma, eps)
     who = "rmsnorm"
@@ -48,14 +82,19 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, *, eps: float = 1e-6
     out = torch.empty(xf.shape, dtype=x.dtype, device=x.device)
     if xf.numel() == 0:
         return out.reshape(x.shape)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    ldx = xf.stride(0) if xf.shape[0] > 1 else d
+    ptr_ok = (xf.data_ptr() | out.data_ptr() | gamma.data_ptr()) % 16 == 0
+    nv, tpr = rmsnorm_plan(d, ldx, bool(bf16), ptr_ok, tpr)
     err = _lib()(xf.data_ptr(), gamma.data_ptr(), out.data_ptr(),
-                 xf.shape[0], d, xf.stride(0) if xf.shape[0] > 1 else d, eps,
-                 bf16, stream)
+                 xf.shape[0], d, ldx, eps, bf16, nv, tpr,
+                 build.raw_stream(x.device))
     if err != 0:
-        raise RuntimeError(f"{who} kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"{who} kernel launch failed: cudaError {err} "
+                           f"(nv {nv}, tpr {tpr})")
     rmsnorm.launches += 1
+    rmsnorm.variants[variant(nv, tpr)] += 1
     return out.reshape(x.shape)
 
 
 rmsnorm.launches = 0
+rmsnorm.variants = collections.Counter()   # launches per instantiation

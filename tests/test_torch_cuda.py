@@ -36,6 +36,14 @@ def test_fused_head_kernel_matches_plain(smoke):
     assert smoke.check_fused_head(get_arch("granite-3-8b")) <= 1e-4
 
 
+def test_fused_head_plan_edges_match_plain(smoke):
+    assert smoke.check_head_edges() == 0.0
+
+
+def test_rmsnorm_plan_edges_match_plain(smoke):
+    assert smoke.check_rmsnorm_edges() <= 1e-5
+
+
 def test_encode_kernel_matches_plain(smoke):
     from repro_torch.configs import get_arch
     assert smoke.check_encode(get_arch("granite-3-8b")) <= 1e-5

@@ -1,16 +1,20 @@
-"""Launch plans of the weight-streaming kernels, on the CPU.
+"""Launch plans of the port's kernels, on the CPU.
 
-Kernel 1 (``cdc_matmul.coded_plan``) and kernel 7 (``matmul.matmul_plan``)
-cut a launch into blocks: column tiles inside parity slices, row blocks,
-and k split across blocks with the partials added in split order. The
-plans are plain Python, so their coverage is checked here at granite-3-8b's
-widths on a 132-SM card. A plain emulation of each plan (each unit's
-partial sums, decoded per split for kernel 1, then added in split order)
-is held against the JAX package: kernel 1 against its oracle
-``cdc_coded_matmul_ref`` and its Pallas kernel in interpret mode, kernel 7
-against ``ops.matmul`` (its Pallas kernel in interpret mode), at 1e-4,
-the reference's own kernel-vs-oracle bound (the split order changes the
-float32 rounding, not the result).
+Kernel 1 (``cdc_matmul.coded_plan``), kernel 2 (``cdc_decode.head_plan``)
+and kernel 7 (``matmul.matmul_plan``) cut a launch into blocks: column
+tiles inside parity slices, row blocks, and k split across blocks with the
+partials added in split order. The plans are plain Python, so their
+coverage is checked here at granite-3-8b's widths on a 132-SM card. A
+plain emulation of each plan (each unit's partial sums, decoded per split
+for kernel 1, added in split order and then decoded, masked and reduced
+per tile for kernel 2) is held against the JAX package: kernel 1 against
+its oracle ``cdc_coded_matmul_ref`` and its Pallas kernel in interpret
+mode, kernel 2 against ``fused_head_argmax_ref`` and
+``cdc_fused_head_argmax_pallas`` in interpret mode, kernel 7 against
+``ops.matmul`` (its Pallas kernel in interpret mode), at 1e-4, the
+reference's own kernel-vs-oracle bound (the split order changes the
+float32 rounding, not the result). Kernel 6's plan (``rmsnorm_plan``) and
+the order of its reduction are held against ``rmsnorm_pallas``.
 """
 import itertools
 
@@ -21,14 +25,21 @@ import torch
 
 from repro.core import coded_layer as jcl
 from repro.core import coding as jcoding
+from repro.kernels import cdc_decode as jdec
 from repro.kernels import cdc_matmul as jcdc
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels import rmsnorm as jrms
+from repro_torch.configs import get_arch
 from repro_torch.core import coded_layer as tcl
 from repro_torch.core import coding as tcoding
+from repro_torch.kernels import cdc_decode as tdec
 from repro_torch.kernels import cdc_matmul as tcdc
 from repro_torch.kernels import matmul as tmm
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import rmsnorm as trms
 from repro_torch.kernels import stream_plan
+from repro_torch.models.common import TPCtx
 
 KTOL = dict(rtol=1e-4, atol=1e-4)
 CODES = [(2, 1), (2, 2), (4, 1), (4, 2), (4, 3), (4, 4), (8, 1), (8, 2),
@@ -286,3 +297,251 @@ def test_plans_are_cached_per_shape():
     a = tcdc.coded_plan(4, 4096, 3200, 4, 2, "folded", N_SM, OCC)
     assert tcdc.coded_plan(4, 4096, 3200, 4, 2, "folded", N_SM, OCC) is a
     assert list(itertools.islice(a.units(), 1))[0][:3] == (0, a.bn, 0)
+
+
+# ------------------------------------------------ kernel 2: fused head ----
+
+GRANITE_VOCAB = get_arch("granite-3-8b").vocab
+
+
+def head_width(T: int) -> int:
+    """m_l of granite-3-8b's head shards at T (the vocabulary padded to a
+    multiple of T * T, as the model pads it)."""
+    return TPCtx(tp=T).pad_dim(GRANITE_VOCAB) // T
+
+
+def head_occupancy(rb: int) -> int:
+    """Resident blocks per SM the card reports for kernel 2 (one for the
+    4-row blocks, which own an SM's shared memory)."""
+    return 1 if rb == 4 else 2
+
+
+@pytest.mark.parametrize("rows", [1, 4, 5, 8, 16, 64])
+@pytest.mark.parametrize("T", [2, 4, 8])
+def test_head_plan_covers_granite_head(T, rows):
+    k, m_l = 4096, head_width(T)
+    rb, aligned = tdec.head_variant(rows, m_l, T * m_l, m_l)
+    # T = 4 (the serving default) and 8 give whole 16-byte rows; T = 2's
+    # m_l = 24578 does not, and takes the ordinary loads
+    assert aligned == (T != 2) == (m_l % 4 == 0)
+    assert rb == (4 if rows <= 4 else 8 if rows <= 8 else 16)
+    plan = tdec.head_plan(rows, k, m_l, T, N_SM, head_occupancy(rb), aligned)
+    assert plan.rb == rb and plan.n_slices == 1 and plan.wd == m_l
+    assert plan.variant == f"rb{rb}-{'async' if aligned else 'loads'}"
+    check_limits(plan, T + 1)
+    check_cover(plan, rows, k, m_l)
+    assert plan.counters == plan.tiles * plan.nrb
+    assert plan.blocks == len(plan.units())
+    slots = N_SM * head_occupancy(rb)
+    assert plan.blocks / (-(-plan.blocks // slots) * slots) >= 0.9
+
+
+def test_head_plan_at_the_decode_round():
+    """Granite's head at the decode round's 4 rows and T = 4: 49 tiles of
+    252 columns (the last one 196 wide), stages of 6 k rows, 5 splits of
+    822, 245 blocks of 4 rows on the copy engine."""
+    plan = tdec.head_plan(4, 4096, 12292, 4, N_SM, 1)
+    assert (plan.bn, plan.tiles, plan.ks, plan.ksplit, plan.kchunk,
+            plan.blocks, plan.variant) == (252, 49, 6, 5, 822, 245,
+                                           "rb4-async")
+    assert plan.units()[48][:2] == (48 * 252, 196)
+
+
+@pytest.mark.parametrize("m_l,ldw,sstr,ptr_ok,rows,k", [
+    (1001, 4 * 1001, 1001, True, 4, 4096),      # ragged m_l
+    (1024, 4097, 1024, True, 9, 4096),          # odd row stride
+    (1024, 4 * 1024, 1025, True, 5, 1000),      # odd shard offset
+    (1024, 4 * 1024, 1024, False, 17, 4093)])   # misaligned base
+def test_head_plan_ragged_shapes_take_ordinary_loads(m_l, ldw, sstr, ptr_ok,
+                                                     rows, k):
+    rb, aligned = tdec.head_variant(rows, m_l, ldw, sstr, ptr_ok)
+    assert not aligned
+    plan = tdec.head_plan(rows, k, m_l, 4, N_SM, head_occupancy(rb), aligned)
+    assert plan.variant == f"rb{rb}-loads"
+    check_limits(plan, 5)
+    check_cover(plan, rows, k, m_l)
+
+
+def emulate_head(plan, x, w_shards, pw, valid, vocab):
+    """Kernel 2's arithmetic as its plan runs it: per unit the S = T + 1
+    raw partial sums of its k range (units come split by split), the
+    splits added in split order, then the multiply-decode, the vocab mask
+    and the tile's (max, id) per row, then the tiles reduced in tile order
+    with ties to the smaller id. Returns (token int32 [b], max [b])."""
+    b = x.shape[0]
+    T, _, m_l = w_shards.shape
+    sums = {}
+    for c0, width, r0, kb0, kb1 in plan.units():
+        xs = x[r0:r0 + plan.rb, kb0:kb1]
+        y = np.stack([xs @ w_shards[t, kb0:kb1, c0:c0 + width]
+                      for t in range(T)] + [xs @ pw[kb0:kb1, c0:c0 + width]])
+        key = (c0, width, r0)
+        sums[key] = y if key not in sums else sums[key] + y
+    vm = np.asarray(valid, np.float32)[:, None, None]
+    best = [(-np.inf, 2 ** 31 - 1)] * b
+    for (c0, width, r0), tot in sorted(sums.items()):
+        yz = tot[:T] * vm
+        miss = tot[T] - yz.sum(0)
+        rec = yz + (np.float32(1) - vm) * miss[None]
+        # gid grows along the t-major flattening: argmax's first maximum
+        # is the tile's smallest id among its ties
+        gid = np.arange(T)[:, None] * m_l + c0 + np.arange(width)[None]
+        logits = np.where((gid < vocab)[:, None, :], rec, np.float32(-1e30))
+        for i in range(tot.shape[1]):
+            flat = logits[:, i, :].ravel()
+            j = int(np.argmax(flat))
+            v, g = flat[j], int(gid.ravel()[j])
+            bv, bg = best[r0 + i]
+            if v > bv or (v == bv and g < bg):
+                best[r0 + i] = (v, g)
+    return (np.array([g for _, g in best], np.int32),
+            np.array([v for v, _ in best], np.float32))
+
+
+def head_references(x, w_shards, pw, valid, vocab):
+    """(tokens, max) of the JAX oracle and of the Pallas kernel
+    (interpret mode) on the same inputs."""
+    args = (jnp.asarray(x), jnp.asarray(w_shards), jnp.asarray(pw),
+            jnp.asarray(valid))
+    jt, jm = jref.fused_head_argmax_ref(*args, vocab)
+    pt, pm = jdec.cdc_fused_head_argmax_pallas(*args, vocab=vocab,
+                                               interpret=True)
+    return [(np.asarray(jt), np.asarray(jm)), (np.asarray(pt), np.asarray(pm))]
+
+
+@pytest.mark.parametrize("b,m_l,k", [(4, 512, 1500), (5, 384, 2100),
+                                     (12, 256, 1100)])
+def test_head_plan_emulation_matches_reference(b, m_l, k):
+    """The split plan adds each split's raw sums in split order, then
+    decodes (multiply by the mask), masks ids >= vocab and reduces per
+    tile and across tiles: the oracle's and the Pallas kernel's tokens,
+    and their max within 1e-4, under every mask with <= 1 dead shard at
+    T = 4, on a small card so that k is split, with a vocab that cuts the
+    last shard's last tile. The dead shard's weights stay finite: the
+    reference removes it by multiply, so a NaN would spread on both
+    sides."""
+    T = 4
+    rng = np.random.default_rng(17)
+    x = rng.normal(size=(b, k)).astype(np.float32)
+    w_shards = (rng.normal(size=(T, k, m_l)) / np.sqrt(k)).astype(np.float32)
+    pw = w_shards.sum(0)
+    vocab = T * m_l - 37
+    rb, aligned = tdec.head_variant(b, m_l, T * m_l, m_l)
+    plan = tdec.head_plan(b, k, m_l, T, 3, 2, aligned)
+    assert plan.ksplit > 1 and plan.tiles > 1
+    assert (plan.tiles - 1) * plan.bn < m_l - 37   # the cut is in the tile
+    for valid in masks(T):
+        tok, vmax = emulate_head(plan, x, w_shards, pw, valid, vocab)
+        assert np.isfinite(vmax).all()
+        for rt, rm in head_references(x, w_shards, pw, valid, vocab):
+            np.testing.assert_array_equal(tok, rt, err_msg=f"mask {valid}")
+            np.testing.assert_allclose(vmax, rm, err_msg=f"mask {valid}",
+                                       **KTOL)
+
+
+@pytest.mark.parametrize("across", ["tiles", "splits"])
+def test_head_plan_emulation_ties_go_to_the_smaller_id(across):
+    """A planted tie for the best logit of every row: across two column
+    tiles (gid 1 * m_l + 10 in tile 0 against gid 300 in tile 1), or
+    across two k splits (one column's weights only in split 0's range, the
+    other's only in split 1's, x repeating itself there). Integer-valued
+    inputs keep every sum exact in any order, so the tie is exact on every
+    side and under every mask: the emulation, the oracle and the Pallas
+    kernel all answer the smaller id."""
+    T, b, m_l, k = 4, 4, 512, 1500
+    rng = np.random.default_rng(23)
+    x = rng.integers(1, 3, size=(b, k)).astype(np.float32)
+    w_shards = rng.integers(-1, 2, size=(T, k, m_l)).astype(np.float32)
+    plan = tdec.head_plan(b, k, m_l, T, 3, 2)
+    assert plan.ksplit > 1 and plan.tiles == 2 and plan.bn == 256
+    if across == "tiles":
+        w_shards[1, :, 10] = w_shards[0, :, 300] = 8.0
+        ids = (1 * m_l + 10, 300)
+    else:
+        kc = plan.kchunk
+        x[:, kc:2 * kc] = x[:, :kc]
+        w_shards[3, :, 20] = w_shards[2, :, 40] = 0.0
+        w_shards[3, :kc, 20] = w_shards[2, kc:2 * kc, 40] = 8.0
+        ids = (3 * m_l + 20, 2 * m_l + 40)
+    pw = w_shards.sum(0)
+    for valid in masks(T):
+        tok, vmax = emulate_head(plan, x, w_shards, pw, valid, T * m_l)
+        assert tok.tolist() == [min(ids)] * b, (valid, tok)
+        for rt, rm in head_references(x, w_shards, pw, valid, T * m_l):
+            assert rt.tolist() == [min(ids)] * b, (valid, rt)
+            np.testing.assert_array_equal(vmax, rm)
+
+
+# ------------------------------------------------ kernel 6: RMSNorm ----
+
+@pytest.mark.parametrize("tpr", trms.TPRS)
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("d", [4096, 12800, 4093, 64, 40000])
+def test_rmsnorm_plan_holds_the_row(d, bf16, tpr):
+    """The register instantiation takes the fewest 16-byte vectors a
+    thread that hold the row; a d or stride that is not whole vectors, a
+    misaligned base or a row wider than the registers takes the scalar
+    one (nv = 0)."""
+    e = 8 if bf16 else 4
+    opts = trms.nv_options(bf16, tpr)
+    assert opts and max(opts) * e <= (64 if tpr == 512 else 128)
+    nv, t = trms.rmsnorm_plan(d, d, bf16, True, tpr)
+    assert t == tpr
+    if d % e or d > opts[-1] * tpr * e:
+        assert nv == 0
+    else:
+        assert nv in opts and nv * tpr * e >= d
+        assert nv == opts[0] or (nv // 2) * tpr * e < d
+        assert trms.rmsnorm_plan(d, d + 1, bf16, True, tpr)[0] == 0
+        assert trms.rmsnorm_plan(d, d, bf16, False, tpr)[0] == 0
+    assert trms.variant(nv, tpr) == (f"t{tpr}-scalar" if nv == 0
+                                     else f"t{tpr}-nv{nv}")
+
+
+def emulate_rmsnorm(x, g, eps, nv, tpr):
+    """Kernel 6's float32 arithmetic in its order: each thread's sum of
+    squares over its values (vector by vector, or 8 strided loads at a
+    time in the scalar instantiation), the xor butterfly within each warp,
+    then the warps in warp order; out = x * inv * gamma."""
+    rows, d = x.shape
+    e = 4
+    out = np.empty_like(x)
+    for r in range(rows):
+        xr = x[r]
+        th = np.zeros(tpr, np.float32)
+        for t in range(tpr):
+            if nv:
+                idx = [(t + j * tpr) * e + q for j in range(nv)
+                       for q in range(e)]
+            else:
+                idx = list(range(t, d, tpr))
+            for i in idx:
+                if i < d:
+                    th[t] = np.float32(th[t] + xr[i] * xr[i])
+        lanes = th.reshape(-1, 32)
+        for off in (16, 8, 4, 2, 1):
+            lanes = lanes + lanes[:, np.arange(32) ^ off]
+        ss = np.float32(0)
+        for w in range(lanes.shape[0]):
+            ss = np.float32(ss + lanes[w, 0])
+        inv = np.float32(1) / np.sqrt(ss / np.float32(d) + np.float32(eps))
+        out[r] = xr * inv * g
+    return out
+
+
+@pytest.mark.parametrize("d,tpr", [(4096, 256), (4096, 32), (4093, 256)])
+def test_rmsnorm_emulation_matches_reference(d, tpr):
+    """Kernel 6's reduction order against the Pallas kernel in interpret
+    mode and the torch oracle, at 1e-5 (float32 rounding only)."""
+    rng = np.random.default_rng(29)
+    x = (3.0 * rng.normal(size=(4, d))).astype(np.float32)
+    g = (1.0 + 0.1 * rng.normal(size=d)).astype(np.float32)
+    nv, _ = trms.rmsnorm_plan(d, d, False, True, tpr)
+    assert (nv == 0) == (d % 4 != 0)
+    got = emulate_rmsnorm(x, g, 1e-5, nv, tpr)
+    want = np.asarray(jrms.rmsnorm_pallas(jnp.asarray(x), jnp.asarray(g),
+                                          eps=1e-5, interpret=True))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        got, tref.rmsnorm_ref(torch.from_numpy(x), torch.from_numpy(g),
+                              1e-5).numpy(), rtol=1e-5, atol=1e-5)
