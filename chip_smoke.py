@@ -26,8 +26,8 @@ Phases, each of which raises on failure (exit code non-zero):
      m_l, k = 4093, an offset head; integer-valued inputs, so tokens and
      max equal the plain version's to the bit) with ties across tiles and
      across k splits resolving to the smaller id, every (T, instantiation)
-     launched, and kernel 6 at rows 1-1000, d 4096/12800/4093, bf16,
-     strided rows and every block shape, bitwise repeatable;
+     launched, and kernel 6 at rows 1-1000, d 4096/12800/4093, bf16 and
+     strided rows, bitwise repeatable;
   3. serve granite-3-8b at full width (40 layers, d 4096, T=4, r=2 folded,
      float32, random weights from a seeded torch.Generator) through
      ServingEngine.generate: 4 requests, prompt 16, 16 new tokens, fault
@@ -224,7 +224,7 @@ def check_fused_head(cfg) -> float:
                                       cfg.vocab)[1])
     m_l = w.shape[1] // T
     plan = cdc_decode.head_plan(4, K, m_l, T, cdc_matmul._n_sm(x.device),
-                                cdc_decode._occupancy(T, 4, True))
+                                cdc_decode.head_occupancy(T, 4, True))
     kc = plan.kchunk
     if plan.ksplit < 2 or plan.bn > 9000:
         raise AssertionError(f"the tie cases need split k and several "
@@ -658,52 +658,47 @@ def check_rmsnorm_edges() -> float:
     """Kernel 6 at the edges of its plan, against its plain version (1e-5,
     bf16 2e-2): rows 1, 4, 64 and 1000 at d = 4096, 12800 and 4093
     (4093: the scalar instantiation), bf16 at 4 and 1000 rows, rows at a
-    stride of d + 8 (vectors) and d + 1 (scalar), and every block shape
-    (threads a row in TPRS) at d = 4096. Every instantiation the plan
-    names must launch, and a second launch on the same inputs gives the
-    same bits."""
+    stride of d + 8 (vectors) and d + 1 (scalar). Every instantiation the
+    plan names must launch, and a second launch on the same inputs gives
+    the same bits."""
     from repro_torch.kernels import ref, rmsnorm
     gen = torch.Generator(device="cuda").manual_seed(25)
     rmsnorm.rmsnorm.variants.clear()
-    cases = [((rows, d), torch.float32, 0, rmsnorm.TPR)
+    cases = [((rows, d), torch.float32, 0)
              for d in (4096, 12800, 4093) for rows in (1, 4, 64, 1000)]
-    cases += [((rows, d), torch.bfloat16, 0, rmsnorm.TPR)
+    cases += [((rows, d), torch.bfloat16, 0)
               for d in (4096, 12800, 4093) for rows in (4, 1000)]
-    cases += [((64, d), torch.float32, pad, rmsnorm.TPR)
+    cases += [((64, d), torch.float32, pad)
               for d in (4096, 12800) for pad in (8, 1)]
-    cases += [((rows, K), dt, 0, tpr) for tpr in rmsnorm.TPRS
-              for rows, dt in ((4, torch.float32), (64, torch.float32),
-                               (4, torch.bfloat16))]
     want, worst = set(), 0.0
-    for (rows, d), dt, pad, tpr in cases:
+    for (rows, d), dt, pad in cases:
         g = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
         base = 3.0 * torch.randn((rows, d + pad), generator=gen,
                                  device="cuda")
         x = base.to(dt)[:, :d]
-        got = rmsnorm.rmsnorm(x, g, eps=1e-5, tpr=tpr)
-        again = rmsnorm.rmsnorm(x, g, eps=1e-5, tpr=tpr)
+        got = rmsnorm.rmsnorm(x, g, eps=1e-5)
+        again = rmsnorm.rmsnorm(x, g, eps=1e-5)
         plain = ref.rmsnorm_ref(x, g, 1e-5)
         torch.cuda.synchronize()
         tol = 1e-5 if dt == torch.float32 else 2e-2
         torch.testing.assert_close(got, plain, rtol=tol, atol=tol,
                                    msg=lambda m: (f"rmsnorm [{rows}, {d}] "
-                                                  f"{dt} pad {pad} tpr "
-                                                  f"{tpr}: {m}"))
+                                                  f"{dt} pad {pad}: {m}"))
         if not torch.equal(got, again):
-            raise AssertionError(f"rmsnorm [{rows}, {d}] {dt} pad {pad} tpr "
-                                 f"{tpr}: two launches differ")
+            raise AssertionError(f"rmsnorm [{rows}, {d}] {dt} pad {pad}: "
+                                 f"two launches differ")
         if dt == torch.float32:
             worst = max(worst, float((got - plain).abs().max()))
         ldx = d + pad if rows > 1 else d
-        want.add(rmsnorm.variant(*rmsnorm.rmsnorm_plan(
-            d, ldx, dt == torch.bfloat16, True, tpr)))
+        want.add(rmsnorm.variant(rmsnorm.rmsnorm_plan(
+            d, ldx, dt == torch.bfloat16)))
     seen = dict(rmsnorm.rmsnorm.variants)
     if set(seen) != want or not any(v.endswith("scalar") for v in seen):
         raise AssertionError(f"rmsnorm instantiations launched {seen}; the "
                              f"plan names {sorted(want)}")
     log(f"kernel rmsnorm at its plan's edges: {len(cases)} cases (rows "
-        f"1-1000, d 4096/12800/4093, bf16, strided rows, threads a row "
-        f"{rmsnorm.TPRS}) within rtol=atol=1e-5 (bf16 2e-2), max abs err "
+        f"1-1000, d 4096/12800/4093, bf16, strided rows) within "
+        f"rtol=atol=1e-5 (bf16 2e-2), max abs err "
         f"{worst:.3e}; repeats bitwise equal; launches per instantiation "
         f"{seen}")
     return worst
@@ -1176,9 +1171,8 @@ def time_small_kernels(gen, flush) -> list[dict]:
         lib = _time(lambda: F.rms_norm(x, (K,), gam, 1e-5), flush)
         _row(out, "rmsnorm", f"[{rows}, {K}]", ms, plain, lib,
              4.0 * (2 * rows * K + K), 4.0 * rows * K)
-        tpr, nv = variant[1:].split("-")
-        nv = 0 if nv == "scalar" else int(nv[2:])
-        usage = _usage(f"rmsnorm_kernelIfLi{nv}ELi{tpr}E")
+        nv = 0 if variant == "scalar" else int(variant[2:])
+        usage = _usage(f"rmsnorm_kernelIfLi{nv}EE")
         out[-1].update(variant=variant, ptxas=usage)
         log(f"  rmsnorm {variant}: {usage}")
     for m, k, n in ((512, 512, 512), (4, K, K)):

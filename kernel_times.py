@@ -16,10 +16,9 @@ kernel 2 (the fused head) at 4 and 16 rows; kernel 6 (RMSNorm) at
 [4, 4096] and [64, 4096] beside ``F.rms_norm``; kernel 7 at 512^3 and
 granite's Wo at 4 rows. Kernel 6 is also timed by torch.profiler: its
 device time per call over 200 calls with the inputs in L2, as the
-serving round finds them (CUDA events around a ~2 us kernel read
-the events' own floor); where the checkout's wrapper takes a ``tpr``
-(threads a row), every block shape it offers is timed that way too.
-``--head-plans`` also times kernel 2 under other launch plans. Needs only the wrappers' public signatures, which both sides share.
+serving round finds them (CUDA events around a ~2 us kernel read the
+events' own floor). Needs only the wrappers' public signatures, which
+both sides share.
 """
 from __future__ import annotations
 
@@ -54,25 +53,6 @@ def _time(fn, flush, n=30) -> float:
     return float(np.median(times))
 
 
-# kernel 2's launch plans tried at 4 rows (--head-plans): (tile width,
-# splits of k); head_plan's own is (252, 5)
-HEAD_PLANS = ((252, 5), (252, 8), (252, 10), (252, 12), (252, 16),
-              (252, 20), (252, 24), (128, 5), (128, 10), (200, 6), (200, 8))
-
-
-def _head_plan_with(base, bn: int, n: int):
-    """``base`` with column tiles of ``bn`` and k cut into about n splits
-    of whole stages (as stream_plan.plan cuts them)."""
-    import dataclasses
-    from repro_torch.kernels import stream_plan as sp
-    ks_max = sp.stage_rows(5, -(-bn // 4) * 4)
-    kc = -(-base.k // n)
-    nst = -(-kc // ks_max)
-    ks = -(-kc // nst)
-    return dataclasses.replace(base, bn=bn, ks=ks, kchunk=nst * ks,
-                               ksplit=-(-base.k // (nst * ks)))
-
-
 def _profile_us(fn, name: str, n: int = 200) -> float:
     """Device microseconds per call of ``fn`` spent in the kernels whose
     name holds ``name`` (every kernel for ""), by torch.profiler over n
@@ -96,9 +76,6 @@ def main(argv=None) -> int:
     ap.add_argument("--src", default=str(Path(__file__).resolve().parent
                                          / "src"))
     ap.add_argument("--tag", default="this")
-    ap.add_argument("--head-plans", action="store_true",
-                    help="also time kernel 2 at 4 rows under the launch "
-                         "plans of HEAD_PLANS")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device", file=sys.stderr)
@@ -153,32 +130,17 @@ def main(argv=None) -> int:
         lib = _time(lambda: torch.matmul(x, wcat), flush)
         emit(kernel="cdc_fused_head_argmax", rows=rows, ms=ms,
              library_ms=lib)
-    if args.head_plans and hasattr(cdc_decode, "head_plan"):
-        x = torch.randn((4, K), generator=gen, device="cuda")
-        base = cdc_decode.head_plan(4, K, m_l, T, 132, 1)
-        for bn, n in HEAD_PLANS:
-            plan = _head_plan_with(base, bn, n)
-            ms = _time(lambda: cdc_decode.cdc_fused_head_argmax(
-                x, w_shards, pw, (True,) * T, vocab=49155, plan=plan),
-                flush)
-            emit(kernel="cdc_fused_head_argmax", rows=4, bn=plan.bn,
-                 ksplit=plan.ksplit, kchunk=plan.kchunk, ks=plan.ks,
-                 blocks=plan.blocks, ms=ms)
     del w, w_shards, pw, wcat
     g = 1.0 + 0.1 * torch.randn(K, generator=gen, device="cuda")
-    tprs = getattr(rmsnorm, "TPRS", (None,))
     for rows in (4, 64):
         x = torch.randn((rows, K), generator=gen, device="cuda")
         ms = _time(lambda: rmsnorm.rmsnorm(x, g, eps=1e-5), flush)
         lib = _time(lambda: F.rms_norm(x, (K,), g, 1e-5), flush)
-        lib_us = _profile_us(lambda: F.rms_norm(x, (K,), g, 1e-5), "")
-        for tpr in tprs:
-            kw = {} if tpr is None else {"tpr": tpr}
-            prof = _profile_us(lambda: rmsnorm.rmsnorm(x, g, eps=1e-5, **kw),
-                               "rmsnorm")
-            emit(kernel="rmsnorm", shape=[rows, K], tpr=tpr, ms=ms,
-                 library_ms=lib, profiler_us=prof,
-                 library_profiler_us=lib_us)
+        emit(kernel="rmsnorm", shape=[rows, K], ms=ms, library_ms=lib,
+             profiler_us=_profile_us(lambda: rmsnorm.rmsnorm(x, g, eps=1e-5),
+                                     "rmsnorm"),
+             library_profiler_us=_profile_us(
+                 lambda: F.rms_norm(x, (K,), g, 1e-5), ""))
     for m, k, n in ((512, 512, 512), (4, K, K)):
         x = torch.randn((m, k), generator=gen, device="cuda")
         w = torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5

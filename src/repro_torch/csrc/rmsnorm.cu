@@ -9,15 +9,16 @@
 // the launch and of the row's loads; beyond that the bytes (x read once,
 // gamma once, out written once).
 // What the design does about it:
-//  * TPR threads own a row (TPR = 32: one row a warp, four rows a block;
-//    else one row a block). In the register instantiations (NV > 0) each
-//    thread issues all its NV 16-byte loads of the row (float4, or 8 bf16)
-//    -- and, while they fit in registers, those of gamma -- before its
-//    first FMA, so the row costs one memory latency, not d / TPR of them;
+//  * a block of 256 threads owns a row (on the H100 as fast as 128 a
+//    row, faster than 512 or one row a warp: PERF.md). In the register
+//    instantiations (NV > 0) each thread issues all its NV 16-byte loads
+//    of the row (float4, or 8 bf16) -- and, while they fit in registers,
+//    those of gamma -- before its first FMA, so the row costs one memory
+//    latency, not d / 256 of them;
 //    the row stays in registers and is scaled from there and stored with
 //    16-byte stores: x is read once;
 //  * the sum of squares is added per thread in a fixed order, then by a
-//    butterfly within each warp and across the row's warps in warp order
+//    butterfly within each warp and across the 8 warps in warp order
 //    through shared memory (double-buffered: one barrier a row), so the
 //    result is deterministic;
 //  * rows whose d or stride is not a whole number of 16-byte vectors, or
@@ -78,34 +79,23 @@ struct Pack<__nv_bfloat16> {
   }
 };
 
-// Threads of a block: at least 128 (TPR = 32 packs four rows a block).
-__host__ __device__ constexpr int rms_threads(int tpr) {
-  return tpr < 128 ? 128 : tpr;
-}
+constexpr int RMS_THREADS = 256;    // threads a row (one row a block)
+constexpr int RMS_WARPS = RMS_THREADS / 32;
+constexpr int RMS_MAX_VALUES = 128;  // values of the row a thread holds
 
-// The most values of the row a thread holds: 128, or 64 in a block of 512
-// threads (at most 128 registers a thread).
-__host__ __device__ constexpr int rms_max_values(int tpr) {
-  return rms_threads(tpr) >= 512 ? 64 : 128;
-}
-
-template <typename TV, int NV, int TPR>
-__global__ void __launch_bounds__(rms_threads(TPR))
+template <typename TV, int NV>
+__global__ void __launch_bounds__(RMS_THREADS)
 rmsnorm_kernel(const TV* __restrict__ x, const float* __restrict__ gamma,
                TV* __restrict__ out, int rows, int d, int64_t ldx,
                float eps) {
-  constexpr int NT = rms_threads(TPR), RPB = NT / TPR, W = TPR / 32;
   using P = Pack<TV>;
   constexpr int E = P::N;
   // gamma rides with x's loads while both fit in 64 registers
   constexpr bool EARLY_G = NV > 0 && NV * E <= 32;
-  __shared__ float part[2][RPB][W];
-  const int g = threadIdx.x / TPR, t = threadIdx.x % TPR;
-  const int lane = t & 31, wr = t >> 5;
+  __shared__ float part[2][RMS_WARPS];
+  const int t = threadIdx.x, lane = t & 31, wr = t >> 5;
   int phase = 0;
-  for (int64_t blk = blockIdx.x; blk * RPB < rows; blk += gridDim.x) {
-    const int64_t row = blk * RPB + g;
-    const bool live = row < rows;
+  for (int64_t row = blockIdx.x; row < rows; row += gridDim.x) {
     const TV* xr = x + row * ldx;
     TV* orow = out + row * d;
     typename P::R v[NV > 0 ? NV : 1];
@@ -114,14 +104,14 @@ rmsnorm_kernel(const TV* __restrict__ x, const float* __restrict__ gamma,
     if constexpr (NV > 0) {
 #pragma unroll
       for (int j = 0; j < NV; ++j) {
-        const int i = (t + j * TPR) * E;
-        if (live && i < d) v[j] = P::load(xr + i);
+        const int i = (t + j * RMS_THREADS) * E;
+        if (i < d) v[j] = P::load(xr + i);
         else v[j] = typename P::R{};
       }
       if constexpr (EARLY_G) {
 #pragma unroll
         for (int j = 0; j < NV; ++j) {
-          const int i = (t + j * TPR) * E;
+          const int i = (t + j * RMS_THREADS) * E;
 #pragma unroll
           for (int q = 0; q < E / 4; ++q)
             gv[j * (E / 4) + q] =
@@ -137,32 +127,29 @@ rmsnorm_kernel(const TV* __restrict__ x, const float* __restrict__ gamma,
         for (int q = 0; q < E; ++q) ss = fmaf(f[q], f[q], ss);
       }
     } else {
-      for (int i0 = t; i0 < d; i0 += 8 * TPR) {
+      for (int i0 = t; i0 < d; i0 += 8 * RMS_THREADS) {
         float a[8];
 #pragma unroll
         for (int q = 0; q < 8; ++q) {
-          const int i = i0 + q * TPR;
-          a[q] = live && i < d ? ld(xr + i) : 0.f;
+          const int i = i0 + q * RMS_THREADS;
+          a[q] = i < d ? ld(xr + i) : 0.f;
         }
 #pragma unroll
         for (int q = 0; q < 8; ++q) ss = fmaf(a[q], a[q], ss);
       }
     }
     ss = warp_sum(ss);
-    if constexpr (W > 1) {
-      if (lane == 0) part[phase][g][wr] = ss;
-      __syncthreads();
-      ss = 0.f;
+    if (lane == 0) part[phase][wr] = ss;
+    __syncthreads();
+    ss = 0.f;
 #pragma unroll
-      for (int w = 0; w < W; ++w) ss += part[phase][g][w];
-      phase ^= 1;
-    }
+    for (int w = 0; w < RMS_WARPS; ++w) ss += part[phase][w];
+    phase ^= 1;
     const float inv = rsqrtf(ss / (float)d + eps);
-    if (!live) continue;
     if constexpr (NV > 0) {
 #pragma unroll
       for (int j = 0; j < NV; ++j) {
-        const int i = (t + j * TPR) * E;
+        const int i = (t + j * RMS_THREADS) * E;
         if (i >= d) continue;
         float f[E], gf[E];
         P::unpack(v[j], f);
@@ -183,73 +170,47 @@ rmsnorm_kernel(const TV* __restrict__ x, const float* __restrict__ gamma,
         P::store(orow + i, f);
       }
     } else {
-      for (int i = t; i < d; i += TPR)
+      for (int i = t; i < d; i += RMS_THREADS)
         st(orow + i, ld(xr + i) * inv * __ldg(gamma + i));
     }
   }
 }
 
-template <typename TV, int NV, int TPR>
+template <typename TV, int NV>
 static int launch(const void* x, const float* gamma, void* out, int rows,
                   int d, long long ldx, float eps, cudaStream_t s) {
-  constexpr int rpb = rms_threads(TPR) / TPR;
-  const long long blocks = (rows + rpb - 1) / rpb;
-  const dim3 grid(blocks < 1048576 ? (unsigned)blocks : 1048576u);
-  rmsnorm_kernel<TV, NV, TPR><<<grid, rms_threads(TPR), 0, s>>>(
-      static_cast<const TV*>(x), gamma, static_cast<TV*>(out), rows, d, ldx,
-      eps);
-  return (int)cudaGetLastError();
-}
-
-// An instantiation that holds NV vectors of the row, where they fit.
-template <typename TV, int NV, int TPR>
-static int launch_held(const void* x, const float* gamma, void* out,
-                       int rows, int d, long long ldx, float eps,
-                       cudaStream_t s) {
-  if constexpr (NV * Pack<TV>::N <= rms_max_values(TPR))
-    return launch<TV, NV, TPR>(x, gamma, out, rows, d, ldx, eps, s);
-  return (int)cudaErrorInvalidValue;
+  if constexpr (NV * Pack<TV>::N > RMS_MAX_VALUES) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    const dim3 grid(rows < 1048576 ? rows : 1048576);
+    rmsnorm_kernel<TV, NV><<<grid, RMS_THREADS, 0, s>>>(
+        static_cast<const TV*>(x), gamma, static_cast<TV*>(out), rows, d,
+        ldx, eps);
+    return (int)cudaGetLastError();
+  }
 }
 
 // The instantiations: NV in {0 (scalar), 1, 2, 4, 8, 16, 32} 16-byte
-// vectors a thread, up to rms_max_values(TPR) values.
-template <typename TV, int TPR>
+// vectors a thread, up to RMS_MAX_VALUES values.
+template <typename TV>
 static int pick_nv(int nv, const void* x, const float* gamma, void* out,
                    int rows, int d, long long ldx, float eps,
                    cudaStream_t s) {
   switch (nv) {
     case 0:
-      return launch<TV, 0, TPR>(x, gamma, out, rows, d, ldx, eps, s);
+      return launch<TV, 0>(x, gamma, out, rows, d, ldx, eps, s);
     case 1:
-      return launch_held<TV, 1, TPR>(x, gamma, out, rows, d, ldx, eps, s);
+      return launch<TV, 1>(x, gamma, out, rows, d, ldx, eps, s);
     case 2:
-      return launch_held<TV, 2, TPR>(x, gamma, out, rows, d, ldx, eps, s);
+      return launch<TV, 2>(x, gamma, out, rows, d, ldx, eps, s);
     case 4:
-      return launch_held<TV, 4, TPR>(x, gamma, out, rows, d, ldx, eps, s);
+      return launch<TV, 4>(x, gamma, out, rows, d, ldx, eps, s);
     case 8:
-      return launch_held<TV, 8, TPR>(x, gamma, out, rows, d, ldx, eps, s);
+      return launch<TV, 8>(x, gamma, out, rows, d, ldx, eps, s);
     case 16:
-      return launch_held<TV, 16, TPR>(x, gamma, out, rows, d, ldx, eps, s);
+      return launch<TV, 16>(x, gamma, out, rows, d, ldx, eps, s);
     case 32:
-      return launch_held<TV, 32, TPR>(x, gamma, out, rows, d, ldx, eps, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-template <typename TV>
-static int pick_tpr(int tpr, int nv, const void* x, const float* gamma,
-                    void* out, int rows, int d, long long ldx, float eps,
-                    cudaStream_t s) {
-  switch (tpr) {
-    case 32:
-      return pick_nv<TV, 32>(nv, x, gamma, out, rows, d, ldx, eps, s);
-    case 128:
-      return pick_nv<TV, 128>(nv, x, gamma, out, rows, d, ldx, eps, s);
-    case 256:
-      return pick_nv<TV, 256>(nv, x, gamma, out, rows, d, ldx, eps, s);
-    case 512:
-      return pick_nv<TV, 512>(nv, x, gamma, out, rows, d, ldx, eps, s);
+      return launch<TV, 32>(x, gamma, out, rows, d, ldx, eps, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -259,28 +220,27 @@ static int pick_tpr(int tpr, int nv, const void* x, const float* gamma,
 
 // C interface (loaded with ctypes). x [rows, d] with contiguous rows at
 // stride ldx (elements) and out [rows, d] contiguous, of one storage type
-// (bf16 = 1: bfloat16, else float32); gamma [d] float32. (nv, tpr) is the
-// plan of kernels/rmsnorm.py: rmsnorm_plan; a plan the kernel cannot run
+// (bf16 = 1: bfloat16, else float32); gamma [d] float32. nv is the plan of
+// kernels/rmsnorm.py: rmsnorm_plan; a plan the kernel cannot run
 // (nv vectors of 16 bytes a thread that miss d, a d or stride that is not
 // whole vectors, a base that is not 16-byte aligned) returns
 // cudaErrorInvalidValue. Otherwise the cudaError_t of the launch.
 extern "C" int cdc_rmsnorm(const void* x, const float* gamma, void* out,
                            int rows, int d, long long ldx, float eps,
-                           int bf16, int nv, int tpr, void* stream) {
+                           int bf16, int nv, void* stream) {
   using namespace cdc;
   if (rows < 1 || d < 1 || ldx < d || nv < 0)
     return (int)cudaErrorInvalidValue;
   if (nv > 0) {
     const int e = bf16 ? 8 : 4;
     const bool ok = d % e == 0 && ldx % e == 0 &&
-                    (long long)nv * tpr * e >= d &&
+                    (long long)nv * RMS_THREADS * e >= d &&
                     ((uintptr_t)x | (uintptr_t)out | (uintptr_t)gamma) % 16 ==
                         0;
     if (!ok) return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return pick_tpr<__nv_bfloat16>(tpr, nv, x, gamma, out, rows, d, ldx, eps,
-                                   s);
-  return pick_tpr<float>(tpr, nv, x, gamma, out, rows, d, ldx, eps, s);
+    return pick_nv<__nv_bfloat16>(nv, x, gamma, out, rows, d, ldx, eps, s);
+  return pick_nv<float>(nv, x, gamma, out, rows, d, ldx, eps, s);
 }

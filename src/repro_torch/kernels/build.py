@@ -26,6 +26,7 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_occ: dict[tuple, int] = {}       # resident blocks per SM per instantiation
 
 
 def nvcc() -> str:
@@ -89,6 +90,25 @@ def raw_stream(device: torch.device) -> int:
     ``torch.cuda.current_stream(device).cuda_stream`` gives, without
     building a Stream object on every launch)."""
     return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def occupancy(name: str, query: str, *args: int) -> int:
+    """Resident blocks per SM of one kernel instantiation, from the C
+    function ``query`` of ``csrc/<name>.cu`` (its
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor, or minus a
+    cudaError_t), asked once per instantiation and process."""
+    key = (name, query) + args
+    occ = _occ.get(key)
+    if occ is None:
+        fn = getattr(load(name), query)
+        fn.argtypes = [ctypes.c_int] * len(args)
+        fn.restype = ctypes.c_int
+        occ = fn(*args)
+        if occ <= 0:
+            raise RuntimeError(f"{query}{args} failed: "
+                               f"{-occ if occ < 0 else 'no resident block'}")
+        _occ[key] = occ
+    return occ
 
 
 def load(name: str) -> ctypes.CDLL:

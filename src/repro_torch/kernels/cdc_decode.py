@@ -27,7 +27,6 @@ from repro_torch.core.coding import host_mask
 from repro_torch.kernels import build, ref, stream_plan
 from repro_torch.kernels.cdc_matmul import _n_sm, _tile_counters, mask_bits
 
-_occ: dict[tuple, int] = {}          # resident blocks per SM per variant
 
 
 def _decode_lib():
@@ -97,23 +96,11 @@ def head_plan(b: int, k: int, m_l: int, T: int, n_sm: int, occupancy: int,
     return stream_plan.plan(b, k, m_l, 1, T + 1, n_sm * occupancy, aligned)
 
 
-def _occupancy(T: int, rb: int, aligned: bool) -> int:
-    """Resident blocks per SM of one instantiation, from
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor (once per instantiation
-    and process)."""
-    key = (T, rb, aligned)
-    occ = _occ.get(key)
-    if occ is None:
-        fn = build.load("cdc_fused_head").cdc_fused_head_occupancy
-        fn.argtypes = [ctypes.c_int] * 3
-        fn.restype = ctypes.c_int
-        occ = fn(T, rb, int(aligned))
-        if occ <= 0:
-            raise RuntimeError(f"cdc_fused_head_argmax: occupancy query for "
-                               f"(T, rb, async) = {key} failed: "
-                               f"{-occ if occ < 0 else 'no resident block'}")
-        _occ[key] = occ
-    return occ
+def head_occupancy(T: int, rb: int, aligned: bool) -> int:
+    """Resident blocks per SM of kernel 2's instantiation (T, rb, async),
+    as the card reports it."""
+    return build.occupancy("cdc_fused_head", "cdc_fused_head_occupancy", T,
+                           rb, int(aligned))
 
 
 def _lib():
@@ -132,14 +119,11 @@ def _check(cond: bool, msg: str):
 
 
 def cdc_fused_head_argmax(x: torch.Tensor, w_shards: torch.Tensor,
-                          parity_w: torch.Tensor, valid, *, vocab: int,
-                          plan: stream_plan.StreamPlan | None = None
+                          parity_w: torch.Tensor, valid, *, vocab: int
                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """x [b, k] f32; w_shards [T, k, m_l] (unit column stride); parity_w
     [k, m_l]; valid [T] host mask with at most one False. Returns
-    (token int32 [b], max logit f32 [b]); ties go to the smallest id.
-    ``plan``: a launch plan other than ``head_plan``'s (a measurement
-    knob; the C side refuses one it cannot run)."""
+    (token int32 [b], max logit f32 [b]); ties go to the smallest id."""
     if x.device.type == "cpu":
         return ref.fused_head_argmax_ref(
             x, w_shards, parity_w, torch.as_tensor(host_mask(valid)), vocab)
@@ -156,10 +140,9 @@ def cdc_fused_head_argmax(x: torch.Tensor, w_shards: torch.Tensor,
            f"parity_w {tuple(parity_w.shape)} != {(k, m_l)}")
     ldw, sstr = w_shards.stride(1), w_shards.stride(0)
     ptr_ok = (w_shards.data_ptr() | parity_w.data_ptr()) % 16 == 0
-    if plan is None:
-        rb, aligned = head_variant(b, m_l, ldw, sstr, ptr_ok)
-        plan = head_plan(b, k, m_l, T, _n_sm(x.device),
-                         _occupancy(T, rb, aligned), aligned)
+    rb, aligned = head_variant(b, m_l, ldw, sstr, ptr_ok)
+    plan = head_plan(b, k, m_l, T, _n_sm(x.device),
+                     head_occupancy(T, rb, aligned), aligned)
     dev = x.device
     tok = torch.empty(b, dtype=torch.int32, device=dev)
     vmax = torch.empty(b, dtype=torch.float32, device=dev)

@@ -27,7 +27,6 @@ from repro_torch.kernels import build, ref, stream_plan
 
 _sem: dict[int, torch.Tensor] = {}   # per-device tile counters (see below)
 _sms: dict[int, int] = {}            # SMs per device
-_occ: dict[tuple, int] = {}          # resident blocks per SM per variant
 
 
 def eq12_plan(spec, valid: torch.Tensor, valid_parity: torch.Tensor,
@@ -100,25 +99,6 @@ def _n_sm(device: torch.device) -> int:
         n = _sms[device.index] = torch.cuda.get_device_properties(
             device).multi_processor_count
     return n
-
-
-def _occupancy(T: int, r: int, rb: int, aligned: bool) -> int:
-    """Resident blocks per SM of one instantiation, from
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor (once per instantiation
-    and process)."""
-    key = (T, r, rb, aligned)
-    occ = _occ.get(key)
-    if occ is None:
-        fn = build.load("cdc_coded_matmul").cdc_coded_matmul_occupancy
-        fn.argtypes = [ctypes.c_int] * 4
-        fn.restype = ctypes.c_int
-        occ = fn(T, r, rb, int(aligned))
-        if occ <= 0:
-            raise RuntimeError(f"cdc_coded_matmul: occupancy query for "
-                               f"(T, r, rb, async) = {key} failed: "
-                               f"{-occ if occ < 0 else 'no resident block'}")
-        _occ[key] = occ
-    return occ
 
 
 def _tile_counters(device: torch.device, n: int) -> torch.Tensor:
@@ -210,7 +190,9 @@ def cdc_coded_matmul(x: torch.Tensor, w: torch.Tensor, w_cdc: torch.Tensor,
     ptr_ok = (w.data_ptr() | w_cdc.data_ptr()) % 16 == 0
     rb, aligned = coded_variant(rows, m_l, T, layout, ldw, ptr_ok)
     plan = coded_plan(rows, k, m_l, T, r, layout, _n_sm(x.device),
-                      _occupancy(T, r, rb, aligned), ldw, ptr_ok)
+                      build.occupancy("cdc_coded_matmul",
+                                      "cdc_coded_matmul_occupancy", T, r, rb,
+                                      int(aligned)), ldw, ptr_ok)
     out = torch.empty((rows, T, m_l), dtype=torch.float32, device=x.device)
     ws = torch.empty((plan.ksplit if plan.ksplit > 1 else 0, rows, T * m_l),
                      dtype=torch.float32, device=x.device)

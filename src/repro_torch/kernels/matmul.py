@@ -24,7 +24,6 @@ from repro_torch.kernels.cdc_matmul import _n_sm, _tile_counters
 
 ROWS_MAX = 16             # the few-rows path's largest m
 SQ_BM, SQ_BN = 64, 32     # the square path's output tile (csrc/matmul.cu)
-_occ: dict[tuple, int] = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,20 +79,6 @@ _ROWS_ARGS = [_p] * 5 + [_i] * 11 + [_p]
 _SQUARE_ARGS = [_p] * 3 + [_i] * 6 + [_p]
 
 
-def _occupancy(rb: int, aligned: bool, out_bf16: int) -> int:
-    key = (rb, aligned, out_bf16)
-    occ = _occ.get(key)
-    if occ is None:
-        occ = _lib("cdc_matmul_rows_occupancy", [_i, _i, _i])(
-            rb, int(aligned), out_bf16)
-        if occ <= 0:
-            raise RuntimeError(f"matmul: occupancy query for (rb, async, "
-                               f"out_bf16) = {key} failed: "
-                               f"{-occ if occ < 0 else 'no resident block'}")
-        _occ[key] = occ
-    return occ
-
-
 def _prepare(x: torch.Tensor, w: torch.Tensor, out_dtype, ptr_ok: bool):
     """Check one call signature and fix its plan: (plan, its variant, C
     function, in_bf16, out_bf16); no plan for an empty product. Raises on
@@ -112,8 +97,10 @@ def _prepare(x: torch.Tensor, w: torch.Tensor, out_dtype, ptr_ok: bool):
     (m, k), n = x.shape, w.shape[1]
     if m * n * k == 0:
         return None, None, None, in_bf16, out_bf16
-    occ = _occupancy(stream_plan.row_block(m, n), ptr_ok and n % 4 == 0,
-                     out_bf16) if m <= ROWS_MAX and not in_bf16 else 1
+    occ = build.occupancy(
+        "matmul", "cdc_matmul_rows_occupancy", stream_plan.row_block(m, n),
+        int(ptr_ok and n % 4 == 0), out_bf16) \
+        if m <= ROWS_MAX and not in_bf16 else 1
     plan = matmul_plan(m, n, k, bool(in_bf16), _n_sm(x.device), occ, ptr_ok)
     fn = _lib("cdc_matmul_rows", _ROWS_ARGS) if plan.stream is not None \
         else _lib("cdc_matmul_square", _SQUARE_ARGS)

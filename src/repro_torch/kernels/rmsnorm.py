@@ -18,36 +18,34 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-TPR = 256            # threads a row (csrc/rmsnorm.cu; chosen on the H100)
-TPRS = (32, 128, 256, 512)
+THREADS = 256        # threads a row (RMS_THREADS in csrc/rmsnorm.cu)
+MAX_VALUES = 128     # values of the row a thread holds (RMS_MAX_VALUES)
 
 
-def nv_options(bf16: bool, tpr: int) -> tuple[int, ...]:
+def nv_options(bf16: bool) -> tuple[int, ...]:
     """16-byte vectors a thread of the register instantiations: powers of
     two up to 32 whose values (4 float32 or 8 bf16 a vector) stay within
-    128 a thread, 64 in a block of 512 threads (rms_max_values in
-    csrc/rmsnorm.cu). 0, the scalar instantiation, is not among them."""
-    cap = 64 if tpr >= 512 else 128
+    MAX_VALUES. 0, the scalar instantiation, is not among them."""
     return tuple(nv for nv in (1, 2, 4, 8, 16, 32)
-                 if nv * (8 if bf16 else 4) <= cap)
+                 if nv * (8 if bf16 else 4) <= MAX_VALUES)
 
 
-def rmsnorm_plan(d: int, ldx: int, bf16: bool, ptr_aligned: bool = True,
-                 tpr: int = TPR) -> tuple[int, int]:
-    """(nv, tpr) of the instantiation a call takes: the fewest 16-byte
-    vectors a thread that hold a row of d when d, the row stride ``ldx``
-    and the bases (``ptr_aligned``) are whole vectors; else, or when no
-    register count holds d, the scalar instantiation (nv = 0)."""
+def rmsnorm_plan(d: int, ldx: int, bf16: bool, ptr_aligned: bool = True
+                 ) -> int:
+    """The 16-byte vectors a thread of the instantiation a call takes: the
+    fewest that hold a row of d when d, the row stride ``ldx`` and the
+    bases (``ptr_aligned``) are whole vectors; else, or when no register
+    count holds d, 0 (the scalar instantiation)."""
     e = 8 if bf16 else 4
     if ptr_aligned and d % e == 0 and ldx % e == 0:
-        for nv in nv_options(bf16, tpr):
-            if nv * tpr * e >= d:
-                return nv, tpr
-    return 0, tpr
+        for nv in nv_options(bf16):
+            if nv * THREADS * e >= d:
+                return nv
+    return 0
 
 
-def variant(nv: int, tpr: int) -> str:
-    return f"t{tpr}-{'scalar' if nv == 0 else f'nv{nv}'}"
+def variant(nv: int) -> str:
+    return "scalar" if nv == 0 else f"nv{nv}"
 
 
 def _lib():
@@ -55,15 +53,14 @@ def _lib():
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, i, i, ctypes.c_longlong, ctypes.c_float, i,
-                       i, i, p]
+                       i, p]
         fn.restype = i
     return fn
 
 
-def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, *, eps: float = 1e-6,
-            tpr: int = TPR) -> torch.Tensor:
-    """x [..., d] (float32 or bf16), gamma [d] -> x's shape and dtype.
-    ``tpr``: threads a row, one of ``TPRS`` (a measurement knob)."""
+def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, *, eps: float = 1e-6
+            ) -> torch.Tensor:
+    """x [..., d] (float32 or bf16), gamma [d] -> x's shape and dtype."""
     if x.device.type == "cpu":
         return ref.rmsnorm_ref(x, gamma, eps)
     who = "rmsnorm"
@@ -84,15 +81,15 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, *, eps: float = 1e-6,
         return out.reshape(x.shape)
     ldx = xf.stride(0) if xf.shape[0] > 1 else d
     ptr_ok = (xf.data_ptr() | out.data_ptr() | gamma.data_ptr()) % 16 == 0
-    nv, tpr = rmsnorm_plan(d, ldx, bool(bf16), ptr_ok, tpr)
+    nv = rmsnorm_plan(d, ldx, bool(bf16), ptr_ok)
     err = _lib()(xf.data_ptr(), gamma.data_ptr(), out.data_ptr(),
-                 xf.shape[0], d, ldx, eps, bf16, nv, tpr,
+                 xf.shape[0], d, ldx, eps, bf16, nv,
                  build.raw_stream(x.device))
     if err != 0:
         raise RuntimeError(f"{who} kernel launch failed: cudaError {err} "
-                           f"(nv {nv}, tpr {tpr})")
+                           f"(nv {nv})")
     rmsnorm.launches += 1
-    rmsnorm.variants[variant(nv, tpr)] += 1
+    rmsnorm.variants[variant(nv)] += 1
     return out.reshape(x.shape)
 
 

@@ -310,7 +310,7 @@ def head_width(T: int) -> int:
     return TPCtx(tp=T).pad_dim(GRANITE_VOCAB) // T
 
 
-def head_occupancy(rb: int) -> int:
+def card_occupancy(rb: int) -> int:
     """Resident blocks per SM the card reports for kernel 2 (one for the
     4-row blocks, which own an SM's shared memory)."""
     return 1 if rb == 4 else 2
@@ -325,14 +325,14 @@ def test_head_plan_covers_granite_head(T, rows):
     # m_l = 24578 does not, and takes the ordinary loads
     assert aligned == (T != 2) == (m_l % 4 == 0)
     assert rb == (4 if rows <= 4 else 8 if rows <= 8 else 16)
-    plan = tdec.head_plan(rows, k, m_l, T, N_SM, head_occupancy(rb), aligned)
+    plan = tdec.head_plan(rows, k, m_l, T, N_SM, card_occupancy(rb), aligned)
     assert plan.rb == rb and plan.n_slices == 1 and plan.wd == m_l
     assert plan.variant == f"rb{rb}-{'async' if aligned else 'loads'}"
     check_limits(plan, T + 1)
     check_cover(plan, rows, k, m_l)
     assert plan.counters == plan.tiles * plan.nrb
     assert plan.blocks == len(plan.units())
-    slots = N_SM * head_occupancy(rb)
+    slots = N_SM * card_occupancy(rb)
     assert plan.blocks / (-(-plan.blocks // slots) * slots) >= 0.9
 
 
@@ -356,7 +356,7 @@ def test_head_plan_ragged_shapes_take_ordinary_loads(m_l, ldw, sstr, ptr_ok,
                                                      rows, k):
     rb, aligned = tdec.head_variant(rows, m_l, ldw, sstr, ptr_ok)
     assert not aligned
-    plan = tdec.head_plan(rows, k, m_l, 4, N_SM, head_occupancy(rb), aligned)
+    plan = tdec.head_plan(rows, k, m_l, 4, N_SM, card_occupancy(rb), aligned)
     assert plan.variant == f"rb{rb}-loads"
     check_limits(plan, 5)
     check_cover(plan, rows, k, m_l)
@@ -474,37 +474,34 @@ def test_head_plan_emulation_ties_go_to_the_smaller_id(across):
 
 # ------------------------------------------------ kernel 6: RMSNorm ----
 
-@pytest.mark.parametrize("tpr", trms.TPRS)
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("d", [4096, 12800, 4093, 64, 40000])
-def test_rmsnorm_plan_holds_the_row(d, bf16, tpr):
+def test_rmsnorm_plan_holds_the_row(d, bf16):
     """The register instantiation takes the fewest 16-byte vectors a
     thread that hold the row; a d or stride that is not whole vectors, a
     misaligned base or a row wider than the registers takes the scalar
     one (nv = 0)."""
-    e = 8 if bf16 else 4
-    opts = trms.nv_options(bf16, tpr)
-    assert opts and max(opts) * e <= (64 if tpr == 512 else 128)
-    nv, t = trms.rmsnorm_plan(d, d, bf16, True, tpr)
-    assert t == tpr
-    if d % e or d > opts[-1] * tpr * e:
+    e, t = (8 if bf16 else 4), trms.THREADS
+    opts = trms.nv_options(bf16)
+    assert opts and max(opts) * e <= trms.MAX_VALUES
+    nv = trms.rmsnorm_plan(d, d, bf16)
+    if d % e or d > opts[-1] * t * e:
         assert nv == 0
     else:
-        assert nv in opts and nv * tpr * e >= d
-        assert nv == opts[0] or (nv // 2) * tpr * e < d
-        assert trms.rmsnorm_plan(d, d + 1, bf16, True, tpr)[0] == 0
-        assert trms.rmsnorm_plan(d, d, bf16, False, tpr)[0] == 0
-    assert trms.variant(nv, tpr) == (f"t{tpr}-scalar" if nv == 0
-                                     else f"t{tpr}-nv{nv}")
+        assert nv in opts and nv * t * e >= d
+        assert nv == opts[0] or (nv // 2) * t * e < d
+        assert trms.rmsnorm_plan(d, d + 1, bf16) == 0
+        assert trms.rmsnorm_plan(d, d, bf16, False) == 0
+    assert trms.variant(nv) == ("scalar" if nv == 0 else f"nv{nv}")
 
 
-def emulate_rmsnorm(x, g, eps, nv, tpr):
+def emulate_rmsnorm(x, g, eps, nv):
     """Kernel 6's float32 arithmetic in its order: each thread's sum of
     squares over its values (vector by vector, or 8 strided loads at a
     time in the scalar instantiation), the xor butterfly within each warp,
     then the warps in warp order; out = x * inv * gamma."""
     rows, d = x.shape
-    e = 4
+    e, tpr = 4, trms.THREADS
     out = np.empty_like(x)
     for r in range(rows):
         xr = x[r]
@@ -529,16 +526,16 @@ def emulate_rmsnorm(x, g, eps, nv, tpr):
     return out
 
 
-@pytest.mark.parametrize("d,tpr", [(4096, 256), (4096, 32), (4093, 256)])
-def test_rmsnorm_emulation_matches_reference(d, tpr):
+@pytest.mark.parametrize("d", [4096, 12800, 4093])
+def test_rmsnorm_emulation_matches_reference(d):
     """Kernel 6's reduction order against the Pallas kernel in interpret
     mode and the torch oracle, at 1e-5 (float32 rounding only)."""
     rng = np.random.default_rng(29)
     x = (3.0 * rng.normal(size=(4, d))).astype(np.float32)
     g = (1.0 + 0.1 * rng.normal(size=d)).astype(np.float32)
-    nv, _ = trms.rmsnorm_plan(d, d, False, True, tpr)
+    nv = trms.rmsnorm_plan(d, d, False)
     assert (nv == 0) == (d % 4 != 0)
-    got = emulate_rmsnorm(x, g, 1e-5, nv, tpr)
+    got = emulate_rmsnorm(x, g, 1e-5, nv)
     want = np.asarray(jrms.rmsnorm_pallas(jnp.asarray(x), jnp.asarray(g),
                                           eps=1e-5, interpret=True))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
