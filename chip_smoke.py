@@ -10,21 +10,26 @@ Phases, each of which raises on failure (exit code non-zero):
   2. hold each kernel against its plain PyTorch version on the card, at
      granite-3-8b's full-width shapes: the parity encode (rtol = atol =
      1e-5; wq, wk, w1 stacked over 40 layers and the head, r = 1..4, both
-     layouts, a ragged shape, T = 2, 8 and 16), the coded GEMM and the
-     fused head under the all-valid mask and every single dead shard
-     (float32, rtol = atol = 1e-4; the coded GEMM also at (T, r) = (4, 3)
-     dedicated, (4, 4) folded, and (8, 3) and (8, 4) in both layouts),
-     plus an rmsnorm-fold case and a constructed argmax tie across two
-     vocabulary tiles; the decode-and-merge and the r=1 decode (1e-5,
-     every mask with <= 1 dead, a NaN in the dead shard), the RMSNorm
-     (1e-5) and the blocked GEMM (1e-4, TF32 off), bf16 where a kernel
-     takes it (2e-2, GEMM 5e-2); kernels 1 and 7 also at the edges of
-     their launch plans (row blocks, tile and stage remainders, misaligned
-     views), where every instantiation (bulk copies or ordinary loads,
-     4/8/16 rows a block) must launch and repeats must be bitwise equal;
-     kernel 2 also at its plan's edges (T = 2, 4, 8; rows 1-17; ragged
-     m_l, k = 4093, an offset head; integer-valued inputs, so tokens and
-     max equal the plain version's to the bit) with ties across tiles and
+     layouts, a ragged shape, T = 2, 8 and 16; on bf16 the whole stacked
+     encode within 2e-2, bitwise repeatable), the coded GEMM and the fused
+     head under the all-valid mask and every single dead shard (float32,
+     rtol = atol = 1e-4; the coded GEMM also at (T, r) = (4, 3) dedicated,
+     (4, 4) folded, (8, 3) and (8, 4) in both layouts, and T = 16 at r =
+     1..4 in both layouts with both producers; the head at T = 16), plus
+     an rmsnorm-fold case and a constructed argmax tie across two
+     vocabulary tiles; both on bf16 weights within 2e-2 (the reference's
+     bf16 oracle bound), every bf16 instantiation launched; the
+     decode-and-merge and the r=1 decode (1e-5, every mask with <= 1 dead,
+     a NaN in the dead shard, T = 16, the 2048-row shape, both the 16-byte
+     and the scalar instantiation), the RMSNorm (1e-5) and the blocked
+     GEMM (1e-4, TF32 off), bf16 where a kernel takes it (2e-2, GEMM
+     5e-2); kernels 1 and 7 also at the edges of their launch plans (row
+     blocks, tile and stage remainders, misaligned views), where every
+     instantiation (bulk copies or ordinary loads, 4/8/16 rows a block)
+     must launch and repeats must be bitwise equal; kernel 2 also at its
+     plan's edges (T = 2, 4, 8, 16; rows 1-17; ragged m_l, k = 4093, an
+     offset head; integer-valued inputs, so tokens and max equal the plain
+     version's to the bit; float32 and bf16) with ties across tiles and
      across k splits resolving to the smaller id, every (T, instantiation)
      launched, and kernel 6 at rows 1-1000, d 4096/12800/4093, bf16 and
      strided rows, bitwise repeatable;
@@ -39,9 +44,11 @@ Phases, each of which raises on failure (exit code non-zero):
      round by kernel and per launch of kernels 2 and 6;
   4. time each kernel at its main-path shape with CUDA events beside its
      plain version, one library call and its bandwidth/compute bound
-     (kernel 1 also at 64 rows, kernel 2 at 16, kernels 3, 5, 6 and 7 at
-     the shapes of their own paths), printing the instantiation each took
-     and its ptxas usage;
+     (kernel 1 also at 64 rows, kernel 2 at 16, kernels 1 and 2 on bf16
+     weights and at T = 16, kernels 3, 5, 6 and 7 at the shapes of their
+     own paths; kernels 3 and 5 also by the profiler, at 2048 rows too,
+     beside an empty kernel's device time), printing the instantiation
+     each took and its ptxas usage;
   5. serve granite-3-8b at full width through the port's serving entry
      point (launch.serve: the continuous-batching scheduler, SimClock, 4
      slots, 8 requests 2 ms apart, prompt 16, 16 new tokens) fault-free,
@@ -59,7 +66,19 @@ Phases, each of which raises on failure (exit code non-zero):
      outputs to equal x @ w (within the budget);
   7. drive decode_and_merge(use_fused=True), the decode-and-merge kernel's
      library entry, on a coded GEMM's shard outputs at granite widths with
-     each shard dead in turn.
+     each shard dead in turn;
+  8. serve granite-3-8b at full width at T = 16 (what launch.serve --coded
+     --tp 16 builds: float32, r = 2 folded) through ServingEngine.generate,
+     fault-free and with shard 5 killed at step 4, on fused rounds (kernel
+     1 200 times a round through both producers, kernel 2 once), and on
+     the reference variant: identical token streams;
+  9. a bf16 coded granite-3-8b at full width (Model.init(dtype=bf16), T =
+     4, r = 2 folded): its parity encoded by kernel 4 on bf16, the first
+     decode step's max logit of the fused round within 6e-2 (the
+     reference's bf16 TOL) of the bf16 reference variant's, 16 tokens
+     served through kernels 1, 2 and 6 on bf16 (200 + 1 + 81 launches a
+     round), the leading tokens on which the fused and reference streams
+     agree reported, device time per round by the profiler.
 Phases 3 and 5 also count the RMSNorm kernel: 2 x 40 + 1 = 81 launches
 per decode round (fused and reference variants) and per prefill.
 Peak device memory is printed per phase. The line before the last is the
@@ -80,6 +99,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12            # H100 SXM bf16 tensor cores, dense
 SPIN_CYCLES = 4_000_000        # ~2.3 ms at 1.75 GHz: covers any enqueue
 TOL = dict(rtol=1e-4, atol=1e-4)
 T, R = 4, 2
@@ -101,13 +121,16 @@ def card_line() -> str:
 # ------------------------------------------------------------ phase 2 ----
 
 def _coded_case(m_l: int, rows: int, layout: str, gen: torch.Generator,
-                k: int = K, r: int = R, t: int = T):
+                k: int = K, r: int = R, t: int = T, dtype=torch.float32):
+    """A coded GEMM's spec, x [rows, k], w [k, t * m_l] and its parity
+    (encoded by kernel 4), stored in ``dtype``."""
     from repro_torch.core.coded_layer import (CodedDenseSpec,
                                               make_parity_weights)
     from repro_torch.core.coding import CodeSpec
     spec = CodedDenseSpec(CodeSpec(t, r), layout=layout)
-    x = torch.randn((rows, k), generator=gen, device="cuda")
-    w = torch.randn((k, t * m_l), generator=gen, device="cuda") / k ** 0.5
+    x = torch.randn((rows, k), generator=gen, device="cuda").to(dtype)
+    w = (torch.randn((k, t * m_l), generator=gen, device="cuda")
+         / k ** 0.5).to(dtype)
     return spec, x, w, make_parity_weights(w, spec)
 
 
@@ -174,9 +197,12 @@ def _head(cfg, gen):
     return w
 
 
-def _head_views(w):
-    w_shards = w.view(K, T, -1).permute(1, 0, 2)
-    return w_shards, w_shards.sum(0).contiguous()
+def _head_views(w, t: int = T):
+    """The [t, k, m_l] shards of a head weight [k, t * m_l] (a view) and
+    their sum parity as the serving round holds it."""
+    from repro_torch.kernels.cdc_decode import head_parity
+    w_shards = w.view(K, t, -1).permute(1, 0, 2)
+    return w_shards, head_parity(w_shards)
 
 
 def _int_head(shape, gen, lo=-1, hi=1):
@@ -187,7 +213,7 @@ def _int_head(shape, gen, lo=-1, hi=1):
                          device="cuda").to(torch.float32)
 
 
-def _head_pair(x, w_shards, pw, valid, vocab):
+def _head_pair(x, w_shards, pw, valid, vocab, tol=TOL):
     """Kernel 2 and its plain version on the same card tensors: their
     tokens must be equal; returns (tokens, max abs err of the max)."""
     from repro_torch.kernels import cdc_decode, ref
@@ -201,7 +227,7 @@ def _head_pair(x, w_shards, pw, valid, vocab):
                              f"{rtok.tolist()} (mask {valid}, rows "
                              f"{x.shape[0]}, shards {tuple(w_shards.shape)}, "
                              f"vocab {vocab})")
-    torch.testing.assert_close(vmax, rmax, **TOL)
+    torch.testing.assert_close(vmax, rmax, **tol)
     return tok, float((vmax - rmax).abs().max())
 
 
@@ -260,58 +286,72 @@ def check_fused_head(cfg) -> float:
     return worst
 
 
-HEAD_VARIANTS = tuple((t, f"rb{rb}-{p}") for t in (2, 4, 8)
-                      for rb in (4, 8, 16) for p in ("async", "loads"))
+def head_variants(bf16: bool = False) -> tuple:
+    """Every (T, instantiation) of kernel 2 in one storage type: rows
+    blocks of 4, 8 and (up to 11 streams) 16, bulk copies or loads."""
+    from repro_torch.kernels.stream_plan import rb16_fits
+    return tuple((t, f"rb{rb}-{p}" + ("-bf16" if bf16 else ""))
+                 for t in (2, 4, 8, 16) for rb in (4, 8, 16)
+                 if rb < 16 or rb16_fits(t + 1)
+                 for p in ("async", "loads"))
 
 
-def check_head_edges() -> float:
+def check_head_edges(dtype=torch.float32) -> float:
     """Kernel 2 at the edges of its launch plan, against its plain version
-    under every mask with <= 1 dead shard: granite's head at T = 2, 4 and
-    8 (T = 2's m_l = 24578 takes the ordinary loads) and rows 1, 4, 5, 8,
-    9, 12 and 17 (the row blocks 4 | 8 | 16 and their remainders), vocab
-    49155 (it cuts the last shard's last tile); T = 2 at an aligned
-    m_l = 12292; ragged m_l 1001 and 2051 (ordinary loads, each row
-    block) with the vocab cut 7 columns short; k = 4093; the head at a
-    4-byte offset (ordinary loads at granite's width). Integer-valued
-    inputs: tokens and max must equal the plain version's to the bit,
-    ties (frequent here) included. Every (T, instantiation) must launch,
-    and two launches on the same inputs give the same bits."""
+    under every mask with <= 1 dead shard: granite's head at T = 2, 4, 8
+    and 16 (T = 2's m_l = 24578 takes the ordinary loads) and rows 1, 4,
+    5, 8, 9, 12 and 17 (the row blocks 4 | 8 | 16 and their remainders;
+    T = 16 has blocks of 4 and 8 rows), vocab 49155 (it cuts the last
+    shard's last tile); T = 2 at an aligned m_l = 12292; ragged m_l 1001
+    and 2051 (ordinary loads, each row block) with the vocab cut 7 columns
+    short; k = 4093; the head at a 4-byte offset (ordinary loads at
+    granite's width). Integer-valued inputs, exact in bf16 too: tokens and
+    max must equal the plain version's to the bit, ties (frequent here)
+    included. Every (T, instantiation) of the storage type must launch
+    (on bf16, granite's T = 4 head, whose shards start between 16-byte
+    boundaries, with box rows a vector wider than the tile), and two
+    launches on the same inputs give the same bits."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import cdc_decode
     vocab = get_arch("granite-3-8b").vocab
+    bf16 = dtype == torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(24)
     rows_all = (1, 4, 5, 8, 9, 12, 17)
-    cases = [(t, _pad_head(vocab, t), K, rows_all, 0, vocab)
-             for t in (2, 4, 8)]
+    ts = (2, 4, 8, 16)
+    cases = [(t, _pad_head(vocab, t), K, rows_all, 0, vocab) for t in ts]
     cases += [(2, 12292, K, (4, 5, 9), 0, 2 * 12292 - 5)]
-    cases += [(t, 1001, 4093, (4, 5), 0, t * 1001 - 7) for t in (2, 4, 8)]
-    cases += [(t, 2051, K, (17,), 0, t * 2051 - 7) for t in (2, 4, 8)]
+    cases += [(t, 1001, 4093, (4, 5), 0, t * 1001 - 7) for t in ts]
+    cases += [(t, 2051, K, (17,), 0, t * 2051 - 7) for t in ts]
     cases += [(4, 12292, 4093, (4,), 0, vocab), (4, 12292, K, (4, 9), 1,
                                                  vocab)]
-    seen, worst, n = set(), 0.0, 0
+    seen, worst, n, lead = set(), 0.0, 0, 0
     for t, m_l, k, rows_list, offset, voc in cases:
-        buf = _int_head((k, t * m_l + offset), gen)
+        buf = _int_head((k, t * m_l + offset), gen).to(dtype)
         w_shards = buf[:, offset:].reshape(k, t, m_l).permute(1, 0, 2)
-        pw = w_shards.sum(0).contiguous()
+        pw = cdc_decode.head_parity(w_shards)
         for rows in rows_list:
-            x = _int_head((rows, k), gen, -2, 2)
+            x = _int_head((rows, k), gen, -2, 2).to(dtype)
             for valid in _masks(t):
                 cdc_decode.cdc_fused_head_argmax.variants.clear()
                 _, err = _head_pair(x, w_shards, pw, valid, voc)
                 variant, = cdc_decode.cdc_fused_head_argmax.variants
-                seen.add((t, variant))
+                seen.add((t, variant.replace("-lead", "")))
+                lead += "-lead" in variant
                 if err != 0.0:
                     raise AssertionError(f"fused head max differs by {err} "
                                          f"on exact inputs (T={t}, m_l="
-                                         f"{m_l}, k={k}, rows={rows})")
+                                         f"{m_l}, k={k}, rows={rows}, "
+                                         f"{dtype})")
                 worst, n = max(worst, err), n + 1
         del buf, w_shards, pw
-    missing = [v for v in HEAD_VARIANTS if v not in seen]
-    if missing:
+    missing = [v for v in head_variants(bf16) if v not in seen]
+    if missing or (bf16 and not lead):
         raise AssertionError(f"kernel 2 instantiations never launched: "
-                             f"{missing} (launched {sorted(seen)})")
+                             f"{missing} (launched {sorted(seen)}; "
+                             f"{lead} launches with widened boxes)")
     # bitwise repeat at the decode round's split plan, Gaussian inputs
-    w = torch.randn((K, T * 12292), generator=gen, device="cuda") / K ** 0.5
+    w = (torch.randn((K, T * 12292), generator=gen, device="cuda")
+         / K ** 0.5).to(dtype)
     w_shards, pw = _head_views(w)
     x = torch.randn((4, K), generator=gen, device="cuda")
     a = cdc_decode.cdc_fused_head_argmax(x, w_shards, pw,
@@ -324,10 +364,10 @@ def check_head_edges() -> float:
     if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
         raise AssertionError("fused head: two launches on the same inputs "
                              "differ")
-    log(f"kernel cdc_fused_head_argmax at its plan's edges: {n} cases "
-        f"(T 2/4/8, rows 1-17, m_l 1001/2051/12292/granite, k 4093, "
-        f"offset head, every mask) equal to the plain version to the bit; "
-        f"repeats bitwise equal; (T, instantiation) launched "
+    log(f"kernel cdc_fused_head_argmax at its plan's edges ({dtype}): {n} "
+        f"cases (T 2/4/8/16, rows 1-17, m_l 1001/2051/12292/granite, k "
+        f"4093, offset head, every mask) equal to the plain version to the "
+        f"bit; repeats bitwise equal; (T, instantiation) launched "
         f"{sorted(seen)}")
     return worst
 
@@ -385,6 +425,159 @@ def check_coded_matmul_t8() -> float:
                     n += 1
     log(f"kernel cdc_coded_matmul at (T, r) = (8, 3) and (8, 4), both "
         f"layouts: {n} cases within rtol=atol=1e-4 of the plain version, "
+        f"max abs err {worst:.3e}")
+    return worst
+
+
+T16 = 16
+GEMMS16 = {"wq": 256, "wk": 64, "w1": 800}   # granite's widths / 16
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)         # the reference's bf16 oracle
+
+
+def _coded_pair(x, w, wc, spec, valid, tol, what: str) -> float:
+    """Kernel 1 and its plain version on the same card tensors, within
+    ``tol``; returns the max abs error."""
+    got = _run_coded(x, w, wc, spec, valid)
+    want = _run_coded(x, w, wc, spec, valid, plain=True)
+    torch.cuda.synchronize()
+    if got.dtype != x.dtype:
+        raise AssertionError(f"coded matmul {what}: output {got.dtype}, "
+                             f"want x's {x.dtype}")
+    torch.testing.assert_close(got, want, **tol, msg=lambda m: (
+        f"coded matmul {what} mask={valid}: {m}"))
+    return float((got.float() - want.float()).abs().max())
+
+
+def check_coded_matmul_t16() -> float:
+    """Kernel 1 at T = 16 (its (16, 1)-(16, 4) cases), both layouts,
+    granite-3-8b's coded GEMM widths divided by 16 (wq 256, wk 64, w1 800:
+    folded w1's slices of 50 columns take the copy engine with box rows a
+    vector wider than the tile (`-lead`) at r = 2 and 4, and the ordinary
+    loads at r = 1 and 3, whose parity rows are no whole 16-byte vectors),
+    4 rows, the all-valid mask and every single dead shard, within 1e-4
+    of the plain version; 5 and 9 rows take the 8-row blocks (T = 16 has
+    no 16-row instantiation). Both producers must launch at both row
+    blocks, and the widened boxes at both."""
+    from repro_torch.kernels import cdc_matmul
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    cdc_matmul.cdc_coded_matmul.variants.clear()
+    worst, n = 0.0, 0
+    cases = [(m_l, 4, layout, r) for layout in ("folded", "dedicated")
+             for r in (1, 2, 3, 4) for m_l in GEMMS16.values()]
+    cases += [(800, 5, "folded", 3), (800, 9, "folded", 4),
+              (256, 9, "folded", 2), (64, 5, "dedicated", 3)]
+    for m_l, rows, layout, r in cases:
+        spec, x, w, wc = _coded_case(m_l, rows, layout, gen, r=r, t=T16)
+        masks = list(_masks(T16)) if rows == 4 else \
+            [(True,) * T16, tuple(i != 7 for i in range(T16))]
+        for valid in masks:
+            worst = max(worst, _coded_pair(
+                x, w, wc, spec, valid, TOL,
+                f"(16, {r}) {layout} m_l={m_l} rows={rows}"))
+            n += 1
+    seen = dict(cdc_matmul.cdc_coded_matmul.variants)
+    want = {f"rb{rb}-{p}" for rb in (4, 8)
+            for p in ("async", "loads", "async-lead")}
+    if set(seen) != want:
+        raise AssertionError(f"kernel 1 at T = 16 launched {seen}; want "
+                             f"every one of {sorted(want)}")
+    log(f"kernel cdc_coded_matmul at T = 16, r = 1-4, both layouts: {n} "
+        f"cases within rtol=atol=1e-4 of the plain version, max abs err "
+        f"{worst:.3e}; launches per instantiation {seen}")
+    return worst
+
+
+def check_coded_matmul_bf16() -> float:
+    """Kernel 1 on bf16 storage (x, weights, parity and output bf16; math
+    float32) against its plain version within 2e-2, the reference's bf16
+    oracle bound: granite-3-8b's GEMMs at T = 4, r = 2 folded (wq, wk, w1;
+    4 rows under every mask, 16 and 64 rows), w1 at (4, 4) and wq
+    dedicated; the plan's edges (rows 5, 8, 9; k = 4093; m_l = 1000
+    dedicated; a ragged m_l = 100 and w's rows at an odd offset, both on
+    the ordinary loads); T = 8 at r = 4 and T = 16 at r = 2 (w1 800 on the
+    loads, wq 256 on the copy engine); float32 x against bf16 weights
+    (float32 out). Every bf16 instantiation (4/8/16 rows, bulk copies or
+    loads) must launch, and repeats at a split plan are bitwise equal."""
+    from repro_torch.kernels import cdc_matmul
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    cdc_matmul.cdc_coded_matmul.variants.clear()
+    worst, n = 0.0, 0
+    cases = [(m_l, 4, "folded", K, R, T) for m_l in (1024, 256, 3200)]
+    cases += [(m_l, rows, "folded", K, R, T) for m_l in (1024, 3200)
+              for rows in (5, 8, 9, 16, 64)]
+    cases += [(3200, 4, "folded", K, 4, T), (1024, 4, "dedicated", K, R, T),
+              (1000, 9, "dedicated", 4093, R, T),
+              (100, 5, "folded", 1000, R, T), (512, 4, "folded", K, 4, 8),
+              (800, 4, "folded", K, R, T16), (256, 9, "folded", K, R, T16)]
+    for m_l, rows, layout, k, r, t in cases:
+        spec, x, w, wc = _coded_case(m_l, rows, layout, gen, k, r, t, bf)
+        masks = list(_masks(t)) if (rows == 4 and t == T) else \
+            [(True,) * t, tuple(i != 1 for i in range(t))]
+        for valid in masks:
+            worst = max(worst, _coded_pair(
+                x, w, wc, spec, valid, BF16_TOL,
+                f"bf16 ({t}, {r}) {layout} m_l={m_l} rows={rows} k={k}"))
+            n += 1
+    # float32 activations against bf16 weights: float32 out
+    spec, x, w, wc = _coded_case(1024, 4, "folded", gen, dtype=bf)
+    worst = max(worst, _coded_pair(x.float(), w, wc, spec, (True,) * T,
+                                   BF16_TOL, "f32 x, bf16 weights"))
+    # w's rows at a 2-byte offset: the ordinary loads at granite's widths
+    for rows, m_l in ((4, 1024), (9, 3200)):
+        spec, x, w, wc = _coded_case(m_l, rows, "folded", gen, dtype=bf)
+        wide = torch.zeros((K, T * m_l + 1), device="cuda", dtype=bf)
+        wide[:, 1:] = w
+        got = _run_coded(x, wide[:, 1:], wc, spec, (True,) * T)
+        want = _run_coded(x, w, wc, spec, (True,) * T, plain=True)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **BF16_TOL)
+        worst = max(worst, float((got.float() - want.float()).abs().max()))
+        n += 1
+    spec, x, w, wc = _coded_case(3200, 4, "folded", gen, dtype=bf)
+    a = _run_coded(x, w, wc, spec, (True, True, False, True))
+    b = _run_coded(x, w, wc, spec, (True, True, False, True))
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError("bf16 coded matmul: two launches differ")
+    seen = dict(cdc_matmul.cdc_coded_matmul.variants)
+    missing = [v + "-bf16" for v in CODED_VARIANTS if v + "-bf16" not in seen]
+    if missing:
+        raise AssertionError(f"bf16 instantiations never launched: "
+                             f"{missing} (launched {seen})")
+    log(f"kernel cdc_coded_matmul on bf16: {n} cases within rtol=atol=2e-2 "
+        f"of the plain version (output in x's dtype), max abs err "
+        f"{worst:.3e}; repeats bitwise equal; launches per instantiation "
+        f"{seen}")
+    return worst
+
+
+def check_fused_head_wide(cfg) -> float:
+    """Kernel 2 at granite's head under every mask, Gaussian weights: at
+    T = 16 (m_l = 3088, 4 rows, float32, within 1e-4) and on bf16 weights
+    at T = 4 (m_l = 12292, read through the 2-D map) and T = 16, with
+    float32 x as the serving round gives it and with bf16 x (max within
+    2e-2; tokens equal)."""
+    from repro_torch.models.common import TPCtx
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    worst, n = 0.0, 0
+    for t, dtype in ((T16, torch.float32), (T, torch.bfloat16),
+                     (T16, torch.bfloat16)):
+        m = TPCtx(tp=t).pad_dim(cfg.vocab)
+        w = torch.randn((K, m), generator=gen, device="cuda") / K ** 0.5
+        w[:, cfg.vocab:] = 0.0
+        w_shards, pw = _head_views(w.to(dtype), t)
+        tol = TOL if dtype == torch.float32 else BF16_TOL
+        x = torch.randn((4, K), generator=gen, device="cuda")
+        xs = [x] + ([x.to(dtype)] if dtype != torch.float32 else [])
+        for xi in xs:
+            for valid in _masks(t):
+                worst = max(worst, _head_pair(xi, w_shards, pw, valid,
+                                              cfg.vocab, tol)[1])
+                n += 1
+        del w, w_shards, pw
+    log(f"kernel cdc_fused_head_argmax at T = 16 (float32, 1e-4) and on "
+        f"bf16 weights at T = 4 and 16 (2e-2): {n} cases, equal tokens, "
         f"max abs err {worst:.3e}")
     return worst
 
@@ -507,9 +700,13 @@ def check_decode_merge() -> float:
     """Kernel 3 vs its plain version (rtol = atol = 1e-5 at float32, 2e-2
     at bf16): T in {2, 4, 8} x r in {1, 2} x both layouts x every mask
     with <= 1 dead x rows in {4, 64} x m_l in {3200 (granite w1), 1024
-    (wq), 100 (ragged; 104 folded at T=8, which needs m_l % 8 == 0)}. The
-    dead shard's outputs are NaN: the select must keep them out. 2 dead
-    shards must take the reference decode_and_merge, launching nothing."""
+    (wq), 100 (ragged; 104 folded at T=8, which needs m_l % 8 == 0)}; T =
+    16 at granite's w1 / 16 (800; folded slices of 50 columns take the
+    scalar path); the 2048-row shape [4, 2048, 3200] (float32 and bf16);
+    a column plan whose equations differ within a 16-byte group. The dead
+    shard's outputs are NaN: the select must keep them out. Both
+    instantiations (16-byte groups and scalar) must launch. 2 dead shards
+    must take the reference decode_and_merge, launching nothing."""
     from repro_torch.core.coded_layer import CodedDenseSpec, decode_and_merge
     from repro_torch.core.coding import CodeSpec
     from repro_torch.kernels import cdc_matmul, ops
@@ -521,7 +718,13 @@ def check_decode_merge() -> float:
              for m_l in (3200, 1024, 104 if layout == "folded" and t == 8
                          else 100)]
     cases += [(4, 2, "folded", 4, 3200, torch.bfloat16),
-              (8, 1, "dedicated", 64, 100, torch.bfloat16)]
+              (8, 1, "dedicated", 64, 100, torch.bfloat16),
+              (16, 2, "folded", 4, 800, torch.float32),
+              (16, 2, "dedicated", 64, 800, torch.bfloat16),
+              (4, 2, "folded", 2048, 3200, torch.float32),
+              (4, 2, "dedicated", 2048, 3200, torch.float32),
+              (4, 2, "folded", 2048, 3200, torch.bfloat16)]
+    cdc_matmul.cdc_decode_merge.variants.clear()
     for t, r, layout, rows, m_l, dt in cases:
         spec = CodedDenseSpec(CodeSpec(t, r), layout=layout)
         ys = torch.randn((t, rows, m_l), generator=gen, device="cuda")
@@ -548,6 +751,25 @@ def check_decode_merge() -> float:
             if dt == torch.float32:
                 worst = max(worst, float((got - want).abs().max()))
             n += 1
+    # equations that differ from column to column inside a 16-byte group
+    # (no plan of eq12_plan makes them): per-column parity reads
+    spec = CodedDenseSpec(CodeSpec(4, 2), layout="dedicated")
+    ys = torch.randn((4, 64, 1024), generator=gen, device="cuda")
+    par = torch.randn((2, 64, 1024), generator=gen, device="cuda")
+    valid = (True, False, True, True)
+    vh, _, _, g = _dm_plan(spec, valid, 1024)
+    esel = torch.arange(1024, device="cuda", dtype=torch.int32) % 2
+    coef = (1.0 / g[esel.long(), 1]).contiguous()
+    got = cdc_matmul.cdc_decode_merge(ys, par, "dedicated", 4, 2, g, esel,
+                                      coef, vh)
+    want = cdc_matmul.decode_merge_plain(ys, par, "dedicated", 4, 2, g, esel,
+                                         coef, vh)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    worst, n = max(worst, float((got - want).abs().max())), n + 1
+    seen = dict(cdc_matmul.cdc_decode_merge.variants)
+    if set(seen) != {"vec", "scalar"}:
+        raise AssertionError(f"kernel 3 instantiations launched {seen}")
     # 2 dead shards (in budget for dedicated r=2): the reference path,
     # bit for bit, and no kernel launch
     spec = CodedDenseSpec(CodeSpec(4, 2), layout="dedicated")
@@ -560,26 +782,33 @@ def check_decode_merge() -> float:
             got, decode_and_merge(ys, par, spec, two_dead)):
         raise AssertionError("2 dead shards must take the reference "
                              "decode_and_merge without a kernel launch")
-    log(f"kernel cdc_decode_merge: {n} cases (T = 2, 4, 8; r = 1, 2; both "
-        f"layouts; rows 4, 64; m_l 3200, 1024, ragged; NaN in the dead "
-        f"shard; 2 bf16 sets) within rtol=atol=1e-5 (bf16 2e-2) of the "
-        f"plain version, max abs err {worst:.3e}; 2 dead -> the reference "
-        f"path")
+    log(f"kernel cdc_decode_merge: {n} cases (T = 2, 4, 8, 16; r = 1, 2; "
+        f"both layouts; rows 4, 64, 2048; m_l 3200, 1024, 800, ragged; NaN "
+        f"in the dead shard; bf16 sets; mixed equations in a group) within "
+        f"rtol=atol=1e-5 (bf16 2e-2) of the plain version, max abs err "
+        f"{worst:.3e}; launches per instantiation {seen}; 2 dead -> the "
+        f"reference path")
     return worst
 
 
 def check_decode() -> float:
     """Kernel 5 vs its plain version (rtol = atol = 1e-5 at float32, 2e-2
     at bf16): T in {2, 4, 8, 16} at [T, 256, 512] (the study's shape) and
-    [T, 4, 3200], all valid and every single dead shard; a NaN in the dead
-    shard must propagate exactly as in the plain version (multiply
-    semantics); 2 dead shards must raise."""
+    [T, 4, 3200], [4, 2048, 3200] (float32 and bf16) and a ragged [4, 3,
+    333] (the scalar path), all valid and every single dead shard; both
+    instantiations must launch; a NaN in the dead shard must propagate
+    exactly as in the plain version (multiply semantics); 2 dead shards
+    must raise."""
     from repro_torch.kernels import cdc_decode, ops, ref
     gen = torch.Generator(device="cuda").manual_seed(18)
     worst, n = 0.0, 0
     cases = [(t, shape, torch.float32) for t in (2, 4, 8, 16)
              for shape in ((256, 512), (4, 3200))]
-    cases += [(8, (256, 512), torch.bfloat16), (4, (4, 3200), torch.bfloat16)]
+    cases += [(8, (256, 512), torch.bfloat16), (4, (4, 3200), torch.bfloat16),
+              (4, (2048, 3200), torch.float32),
+              (4, (2048, 3200), torch.bfloat16),
+              (4, (3, 333), torch.float32), (16, (3, 333), torch.bfloat16)]
+    cdc_decode.cdc_decode.variants.clear()
     for t, shape, dt in cases:
         y = torch.randn((t,) + shape, generator=gen, device="cuda")
         p = y.sum(0).to(dt)
@@ -614,10 +843,14 @@ def check_decode() -> float:
         pass
     else:
         raise AssertionError("cdc_decode must refuse 2 dead shards")
+    seen = dict(cdc_decode.cdc_decode.variants)
+    if set(seen) != {"vec", "scalar"}:
+        raise AssertionError(f"kernel 5 instantiations launched {seen}")
     log(f"kernel cdc_decode: {n} cases (T = 2, 4, 8, 16 at [T, 256, 512] "
-        f"and [T, 4, 3200], every single erasure, 2 bf16 sets) within "
-        f"rtol=atol=1e-5 (bf16 2e-2), max abs err {worst:.3e}; NaN in the "
-        f"dead shard propagates as in the plain version; 2 dead raise")
+        f"and [T, 4, 3200], [4, 2048, 3200], ragged [T, 3, 333], every "
+        f"single erasure, bf16 sets) within rtol=atol=1e-5 (bf16 2e-2), max "
+        f"abs err {worst:.3e}; launches per instantiation {seen}; NaN in "
+        f"the dead shard propagates as in the plain version; 2 dead raise")
     return worst
 
 
@@ -788,6 +1021,48 @@ def check_encode(cfg) -> float:
     return worst
 
 
+def check_encode_bf16(cfg) -> float:
+    """Kernel 4 on bf16 shards (bf16 parity, float32 math) against its
+    plain version within 2e-2: the whole stacked encode of granite-3-8b
+    at T = 4, r = 2 folded (wq, wk, wv, w1, w3 over all layers and the
+    head), each leaf encoded twice to the same bits; the dedicated layout,
+    a ragged shape (the scalar path) and T = 16 at r = 2."""
+    from repro_torch.core.coding import generator_matrix
+    from repro_torch.kernels import cdc_encode as enc
+    from repro_torch.models.common import TPCtx
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    L = cfg.n_layers
+    leaves = [(n, (L, K, T * GEMMS[n]), T, R, "folded") for n in GEMMS]
+    leaves += [("lm_head", (K, TPCtx(tp=T).pad_dim(cfg.vocab)), T, R,
+                "folded"),
+               ("wq", (L, K, T * GEMMS["wq"]), T, 3, "dedicated"),
+               ("ragged", (1000, T * 100), T, 2, "folded"),
+               ("T=16", (K, 16 * 256), 16, 2, "folded")]
+    worst = 0.0
+    for name, shape, t, r, layout in leaves:
+        w = (torch.randn(shape, generator=gen, device="cuda")
+             / K ** 0.5).to(torch.bfloat16)
+        sh = _shards(w, t)
+        g = generator_matrix(t, r)
+        got = enc.cdc_encode(sh, g, layout=layout)
+        again = enc.cdc_encode(sh, g, layout=layout)
+        want = enc.encode_plain(sh, g, layout)
+        torch.cuda.synchronize()
+        if got.dtype != torch.bfloat16 or not torch.equal(got, again):
+            raise AssertionError(f"bf16 encode {name}: dtype {got.dtype}, "
+                                 f"repeat equal {torch.equal(got, again)}")
+        torch.testing.assert_close(got, want, **BF16_TOL, msg=lambda m: (
+            f"bf16 encode {name} {shape} T={t} r={r} {layout}: {m}"))
+        worst = max(worst, float((got.float() - want.float()).abs().max()))
+        del w, sh, got, again, want
+    torch.cuda.empty_cache()
+    log(f"kernel cdc_encode on bf16: {len(leaves)} leaves (granite's whole "
+        f"stacked encode at T=4, r=2 folded; dedicated; ragged; T=16) within "
+        f"rtol=atol=2e-2 of the plain version, max abs err {worst:.3e}; "
+        f"every leaf encoded twice to the same bits")
+    return worst
+
+
 def _phase_memory(name: str):
     log(f"{name}: max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
@@ -803,8 +1078,39 @@ def norms_per_pass(cfg) -> int:
     return 2 * cfg.n_layers + 1
 
 
+N_TOK = 16
+
+
+def serve_batch(vocab: int) -> dict:
+    """The served requests: 4 prompts of 16 tokens, seeded."""
+    return {"tokens": np.random.default_rng(0).integers(0, vocab, (4, 16))}
+
+
+def _serve_run(eng, batch, fail_at=None, n_tok: int = N_TOK) -> dict:
+    """One ServingEngine.generate of the 4 requests (n_tok new tokens),
+    with the launch counts of kernels 1, 2 and 6 read around it."""
+    from repro_torch.kernels import cdc_decode, cdc_matmul, rmsnorm
+    counted = (cdc_matmul.cdc_coded_matmul,
+               cdc_decode.cdc_fused_head_argmax, rmsnorm.rmsnorm)
+    for fn in counted:
+        fn.launches = 0
+        fn.variants.clear()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    toks = eng.generate(batch, n_tok, fail_at=fail_at)
+    torch.cuda.synchronize()
+    ex = eng._executors[4]
+    out = {"tokens": toks, "seconds": time.perf_counter() - t,
+           "round_ms": list(ex.round_ms[-(n_tok - 1):]),
+           "variants": ex.vstep.last_variant}
+    for key, fn in zip(("k1", "k2", "k6"), counted):
+        out[key] = fn.launches
+        out[f"{key}_variants"] = dict(fn.variants)
+    return out
+
+
 def serve_full_width(cfg) -> dict:
-    from repro_torch.kernels import cdc_decode, cdc_matmul, ref, rmsnorm
+    from repro_torch.kernels import ref
     from repro_torch.models import TPCtx, build, transformer
     from repro_torch.serve import ServeConfig, ServingEngine
     model = build(cfg, TPCtx(tp=T, mode="coded", code_r=R))
@@ -816,31 +1122,11 @@ def serve_full_width(cfg) -> dict:
         f"{time.perf_counter() - t0:.1f} s")
     scfg = ServeConfig(max_len=16 + 16 + 8, batch=4,
                        cache_dtype=torch.float32)
-    rng = np.random.default_rng(0)
-    batch = {"tokens": rng.integers(0, cfg.vocab, (4, 16))}
-    n_tok = 16
+    batch = serve_batch(cfg.vocab)
+    n_tok = N_TOK
 
     def run(eng, fail_at=None):
-        cdc_matmul.cdc_coded_matmul.launches = 0
-        cdc_matmul.cdc_coded_matmul.variants.clear()
-        cdc_decode.cdc_fused_head_argmax.launches = 0
-        cdc_decode.cdc_fused_head_argmax.variants.clear()
-        rmsnorm.rmsnorm.launches = 0
-        rmsnorm.rmsnorm.variants.clear()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        toks = eng.generate(batch, n_tok, fail_at=fail_at)
-        torch.cuda.synchronize()
-        ex = eng._executors[4]
-        return {"tokens": toks, "seconds": time.perf_counter() - t,
-                "k1": cdc_matmul.cdc_coded_matmul.launches,
-                "k2": cdc_decode.cdc_fused_head_argmax.launches,
-                "k6": rmsnorm.rmsnorm.launches,
-                "k1_variants": dict(cdc_matmul.cdc_coded_matmul.variants),
-                "k2_variants": dict(cdc_decode.cdc_fused_head_argmax.variants),
-                "k6_variants": dict(rmsnorm.rmsnorm.variants),
-                "round_ms": list(ex.round_ms[-(n_tok - 1):]),
-                "variants": ex.vstep.last_variant}
+        return _serve_run(eng, batch, fail_at)
 
     torch.cuda.reset_peak_memory_stats()
     eng = ServingEngine(model, params, scfg, use_fused=True)
@@ -1017,8 +1303,30 @@ def _time(fn, flush, n=30) -> float:
     return float(np.median(times))
 
 
-def _bound(bytes_moved: float, flops: float) -> tuple[float, str]:
-    t_b, t_o = bytes_moved / HBM_BYTES_PER_S, flops / F32_FLOPS
+def _profile_us(fn, name: str, n: int = 200) -> float:
+    """Device microseconds a call of ``fn`` spends in the kernels whose
+    name holds ``name`` (every kernel for ""), by torch.profiler over n
+    calls, back to back, the inputs left where the last call left them."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and name in e.key)
+    if not us:
+        raise AssertionError(f"the profiler recorded no device time for "
+                             f"{name!r}")
+    return us / n
+
+
+def _bound(bytes_moved: float, flops: float,
+           peak: float = F32_FLOPS) -> tuple[float, str]:
+    t_b, t_o = bytes_moved / HBM_BYTES_PER_S, flops / peak
     return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
 
 
@@ -1107,7 +1415,78 @@ def time_kernels(cfg, rows: int = 4) -> list[dict]:
             f"{ms:.4f} ms, plain {plain:.4f} ms, library matmul {lib:.4f} "
             f"ms, bound {bound:.4f} ms ({by}); {variant}: {usage}")
     del w, w_shards, pw, wcat
+    out += time_wide_and_bf16(cfg, gen, flush, rows)
     out += time_small_kernels(gen, flush)
+    return out
+
+
+def time_wide_and_bf16(cfg, gen, flush, rows: int = 4) -> list[dict]:
+    """Kernels 1 and 2 on bf16 storage at T = 4 and in float32 at T = 16,
+    at the decode round's rows: kernel 1 at granite's w1, wq and wk (r = 2
+    folded), kernel 2 at its head; beside their plain versions and one
+    torch.matmul of x over the same weights, concatenated, in their
+    storage type. Bounds: the bytes in their storage type, or the FLOPs at
+    the type's peak (bf16: the tensor cores')."""
+    from repro_torch.core.coded_layer import unfold_parity
+    from repro_torch.kernels import cdc_decode, cdc_matmul, ref
+    from repro_torch.models.common import TPCtx
+    out = []
+    for dtype, t in ((torch.bfloat16, T), (torch.float32, T16)):
+        e = 2 if dtype == torch.bfloat16 else 4
+        peak = BF16_FLOPS if e == 2 else F32_FLOPS
+        tag = f"T={t} {str(dtype).split('.')[-1]}"
+        for name in ("w1", "wq", "wk"):
+            m_l = GEMMS[name] * T // t
+            spec, x, w, wc = _coded_case(m_l, rows, "folded", gen, r=R, t=t,
+                                         dtype=dtype)
+            valid = (True,) * t
+            wcat = torch.cat([w, unfold_parity(wc, t, R).permute(1, 0, 2)
+                              .reshape(K, R * m_l)], dim=1)
+            cdc_matmul.cdc_coded_matmul.variants.clear()
+            ms = _time(lambda: _run_coded(x, w, wc, spec, valid), flush)
+            variant, = cdc_matmul.cdc_coded_matmul.variants
+            plain = _time(lambda: _run_coded(x, w, wc, spec, valid,
+                                             plain=True), flush)
+            lib = _time(lambda: torch.matmul(x, wcat), flush)
+            bound, by = _bound(e * (rows * K + (t + R) * K * m_l
+                                    + rows * t * m_l) + 8.0 * m_l,
+                               2.0 * rows * K * m_l * (t + R), peak)
+            out.append({"gemm": name, "r": R, "rows": rows, "m_l": m_l,
+                        "case": tag, "ms": ms, "plain_ms": plain,
+                        "library_ms": lib, "bound_ms": bound,
+                        "bound_by": by, "variant": variant})
+            log(f"cdc_coded_matmul {name} {tag} [rows={rows}, k={K}, "
+                f"m_l={m_l}, r={R} folded]: kernel {ms:.4f} ms, plain "
+                f"{plain:.4f} ms, library matmul {lib:.4f} ms, bound "
+                f"{bound:.4f} ms ({by}); {variant}")
+            del x, w, wc, wcat
+        m = TPCtx(tp=t).pad_dim(cfg.vocab)
+        w = (torch.randn((K, m), generator=gen, device="cuda")
+             / K ** 0.5).to(dtype)
+        w_shards, pw = _head_views(w, t)
+        m_l = w_shards.shape[2]
+        wcat = torch.cat([w, pw], dim=1)
+        x = torch.randn((rows, K), generator=gen, device="cuda")
+        vt = torch.tensor((True,) * t)
+        cdc_decode.cdc_fused_head_argmax.variants.clear()
+        ms = _time(lambda: cdc_decode.cdc_fused_head_argmax(
+            x, w_shards, pw, (True,) * t, vocab=cfg.vocab), flush)
+        variant, = cdc_decode.cdc_fused_head_argmax.variants
+        plain = _time(lambda: ref.fused_head_argmax_ref(
+            x, w_shards, pw, vt, cfg.vocab), flush)
+        xl = x.to(dtype)
+        lib = _time(lambda: torch.matmul(xl, wcat), flush)
+        bound, by = _bound(4.0 * rows * K + e * (t + 1) * K * m_l
+                           + 8.0 * rows, 2.0 * rows * K * m_l * (t + 1),
+                           peak)
+        out.append({"gemm": "lm_head", "rows": rows, "m_l": m_l,
+                    "case": tag, "ms": ms, "plain_ms": plain,
+                    "library_ms": lib, "bound_ms": bound, "bound_by": by,
+                    "variant": variant})
+        log(f"cdc_fused_head_argmax {tag} [b={rows}, k={K}, m_l={m_l}]: "
+            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library matmul "
+            f"{lib:.4f} ms, bound {bound:.4f} ms ({by}); {variant}")
+        del w, w_shards, pw, wcat
     return out
 
 
@@ -1139,19 +1518,28 @@ def time_small_kernels(gen, flush) -> list[dict]:
     spec = CodedDenseSpec(CodeSpec(T, R))
     m_l = GEMMS["w1"]
     dead2 = (True, True, False, True)
-    vh, esel, coef, g = _dm_plan(spec, dead2, m_l)
-    for rows in (4, 64):
+    floor_us = _profile_us(lambda: torch.cuda._sleep(0), "")
+    log(f"an empty kernel (torch.cuda._sleep(0)): {floor_us:.3f} us of "
+        f"device time a launch by the profiler (the launch floor)")
+    for rows, valid in ((4, dead2), (64, dead2), (2048, dead2),
+                        (2048, (True,) * T)):
+        vh, esel, coef, g = _dm_plan(spec, valid, m_l)
         ys = torch.randn((T, rows, m_l), generator=gen, device="cuda")
         par = torch.randn((T, rows, R * m_l // T), generator=gen,
                           device="cuda")
-        ms = _time(lambda: cdc_matmul.cdc_decode_merge(
-            ys, par, "folded", T, R, g, esel, coef, vh), flush)
-        plain = _time(lambda: cdc_matmul.decode_merge_plain(
-            ys, par, "folded", T, R, g, esel, coef, vh), flush)
-        _row(out, "cdc_decode_merge", f"[{T}, {rows}, {m_l}] r={R} folded",
-             ms, plain, None, 4.0 * (2 * T * rows * m_l) + 8.0 * m_l,
-             rows * m_l * (2.0 * T + 2))
-    for t, shape in ((8, (256, 512)), (4, (4, 3200))):
+        call = (ys, par, "folded", T, R, g, esel, coef, vh)
+        ms = _time(lambda: cdc_matmul.cdc_decode_merge(*call), flush)
+        plain = _time(lambda: cdc_matmul.decode_merge_plain(*call), flush)
+        dead = not all(valid)
+        _row(out, "cdc_decode_merge", f"[{T}, {rows}, {m_l}] r={R} folded"
+             + ("" if dead else " all valid"), ms, plain, None,
+             4.0 * (2 * T * rows * m_l) + (8.0 * m_l if dead else 0.0),
+             rows * m_l * (2.0 * T + 2) if dead else 0.0)
+        out[-1].update(profiler_us=_profile_us(
+            lambda: cdc_matmul.cdc_decode_merge(*call), "decode_merge"),
+            floor_us=floor_us)
+        del ys, par
+    for t, shape in ((8, (256, 512)), (4, (4, 3200)), (4, (2048, 3200))):
         y = torch.randn((t,) + shape, generator=gen, device="cuda")
         p = y.sum(0)
         valid = tuple(i != t // 2 for i in range(t))
@@ -1161,6 +1549,15 @@ def time_small_kernels(gen, flush) -> list[dict]:
         plain = _time(lambda: ref.cdc_decode_ref(y, p, vt), flush)
         _row(out, "cdc_decode", str([t, *shape]), ms, plain, None,
              4.0 * (2 * t + 1) * n, n * (3.0 * t + 1))
+        out[-1].update(profiler_us=_profile_us(
+            lambda: cdc_decode.cdc_decode(y, p, valid), "decode_kernel"),
+            floor_us=floor_us)
+        del y, p
+    for row in out:
+        log(f"  {row['kernel']} {row['shape']}: {row['profiler_us']:.3f} us "
+            f"a launch by the profiler (bound {row['bound_ms'] * 1e3:.3f} "
+            f"us, {row['bound_ms'] * 1e3 / row['profiler_us']:.0%} of it; "
+            f"floor {floor_us:.3f} us)")
     gam = 1.0 + 0.1 * torch.randn(K, generator=gen, device="cuda")
     for rows in (4, 64):
         x = torch.randn((rows, K), generator=gen, device="cuda")
@@ -1287,6 +1684,174 @@ def decode_merge_entry() -> dict:
         f"the reference decode_and_merge within 1e-5 (max abs err "
         f"{worst:.3e}) and to x @ w within 1e-4")
     return {"launches": launches, "max_abs_err": worst}
+
+
+# ------------------------------------------------------- phases 8, 9 ----
+
+def _check_launches(name: str, res: dict, cfg, rounds: int, norms: bool):
+    """Every fused round: kernel 1 for wq, wk, wv, w1, w3 of every layer,
+    kernel 2 once; with ``norms``, kernel 6 for every round and prefill."""
+    gemms = 5 * cfg.n_layers
+    if res["k1"] != gemms * rounds or res["k2"] != rounds:
+        raise AssertionError(f"{name}: {res['k1']} coded-GEMM and "
+                             f"{res['k2']} head launches over {rounds} fused "
+                             f"rounds; expected {gemms * rounds} and "
+                             f"{rounds}")
+    if norms and res["k6"] != norms_per_pass(cfg) * (rounds + 4):
+        raise AssertionError(f"{name}: {res['k6']} rmsnorm launches")
+
+
+def serve_t16(cfg) -> dict:
+    """granite-3-8b at full width at T = 16 (what ``launch.serve --coded
+    --tp 16`` builds: float32, r = 2 folded; 32/8 heads need no padding)
+    through ServingEngine.generate, 4 requests, prompt 16, 16 new tokens:
+    fused rounds fault-free and with shard 5 killed at step 4, and the
+    reference variant; the three token streams must be identical. Every
+    fused round launches kernel 1 200 times (all on the copy engine: wq's
+    16-column slices and wk, wv's 4-column ones in boxes of their tile, w1
+    and w3's 50-column ones in boxes a vector wider) and kernel 2 once."""
+    from repro_torch.models import TPCtx, build
+    from repro_torch.serve import ServeConfig, ServingEngine
+    torch.cuda.reset_peak_memory_stats()
+    model = build(cfg, TPCtx(tp=T16, mode="coded", code_r=R))
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    scfg = ServeConfig(max_len=16 + N_TOK + 8, batch=4,
+                       cache_dtype=torch.float32)
+    batch = serve_batch(cfg.vocab)
+    eng = ServingEngine(model, params, scfg, use_fused=True)
+    clean = _serve_run(eng, batch)
+    faulty = _serve_run(eng, batch, fail_at={4: 5})
+    del eng
+    ref_eng = ServingEngine(model, params, scfg, use_fused=False)
+    reference = _serve_run(ref_eng, batch)
+    del ref_eng
+    rounds = N_TOK - 1
+    for name, res in (("fault-free", clean), ("shard 5 dead", faulty)):
+        _check_launches(f"T=16 {name}", res, cfg, rounds, norms=True)
+        if set(res["k1_variants"]) != {"rb4-async", "rb4-async-lead"} or \
+                res["k2_variants"] != {"rb4-async": rounds}:
+            raise AssertionError(f"T=16 {name}: instantiations "
+                                 f"{res['k1_variants']} / "
+                                 f"{res['k2_variants']}")
+    if reference["k1"] or reference["k2"]:
+        raise AssertionError("the T=16 reference variant launched a kernel")
+    for name, res in (("shard 5 dead", faulty), ("reference", reference)):
+        if not np.array_equal(res["tokens"], clean["tokens"]):
+            raise AssertionError(f"T=16 {name} tokens differ from the fused "
+                                 f"fault-free run:\n{res['tokens']}\nvs\n"
+                                 f"{clean['tokens']}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    med = {n: float(np.median(r["round_ms"])) for n, r in
+           (("fused", clean), ("erasure", faulty), ("reference", reference))}
+    log(f"served granite-3-8b at T = 16 (r = 2 folded, float32; params in "
+        f"{init_s:.1f} s): identical streams fault-free, with shard 5 "
+        f"erased at step 4, and on the reference variant; per fused round "
+        f"{clean['k1'] // rounds} coded-GEMM launches "
+        f"({clean['k1_variants']}) + {clean['k2'] // rounds} head "
+        f"({clean['k2_variants']}); round medians {med} ms; "
+        f"max_memory_allocated {peak:.2f} GiB")
+    log("T=16 first stream:", clean["tokens"][0].tolist())
+    return {"k1": clean["k1"], "k2": clean["k2"],
+            "k1_variants": clean["k1_variants"], "round_ms": med,
+            "peak_gib": peak}
+
+
+def first_step_max(eng, batch, vocab: int) -> tuple:
+    """The first decode step's max logit per request, from one prefill
+    each: the fused round's (kernel 2's max, after kernels 1 and 6) and the
+    reference variant's (the max of its logits)."""
+    import dataclasses
+    from repro_torch.kernels import cdc_decode, ops
+    st = eng.stepper
+    v = st._mask(eng.valid)
+    logits0, state = st.prefill(batch, eng.valid)
+    tok0 = st.greedy(logits0)
+    fm = dataclasses.replace(st.model, ctx=dataclasses.replace(
+        st.model.ctx, fused_body=True))
+    hidden, _ = fm.decode(st.params, state, tok0, v, return_hidden=True)
+    w = st.params["lm_head"]["w"]
+    w_shards = w.view(w.shape[0], st.n_shards, -1).permute(1, 0, 2)
+    _, fmax = ops.fused_head_argmax(
+        hidden[:, -1].to(torch.float32).contiguous(), w_shards,
+        cdc_decode.head_parity(w_shards), v, vocab=vocab)
+    _, state = st.prefill(batch, eng.valid)
+    logits1, _ = st.decode_one(state, tok0, eng.valid)
+    return fmax, logits1[:, -1].to(torch.float32).max(-1).values
+
+
+def serve_bf16(cfg) -> dict:
+    """A bf16 coded granite-3-8b at full width (Model.init(dtype=bf16), T
+    = 4, r = 2 folded): its parity encoded by kernel 4 on bf16 (6 leaves at
+    init, 6 again at the engine's encode); the first decode step's max
+    logit of the fused round within the reference's bf16 TOL (6e-2) of
+    the bf16 reference variant's; 16 tokens served through the fused round
+    (kernels 1, 2 and 6 on bf16: their bf16 instantiations, 200 + 1 + 81
+    launches a round) and on the reference variant, the leading tokens on
+    which the two streams agree reported (bf16 rounds in other places on
+    the two paths: not required equal); device time per fused round by
+    the profiler; a bf16 re-encode bitwise equal to the first, and kernel
+    4 timed per leaf and whole on the bf16 weights."""
+    from repro_torch.kernels import cdc_encode
+    from repro_torch.models import TPCtx, build
+    from repro_torch.serve import ServeConfig, ServingEngine
+    torch.cuda.reset_peak_memory_stats()
+    model = build(cfg, TPCtx(tp=T, mode="coded", code_r=R))
+    cdc_encode.cdc_encode.launches = 0
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        dtype=torch.bfloat16, device="cuda")
+    scfg = ServeConfig(max_len=16 + N_TOK + 8, batch=4,
+                       cache_dtype=torch.bfloat16)
+    batch = serve_batch(cfg.vocab)
+    eng = ServingEngine(model, params, scfg, use_fused=True)
+    torch.cuda.synchronize()
+    encodes = cdc_encode.cdc_encode.launches
+    leaves = _parity_leaves(eng.params)
+    if encodes != 2 * len(leaves) or any(p.dtype != torch.bfloat16
+                                         for p in leaves):
+        raise AssertionError(f"bf16 model: {encodes} encode launches for "
+                             f"{len(leaves)} leaves (twice), parity dtypes "
+                             f"{sorted({str(p.dtype) for p in leaves})}")
+    fmax, rmax = first_step_max(eng, batch, cfg.vocab)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(fmax, rmax, rtol=6e-2, atol=6e-2, msg=(
+        lambda m: f"bf16 first-step max logit, fused vs reference: {m}"))
+    fused = _serve_run(eng, batch)
+    rounds = N_TOK - 1
+    _check_launches("bf16 fused", fused, cfg, rounds, norms=True)
+    if set(fused["k1_variants"]) != {"rb4-async-bf16"} or \
+            fused["k2_variants"] != {"rb4-async-lead-bf16": rounds}:
+        raise AssertionError(f"bf16 fused: instantiations "
+                             f"{fused['k1_variants']} / "
+                             f"{fused['k2_variants']}")
+    med = float(np.median(fused["round_ms"]))
+    breakdown = profile_rounds(eng._executors[4], eng.valid, med)
+    encode = reencode_and_time(eng.stepper)
+    del eng
+    ref_eng = ServingEngine(model, params, scfg, use_fused=False)
+    reference = _serve_run(ref_eng, batch)
+    del ref_eng
+    ft, rt = fused["tokens"], reference["tokens"]
+    agree = [int(np.argmin(np.append(a == b, False))) for a, b in zip(ft, rt)]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"bf16 granite-3-8b (T=4, r=2 folded): parity by kernel 4 on bf16 "
+        f"({encodes} launches); first-step max logit fused "
+        f"{fmax.tolist()} vs reference {rmax.tolist()} (max abs diff "
+        f"{float((fmax - rmax).abs().max()):.4f}, TOL 6e-2); fused round "
+        f"median {med:.3f} ms, reference "
+        f"{float(np.median(reference['round_ms'])):.3f} ms; leading tokens "
+        f"agreeing per stream {agree} of {N_TOK}; launches a round "
+        f"{fused['k1'] // rounds} / {fused['k2'] // rounds} / "
+        f"{norms_per_pass(cfg)} ({fused['k1_variants']}, "
+        f"{fused['k2_variants']}, {fused['k6_variants']}); "
+        f"max_memory_allocated {peak:.2f} GiB")
+    return {"first_step_max": {"fused": fmax.tolist(),
+                               "reference": rmax.tolist()},
+            "agree": agree, "round_ms": med, "breakdown": breakdown,
+            "encode": encode, "encodes": encodes, "peak_gib": peak}
 
 
 # ------------------------------------------------------------ phase 5 ----
@@ -1454,7 +2019,8 @@ def reencode_and_time(stepper) -> dict:
     """A re-encode of unchanged weights must give bitwise-equal parity;
     then kernel 4 per leaf and for the whole re-encode, its bound, its
     plain version (the tensordot-and-fold path) and torch.matmul on a
-    contiguous copy of the shards (the yardstick)."""
+    contiguous copy of the shards (the yardstick), in the weights'
+    storage type."""
     from repro_torch.core.coding import generator_matrix
     from repro_torch.kernels import cdc_encode as enc
     before = [p.clone() for p in _parity_leaves(stepper.params)]
@@ -1474,8 +2040,11 @@ def reencode_and_time(stepper) -> dict:
     scratch = torch.empty(64 * 2 ** 20, device="cuda")   # 256 MB > L2
     flush = scratch.zero_
     g = generator_matrix(T, R)
-    gt = torch.as_tensor(g.astype(np.float32), device="cuda")
     raw = stepper._raw_params
+    dtype = raw["lm_head"]["w"].dtype
+    e = torch.finfo(dtype).bits / 8
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    gt = torch.as_tensor(g.astype(np.float32), device="cuda").to(dtype)
     leaves = [("wq", raw["layers"]["attn"]["wq"]["w"]),
               ("wk", raw["layers"]["attn"]["wk"]["w"]),
               ("wv", raw["layers"]["attn"]["wv"]["w"]),
@@ -1491,19 +2060,19 @@ def reencode_and_time(stepper) -> dict:
         lib = _time(lambda: torch.matmul(gt, flat), flush, 10)
         del flat
         n = sh.numel()                     # T * (L *) k * m_l
-        bound, by = _bound(4.0 * n * (T + R) / T, 2.0 * n * R)
+        bound, by = _bound(e * n * (T + R) / T, 2.0 * n * R, peak)
         rows.append({"leaf": name, "shape": list(w.shape), "ms": ms,
                      "plain_ms": plain, "library_ms": lib,
                      "bound_ms": bound, "bound_by": by})
-        log(f"cdc_encode {name} {list(w.shape)} T={T} r={R} folded: kernel "
-            f"{ms:.4f} ms, plain {plain:.4f} ms, library matmul {lib:.4f} "
-            f"ms, bound {bound:.4f} ms ({by})")
+        log(f"cdc_encode {name} {list(w.shape)} {dtype} T={T} r={R} folded: "
+            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library matmul "
+            f"{lib:.4f} ms, bound {bound:.4f} ms ({by})")
     whole = _time(lambda: stepper.model.encode_offline(raw), flush, 10)
     total = {k: sum(r[k] for r in rows)
              for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    log(f"whole re-encode ({len(rows)} launches): {whole:.4f} ms by events "
-        f"around encode_offline; per-leaf sums: kernel {total['ms']:.4f} "
-        f"ms, plain {total['plain_ms']:.4f} ms, library "
+    log(f"whole re-encode ({len(rows)} launches, {dtype}): {whole:.4f} ms "
+        f"by events around encode_offline; per-leaf sums: kernel "
+        f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, library "
         f"{total['library_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms")
     return {"leaves": rows, "whole_ms": whole, "total": total,
             "reencode_wall_ms": walls}
@@ -1550,10 +2119,14 @@ def main() -> int:
     cfg = get_arch("granite-3-8b")
     torch.cuda.reset_peak_memory_stats()
     err4 = check_encode(cfg)
+    err4_bf16 = check_encode_bf16(cfg)
     err1 = max(check_coded_matmul(), check_coded_matmul_r34(),
-               check_coded_matmul_t8())
+               check_coded_matmul_t8(), check_coded_matmul_t16())
+    err1_bf16 = check_coded_matmul_bf16()
     edge1, edge7 = check_stream_edges()
     err2 = max(check_fused_head(cfg), check_head_edges())
+    err2_bf16 = max(check_fused_head_wide(cfg),
+                    check_head_edges(torch.bfloat16))
     err3 = check_decode_merge()
     err5 = check_decode()
     err6 = max(check_rmsnorm(), check_rmsnorm_edges())
@@ -1569,6 +2142,10 @@ def main() -> int:
     study = run_study()
     entry = decode_merge_entry()
     _phase_memory("study and library entry")
+    t16 = serve_t16(cfg)
+    _phase_memory("serving at T = 16")
+    bf16 = serve_bf16(cfg)
+    _phase_memory("serving on bf16 weights")
     w1 = timed[0]
     head = next(t for t in timed if t.get("gemm") == "lm_head")
     small = {(t["kernel"], t["shape"]): t for t in timed if "kernel" in t}
@@ -1576,7 +2153,7 @@ def main() -> int:
 
     def entry_of(name, src, replaces, launches, err, row):
         return {"name": name, "route": "cuda",
-                "source": f"src/repro_torch/csrc/{src}.cu",
+                "source": f"src/repro_torch/csrc/{src}",
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
@@ -1587,27 +2164,27 @@ def main() -> int:
     # kernel 4 from the chaos run (phase 5), kernels 5 and 7 from the
     # study (phase 6), kernel 3 from its library entry (phase 7)
     kernels = [
-        entry_of("cdc_coded_matmul", "cdc_coded_matmul",
+        entry_of("cdc_coded_matmul", "coded_matmul.cuh",
                  "src/repro/kernels/cdc_matmul.py:130", served["k1"], err1,
                  w1),
-        entry_of("cdc_fused_head_argmax", "cdc_fused_head",
+        entry_of("cdc_fused_head_argmax", "fused_head.cuh",
                  "src/repro/kernels/cdc_decode.py:138", served["k2"], err2,
                  head),
-        entry_of("cdc_decode_merge", "cdc_decode_merge",
+        entry_of("cdc_decode_merge", "cdc_decode_merge.cu",
                  "src/repro/kernels/cdc_matmul.py:208", entry["launches"],
                  err3, small[("cdc_decode_merge",
                               f"[{T}, 4, {GEMMS['w1']}] r={R} folded")]),
-        entry_of("cdc_encode", "cdc_encode",
+        entry_of("cdc_encode", "cdc_encode.cu",
                  "src/repro/kernels/cdc_encode.py:30",
                  sched["runs"]["chaos"]["launches"]["cdc_encode"], err4,
                  {**enc, "bound_by": "bytes"}),
-        entry_of("cdc_decode", "cdc_decode",
+        entry_of("cdc_decode", "cdc_decode.cu",
                  "src/repro/kernels/cdc_decode.py:56",
                  study["launches"]["cdc_decode"], err5,
                  small[("cdc_decode", "[8, 256, 512]")]),
-        entry_of("rmsnorm", "rmsnorm", "src/repro/kernels/rmsnorm.py:25",
+        entry_of("rmsnorm", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:25",
                  served["k6"], err6, small[("rmsnorm", f"[4, {K}]")]),
-        entry_of("matmul", "matmul", "src/repro/kernels/matmul.py:31",
+        entry_of("matmul", "matmul.cu", "src/repro/kernels/matmul.py:31",
                  study["launches"]["matmul"], err7,
                  small[("matmul", "[512, 512] @ [512, 512]")]),
     ]
@@ -1616,7 +2193,11 @@ def main() -> int:
             for n, r in sched["runs"].items()}
     log(json.dumps({"shapes": timed, "round": served["breakdown"],
                     "encode": sched["timing"], "scheduler": runs,
-                    "study": study, "decode_merge_entry": entry}))
+                    "study": study, "decode_merge_entry": entry,
+                    "t16": t16, "bf16": bf16,
+                    "bf16_max_abs_err": {"cdc_coded_matmul": err1_bf16,
+                                         "cdc_fused_head_argmax": err2_bf16,
+                                         "cdc_encode": err4_bf16}}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time kernels 1, 2, 6 and 7 of one checkout of the port on one CUDA card.
+"""Time kernels 1, 2, 3, 5, 6 and 7 of one checkout of the port on one card.
 
-  python3 kernel_times.py [--src DIR] [--tag NAME]
+  python3 kernel_times.py [--src DIR] [--tag NAME] [--new]
 
 DIR is the ``src`` directory of the checkout to time (default: this
 one's). To compare two commits on the same card, unpack the other one
@@ -17,8 +17,14 @@ kernel 2 (the fused head) at 4 and 16 rows; kernel 6 (RMSNorm) at
 granite's Wo at 4 rows. Kernel 6 is also timed by torch.profiler: its
 device time per call over 200 calls with the inputs in L2, as the
 serving round finds them (CUDA events around a ~2 us kernel read the
-events' own floor). Needs only the wrappers' public signatures, which
-both sides share.
+events' own floor). Kernels 3 and 5 are timed by torch.profiler too
+(device time per call over 200 calls, back to back) at the kernel table's
+shapes and at 2048 rows, beside an empty kernel (``torch.cuda._sleep(0)``)
+that gives the card's launch floor, and by events at 2048 rows. Needs only
+the wrappers' public signatures, which both sides share. ``--new`` adds
+what only this tree runs: kernels 1 and 2 on bf16 weights (T = 4) and at
+T = 16 (float32), beside ``torch.matmul`` over the same weights in their
+storage type.
 """
 from __future__ import annotations
 
@@ -76,6 +82,8 @@ def main(argv=None) -> int:
     ap.add_argument("--src", default=str(Path(__file__).resolve().parent
                                          / "src"))
     ap.add_argument("--tag", default="this")
+    ap.add_argument("--new", action="store_true",
+                    help="also kernels 1 and 2 on bf16 and at T = 16")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device", file=sys.stderr)
@@ -147,7 +155,84 @@ def main(argv=None) -> int:
         ms = _time(lambda: matmul.matmul(x, w), flush)
         lib = _time(lambda: torch.matmul(x, w), flush)
         emit(kernel="matmul", shape=[m, k, n], ms=ms, library_ms=lib)
+    emit(kernel="empty", profiler_us=_profile_us(
+        lambda: torch.cuda._sleep(0), ""))
+    # kernel 3 at granite's w1, T = 4, r = 2 folded, shard 2 dead (and all
+    # valid at 2048 rows); kernel 5 with shard T / 2 dead
+    spec = CodedDenseSpec(CodeSpec(T, 2), layout="folded")
+    m_l = 3200
+    for rows, valid in ((4, (True, True, False, True)),
+                        (64, (True, True, False, True)),
+                        (2048, (True, True, False, True)),
+                        (2048, (True,) * T)):
+        esel, coef, g = ops.decode_plan(spec, valid, valid, m_l, "cuda")
+        ys = torch.randn((T, rows, m_l), generator=gen, device="cuda")
+        par = torch.randn((T, rows, 2 * m_l // T), generator=gen,
+                          device="cuda")
+        call = (ys, par, "folded", T, 2, g, esel, coef, valid)
+        emit(kernel="cdc_decode_merge", shape=[T, rows, m_l],
+             all_valid=all(valid),
+             ms=_time(lambda: cdc_matmul.cdc_decode_merge(*call), flush),
+             profiler_us=_profile_us(
+                 lambda: cdc_matmul.cdc_decode_merge(*call), "decode_merge"))
+        del ys, par
+    for t, shape in ((8, (256, 512)), (4, (4, 3200)), (4, (2048, 3200))):
+        y = torch.randn((t,) + shape, generator=gen, device="cuda")
+        p = y.sum(0)
+        valid = tuple(i != t // 2 for i in range(t))
+        emit(kernel="cdc_decode", shape=[t, *shape],
+             ms=_time(lambda: cdc_decode.cdc_decode(y, p, valid), flush),
+             profiler_us=_profile_us(
+                 lambda: cdc_decode.cdc_decode(y, p, valid), "decode_kernel"))
+        del y, p
+    if args.new:
+        time_new(emit, gen, flush)
     return 0
+
+
+def time_new(emit, gen, flush):
+    """Kernels 1 and 2 on bf16 weights at T = 4 and in float32 at T = 16,
+    at the decode round's 4 rows, beside torch.matmul over the same
+    weights (concatenated, in their storage type)."""
+    from repro_torch.core.coded_layer import (CodedDenseSpec,
+                                              make_parity_weights,
+                                              unfold_parity)
+    from repro_torch.core.coding import CodeSpec
+    from repro_torch.kernels import cdc_decode, cdc_matmul, ops
+    from repro_torch.models.common import TPCtx
+    for t, dtype in ((T, torch.bfloat16), (16, torch.float32)):
+        for name, width, r in (("w1", 12800, 2), ("w1", 12800, 4),
+                               ("wq", 4096, 2), ("wk", 1024, 2)):
+            m_l = width // t
+            spec = CodedDenseSpec(CodeSpec(t, r), layout="folded")
+            x = torch.randn((4, K), generator=gen, device="cuda").to(dtype)
+            w = (torch.randn((K, width), generator=gen, device="cuda")
+                 / K ** .5).to(dtype)
+            wc = make_parity_weights(w, spec)
+            vh = (True,) * t
+            esel, coef, g = ops.decode_plan(spec, vh, vh, m_l, "cuda")
+            wcat = torch.cat([w, unfold_parity(wc, t, r).permute(1, 0, 2)
+                              .reshape(K, r * m_l)], dim=1)
+            ms = _time(lambda: cdc_matmul.cdc_coded_matmul(
+                x, w, wc, "folded", t, r, g, esel, coef, vh), flush)
+            lib = _time(lambda: torch.matmul(x, wcat), flush)
+            emit(kernel="cdc_coded_matmul", gemm=name, r=r, rows=4, T=t,
+                 dtype=str(dtype), ms=ms, library_ms=lib)
+            del w, wc, wcat
+        m = TPCtx(tp=t).pad_dim(49155)
+        w = (torch.randn((K, m), generator=gen, device="cuda")
+             / K ** .5).to(dtype)
+        w_shards = w.view(K, t, m // t).permute(1, 0, 2)
+        pw = cdc_decode.head_parity(w_shards)
+        wcat = torch.cat([w, pw], dim=1)
+        x = torch.randn((4, K), generator=gen, device="cuda")
+        xl = x.to(dtype)
+        ms = _time(lambda: cdc_decode.cdc_fused_head_argmax(
+            x, w_shards, pw, (True,) * t, vocab=49155), flush)
+        lib = _time(lambda: torch.matmul(xl, wcat), flush)
+        emit(kernel="cdc_fused_head_argmax", rows=4, T=t, dtype=str(dtype),
+             ms=ms, library_ms=lib)
+        del w, w_shards, pw, wcat
 
 
 if __name__ == "__main__":

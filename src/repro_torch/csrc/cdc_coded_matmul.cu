@@ -1,312 +1,7 @@
-// Fused coded matmul + Eq. 12 decode + merge, float32, sm_90a.
-//
-// Replaces the TPU kernel cdc_coded_matmul_pallas
-// (src/repro/kernels/cdc_matmul.py): x [rows, k] against the T column
-// shards of w [k, T*m_l] and the r parity shards, dead shards zeroed by
-// SELECT, the missing shard rebuilt per column from parity equation
-// esel[c] scaled by coef[c], written straight into the merged
-// [rows, T, m_l] layout; optionally with the preceding rmsnorm folded in.
-//
-// What bounds it: in decode rows <= n_slots, so each weight element is
-// used for a handful of FMAs -- the kernel is bound by the bytes of the
-// (T + r) * k * m_l weights it reads (granite-3-8b w1: 4 + 2 shards of
-// 4096 x 3200 float32 = 315 MB, ~94 us at 3.35 TB/s).
-// What the design does about it:
-//  * the weights stream through the mainloop of stream_tile.cuh: a
-//    producer warp keeps 32 KB stages in flight, each stage one TMA
-//    box [ks, bn] per stream (S = T + r copies on one mbarrier), and one
-//    consumer warp per stream does the FMAs from shared memory with
-//    16-byte reads. The tensor maps (w as [k, T*m_l]; folded parity as
-//    [T, k, r*wd]; dedicated as [r, k, m_l]) are encoded per launch;
-//  * the weights are read in place: shard t is w at column offset t*m_l,
-//    and folded parity j of column c is read from slice s = c / wd of
-//    slot (s + j + 1) % T. A column tile never straddles a slice (the
-//    launch plan cuts each slice into equal tiles), so every stream's row
-//    segment is contiguous;
-//  * rows <= 4 take RB = 4 (no FMAs, registers or staging spent on rows
-//    that do not exist), 5-8 rows RB = 8, more RB = 16 and row blocks;
-//  * the launch plan (kernels/cdc_matmul.py: coded_plan) splits k so that
-//    (tiles x row blocks x splits) fills whole waves of the resident
-//    blocks this C interface reports. Each split decodes its own partial
-//    sums (the decode is linear, and a dead shard is removed by select,
-//    so partials decode exactly) into a workspace, and the last block of
-//    a tile adds the splits in split order -- one launch, deterministic;
-//  * shapes whose segments or strides are not multiples of 16 bytes take
-//    the same kernel with the producer copying by ordinary loads.
-#include "coded_tile.cuh"
-#include "stream_tile.cuh"
-
-namespace cdc {
-
-struct CodedArgs {
-  const float* x;
-  const float* w;
-  const float* pw;
-  const float* gen;
-  const int* esel;
-  const float* coef;
-  const float* gamma;
-  float eps;
-  float* out;
-  float* ws;
-  int* sem;
-  int rows, k, m_l;
-  int64_t ldw;
-  int folded;
-  unsigned valid_bits;
-  int bn, tps, wd, nrb, ksplit, kchunk, ks;
-};
-
-// Two blocks per SM below 10 streams and 16 rows; beyond, a cap of
-// 65536 / (2 * threads) registers would spill.
-template <int T, int R, int RB, bool ASYNC>
-__global__ void __launch_bounds__(32 * (T + R + 1),
-                                  (RB < 16 && T + R < 10) ? 2 : 1)
-coded_stream_kernel(const CodedArgs a,
-                    const __grid_constant__ CUtensorMap tm_w,
-                    const __grid_constant__ CUtensorMap tm_p) {
-  constexpr int S = T + R, NC = 32 * S, NT = 32 * (S + 1);
-  using G = stream::Geo<RB>;
-  constexpr int BNS = G::BN, CPL = G::CPL;
-  extern __shared__ __align__(128) float smem[];
-  float* ring = smem;
-  float* xs = ring + G::RING;
-  float* inv = xs + G::XS;
-  uint64_t* full = reinterpret_cast<uint64_t*>(inv + 16);
-  uint64_t* empty = full + G::NSTAGE;
-
-  // unit -> (row block, column tile, split), row blocks fastest (they share
-  // a tile's weights in L2), then tiles (blocks resident together read
-  // neighbouring segments of the same k rows: DRAM page locality)
-  const int u = blockIdx.x;
-  const int rbi = u % a.nrb, rest = u / a.nrb;
-  const int tiles = (a.folded ? T : 1) * a.tps;
-  const int tile = rest % tiles, split = rest / tiles;
-  const int slice = tile / a.tps, o0 = (tile % a.tps) * a.bn;
-  const int width = min(a.bn, a.wd - o0);
-  const int c0 = slice * a.wd + o0;          // shard-local first column
-  const int r0 = rbi * RB;
-  const int kb0 = split * a.kchunk, kb1 = min(a.k, kb0 + a.kchunk);
-  const int pitch = (a.bn + 3) & ~3, sreg = stream::box_floats(a.ks, pitch);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  stream::ring_init<G::NSTAGE>(full, empty, S);
-  float acc[RB][CPL];
-#pragma unroll
-  for (int rr = 0; rr < RB; ++rr)
-#pragma unroll
-    for (int q = 0; q < CPL; ++q) acc[rr][q] = 0.f;
-  if (warp == S) {
-    // the lambdas capture scalars by value: no local lives in memory
-    const int pld = a.folded ? R * a.wd : a.m_l, m_l = a.m_l, wd = a.wd;
-    const int k = a.k, folded = a.folded;
-    const int64_t ldw = a.ldw;
-    const float* w = a.w;
-    const float* pw = a.pw;
-    const CUtensorMap* mw = &tm_w;
-    const CUtensorMap* mp = &tm_p;
-    auto issue = [=](int s, int k0, float* dst, uint64_t* bar) {
-      if (s < T) {
-        stream::tma_2d(dst, mw, s * m_l + c0, k0, bar);
-      } else if (folded) {
-        const int j = s - T;
-        stream::tma_3d(dst, mp, j * wd + o0, k0, (slice + j + 1) % T, bar);
-      } else {
-        stream::tma_3d(dst, mp, c0, k0, s - T, bar);
-      }
-    };
-    auto src = [=](int s, int kk) -> const float* {
-      if (s < T) return w + (int64_t)kk * ldw + (int64_t)s * m_l + c0;
-      const int j = s - T;
-      if (folded) {
-        const int slot = (slice + j + 1) % T;
-        return pw + ((int64_t)slot * k + kk) * pld + j * wd + o0;
-      }
-      return pw + ((int64_t)j * k + kk) * pld + c0;
-    };
-    stream::produce<S, G::NSTAGE, ASYNC>(issue, src, ring, full, empty, kb0,
-                                         kb1, a.ks, width, pitch, sreg);
-  } else {
-    stream::stage_x<RB>(a.x, a.rows, a.k, r0, kb0, kb1, a.gamma, a.eps, xs,
-                        inv, NC);
-    stream::consume<RB>(ring, full, empty, xs, warp, kb0, kb1, a.ks, pitch,
-                        sreg, acc);
-  }
-  __syncthreads();        // every stage consumed: reuse ring and staging
-  float* tot = ring;      // [S][RB][BN] <= G::RING + G::XS
-  if (warp < S) {
-#pragma unroll
-    for (int rr = 0; rr < RB; ++rr)
-#pragma unroll
-      for (int j = 0; j < CPL / 4; ++j)
-        *reinterpret_cast<float4*>(tot + (warp * RB + rr) * BNS + lane * 4 +
-                                   128 * j) =
-            make_float4(acc[rr][4 * j], acc[rr][4 * j + 1],
-                        acc[rr][4 * j + 2], acc[rr][4 * j + 3]);
-  }
-  __syncthreads();
-
-  // epilogue: one (row, column) of the tile per thread and step
-  const int64_t m = (int64_t)T * a.m_l;
-  for (int i = threadIdx.x; i < RB * width; i += NT) {
-    const int rr = i / width, cl = i - rr * width;
-    const int row = r0 + rr, c = c0 + cl;
-    if (row >= a.rows) continue;
-    float y[T], o[T];
-#pragma unroll
-    for (int t = 0; t < T; ++t) y[t] = tot[(t * RB + rr) * BNS + cl];
-    const int e = a.esel[c];
-    eq12_decode<T>(y, tot[((T + e) * RB + rr) * BNS + cl], a.gen + e * T,
-                   a.coef[c], a.valid_bits, o);
-    float* dst = a.ksplit == 1
-                     ? a.out + (int64_t)row * m + c
-                     : a.ws + ((int64_t)split * a.rows + row) * m + c;
-#pragma unroll
-    for (int t = 0; t < T; ++t) dst[(int64_t)t * a.m_l] = o[t];
-  }
-  if (a.ksplit == 1) return;
-  int* tile_sem = a.sem + tile * a.nrb + rbi;
-  if (!arrive_last(tile_sem, a.ksplit)) return;
-  // the tile's (row, shard) segments of `width` columns, split by split
-  const int rows = a.rows, m_l = a.m_l;
-  auto off = [=](int it) -> int64_t {
-    const int rr = it / T, t = it - rr * T, row = r0 + rr;
-    return row < rows ? (int64_t)row * m + (int64_t)t * m_l + c0 : -1;
-  };
-  float* out = a.out;
-  auto store = [=](int64_t o, float v) { out[o] = v; };
-  stream::add_splits<ASYNC>(a.ws, (int64_t)a.rows * m, a.ksplit, RB * T,
-                            width, off, store, NT);
-  if (threadIdx.x == 0) *tile_sem = 0;
-}
-
-// Launch (grid > 0) or report the resident blocks per SM (*occ) of one
-// instantiation. The dynamic shared memory limit is raised once per
-// instantiation.
-template <int T, int R, int RB, bool ASYNC>
-static int run(const CodedArgs& a, const CUtensorMap& tm_w,
-               const CUtensorMap& tm_p, int grid, cudaStream_t st,
-               int* occ) {
-  constexpr int NT = 32 * (T + R + 1);
-  using G = stream::Geo<RB>;
-  constexpr int smem = G::SMEM;
-  static_assert((T + R) * RB * G::BN <= G::RING + G::XS,
-                "the epilogue's sums fit the ring and the staging");
-  auto kern = coded_stream_kernel<T, R, RB, ASYNC>;
-  static bool attr = false;
-  if (!attr) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    attr = true;
-  }
-  if (occ != nullptr)
-    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(occ, kern, NT,
-                                                              smem);
-  kern<<<grid, NT, smem, st>>>(a, tm_w, tm_p);
-  return (int)cudaGetLastError();
-}
-
-template <int T, int R>
-static int pick(int rb, int async, const CodedArgs& a, const CUtensorMap& mw,
-                const CUtensorMap& mp, int grid, cudaStream_t st, int* occ) {
-  if (rb == 4)
-    return async ? run<T, R, 4, true>(a, mw, mp, grid, st, occ)
-                 : run<T, R, 4, false>(a, mw, mp, grid, st, occ);
-  if (rb == 8)
-    return async ? run<T, R, 8, true>(a, mw, mp, grid, st, occ)
-                 : run<T, R, 8, false>(a, mw, mp, grid, st, occ);
-  if (rb == 16)
-    return async ? run<T, R, 16, true>(a, mw, mp, grid, st, occ)
-                 : run<T, R, 16, false>(a, mw, mp, grid, st, occ);
-  return (int)cudaErrorInvalidValue;
-}
-
-// Cases (T, R): (2, 1-2), (4, 1-4), (8, 1-4); anything else returns
-// cudaErrorInvalidValue. The case key T * 16 + R is unique because R < 16.
-static int dispatch(int T, int R, int rb, int async, const CodedArgs& a,
-                    const CUtensorMap& mw, const CUtensorMap& mp, int grid,
-                    cudaStream_t st, int* occ) {
-#define CDC_CASE(TT, RR) \
-  case TT * 16 + RR:     \
-    return pick<TT, RR>(rb, async, a, mw, mp, grid, st, occ);
-  switch (T * 16 + R) {
-    CDC_CASE(2, 1)
-    CDC_CASE(2, 2)
-    CDC_CASE(4, 1)
-    CDC_CASE(4, 2)
-    CDC_CASE(4, 3)
-    CDC_CASE(4, 4)
-    CDC_CASE(8, 1)
-    CDC_CASE(8, 2)
-    CDC_CASE(8, 3)
-    CDC_CASE(8, 4)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef CDC_CASE
-}
-
-}  // namespace cdc
-
-// C interface (loaded with ctypes).
-//
-// cdc_coded_matmul_occupancy: resident blocks per SM of the instantiation
-// (T, R, rb, async), or minus the cudaError_t.
-extern "C" int cdc_coded_matmul_occupancy(int T, int R, int rb, int async) {
-  int occ = 0;
-  const CUtensorMap none{};
-  const int err = cdc::dispatch(T, R, rb, async, cdc::CodedArgs{}, none,
-                                none, 0, nullptr, &occ);
-  return err != 0 ? -err : occ;
-}
-
-// cdc_coded_matmul_f32: one launch of the plan (rb, async, bn, tps, wd,
-// nrb, ksplit, kchunk, ks) from kernels/cdc_matmul.py: coded_plan. A plan
-// the kernel cannot run returns cudaErrorInvalidValue; otherwise the
-// cudaError_t of the launch.
-extern "C" int cdc_coded_matmul_f32(
-    const float* x, const float* w, const float* pw, const float* gen,
-    const int* esel, const float* coef, const float* gamma, float eps,
-    float* out, float* ws, int* sem, int rows, int k, int T, int R, int m_l,
-    long long ldw, int folded, unsigned valid_bits, int rb, int async,
-    int bn, int tps, int wd, int nrb, int ksplit, int kchunk, int ks,
-    void* stream) {
-  using namespace cdc;
-  const int S = T + R, pitch = (bn + 3) & ~3;
-  const int n_slices = folded ? T : 1;
-  const bool ok =
-      rows >= 1 && k >= 1 && m_l >= 1 && bn >= 1 &&
-      bn <= stream::bn_max(rb) &&
-      ks >= 1 && ks <= 256 &&
-      S * stream::box_floats(ks, pitch) <= stream::STAGE_FLOATS &&
-      kchunk >= 1 &&
-      kchunk <= stream::kmax(rb) && (int64_t)ksplit * kchunk >= k &&
-      (int64_t)(ksplit - 1) * kchunk < k && nrb * rb >= rows &&
-      (int64_t)tps * bn >= wd && (int64_t)(tps - 1) * bn < wd &&
-      wd * n_slices == m_l &&
-      (!async || (bn % 4 == 0 && wd % 4 == 0 && m_l % 4 == 0 &&
-                  ldw % 4 == 0 && ((uintptr_t)w | (uintptr_t)pw) % 16 == 0));
-  if (!ok) return (int)cudaErrorInvalidValue;
-  const CodedArgs a{x,   w,         pw,   gen, esel, coef,  gamma,
-                    eps, out,       ws,   sem, rows, k,     m_l,
-                    ldw, folded,    valid_bits,      bn,    tps,
-                    wd,  nrb,       ksplit,          kchunk, ks};
-  const long long grid = (long long)n_slices * tps * nrb * ksplit;
-  if (grid > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  CUtensorMap mw{}, mp{};
-  if (async) {
-    const cuuint32_t box[3] = {(cuuint32_t)bn, (cuuint32_t)ks, 1};
-    const cuuint64_t wdims[2] = {(cuuint64_t)T * m_l, (cuuint64_t)k};
-    const cuuint64_t wstr[1] = {(cuuint64_t)ldw * 4};
-    const cuuint64_t inner = folded ? (cuuint64_t)R * wd : (cuuint64_t)m_l;
-    const cuuint64_t pdims[3] = {inner, (cuuint64_t)k, (cuuint64_t)(folded
-                                                                  ? T : R)};
-    const cuuint64_t pstr[2] = {inner * 4, inner * 4 * k};
-    if (!stream::encode_f32(&mw, w, 2, wdims, wstr, box) ||
-        !stream::encode_f32(&mp, pw, 3, pdims, pstr, box))
-      return (int)cudaErrorInvalidValue;
-  }
-  return dispatch(T, R, rb, async, a, mw, mp, (int)grid,
-                  static_cast<cudaStream_t>(stream), nullptr);
-}
+// Kernel 1 (coded_matmul.cuh) on float32 weights at T in {2, 4, 8}: the
+// cases (T, R) = (2, 1-2), (4, 1-4), (8, 1-4).
+#define CDC_CODED_CASES(X) \
+  X(2, 1) X(2, 2) X(4, 1) X(4, 2) X(4, 3) X(4, 4) X(8, 1) X(8, 2) X(8, 3) \
+  X(8, 4)
+#define CDC_CODED_TYPES(Y) Y(float)
+#include "coded_matmul.cuh"

@@ -11,77 +11,108 @@
 // What bounds it: one elementwise pass with no reuse, so bytes: T + 1
 // values read and T written per element (the multiply semantics read the
 // dead shard too).
-// What the design does about it: the [m, n] plane is flat (any m and n,
-// no padding); one thread per element walks the T shards at stride m * n,
-// so neighbouring threads read and write neighbouring addresses of every
-// shard; the shard sum is taken in ascending t.
+// What the design does about it:
+//  * the [m, n] plane is flat (any m and n, no padding); each thread owns
+//    V consecutive elements of it (V = 4 float32 or 8 bf16: 16-byte loads
+//    and stores of every shard, the parity and the output) and issues all
+//    T + 1 loads of a vector before its first arithmetic, so an SM keeps
+//    tens of kilobytes in flight;
+//  * one vector a thread, in blocks of 64 threads: at the small shapes of
+//    its callers (a few thousand vectors) that spreads the loads over the
+//    most SMs, and at 2048 rows it measured 5-8% faster on the H100 than a
+//    grid of the card's resident blocks walking the vectors in a
+//    grid-stride loop (PERF.md);
+//  * a plane that is no whole number of vectors, or a misaligned view,
+//    takes the same kernel at V = 1;
+//  * the shard sum is taken in ascending t, the outputs rebuilt in the
+//    registers that held the loads.
 // Storage float32 or bf16 (the output has y's type); the math is float32.
 #include "scalar.cuh"
 
 namespace cdc {
 
-constexpr int DEC_THREADS = 256;
+constexpr int DEC_THREADS = 64;
 
-template <int T, typename TV>
+template <int T, int V, typename TV>
 __global__ void __launch_bounds__(DEC_THREADS)
 decode_kernel(const TV* __restrict__ y, const TV* __restrict__ p,
               TV* __restrict__ out, int64_t n, unsigned valid_bits) {
-  const int64_t stride = (int64_t)gridDim.x * DEC_THREADS;
-  for (int64_t i = (int64_t)blockIdx.x * DEC_THREADS + threadIdx.x; i < n;
-       i += stride) {
-    float z[T];
-    float tot = 0.f;
+  using IO = VecIO<V, TV>;
+  float vm[T];
 #pragma unroll
-    for (int t = 0; t < T; ++t) {
-      const float v = ((valid_bits >> t) & 1u) ? 1.f : 0.f;
-      z[t] = ld(y + t * n + i) * v;
-      tot += z[t];
+  for (int t = 0; t < T; ++t) vm[t] = ((valid_bits >> t) & 1u) ? 1.f : 0.f;
+  const int64_t i = (int64_t)blockIdx.x * DEC_THREADS + threadIdx.x;
+  if (i < n / V) {
+    const int64_t e0 = i * V;
+    typename IO::R r[T];
+#pragma unroll
+    for (int t = 0; t < T; ++t) r[t] = IO::load(y + t * n + e0);
+    const typename IO::R rp = IO::load(p + e0);
+    float miss[V];
+#pragma unroll
+    for (int q = 0; q < V; ++q) {
+      float tot = 0.f;
+#pragma unroll
+      for (int t = 0; t < T; ++t) tot += IO::get(r[t], q) * vm[t];
+      miss[q] = IO::get(rp, q) - tot;
     }
-    const float miss = ld(p + i) - tot;
 #pragma unroll
     for (int t = 0; t < T; ++t) {
-      const float v = ((valid_bits >> t) & 1u) ? 1.f : 0.f;
-      st(out + t * n + i, z[t] + (1.f - v) * miss);
+#pragma unroll
+      for (int q = 0; q < V; ++q)
+        IO::set(r[t], q, IO::get(r[t], q) * vm[t] + (1.f - vm[t]) * miss[q]);
+      IO::store(out + t * n + e0, r[t]);
     }
   }
 }
 
+template <int T, typename TV>
+static int run(int vec, const void* y, const void* p, void* out, int64_t n,
+               unsigned valid_bits, cudaStream_t strm) {
+  constexpr int V = 16 / (int)sizeof(TV);
+  if (vec != 1 && vec != V) return (int)cudaErrorInvalidValue;
+  auto kern = vec == V ? decode_kernel<T, V, TV> : decode_kernel<T, 1, TV>;
+  const int64_t blocks = (n / vec + DEC_THREADS - 1) / DEC_THREADS;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  kern<<<(unsigned)blocks, DEC_THREADS, 0, strm>>>(
+      static_cast<const TV*>(y), static_cast<const TV*>(p),
+      static_cast<TV*>(out), n, valid_bits);
+  return (int)cudaGetLastError();
+}
+
 template <typename TV>
-static int launch(const void* y, const void* p, void* out, int T, int64_t n,
-                  unsigned valid_bits, cudaStream_t strm) {
-  const int64_t blocks = (n + DEC_THREADS - 1) / DEC_THREADS;
-  const dim3 grid((unsigned)(blocks < 65536 ? blocks : 65536));
-  const TV* yy = static_cast<const TV*>(y);
-  const TV* pp = static_cast<const TV*>(p);
-  TV* o = static_cast<TV*>(out);
-#define DEC_CASE(TT)                                                          \
-  case TT:                                                                    \
-    decode_kernel<TT, TV><<<grid, DEC_THREADS, 0, strm>>>(yy, pp, o, n,       \
-                                                          valid_bits);        \
-    break;
+static int dispatch(int T, int vec, const void* y, const void* p, void* out,
+                    int64_t n, unsigned valid_bits, cudaStream_t strm) {
   switch (T) {
-    DEC_CASE(2)
-    DEC_CASE(4)
-    DEC_CASE(8)
-    DEC_CASE(16)
+    case 2:
+      return run<2, TV>(vec, y, p, out, n, valid_bits, strm);
+    case 4:
+      return run<4, TV>(vec, y, p, out, n, valid_bits, strm);
+    case 8:
+      return run<8, TV>(vec, y, p, out, n, valid_bits, strm);
+    case 16:
+      return run<16, TV>(vec, y, p, out, n, valid_bits, strm);
     default:
       return (int)cudaErrorInvalidValue;
   }
-#undef DEC_CASE
-  return (int)cudaGetLastError();
 }
 
 }  // namespace cdc
 
 // C interface (loaded with ctypes). y [T, n], p [n] and out [T, n]
 // contiguous, of one storage type (bf16 = 1: bfloat16, else float32); T in
-// {2, 4, 8, 16}; returns the cudaError_t of the launch.
+// {2, 4, 8, 16}; vec 1, or 16 bytes' worth when n is whole vectors and the
+// bases are 16-byte aligned. Returns the cudaError_t of the launch.
 extern "C" int cdc_decode(const void* y, const void* p, void* out, int T,
                           long long n, unsigned valid_bits, int bf16,
-                          void* stream) {
+                          int vec, void* stream) {
   using namespace cdc;
-  if (n < 1) return (int)cudaErrorInvalidValue;
+  const int V = bf16 ? 8 : 4;
+  if (n < 1 ||
+      (vec != 1 && (vec != V || n % V != 0 ||
+                    ((uintptr_t)y | (uintptr_t)p | (uintptr_t)out) % 16)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(y, p, out, T, n, valid_bits, s)
-              : launch<float>(y, p, out, T, n, valid_bits, s);
+  return bf16 ? dispatch<__nv_bfloat16>(T, vec, y, p, out, n, valid_bits, s)
+              : dispatch<float>(T, vec, y, p, out, n, valid_bits, s);
 }

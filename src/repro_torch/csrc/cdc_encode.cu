@@ -1,4 +1,5 @@
-// Offline CDC parity encode, float32, sm_90a.
+// Offline CDC parity encode, sm_90a: shards and parity stored as float32
+// or bf16 (the parity in the shards' type), float32 math.
 //
 // Replaces the TPU kernel cdc_encode_pallas (src/repro/kernels/cdc_encode.py):
 // parity[j] = sum_i gen[j, i] * W_i over the T column shards W_i [k, m_l]
@@ -14,8 +15,8 @@
 //    stacked layers at stride ld_l, so no permuted copy of the weight is
 //    made; a stacked [L, k, m] leaf is ONE launch (grid.y over L);
 //  * each thread owns VEC consecutive columns of one row (16-byte loads
-//    and stores when the shapes allow, else one column), so a warp reads
-//    512 contiguous bytes of every shard;
+//    and stores when the shapes allow: 4 float32 or 8 bf16 columns; else
+//    one column), so a warp reads 512 contiguous bytes of every shard;
 //  * the parity is written straight into the layout the stepper holds:
 //    dedicated [r, k, m_l], or the folded slots [T, k, r * m_l / T] through
 //    the same folded_slot_map arithmetic kernel 1 reads them with (column
@@ -27,7 +28,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "scalar.cuh"
+
 namespace cdc_enc {
+
+using cdc::VecIO;
 
 constexpr int THREADS = 256;
 constexpr int MAX_T = 16;
@@ -36,38 +41,13 @@ struct Gen {
   float g[MAX_T * MAX_T];  // row j at g[j * T]
 };
 
-template <int VEC>
-struct Vec;
-template <>
-struct Vec<1> {
-  static __device__ __forceinline__ void load(const float* p, float* v) {
-    v[0] = __ldg(p);
-  }
-  static __device__ __forceinline__ void store(float* p, const float* v) {
-    p[0] = v[0];
-  }
-};
-template <>
-struct Vec<4> {
-  static __device__ __forceinline__ void load(const float* p, float* v) {
-    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = q.x;
-    v[1] = q.y;
-    v[2] = q.z;
-    v[3] = q.w;
-  }
-  static __device__ __forceinline__ void store(float* p, const float* v) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-};
-
 // One thread: VEC columns starting at c of row `row` of layer blockIdx.y.
-// For VEC = 4 the wrapper guarantees m_l % 4 == 0, 16-byte aligned rows
-// and shard offsets, and (folded) a slice width wd % 4 == 0, so the four
+// For VEC > 1 the wrapper guarantees m_l % VEC == 0, 16-byte aligned rows
+// and shard offsets, and (folded) a slice width wd % VEC == 0, so the VEC
 // columns never straddle a slice.
-template <int T, int R, int VEC>
+template <int T, int R, int VEC, typename TV>
 __global__ void __launch_bounds__(THREADS)
-encode_kernel(const float* __restrict__ w, float* __restrict__ out,
+encode_kernel(const TV* __restrict__ w, TV* __restrict__ out,
               const Gen gen, int k, int m_l, int64_t ld_t, int64_t ld_k,
               int64_t ld_l, int folded) {
   const int nv = m_l / VEC + (m_l % VEC != 0);
@@ -76,8 +56,9 @@ encode_kernel(const float* __restrict__ w, float* __restrict__ out,
   const int row = (int)(item / (uint32_t)nv);
   const int c = (int)(item % (uint32_t)nv) * VEC;
   const int64_t l = blockIdx.y;
-  const float* src = w + l * ld_l + (int64_t)row * ld_k + c;
+  const TV* src = w + l * ld_l + (int64_t)row * ld_k + c;
 
+  using IO = VecIO<VEC, TV>;
   float acc[R][VEC];
 #pragma unroll
   for (int j = 0; j < R; ++j)
@@ -85,41 +66,44 @@ encode_kernel(const float* __restrict__ w, float* __restrict__ out,
     for (int e = 0; e < VEC; ++e) acc[j][e] = 0.f;
 #pragma unroll
   for (int i = 0; i < T; ++i) {
-    float v[VEC];
-    Vec<VEC>::load(src + i * ld_t, v);
+    const typename IO::R v = IO::load(src + i * ld_t);
 #pragma unroll
     for (int j = 0; j < R; ++j)
 #pragma unroll
       for (int e = 0; e < VEC; ++e)
-        acc[j][e] = fmaf(gen.g[j * T + i], v[e], acc[j][e]);
+        acc[j][e] = fmaf(gen.g[j * T + i], IO::get(v, e), acc[j][e]);
   }
 
-  if (!folded) {
-#pragma unroll
-    for (int j = 0; j < R; ++j)
-      Vec<VEC>::store(out + ((l * R + j) * k + row) * m_l + c, acc[j]);
-    return;
-  }
-  const int wd = m_l / T, s = c / wd, o = c % wd;
+  const int wd = folded ? m_l / T : 1, s = c / wd, o = c % wd;
 #pragma unroll
   for (int j = 0; j < R; ++j) {
-    const int slot = (s + j + 1) % T;
-    Vec<VEC>::store(
-        out + ((l * T + slot) * k + row) * (int64_t)(R * wd) + j * wd + o,
-        acc[j]);
+    typename IO::R v;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) IO::set(v, e, acc[j][e]);
+    if (!folded) {
+      IO::store(out + ((l * R + j) * k + row) * m_l + c, v);
+    } else {
+      const int slot = (s + j + 1) % T;
+      IO::store(
+          out + ((l * T + slot) * k + row) * (int64_t)(R * wd) + j * wd + o,
+          v);
+    }
   }
 }
 
-template <int T, int R>
-static int launch(int vec, dim3 grid, cudaStream_t st, const float* w,
-                  float* out, const Gen& gen, int k, int m_l, int64_t ld_t,
+template <int T, int R, typename TV>
+static int launch(int vec, dim3 grid, cudaStream_t st, const void* w,
+                  void* out, const Gen& gen, int k, int m_l, int64_t ld_t,
                   int64_t ld_k, int64_t ld_l, int folded) {
-  if (vec == 4)
-    encode_kernel<T, R, 4><<<grid, THREADS, 0, st>>>(
-        w, out, gen, k, m_l, ld_t, ld_k, ld_l, folded);
+  constexpr int V = 16 / (int)sizeof(TV);
+  const TV* wi = static_cast<const TV*>(w);
+  TV* o = static_cast<TV*>(out);
+  if (vec == V)
+    encode_kernel<T, R, V, TV><<<grid, THREADS, 0, st>>>(
+        wi, o, gen, k, m_l, ld_t, ld_k, ld_l, folded);
   else if (vec == 1)
-    encode_kernel<T, R, 1><<<grid, THREADS, 0, st>>>(
-        w, out, gen, k, m_l, ld_t, ld_k, ld_l, folded);
+    encode_kernel<T, R, 1, TV><<<grid, THREADS, 0, st>>>(
+        wi, o, gen, k, m_l, ld_t, ld_k, ld_l, folded);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
@@ -127,15 +111,16 @@ static int launch(int vec, dim3 grid, cudaStream_t st, const float* w,
 
 }  // namespace cdc_enc
 
-// C interface (loaded with ctypes). gen_host is a host array [R, T] of
-// float32; returns the cudaError_t of the launch. Cases: T in {2, 4, 8} with
-// 1 <= R <= T, and T = 16 with 1 <= R <= 4; anything else returns
-// cudaErrorInvalidValue. The case key T * 16 + R is unique because R < 16.
-extern "C" int cdc_encode_f32(const float* w, float* out,
-                              const float* gen_host, int L, int k, int T,
-                              int R, int m_l, long long ld_t, long long ld_k,
-                              long long ld_l, int folded, int vec,
-                              void* stream) {
+// C interface (loaded with ctypes). w and out are bf16 when bf16 != 0,
+// else float32; vec is 1 or 16 bytes' worth (4 float32, 8 bf16). gen_host
+// is a host array [R, T] of float32; returns the cudaError_t of the
+// launch. Cases: T in {2, 4, 8} with 1 <= R <= T, and T = 16 with 1 <= R
+// <= 4; anything else returns cudaErrorInvalidValue. The case key T * 16 +
+// R is unique because R < 16.
+extern "C" int cdc_encode(const void* w, void* out, const float* gen_host,
+                          int L, int k, int T, int R, int m_l, long long ld_t,
+                          long long ld_k, long long ld_l, int folded,
+                          int vec, int bf16, void* stream) {
   using namespace cdc_enc;
   if (T > MAX_T || R < 1 || R > T || vec < 1) return (int)cudaErrorInvalidValue;
   Gen gen;
@@ -146,10 +131,13 @@ extern "C" int cdc_encode_f32(const float* w, float* out,
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((items + THREADS - 1) / THREADS), L);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define ENC_CASE(TT, RR)                                                  \
-  case TT * 16 + RR:                                                      \
-    return launch<TT, RR>(vec, grid, st, w, out, gen, k, m_l, ld_t, ld_k, \
-                          ld_l, folded);
+#define ENC_CASE(TT, RR)                                                 \
+  case TT * 16 + RR:                                                     \
+    return bf16 ? launch<TT, RR, __nv_bfloat16>(vec, grid, st, w, out,   \
+                                                gen, k, m_l, ld_t, ld_k, \
+                                                ld_l, folded)            \
+                : launch<TT, RR, float>(vec, grid, st, w, out, gen, k,   \
+                                        m_l, ld_t, ld_k, ld_l, folded);
   switch (T * 16 + R) {
     ENC_CASE(2, 1)
     ENC_CASE(2, 2)

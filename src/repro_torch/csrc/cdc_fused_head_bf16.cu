@@ -1,0 +1,4 @@
+// Kernel 2 (fused_head.cuh) on bf16 weights, T in {2, 4, 8, 16}.
+#define CDC_HEAD_TS(X) X(2) X(4) X(8) X(16)
+#define CDC_HEAD_TYPES(Y) Y(__nv_bfloat16)
+#include "fused_head.cuh"

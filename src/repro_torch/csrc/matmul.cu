@@ -66,7 +66,8 @@ matmul_rows_kernel(const RowsArgs<TO> a,
   const int c0 = tile * a.bn, width = min(a.bn, a.N - c0);
   const int r0 = rbi * RB;
   const int kb0 = split * a.kchunk, kb1 = min(a.K, kb0 + a.kchunk);
-  const int pitch = (a.bn + 3) & ~3, sreg = stream::box_floats(a.ks, pitch);
+  const int pitch = stream::pitch_of<float>(a.bn);
+  const int sreg = stream::box_elems<float>(a.ks, pitch);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   stream::ring_init<G::NSTAGE>(full, empty, 1);
@@ -311,13 +312,14 @@ extern "C" int cdc_matmul_rows(const float* x, const float* w, void* out,
                                int nrb, int ksplit, int kchunk, int ks,
                                void* stream) {
   using namespace cdc;
-  const int pitch = (bn + 3) & ~3, tiles = (N + bn - 1) / bn;
+  const int pitch = stream::pitch_of<float>(bn), tiles = (N + bn - 1) / bn;
   const bool ok =
       M >= 1 && N >= 1 && K >= 1 && bn >= 1 && bn <= stream::bn_max(rb) &&
       ks >= 1 && ks <= 256 &&
-      stream::box_floats(ks, pitch) <= stream::STAGE_FLOATS && kchunk >= 1 &&
-      kchunk <= stream::kmax(rb) && (int64_t)ksplit * kchunk >= K &&
-      (int64_t)(ksplit - 1) * kchunk < K && nrb * rb >= M &&
+      stream::box_elems<float>(ks, pitch) <= stream::STAGE_FLOATS &&
+      kchunk >= 1 && kchunk <= stream::kmax(rb) &&
+      (int64_t)ksplit * kchunk >= K && (int64_t)(ksplit - 1) * kchunk < K &&
+      nrb * rb >= M &&
       (!async || (bn % 4 == 0 && N % 4 == 0 && (uintptr_t)w % 16 == 0));
   const long long grid = (long long)tiles * nrb * ksplit;
   if (!ok || grid > 0x7fffffff) return (int)cudaErrorInvalidValue;
@@ -327,7 +329,7 @@ extern "C" int cdc_matmul_rows(const float* x, const float* w, void* out,
     const cuuint64_t dims[2] = {(cuuint64_t)N, (cuuint64_t)K};
     const cuuint64_t str[1] = {(cuuint64_t)N * 4};
     const cuuint32_t box[2] = {(cuuint32_t)bn, (cuuint32_t)ks};
-    if (!stream::encode_f32(&tm, w, 2, dims, str, box))
+    if (!stream::encode_map(&tm, w, 2, dims, str, box))
       return (int)cudaErrorInvalidValue;
   }
   if (out_bf16) {
@@ -361,9 +363,9 @@ extern "C" int cdc_matmul_square(const void* x, const void* w, void* out,
     const cuuint64_t wd[2] = {(cuuint64_t)N, (cuuint64_t)K};
     const cuuint64_t wst[1] = {(cuuint64_t)N * 4};
     const cuuint32_t wb[2] = {SQ_BN, SQ_BK};
-    if (!stream::encode_f32(&tx, x, 2, xd, xs, xb,
+    if (!stream::encode_map(&tx, x, 2, xd, xs, xb, false,
                             CU_TENSOR_MAP_SWIZZLE_128B) ||
-        !stream::encode_f32(&tw, w, 2, wd, wst, wb))
+        !stream::encode_map(&tw, w, 2, wd, wst, wb))
       return (int)cudaErrorInvalidValue;
   }
   using bf = __nv_bfloat16;

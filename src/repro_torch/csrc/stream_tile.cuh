@@ -1,5 +1,7 @@
-// Weight-streaming mainloop shared by the coded GEMM (kernel 1) and the
-// few-rows path of the blocked GEMM (kernel 7), float32 on CUDA cores.
+// Weight-streaming mainloop shared by the coded GEMM (kernel 1), the fused
+// head (kernel 2) and the few-rows path of the blocked GEMM (kernel 7):
+// weights stored as float32 or bf16 (the storage type W), math in float32
+// on CUDA cores.
 //
 // A block owns one column tile (at most 256 columns at RB = 4, 8 a lane;
 // 128 otherwise, 4 a lane) of each of S weight streams, for RB in
@@ -15,11 +17,14 @@
 // a row segment or a stride that is not a multiple of 16 bytes) the
 // producer's lanes copy the same boxes with loads and stores and then
 // arrive. Warp s < S consumes stream s: per k row one 16-byte shared load
-// for each 4 of its columns and RB/4 16-byte loads of the staged
-// activations (RB rows of one k, stored k-major), 4 * RB FMAs per 4
-// columns; then it releases the stage on its `empty` mbarrier (S
-// arrivals). Each warp owns the whole k range of its stream, so no sum
-// crosses warps and the order of every sum is fixed.
+// for each 4 of its float32 columns (bf16: one 16-byte load for 8 columns,
+// or 8 bytes for 4, widened to float32 in registers) and RB/4 16-byte
+// loads of the staged activations (RB rows of one k, stored k-major, always
+// float32), 4 * RB FMAs per 4 columns; then it releases the stage on its
+// `empty` mbarrier (S arrivals). A stage holds 32 KB whatever W is: a bf16
+// stage holds twice the k rows of a float32 one. Each warp owns the whole
+// k range of its stream, so no sum crosses warps and the order of every
+// sum is fixed.
 //
 // What it buys on the H100: 32 KB stages, one to three in flight while
 // one is consumed, 64-96 KB per SM against the ~32 KB that 3.35 TB/s needs
@@ -39,6 +44,17 @@ namespace cdc {
 namespace stream {
 
 constexpr int STAGE_FLOATS = 8192;               // 32 KB a stage
+constexpr int STAGE_BYTES = STAGE_FLOATS * 4;
+
+// Elements of storage type W in a stage, and in one 16-byte vector.
+template <typename W>
+__host__ __device__ constexpr int stage_elems() {
+  return STAGE_BYTES / (int)sizeof(W);
+}
+template <typename W>
+__host__ __device__ constexpr int vec_elems() {
+  return 16 / (int)sizeof(W);
+}
 
 // The geometry of a block with RB rows. A 4-row block (a decode round)
 // owns its SM: four stages (three in flight while one is consumed), 1024 k
@@ -56,6 +72,13 @@ struct Geo {
   static constexpr int SMEM = (RING + XS + 16) * 4 + 2 * NSTAGE * 8;
 };
 
+// A block keeps its streams' float32 column sums ([S][RB][BN]) for its
+// epilogue in the ring and the staging; with 16 rows that holds at most 12
+// streams, so wider codes take blocks of 4 or 8 rows.
+__host__ __device__ constexpr bool rb16_fits(int streams) {
+  return streams * 16 * Geo<16>::BN <= Geo<16>::RING + Geo<16>::XS;
+}
+
 // Deepest k range and widest tile of a block with rb rows.
 __host__ __device__ constexpr int kmax(int rb) {
   return (rb == 4 ? Geo<4>::XS : Geo<8>::XS) / rb;
@@ -64,10 +87,27 @@ __host__ __device__ constexpr int bn_max(int rb) {
   return rb == 4 ? Geo<4>::BN : Geo<8>::BN;
 }
 
-// Floats of one stream's box in a stage: ks rows of `pitch`, rounded up to
-// 128 bytes (the tensor copies' shared-memory alignment).
-__host__ __device__ constexpr int box_floats(int ks, int pitch) {
-  return (ks * pitch + 31) / 32 * 32;
+// Elements of one stream's box in a stage: ks rows of `pitch`, rounded up
+// to 128 bytes (the tensor copies' shared-memory alignment).
+template <typename W>
+__host__ __device__ constexpr int box_elems(int ks, int pitch) {
+  return (ks * pitch + 128 / (int)sizeof(W) - 1) / (128 / (int)sizeof(W)) *
+         (128 / (int)sizeof(W));
+}
+
+// A box row's elements: the tile width rounded up to whole 16-byte vectors
+// (the tensor copies' inner extent, and the consumers' widest read).
+template <typename W>
+__host__ __device__ constexpr int pitch_of(int bn) {
+  return (bn + vec_elems<W>() - 1) / vec_elems<W>() * vec_elems<W>();
+}
+
+// The first of the 4 columns j of a consumer lane's accumulators: float32
+// lanes read 4 columns at lane * 4 + 128 j; bf16 lanes read their CPL
+// columns as one run at lane * CPL.
+template <int RB, typename W>
+__device__ __forceinline__ int col4(int lane, int j) {
+  return sizeof(W) == 4 ? lane * 4 + 128 * j : lane * Geo<RB>::CPL + 4 * j;
 }
 
 // A block's dynamic shared memory (Geo<RB>::SMEM bytes): the ring, the
@@ -161,15 +201,16 @@ __device__ inline void ring_init(uint64_t* full, uint64_t* empty,
 }
 
 // The producer warp. Stream s's box of the stage at k row k0 lands at
-// ring[stage][s * sreg]: on the copy engine, issue(s, k0, dst, bar) copies
-// the whole [ks, pitch] box (lane s issues stream s's copy); with ordinary
-// loads the lanes copy the `width` floats at src(s, kk) for each of the
-// stage's rows into row kk of the box.
-template <int S, int NS, bool ASYNC, typename Issue, typename Src>
-__device__ inline void produce(const Issue& issue, const Src& src,
-                               float* ring, uint64_t* full, uint64_t* empty,
-                               int kb0, int kb1, int ks, int width,
-                               int pitch, int sreg) {
+// ring[stage][s * sreg] (elements of W): on the copy engine, issue(s, k0,
+// dst, bar) copies the whole [ks, pitch] box (lane s issues stream s's
+// copy); with ordinary loads the lanes copy the `width` elements at
+// src(s, kk) for each of the stage's rows into row kk of the box.
+template <int S, int NS, bool ASYNC, typename W, typename Issue,
+          typename Src>
+__device__ inline void produce(const Issue& issue, const Src& src, W* ring,
+                               uint64_t* full, uint64_t* empty, int kb0,
+                               int kb1, int ks, int width, int pitch,
+                               int sreg) {
   static_assert(S <= 32, "one lane issues each stream's copy");
   const int lane = threadIdx.x & 31;
   const int nst = (kb1 - kb0 + ks - 1) / ks;
@@ -177,10 +218,11 @@ __device__ inline void produce(const Issue& issue, const Src& src,
     const int st = it % NS, round = it / NS;
     const int k0 = kb0 + it * ks, nrow = min(ks, kb1 - k0);
     if (round > 0) mbar_wait(&empty[st], (round - 1) & 1);
-    float* dst = ring + st * STAGE_FLOATS;
+    W* dst = ring + st * stage_elems<W>();
     if (ASYNC) {
       if (lane == 0)
-        mbar_arrive_tx(&full[st], (uint32_t)(S * ks * pitch * 4));
+        mbar_arrive_tx(&full[st],
+                       (uint32_t)(S * ks * pitch * (int)sizeof(W)));
       __syncwarp();
       if (lane < S) issue(lane, k0, dst + lane * sreg, &full[st]);
     } else {
@@ -188,7 +230,7 @@ __device__ inline void produce(const Issue& issue, const Src& src,
       for (int i = lane; i < S * per; i += 32) {
         const int s = i / per, rem = i - s * per;
         const int kk = rem / width, c = rem - kk * width;
-        dst[s * sreg + kk * pitch + c] = ld(src(s, k0 + kk) + c);
+        dst[s * sreg + kk * pitch + c] = ldraw(src(s, k0 + kk) + c);
       }
       __threadfence_block();
       __syncwarp();
@@ -197,32 +239,93 @@ __device__ inline void produce(const Issue& issue, const Src& src,
   }
 }
 
-// Consumer warp of stream s: acc[rr][4 j + q] += x[rr, kk] *
-// W_s[kk, lane * 4 + 128 j + q] over kk in [kb0, kb1); xs holds the
-// activations of that range k-major ([kk - kb0][RB]). Columns past the
-// tile's width compute on whatever the box holds there (its padding, the
-// next row) and are never written.
-template <int RB>
-__device__ inline void consume(const float* ring, uint64_t* full,
-                               uint64_t* empty, const float* xs, int s,
-                               int kb0, int kb1, int ks, int pitch,
-                               int sreg, float (&acc)[RB][Geo<RB>::CPL]) {
+// One k row of a consumer lane's columns, widened to float32: float32
+// lanes read 16 bytes for each 4 columns (128 apart), bf16 lanes their CPL
+// columns in one 16-byte (CPL 8) or 8-byte (CPL 4) read. HALF: the row
+// starts 8 bytes past a 16-byte boundary (a box that began at the
+// boundary before its tile), so every 16-byte read is two 8-byte ones.
+template <int CPL, bool HALF>
+__device__ __forceinline__ void load_row(const float* p, float (&v)[CPL]) {
+#pragma unroll
+  for (int j = 0; j < CPL / 4; ++j) {
+    if constexpr (HALF) {
+      const float2 a = *reinterpret_cast<const float2*>(p + 128 * j);
+      const float2 b = *reinterpret_cast<const float2*>(p + 128 * j + 2);
+      v[4 * j] = a.x;
+      v[4 * j + 1] = a.y;
+      v[4 * j + 2] = b.x;
+      v[4 * j + 3] = b.y;
+    } else {
+      const float4 q = *reinterpret_cast<const float4*>(p + 128 * j);
+      v[4 * j] = q.x;
+      v[4 * j + 1] = q.y;
+      v[4 * j + 2] = q.z;
+      v[4 * j + 3] = q.w;
+    }
+  }
+}
+template <int CPL, bool HALF>
+__device__ __forceinline__ void load_row(const __nv_bfloat16* p,
+                                         float (&v)[CPL]) {
+  static_assert(CPL == 4 || CPL == 8, "4 or 8 bf16 columns a lane");
+  uint32_t u[CPL / 2];
+  if constexpr (CPL == 8 && HALF) {
+    const uint2 a = *reinterpret_cast<const uint2*>(p);
+    const uint2 b = *reinterpret_cast<const uint2*>(p + 4);
+    u[0] = a.x;
+    u[1] = a.y;
+    u[2] = b.x;
+    u[3] = b.y;
+  } else if constexpr (CPL == 8) {
+    const uint4 q = *reinterpret_cast<const uint4*>(p);
+    u[0] = q.x;
+    u[1] = q.y;
+    u[2] = q.z;
+    u[3] = q.w;
+  } else {
+    const uint2 q = *reinterpret_cast<const uint2*>(p);
+    u[0] = q.x;
+    u[1] = q.y;
+  }
+#pragma unroll
+  for (int i = 0; i < CPL / 2; ++i) {
+    __nv_bfloat162 b2;
+    memcpy(&b2, &u[i], 4);
+    const float2 f = __bfloat1622float2(b2);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+// Consumer warp of stream s: acc[rr][q] += x[rr, kk] * W_s[kk, col(q)] over
+// kk in [kb0, kb1), col(4 j + i) = col4<RB, W>(lane, j) + i, the tile's
+// columns starting `shift` elements into each box row (a box that began
+// at the 16-byte boundary before its tile; shift is 0 or half a 16-byte
+// vector); xs holds the activations of that range k-major
+// ([kk - kb0][RB]). Columns past the tile's width compute on whatever the
+// box holds there (its padding, the next row) and are never written.
+template <int RB, typename W, bool HALF>
+__device__ inline void consume_rows(const W* ring, uint64_t* full,
+                                    uint64_t* empty, const float* xs, int s,
+                                    int kb0, int kb1, int ks, int pitch,
+                                    int sreg,
+                                    float (&acc)[RB][Geo<RB>::CPL],
+                                    int shift) {
   static_assert(RB % 4 == 0, "activations are read 4 rows at a time");
-  constexpr int NS = Geo<RB>::NSTAGE, C4 = Geo<RB>::CPL / 4;
+  constexpr int NS = Geo<RB>::NSTAGE, CPL = Geo<RB>::CPL;
   const int lane = threadIdx.x & 31;
   const int nst = (kb1 - kb0 + ks - 1) / ks;
   for (int it = 0; it < nst; ++it) {
     const int st = it % NS;
     const int k0 = kb0 + it * ks, nrow = min(ks, kb1 - k0);
     mbar_wait(&full[st], (it / NS) & 1);
-    const float* wrow = ring + st * STAGE_FLOATS + s * sreg + lane * 4;
+    const W* wrow = ring + st * stage_elems<W>() + s * sreg + shift +
+                    col4<RB, W>(lane, 0);
     const float* xr = xs + (k0 - kb0) * RB;
 #pragma unroll 2
     for (int kk = 0; kk < nrow; ++kk) {
-      float4 w4[C4];
-#pragma unroll
-      for (int j = 0; j < C4; ++j)
-        w4[j] = *reinterpret_cast<const float4*>(wrow + kk * pitch + 128 * j);
+      float wv[CPL];
+      load_row<CPL, HALF>(wrow + kk * pitch, wv);
 #pragma unroll
       for (int g = 0; g < RB / 4; ++g) {
         const float4 x4 =
@@ -231,16 +334,8 @@ __device__ inline void consume(const float* ring, uint64_t* full,
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < C4; ++j) {
-            acc[4 * g + i][4 * j] =
-                fmaf(xv[i], w4[j].x, acc[4 * g + i][4 * j]);
-            acc[4 * g + i][4 * j + 1] =
-                fmaf(xv[i], w4[j].y, acc[4 * g + i][4 * j + 1]);
-            acc[4 * g + i][4 * j + 2] =
-                fmaf(xv[i], w4[j].z, acc[4 * g + i][4 * j + 2]);
-            acc[4 * g + i][4 * j + 3] =
-                fmaf(xv[i], w4[j].w, acc[4 * g + i][4 * j + 3]);
-          }
+          for (int q = 0; q < CPL; ++q)
+            acc[4 * g + i][q] = fmaf(xv[i], wv[q], acc[4 * g + i][q]);
       }
     }
     __syncwarp();
@@ -248,12 +343,44 @@ __device__ inline void consume(const float* ring, uint64_t* full,
   }
 }
 
+template <int RB, typename W>
+__device__ inline void consume(const W* ring, uint64_t* full,
+                               uint64_t* empty, const float* xs, int s,
+                               int kb0, int kb1, int ks, int pitch,
+                               int sreg, float (&acc)[RB][Geo<RB>::CPL],
+                               int shift = 0) {
+  if (shift % vec_elems<W>() != 0)
+    consume_rows<RB, W, true>(ring, full, empty, xs, s, kb0, kb1, ks, pitch,
+                              sreg, acc, shift);
+  else
+    consume_rows<RB, W, false>(ring, full, empty, xs, s, kb0, kb1, ks,
+                               pitch, sreg, acc, shift);
+}
+
+// The consumers write their accumulators to tot[(s * RB + rr) * BN + col]
+// (float32; BN = Geo<RB>::BN), every column of the lane, in 16-byte stores.
+template <int RB, typename W>
+__device__ inline void store_acc(float* tot, int s,
+                                 const float (&acc)[RB][Geo<RB>::CPL]) {
+  constexpr int BNS = Geo<RB>::BN, CPL = Geo<RB>::CPL;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int rr = 0; rr < RB; ++rr)
+#pragma unroll
+    for (int j = 0; j < CPL / 4; ++j)
+      *reinterpret_cast<float4*>(tot + (s * RB + rr) * BNS +
+                                 col4<RB, W>(lane, j)) =
+          make_float4(acc[rr][4 * j], acc[rr][4 * j + 1], acc[rr][4 * j + 2],
+                      acc[rr][4 * j + 3]);
+}
+
 // The consumers (threads [0, n)) stage x[r0 + rr, kb0 + kk] for kk in
-// [0, kb1 - kb0) as xs[kk][rr], zero past the rows, and, when gamma is
-// given, as the rmsnorm x * inv[rr] * gamma[k] (inv computed here over all
-// of k, one warp per row). Ends on named barrier 1 among the n threads.
-template <int RB>
-__device__ inline void stage_x(const float* __restrict__ x, int rows, int k,
+// [0, kb1 - kb0) as xs[kk][rr] in float32 (x is stored as float32 or bf16),
+// zero past the rows, and, when gamma is given, as the rmsnorm x * inv[rr]
+// * gamma[k] (inv computed here over all of k, one warp per row). Ends on
+// named barrier 1 among the n threads.
+template <int RB, typename X>
+__device__ inline void stage_x(const X* __restrict__ x, int rows, int k,
                                int r0, int kb0, int kb1,
                                const float* __restrict__ gamma, float eps,
                                float* xs, float* inv, int n) {
@@ -262,8 +389,11 @@ __device__ inline void stage_x(const float* __restrict__ x, int rows, int k,
     for (int rr = warp; rr < RB; rr += n / 32) {
       float ss = 0.f;
       if (r0 + rr < rows) {
-        const float* xr = x + (int64_t)(r0 + rr) * k;
-        for (int kk = lane; kk < k; kk += 32) ss = fmaf(xr[kk], xr[kk], ss);
+        const X* xr = x + (int64_t)(r0 + rr) * k;
+        for (int kk = lane; kk < k; kk += 32) {
+          const float v = ld(xr + kk);
+          ss = fmaf(v, v, ss);
+        }
       }
       ss = warp_sum(ss);
       if (lane == 0) inv[rr] = rsqrtf(ss / (float)k + eps);
@@ -275,7 +405,7 @@ __device__ inline void stage_x(const float* __restrict__ x, int rows, int k,
     const int rr = i / kc, kk = i - rr * kc;
     float v = 0.f;
     if (r0 + rr < rows) {
-      v = __ldg(x + (int64_t)(r0 + rr) * k + kb0 + kk);
+      v = ld(x + (int64_t)(r0 + rr) * k + kb0 + kk);
       if (gamma != nullptr) v = v * inv[rr] * __ldg(gamma + kb0 + kk);
     }
     xs[kk * RB + rr] = v;
@@ -354,23 +484,23 @@ static EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A float32 tensor map of `rank` <= 3 dims (dims[0] innermost; strides in
-// bytes of dims 1..rank-1) read in boxes of `box`; out-of-bounds elements
-// read as zero. Returns false if the driver refuses it. A map is a pure
-// function of these arguments, so the last 64 are kept, keyed by them:
-// the serving round's weights keep their addresses, and a hit costs no
-// call into the driver.
-static inline bool encode_f32(CUtensorMap* map, const void* base, int rank,
+// A float32 (or, with bf16, bfloat16) tensor map of `rank` <= 3 dims
+// (dims[0] innermost; strides in bytes of dims 1..rank-1) read in boxes of
+// `box`; out-of-bounds elements read as zero. Returns false if the driver
+// refuses it. A map is a pure function of these arguments, so the last 64
+// are kept, keyed by them: the serving round's weights keep their
+// addresses, and a hit costs no call into the driver.
+static inline bool encode_map(CUtensorMap* map, const void* base, int rank,
                               const cuuint64_t* dims,
                               const cuuint64_t* strides,
-                              const cuuint32_t* box,
+                              const cuuint32_t* box, bool bf16 = false,
                               CUtensorMapSwizzle swizzle =
                                   CU_TENSOR_MAP_SWIZZLE_NONE) {
   struct Key {
     const void* base;
     cuuint64_t dims[3], strides[2];
     cuuint32_t box[3];
-    int rank, swizzle;
+    int rank, swizzle, bf16;
   };
   struct Entry {
     Key key;
@@ -384,6 +514,7 @@ static inline bool encode_f32(CUtensorMap* map, const void* base, int rank,
   key.base = base;
   key.rank = rank;
   key.swizzle = (int)swizzle;
+  key.bf16 = (int)bf16;
   for (int i = 0; i < rank; ++i) {
     key.dims[i] = dims[i];
     key.box[i] = box[i];
@@ -402,7 +533,10 @@ static inline bool encode_f32(CUtensorMap* map, const void* base, int rank,
   const EncodeTiledFn fn = encode_tiled();
   const cuuint32_t one[5] = {1, 1, 1, 1, 1};
   if (fn == nullptr ||
-      fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, (cuuint32_t)rank,
+      fn(map,
+         bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+              : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+         (cuuint32_t)rank,
          const_cast<void*>(base), dims, strides, box, one,
          CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

@@ -4,7 +4,12 @@ Each ``csrc/<name>.cu`` has a plain C interface and becomes its own shared
 library ``build/lib<name>-<hash>.so`` at the root of the checkout, the hash
 covering the sources and flags, so a changed source is rebuilt. Building
 happens at first use (or all at once, in parallel, through ``build_all``),
-never at import. A failed build raises: there is no fallback.
+never at import. A failed build raises: there is no fallback. Kernels 1 and
+2 are cut into several sources (by storage type and T) so that their
+instantiations build in parallel.
+
+``check_t`` is the coded kernels' refusal of a code width they have no
+case for: a ``ValueError`` naming T, raised before any build or launch.
 """
 from __future__ import annotations
 
@@ -20,8 +25,11 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("cdc_coded_matmul", "cdc_fused_head", "cdc_encode",
+SOURCES = ("cdc_coded_matmul", "cdc_coded_matmul_bf16", "cdc_coded_matmul_t16",
+           "cdc_fused_head", "cdc_fused_head_bf16", "cdc_encode",
            "cdc_decode_merge", "cdc_decode", "rmsnorm", "matmul")
+# the code widths T the coded kernels (1-5) are built for
+KERNEL_T = (2, 4, 8, 16)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
@@ -83,6 +91,18 @@ def bf16_flag(dtype: torch.dtype, who: str) -> int:
         raise ValueError(f"{who}: dtype {dtype} is neither float32 nor "
                          f"bfloat16")
     return int(dtype == torch.bfloat16)
+
+
+def check_t(who: str, T: int, supported=KERNEL_T) -> None:
+    """Refuse a code width T that the kernel has no case for."""
+    if T not in supported:
+        raise ValueError(f"{who}: no kernel case for T={T}; the kernel is "
+                         f"built for T in {tuple(supported)}")
+
+
+def elem_bytes(dtype: torch.dtype) -> int:
+    """Bytes of one stored element: 4 for float32, 2 for bfloat16."""
+    return 2 if dtype == torch.bfloat16 else 4
 
 
 def raw_stream(device: torch.device) -> int:

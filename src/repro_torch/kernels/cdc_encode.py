@@ -26,12 +26,21 @@ _MAX_R = {2: 2, 4: 4, 8: 8, 16: 4}
 
 
 def _lib():
-    fn = build.load("cdc_encode").cdc_encode_f32
+    fn = build.load("cdc_encode").cdc_encode
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, i, i, i, i, i, ll, ll, ll, i, i, p]
+        fn.argtypes = [p, p, p, i, i, i, i, i, ll, ll, ll, i, i, i, p]
         fn.restype = i
     return fn
+
+
+def check_code(T: int, r: int) -> None:
+    """Refuse a code the encode kernel has no case for (before any
+    build)."""
+    build.check_t("cdc_encode", T, tuple(_MAX_R))
+    if not 0 <= r <= _MAX_R[T]:
+        raise ValueError(f"cdc_encode: no kernel case for T={T}, r={r}; r "
+                         f"runs 1..{_MAX_R[T]} at T={T}")
 
 
 def _check(cond: bool, msg: str):
@@ -65,15 +74,15 @@ def encode_plain(w_shards: torch.Tensor, gen, layout: str) -> torch.Tensor:
 def cdc_encode(w_shards: torch.Tensor, gen, *, layout: str = "dedicated"
                ) -> torch.Tensor:
     """Parity weights of the shards [T, k, m_l] or [L, T, k, m_l] (unit
-    column stride; any shard, row and layer strides) under the host
-    generator ``gen`` [r, T]: dedicated [(L,) r, k, m_l] or folded
-    [(L,) T, k, r·m_l/T], float32."""
+    column stride; any shard, row and layer strides; float32 or bf16)
+    under the host generator ``gen`` [r, T]: dedicated [(L,) r, k, m_l] or
+    folded [(L,) T, k, r·m_l/T], in the shards' dtype (float32 math)."""
     _check(layout in ("folded", "dedicated"), f"unknown layout {layout!r}")
     if w_shards.device.type == "cpu":
         return encode_plain(w_shards, gen, layout)
     _check(w_shards.device.type == "cuda",
            f"unsupported device {w_shards.device}")
-    _check(w_shards.dtype == torch.float32, "w_shards must be float32")
+    bf16 = build.bf16_flag(w_shards.dtype, "cdc_encode")
     _check(w_shards.ndim in (3, 4), "w_shards must be [T, k, m_l] or "
            "[L, T, k, m_l]")
     g = host_generator(gen)
@@ -82,27 +91,31 @@ def cdc_encode(w_shards: torch.Tensor, gen, *, layout: str = "dedicated"
     T, k, m_l = w_shards.shape[-3:]
     r = g.shape[0]
     _check(g.ndim == 2 and g.shape[1] == T, f"gen {g.shape} is not [r, {T}]")
-    _check(0 <= r <= _MAX_R.get(T, -1), f"no kernel case for T={T}, r={r}")
+    check_code(T, r)
     _check(w_shards.stride(-1) == 1, "shards need a unit column stride")
     folded = layout == "folded"
     _check(not folded or m_l % T == 0,
            f"shard width {m_l} not divisible by T={T}")
     lead = (L,) if stacked else ()
     shape = (T, k, r * m_l // T) if folded else (r, k, m_l)
-    out = torch.empty(lead + shape, dtype=torch.float32,
+    out = torch.empty(lead + shape, dtype=w_shards.dtype,
                       device=w_shards.device)
     if r == 0 or out.numel() == 0:
         return out
     ld_t, ld_k = w_shards.stride(-3), w_shards.stride(-2)
     ld_l = w_shards.stride(0) if stacked else 0
-    aligned = (m_l % 4 == 0 and w_shards.data_ptr() % 16 == 0
-               and ld_t % 4 == 0 and ld_k % 4 == 0 and ld_l % 4 == 0
-               and (not folded or (m_l // T) % 4 == 0))
+    # 16-byte vectors (4 float32 or 8 bf16 columns) where every row, shard
+    # and layer offset, and every folded slice, is whole vectors
+    e = build.elem_bytes(w_shards.dtype)
+    vec = 16 // e
+    aligned = (w_shards.data_ptr() % 16 == 0
+               and all(n * e % 16 == 0 for n in (m_l, ld_t, ld_k, ld_l))
+               and (not folded or (m_l // T) * e % 16 == 0))
     gen_host = (ctypes.c_float * g.size)(*g.ravel().tolist())
     stream = torch.cuda.current_stream(w_shards.device).cuda_stream
     err = _lib()(w_shards.data_ptr(), out.data_ptr(), gen_host, L, k, T, r,
-                 m_l, ld_t, ld_k, ld_l, int(folded), 4 if aligned else 1,
-                 stream)
+                 m_l, ld_t, ld_k, ld_l, int(folded), vec if aligned else 1,
+                 bf16, stream)
     if err != 0:
         raise RuntimeError(f"cdc_encode kernel launch failed: cudaError "
                            f"{err}")

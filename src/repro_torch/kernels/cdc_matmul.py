@@ -4,8 +4,9 @@
 and the r parity GEMMs, rebuilds at most one dead shard from its
 per-column parity equation, and writes the merged [rows, T, m_l] output
 (its reshape to [rows, m] is free). On a CUDA tensor it launches the
-kernel in ``csrc/cdc_coded_matmul.cu``; on a CPU tensor it runs the plain
-version ``ref.cdc_coded_matmul_ref``. The decode plan comes from
+kernel in ``csrc/coded_matmul.cuh`` (the library ``coded_lib`` names for
+the code width and the weights' storage type); on a CPU tensor it runs the
+plain version ``ref.cdc_coded_matmul_ref``. The decode plan comes from
 ``eq12_plan``, a small tensor function.
 
 ``cdc_decode_merge`` is the same decode and merge on shard outputs that
@@ -27,6 +28,29 @@ from repro_torch.kernels import build, ref, stream_plan
 
 _sem: dict[int, torch.Tensor] = {}   # per-device tile counters (see below)
 _sms: dict[int, int] = {}            # SMs per device
+# kernel 1's cases: the largest r built for each code width T (r >= 1)
+CODED_MAX_R = {2: 2, 4: 4, 8: 4, 16: 4}
+
+
+def check_code(T: int, r: int) -> None:
+    """Refuse a code kernel 1 has no case for (before any build)."""
+    build.check_t("cdc_coded_matmul", T, tuple(CODED_MAX_R))
+    if not 1 <= r <= CODED_MAX_R[T]:
+        raise ValueError(f"cdc_coded_matmul: no kernel case for T={T}, "
+                         f"r={r}; r runs 1..{CODED_MAX_R[T]} at T={T}")
+
+
+def check_merge(T: int) -> None:
+    """Refuse a code width kernel 3 has no case for (before any build)."""
+    build.check_t("cdc_decode_merge", T)
+
+
+def coded_lib(T: int, bf16: bool) -> str:
+    """The library holding kernel 1's instantiations for T and the weights'
+    storage type (csrc/cdc_coded_matmul*.cu)."""
+    if T == 16:
+        return "cdc_coded_matmul_t16"
+    return "cdc_coded_matmul_bf16" if bf16 else "cdc_coded_matmul"
 
 
 def eq12_plan(spec, valid: torch.Tensor, valid_parity: torch.Tensor,
@@ -61,25 +85,41 @@ def eq12_plan(spec, valid: torch.Tensor, valid_parity: torch.Tensor,
     return esel, coef
 
 
-def coded_variant(rows: int, m_l: int, T: int, layout: str,
-                  ldw: int | None = None, ptr_aligned: bool = True
-                  ) -> tuple[int, bool]:
+def coded_variant(rows: int, m_l: int, T: int, r: int, layout: str,
+                  ldw: int | None = None, ptr_aligned: bool = True,
+                  elem: int = 4) -> tuple[int, bool]:
     """(rows a block, bulk copies?) of the kernel instantiation a call
-    takes. The copy engine needs every row segment, stride and column
-    offset in 16-byte units: m_l, the slice width and w's row stride
-    multiples of 4 floats, and 16-byte aligned bases (``ptr_aligned``)."""
+    takes. The copy engine needs w's and the parity's row strides in whole
+    16-byte units, the slice width and m_l in whole 8-byte units (a box
+    may start half a vector before its tile: ``coded_lead``), and 16-byte
+    aligned bases (``ptr_aligned``)."""
     folded = layout == "folded"
     wd = m_l // T if folded else m_l
     ldw = T * m_l if ldw is None else ldw
-    aligned = (ptr_aligned and m_l % 4 == 0 and wd % 4 == 0
-               and ldw % 4 == 0)
-    return stream_plan.row_block(rows, wd, T if folded else 1), aligned
+    pstride = r * wd if folded else m_l
+    aligned = (ptr_aligned
+               and all(n * elem % 16 == 0 for n in (ldw, pstride))
+               and all(n * elem % 8 == 0 for n in (m_l, wd)))
+    return stream_plan.row_block(rows, wd, T if folded else 1, T + r), \
+        aligned
+
+
+def coded_lead(m_l: int, T: int, layout: str, aligned: bool,
+               elem: int = 4) -> int:
+    """Elements by which a box row on the copy engine is wider than its
+    tile: a copy starts on a 16-byte boundary, so where the slice width
+    or m_l is no whole number of 16-byte vectors (granite's 50-column
+    slices at T = 16) each box starts at the boundary before its tile."""
+    v = 16 // elem
+    wd = m_l // T if layout == "folded" else m_l
+    return v if aligned and (m_l % v or wd % v) else 0
 
 
 @functools.lru_cache(maxsize=1024)
 def coded_plan(rows: int, k: int, m_l: int, T: int, r: int, layout: str,
                n_sm: int, occupancy: int, ldw: int | None = None,
-               ptr_aligned: bool = True) -> stream_plan.StreamPlan:
+               ptr_aligned: bool = True, elem: int = 4
+               ) -> stream_plan.StreamPlan:
     """The launch plan of one ``cdc_coded_matmul`` call: T + r weight
     streams, column tiles cut inside each folded parity slice (or across
     m_l for the dedicated layout), RB = 4 for rows <= 4, and k split so
@@ -87,10 +127,12 @@ def coded_plan(rows: int, k: int, m_l: int, T: int, r: int, layout: str,
     blocks (the occupancy of the instantiation ``coded_variant`` names,
     as the C interface reports it)."""
     folded = layout == "folded"
-    _, aligned = coded_variant(rows, m_l, T, layout, ldw, ptr_aligned)
+    _, aligned = coded_variant(rows, m_l, T, r, layout, ldw, ptr_aligned,
+                               elem)
     return stream_plan.plan(rows, k, m_l // T if folded else m_l,
                             T if folded else 1, T + r, n_sm * occupancy,
-                            aligned)
+                            aligned, elem,
+                            coded_lead(m_l, T, layout, aligned, elem))
 
 
 def _n_sm(device: torch.device) -> int:
@@ -112,12 +154,11 @@ def _tile_counters(device: torch.device, n: int) -> torch.Tensor:
     return sem
 
 
-def _lib():
-    lib = build.load("cdc_coded_matmul")
-    fn = lib.cdc_coded_matmul_f32
+def _lib(name: str):
+    fn = build.load(name).cdc_coded_matmul
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, ctypes.c_float, p, p, p,
+        fn.argtypes = [p, i, p, p, i, p, p, p, p, ctypes.c_float, p, p, p,
                        i, i, i, i, i, ctypes.c_longlong, i, ctypes.c_uint,
                        i, i, i, i, i, i, i, i, i, p]
         fn.restype = i
@@ -152,22 +193,27 @@ def cdc_coded_matmul(x: torch.Tensor, w: torch.Tensor, w_cdc: torch.Tensor,
                      ) -> torch.Tensor:
     """(rmsnorm?) + coded shard GEMMs + Eq. 12 decode + merge.
 
-    x [rows, k]; w [k, T*m_l] (rows of w may be strided); w_cdc folded
-    [T, k, r*m_l/T] or dedicated [r, k, m_l]; gen [r, T]; esel/coef from
-    ``eq12_plan``; valid [T] host mask with at most one False. Returns
-    merged [rows, T, m_l] float32.
+    x [rows, k] float32 or bf16; w [k, T*m_l] (rows of w may be strided)
+    and w_cdc (folded [T, k, r*m_l/T] or dedicated [r, k, m_l]) of one
+    storage type, float32 or bf16; gen [r, T], coef and gamma float32;
+    esel/coef from ``eq12_plan``; valid [T] host mask with at most one
+    False. Returns merged [rows, T, m_l] in x's dtype (float32 math).
     """
     if x.device.type == "cpu":
         return coded_matmul_plain(x, w, w_cdc, layout, T, r, gen, esel,
                                   coef, valid, gamma, eps)
     _check(x.device.type == "cuda", f"unsupported device {x.device}")
+    check_code(T, r)
     rows, k = x.shape
     m_l = w.shape[1] // T
     folded = layout == "folded"
-    tensors = [x, w, w_cdc, gen, coef] + ([gamma] if gamma is not None
-                                          else [])
-    _check(all(t.dtype == torch.float32 for t in tensors),
-           "x, w, parity, gen, coef and gamma must be float32")
+    f32 = [gen, coef] + ([gamma] if gamma is not None else [])
+    tensors = [x, w, w_cdc] + f32
+    x_bf16 = build.bf16_flag(x.dtype, "cdc_coded_matmul: x")
+    w_bf16 = build.bf16_flag(w.dtype, "cdc_coded_matmul: w")
+    _check(w_cdc.dtype == w.dtype, "w and its parity must share a dtype")
+    _check(all(t.dtype == torch.float32 for t in f32),
+           "gen, coef and gamma must be float32")
     _check(esel.dtype == torch.int32, "esel must be int32")
     _check(all(t.device == x.device for t in tensors + [esel]),
            "all tensors must be on one device")
@@ -188,18 +234,20 @@ def cdc_coded_matmul(x: torch.Tensor, w: torch.Tensor, w_cdc: torch.Tensor,
            "gamma must be [k]")
     ldw = w.stride(0)
     ptr_ok = (w.data_ptr() | w_cdc.data_ptr()) % 16 == 0
-    rb, aligned = coded_variant(rows, m_l, T, layout, ldw, ptr_ok)
+    elem = build.elem_bytes(w.dtype)
+    lib = coded_lib(T, bool(w_bf16))
+    rb, aligned = coded_variant(rows, m_l, T, r, layout, ldw, ptr_ok, elem)
     plan = coded_plan(rows, k, m_l, T, r, layout, _n_sm(x.device),
-                      build.occupancy("cdc_coded_matmul",
-                                      "cdc_coded_matmul_occupancy", T, r, rb,
-                                      int(aligned)), ldw, ptr_ok)
-    out = torch.empty((rows, T, m_l), dtype=torch.float32, device=x.device)
+                      build.occupancy(lib, "cdc_coded_matmul_occupancy", T,
+                                      r, w_bf16, rb, int(aligned)),
+                      ldw, ptr_ok, elem)
+    out = torch.empty((rows, T, m_l), dtype=x.dtype, device=x.device)
     ws = torch.empty((plan.ksplit if plan.ksplit > 1 else 0, rows, T * m_l),
                      dtype=torch.float32, device=x.device)
     sem = _tile_counters(x.device, plan.counters)
     stream = build.raw_stream(x.device)
-    err = _lib()(x.data_ptr(), w.data_ptr(), w_cdc.data_ptr(),
-                 gen.data_ptr(), esel.data_ptr(), coef.data_ptr(),
+    err = _lib(lib)(x.data_ptr(), x_bf16, w.data_ptr(), w_cdc.data_ptr(),
+                 w_bf16, gen.data_ptr(), esel.data_ptr(), coef.data_ptr(),
                  gamma.data_ptr() if gamma is not None else None, eps,
                  out.data_ptr(), ws.data_ptr(), sem.data_ptr(), rows, k, T,
                  r, m_l, ldw, int(folded), mask_bits(valid), plan.rb,
@@ -223,7 +271,8 @@ def _dm_lib():
     fn = build.load("cdc_decode_merge").cdc_decode_merge
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, ctypes.c_uint, i, p]
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, ctypes.c_uint, i, i,
+                       p]
         fn.restype = i
     return fn
 
@@ -250,6 +299,7 @@ def cdc_decode_merge(ys: torch.Tensor, parity: torch.Tensor, layout: str,
     who = "cdc_decode_merge"
     if ys.device.type != "cuda":
         raise ValueError(f"{who}: unsupported device {ys.device}")
+    check_merge(T)
     folded = layout == "folded"
     _, rows, m_l = ys.shape
     bf16 = build.bf16_flag(ys.dtype, who)
@@ -272,14 +322,21 @@ def cdc_decode_merge(ys: torch.Tensor, parity: torch.Tensor, layout: str,
     out = torch.empty((rows, T, m_l), dtype=ys.dtype, device=ys.device)
     if out.numel() == 0:
         return out
-    stream = torch.cuda.current_stream(ys.device).cuda_stream
+    # 16-byte groups of columns where every row and slice is whole groups
+    v = 16 // build.elem_bytes(ys.dtype)
+    vec = v if (m_l % v == 0 and (not folded or (m_l // T) % v == 0)
+                and (ys.data_ptr() | parity.data_ptr() | out.data_ptr())
+                % 16 == 0) else 1
     err = _dm_lib()(ys.data_ptr(), parity.data_ptr(), gen.data_ptr(),
                     esel.data_ptr(), coef.data_ptr(), out.data_ptr(), rows,
-                    m_l, T, r, int(folded), mask_bits(valid), bf16, stream)
+                    m_l, T, r, int(folded), mask_bits(valid), bf16, vec,
+                    build.raw_stream(ys.device))
     if err != 0:
         raise RuntimeError(f"{who} kernel launch failed: cudaError {err}")
     cdc_decode_merge.launches += 1
+    cdc_decode_merge.variants["vec" if vec > 1 else "scalar"] += 1
     return out
 
 
 cdc_decode_merge.launches = 0
+cdc_decode_merge.variants = collections.Counter()   # launches per variant

@@ -165,7 +165,7 @@ def fused_coded_matmul(x, w, w_cdc, spec, valid, *, valid_parity=None,
     out = cdc_coded_matmul(x.reshape(-1, k).contiguous(), w, w_cdc,
                            spec.layout, T, r, gen, esel, coef, vh,
                            gamma=gamma, eps=eps)
-    return out.reshape(lead + (m,)).to(x.dtype)
+    return out.reshape(lead + (m,))
 
 
 def fused_decode_merge(ys, parity, spec, valid, *, valid_parity=None):

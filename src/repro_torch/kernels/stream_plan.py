@@ -6,13 +6,16 @@ folded parity slice, or the whole output width), a row block of ``rb``
 rows and a range of k. The CUDA side decodes ``blockIdx.x`` exactly as ``units``
 does (row block fastest, then tile, then split) and refuses a plan that
 breaks its limits, so the two cannot disagree silently. The constants
-mirror ``stream_tile.cuh``.
+mirror ``stream_tile.cuh``. A stage holds 32 KB of weights whatever their
+storage type: ``elem`` (4 for float32, 2 for bf16) sets how many k rows
+that is, and the 16-byte vectors a box row is cut into.
 """
 from __future__ import annotations
 
 import dataclasses
 
 STAGE_FLOATS = 8192   # floats a stage (32 KB)
+STAGE_BYTES = 4 * STAGE_FLOATS
 # per rows a block (Geo<RB> in stream_tile.cuh): stages in the ring, the
 # widest column tile (8 columns a lane at 4 rows, else 4), and the floats
 # of staged activations (kmax(rb) x rb)
@@ -27,15 +30,23 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def row_block(rows: int, wd: int, n_slices: int = 1) -> int:
+def rb16_fits(streams: int) -> bool:
+    """A 16-row block keeps its streams' [streams, 16, 128] float32 sums
+    for its epilogue in the ring and the staging: at most 12 streams
+    (``stream::rb16_fits``)."""
+    return streams * 16 * BN[16] <= NSTAGE[16] * STAGE_FLOATS + XS_FLOATS[16]
+
+
+def row_block(rows: int, wd: int, n_slices: int = 1,
+              streams: int = 1) -> int:
     """Rows a block owns: 4 for a decode round's <= 4 rows, 8 up to 8
     rows; beyond, 16 when the output has at least 16 column tiles of 128
     (fewer row blocks stream the weights fewer times: granite's w1 at 64
-    rows), else 8 (more blocks to fill the card and to share the split
-    reduction: wq, wk)."""
+    rows) and the 16-row epilogue holds the streams, else 8 (more blocks
+    to fill the card and to share the split reduction: wq, wk; T = 16)."""
     if rows <= 4:
         return 4
-    if rows <= 8 or n_slices * _cdiv(wd, 128) < 16:
+    if rows <= 8 or n_slices * _cdiv(wd, 128) < 16 or not rb16_fits(streams):
         return 8
     return 16
 
@@ -46,27 +57,35 @@ def kmax(rb: int) -> int:
     return XS_FLOATS[rb] // rb
 
 
-def box_floats(ks: int, pitch: int) -> int:
-    """Floats of one stream's [ks, pitch] box in a stage, rounded up to 128
-    bytes (the tensor copies' shared-memory alignment)."""
-    return -(-ks * pitch // 32) * 32
+def box_elems(ks: int, pitch: int, elem: int = 4) -> int:
+    """Elements of one stream's [ks, pitch] box in a stage, rounded up to
+    128 bytes (the tensor copies' shared-memory alignment)."""
+    q = 128 // elem
+    return -(-ks * pitch // q) * q
 
 
-def stage_rows(streams: int, pitch: int) -> int:
+def pitch_of(bn: int, elem: int = 4) -> int:
+    """A box row: the tile width rounded up to whole 16-byte vectors."""
+    v = 16 // elem
+    return -(-bn // v) * v
+
+
+def stage_rows(streams: int, pitch: int, elem: int = 4) -> int:
     """The most k rows a stage holds of each of ``streams`` boxes (at most
     256, the tensor copies' box limit)."""
-    ks = min(256, STAGE_FLOATS // (streams * pitch))
-    while ks > 1 and streams * box_floats(ks, pitch) > STAGE_FLOATS:
+    cap = STAGE_BYTES // elem
+    ks = min(256, cap // (streams * pitch))
+    while ks > 1 and streams * box_elems(ks, pitch, elem) > cap:
         ks -= 1
     return max(1, ks)
 
 
-def tile_width(wd: int, aligned: bool, bn_max: int) -> int:
+def tile_width(wd: int, aligned: bool, bn_max: int, elem: int = 4) -> int:
     """The widest tile that cuts a slice of ``wd`` columns into equal tiles
-    of at most ``bn_max`` columns (a multiple of 4 on the copy engine's
-    path)."""
+    of at most ``bn_max`` columns (whole 16-byte vectors on the copy
+    engine's path)."""
     bn = _cdiv(wd, _cdiv(wd, bn_max))
-    return min(bn_max, -(-bn // 4) * 4) if aligned else bn
+    return min(bn_max, pitch_of(bn, elem)) if aligned else bn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +100,8 @@ class StreamPlan:
     ks: int          # k rows a stage
     ksplit: int
     kchunk: int      # k rows a split
+    elem: int = 4    # bytes of a stored weight: 4 float32, 2 bf16
+    lead: int = 0    # elements a box row may start before its tile
 
     @property
     def nrb(self) -> int:
@@ -105,8 +126,15 @@ class StreamPlan:
         return self.counters * self.ksplit
 
     @property
+    def pitch(self) -> int:
+        """Elements of a box row in shared memory."""
+        return pitch_of(self.bn, self.elem) + self.lead
+
+    @property
     def variant(self) -> str:
-        return f"rb{self.rb}-{'async' if self.aligned else 'loads'}"
+        return (f"rb{self.rb}-{'async' if self.aligned else 'loads'}"
+                + ("-lead" if self.lead else "")
+                + ("-bf16" if self.elem == 2 else ""))
 
     def units(self):
         """(c0, width, r0, kb0, kb1) of every block in launch order (row
@@ -124,22 +152,28 @@ class StreamPlan:
 
 
 def plan(rows: int, k: int, wd: int, n_slices: int, streams: int,
-         slots: int, aligned: bool) -> StreamPlan:
+         slots: int, aligned: bool, elem: int = 4, lead: int = 0
+         ) -> StreamPlan:
     """The plan for ``streams`` weight streams of ``n_slices`` slices of
-    ``wd`` columns over k, on a card with ``slots`` resident blocks (SMs x
-    blocks per SM). k is split (each split at most kmax(rb) deep and a
-    whole number of stages, each stage as deep as the split needs, at most
-    as deep as a stage holds) until the blocks fill whole waves of the
-    slots to WAVE_EFFICIENCY, or as near as MAX_SPLITS get."""
-    rb = row_block(rows, wd, n_slices)
+    ``wd`` columns over k, stored in ``elem`` bytes an element, each box
+    row ``lead`` elements wider than the tile (the copies of kernel 2's
+    bf16 shards that start before their tile), on a card with ``slots``
+    resident blocks (SMs x blocks per SM). k is split (each split at most
+    kmax(rb) deep and a whole number of stages, each stage as deep as the
+    split needs, at most as deep as a stage holds) until the blocks fill
+    whole waves of the slots to WAVE_EFFICIENCY, or as near as MAX_SPLITS
+    get."""
+    rb = row_block(rows, wd, n_slices, streams)
     # 256-column tiles only where they still give every slot work within
-    # MAX_SPLITS (narrower than 128, row segments get short for DRAM)
-    bn = tile_width(wd, aligned, BN[rb])
-    if (bn > 128 and n_slices * _cdiv(wd, bn) * _cdiv(rows, rb) * MAX_SPLITS
-            < slots):
-        bn = tile_width(wd, aligned, 128)
-    pitch = -(-bn // 4) * 4
-    ks_max = stage_rows(streams, pitch)
+    # MAX_SPLITS (narrower than 128, row segments get short for DRAM), and
+    # where a stage still holds 2 k rows of every stream (T = 16's 17-20
+    # float32 streams would get one-row stages)
+    bn = tile_width(wd, aligned, BN[rb] - lead, elem)
+    if bn > 128 and (n_slices * _cdiv(wd, bn) * _cdiv(rows, rb) * MAX_SPLITS
+                     < slots or stage_rows(streams, pitch_of(bn, elem) + lead,
+                                           elem) < 2):
+        bn = tile_width(wd, aligned, 128 - lead, elem)
+    ks_max = stage_rows(streams, pitch_of(bn, elem) + lead, elem)
     base = n_slices * _cdiv(wd, bn) * _cdiv(rows, rb)
     kdeep = kmax(rb)
     nmax = max(_cdiv(k, kdeep), min(MAX_SPLITS, _cdiv(k, 2 * ks_max)))
@@ -164,4 +198,4 @@ def plan(rows: int, k: int, wd: int, n_slices: int, streams: int,
     _, ksplit, kchunk, ks = best
     return StreamPlan(rows=rows, k=k, rb=rb, aligned=aligned, wd=wd,
                       n_slices=n_slices, bn=bn, ks=ks, ksplit=ksplit,
-                      kchunk=kchunk)
+                      kchunk=kchunk, elem=elem, lead=lead)

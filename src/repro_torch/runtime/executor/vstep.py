@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.cdc_decode import head_parity
 
 
 def _fused_supported(stepper) -> bool:
@@ -55,7 +56,7 @@ class VStep:
             t = self.stepper.n_shards
             w_shards = w.view(k, t, m // t).permute(1, 0, 2)
             self._head_cache = (id(params), w_shards,
-                                w_shards.sum(0).contiguous())
+                                head_parity(w_shards))
         return self._head_cache[1], self._head_cache[2]
 
     def _round(self, state, toks, valid):

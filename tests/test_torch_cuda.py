@@ -75,3 +75,25 @@ def test_stream_plan_edges_match_plain(smoke):
 
 def test_matmul_kernel_matches_plain(smoke):
     assert smoke.check_matmul() <= 1e-4
+
+
+def test_coded_matmul_kernel_at_t16_matches_plain(smoke):
+    assert smoke.check_coded_matmul_t16() <= 1e-4
+
+
+def test_coded_matmul_kernel_on_bf16_matches_plain(smoke):
+    assert smoke.check_coded_matmul_bf16() <= 2e-2
+
+
+def test_fused_head_kernel_at_t16_and_bf16_matches_plain(smoke):
+    from repro_torch.configs import get_arch
+    assert smoke.check_fused_head_wide(get_arch("granite-3-8b")) <= 2e-2
+
+
+def test_fused_head_plan_edges_on_bf16_match_plain(smoke):
+    assert smoke.check_head_edges(torch.bfloat16) == 0.0
+
+
+def test_encode_kernel_on_bf16_matches_plain(smoke):
+    from repro_torch.configs import get_arch
+    assert smoke.check_encode_bf16(get_arch("granite-3-8b")) <= 2e-2

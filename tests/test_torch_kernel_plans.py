@@ -72,14 +72,19 @@ def check_cover(plan, rows, k, m_l, slice_width=None):
 
 
 def check_limits(plan, streams):
-    """What the CUDA side refuses (csrc/cdc_coded_matmul.cu, matmul.cu)."""
-    pitch = -(-plan.bn // 4) * 4
+    """What the CUDA side refuses (csrc/coded_matmul.cuh, fused_head.cuh,
+    matmul.cu), in the plan's storage type."""
+    v = 16 // plan.elem
+    pitch = -(-plan.bn // v) * v + plan.lead
+    assert pitch == plan.pitch <= 256
     assert 1 <= plan.bn <= stream_plan.BN[plan.rb]
+    assert plan.rb != 16 or stream_plan.rb16_fits(streams)
     assert 1 <= plan.ks <= 256
-    assert streams * stream_plan.box_floats(plan.ks, pitch) \
-        <= stream_plan.STAGE_FLOATS
+    assert streams * stream_plan.box_elems(plan.ks, pitch, plan.elem) \
+        <= stream_plan.STAGE_BYTES // plan.elem
     assert 1 <= plan.kchunk <= stream_plan.kmax(plan.rb)
-    assert plan.aligned is False or (plan.bn % 4 == 0 and plan.wd % 4 == 0)
+    assert plan.aligned is False or (plan.bn % v == 0
+                                     and plan.wd % (v // 2) == 0)
 
 
 @pytest.mark.parametrize("rows", [1, 4, 5, 8, 16, 64])
@@ -542,3 +547,167 @@ def test_rmsnorm_emulation_matches_reference(d):
     np.testing.assert_allclose(
         got, tref.rmsnorm_ref(torch.from_numpy(x), torch.from_numpy(g),
                               1e-5).numpy(), rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------- T = 16 and bf16 (kernels 1, 2) ----
+
+@pytest.mark.parametrize("rows", [1, 4, 5, 8, 16, 64])
+@pytest.mark.parametrize("layout", ["folded", "dedicated"])
+@pytest.mark.parametrize("r", [1, 2, 3, 4])
+def test_coded_plan_covers_granite_shapes_t16(r, layout, rows):
+    """Kernel 1 at T = 16 (17-20 streams): no 16-row blocks (their
+    epilogue holds 12 streams), tiles narrowed to 128 columns where a
+    256-column stage would hold one k row, and granite's folded w1 (slices
+    of 50 columns, half a 16-byte vector off) on the copy engine with box
+    rows one vector wider than the tile where the parity's rows (r x 50
+    columns) are whole vectors (r = 2, 4), else on the ordinary loads."""
+    T, k = 16, 4096
+    for width in GRANITE_WIDTHS:
+        m_l = width // T
+        plan = tcdc.coded_plan(rows, k, m_l, T, r, layout, N_SM, OCC)
+        wd = m_l // T if layout == "folded" else m_l
+        pstride = r * wd if layout == "folded" else m_l
+        assert plan.rb == (4 if rows <= 4 else 8)
+        assert plan.aligned == (pstride % 4 == 0)
+        assert plan.lead == (4 if plan.aligned and wd % 4 else 0)
+        assert plan.bn <= 128 and plan.ks >= 2
+        check_limits(plan, T + r)
+        check_cover(plan, rows, k, m_l, wd if layout == "folded" else None)
+        assert plan.blocks == len(plan.units())
+
+
+@pytest.mark.parametrize("layout", ["folded", "dedicated"])
+@pytest.mark.parametrize("T,r", [(2, 1), (4, 2), (4, 4), (8, 4), (16, 2)])
+def test_coded_plan_bf16_counts_bytes(T, r, layout):
+    """On bf16 weights a 32 KB stage holds twice the k rows of a float32
+    one, and the copy engine needs row strides of whole 16-byte vectors of
+    2-byte elements and m_l and the slice width in whole 8-byte halves (a
+    box row then starts half a vector before its tile)."""
+    k = 4096
+    for width in GRANITE_WIDTHS:
+        m_l = width // T
+        wd = m_l // T if layout == "folded" else m_l
+        f32 = tcdc.coded_plan(4, k, m_l, T, r, layout, N_SM, 1)
+        bf = tcdc.coded_plan(4, k, m_l, T, r, layout, N_SM, 1, elem=2)
+        pstride = r * wd if layout == "folded" else m_l
+        assert bf.elem == 2 and bf.variant.endswith("-bf16")
+        assert bf.aligned == (pstride % 8 == 0 and T * m_l % 8 == 0
+                              and m_l % 4 == 0 and wd % 4 == 0)
+        assert bf.lead == (8 if bf.aligned and (m_l % 8 or wd % 8) else 0)
+        if bf.bn == f32.bn and bf.aligned and f32.aligned:
+            cap = stream_plan.stage_rows(T + r, bf.pitch, 2)
+            assert cap >= 2 * stream_plan.stage_rows(T + r, f32.pitch) - 1
+        check_limits(bf, T + r)
+        check_cover(bf, 4, k, m_l, wd if layout == "folded" else None)
+    assert not tcdc.coded_plan(4, k, 1024, 4, 2, "folded", N_SM, 1,
+                               ldw=4 * 1024 + 4, elem=2).aligned
+
+
+@pytest.mark.parametrize("rows", [1, 4, 9, 17])
+@pytest.mark.parametrize("T,elem", [(4, 2), (16, 4), (16, 2)])
+def test_head_plan_t16_and_bf16(T, elem, rows):
+    """Kernel 2 at T = 16 (17 streams: 4- and 8-row blocks) and on bf16
+    weights: granite's bf16 head at T = 4 (m_l = 12292, no whole 16-byte
+    vectors) takes the copy engine through its 2-D map once its parity
+    lives in rows of whole vectors (``head_parity``), and the ordinary
+    loads with a contiguous parity."""
+    k, m_l = 4096, head_width(T)
+    rb, aligned = tdec.head_variant(rows, m_l, T * m_l, m_l, True, T, elem,
+                                    -(-m_l // 8) * 8)
+    assert aligned
+    assert rb == (4 if rows <= 4 else 8 if rows <= 8 or T == 16 else 16)
+    plan = tdec.head_plan(rows, k, m_l, T, N_SM, card_occupancy(rb),
+                          aligned, elem)
+    check_limits(plan, T + 1)
+    check_cover(plan, rows, k, m_l)
+    lead = tdec.head_lead(m_l, T * m_l, m_l, aligned, elem)
+    assert lead == (8 if elem == 2 and m_l % 8 else 0)
+    wide = tdec.head_plan(rows, k, m_l, T, N_SM, card_occupancy(rb),
+                          aligned, elem, lead)
+    assert wide.lead == lead and wide.pitch <= 256
+    check_limits(wide, T + 1)
+    check_cover(wide, rows, k, m_l)
+    if elem == 2 and m_l % 8:
+        assert not tdec.head_variant(rows, m_l, T * m_l, m_l, True, T,
+                                     elem)[1]
+    w = torch.zeros((T, 8, m_l), dtype=torch.bfloat16 if elem == 2
+                    else torch.float32)
+    pw = tdec.head_parity(w)
+    assert pw.shape == (8, m_l) and pw.stride(0) * elem % 16 == 0
+
+
+def test_t16_plan_emulations_split_k():
+    """The small T = 16 shapes below (k = 128) split k on a small card
+    where the tile is wide enough for short stages."""
+    assert tcdc.coded_plan(5, 128, 64, 16, 2, "dedicated", 3, 2).ksplit > 1
+    assert tdec.head_plan(4, 128, 64, 16, 3, 2).ksplit > 1
+
+
+@pytest.mark.parametrize("layout", ["folded", "dedicated"])
+@pytest.mark.parametrize("r", [1, 2])
+def test_coded_plan_emulation_t16_matches_reference(r, layout):
+    """Kernel 1's split plan at T = 16 (k = 128, m_l = 64, 5 rows, a small
+    card) emulated on the CPU: equal to the reference oracle and its
+    Pallas kernel (interpret) within 1e-5 under the all-valid mask and
+    every single dead shard, the dead shard's weights (and, folded, its
+    parity slot) NaN. Folded r = 1 tolerates no device failure (the dead
+    device holds a slice's only parity), so there the shard's output is
+    erased and the parity slots stay readable (a message erasure)."""
+    T, rows, k, m_l = 16, 5, 128, 64
+    rng = np.random.default_rng(31 + r)
+    x = rng.normal(size=(rows, k)).astype(np.float32)
+    w = (rng.normal(size=(k, T * m_l)) / np.sqrt(k)).astype(np.float32)
+    jspec = jcl.CodedDenseSpec(jcoding.CodeSpec(T, r), layout=layout)
+    tspec = tcl.CodedDenseSpec(tcoding.CodeSpec(T, r), layout=layout)
+    wc = np.asarray(jcl.make_parity_weights(jnp.asarray(w), jspec))
+    plan = tcdc.coded_plan(rows, k, m_l, T, r, layout, 3, 2)
+    gen = np.asarray(jcoding.generator_matrix(T, r), np.float32)
+    w_sh = jnp.asarray(w).reshape(k, T, m_l).transpose(1, 0, 2)
+    pw = jnp.asarray(wc) if layout == "dedicated" else \
+        jcl.unfold_parity(jnp.asarray(wc), T, r)
+    device = not (layout == "folded" and r == 1)
+    for valid in masks(T):
+        vp = valid if device else (True,) * T
+        wn, wcn = w.copy(), wc.copy()
+        for d in range(T):
+            if not valid[d]:
+                wn[:, d * m_l:(d + 1) * m_l] = np.nan
+                if layout == "folded" and device:
+                    wcn[d] = np.nan
+        te, tc = tcdc.eq12_plan(tspec, torch.tensor(valid),
+                                torch.tensor(vp), m_l)
+        got = emulate_coded(plan, x, wn, wcn, layout, T, r, gen,
+                            te.numpy(), tc.numpy(), valid)
+        assert np.isfinite(got).all(), f"NaN spread (mask {valid})"
+        je, jc = jcdc.eq12_plan(jspec, jnp.asarray(valid), jnp.asarray(vp),
+                                m_l)
+        args = (jnp.asarray(x), w_sh, pw, jnp.asarray(gen), je, jc,
+                jnp.asarray(valid))
+        np.testing.assert_allclose(
+            got, np.asarray(jref.cdc_coded_matmul_ref(*args)),
+            err_msg=f"mask {valid}", rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(
+            got, np.asarray(jcdc.cdc_coded_matmul_pallas(*args,
+                                                         interpret=True)),
+            err_msg=f"mask {valid}", rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b", [4, 9])
+def test_head_plan_emulation_t16_matches_reference(b):
+    """Kernel 2's split plan at T = 16 (k = 128, m_l = 64, a small card)
+    emulated on the CPU: the oracle's and the Pallas kernel's tokens, and
+    their max within 1e-5, under every mask with <= 1 dead shard, with a
+    vocab that cuts the last shard."""
+    T, k, m_l = 16, 128, 64
+    rng = np.random.default_rng(37 + b)
+    x = rng.normal(size=(b, k)).astype(np.float32)
+    w_shards = (rng.normal(size=(T, k, m_l)) / np.sqrt(k)).astype(np.float32)
+    pw = w_shards.sum(0)
+    vocab = T * m_l - 11
+    plan = tdec.head_plan(b, k, m_l, T, 3, 2)
+    for valid in masks(T):
+        tok, vmax = emulate_head(plan, x, w_shards, pw, valid, vocab)
+        for rt, rm in head_references(x, w_shards, pw, valid, vocab):
+            np.testing.assert_array_equal(tok, rt, err_msg=f"mask {valid}")
+            np.testing.assert_allclose(vmax, rm, err_msg=f"mask {valid}",
+                                       rtol=1e-5, atol=1e-5)

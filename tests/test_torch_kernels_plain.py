@@ -19,12 +19,14 @@ import torch
 
 from repro.core import coded_layer as jcl
 from repro.core import coding as jcoding
+from repro.kernels import cdc_decode as jdec
 from repro.kernels import cdc_matmul as jcdc
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import coded_layer as tcl
 from repro_torch.core import coding as tcoding
 from repro_torch.kernels import cdc_decode, cdc_matmul as tcdc
+from repro_torch.kernels import cdc_encode as tenc
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -375,3 +377,167 @@ def test_encode_cost_model_matches_reference():
     ops_in = [("float32", [2, 4]), ("float32", [4, 4096, 3200])]
     assert tops.KERNEL_COSTS["cdc_encode"](out, ops_in) == \
         jops.KERNEL_COSTS["cdc_encode_pallas"](out, ops_in)
+
+
+# ----------------------------------------------- T = 16 and bf16 storage ----
+
+BTOL = dict(rtol=2e-2, atol=2e-2)   # the reference's bf16 oracle bound
+
+
+def single_masks(T):
+    """The all-valid mask and every single dead shard: the kernels'
+    regime."""
+    return masks(T, 1)
+
+
+@pytest.mark.parametrize("layout", ["folded", "dedicated"])
+@pytest.mark.parametrize("r", [1, 2])
+def test_coded_matmul_plain_t16_matches_reference_pallas(r, layout):
+    """Kernel 1's plain version (its wrapper on CPU tensors) at T = 16 ==
+    the reference's Pallas kernel in interpret mode within 1e-5, under the
+    all-valid mask and every single dead shard (k = 128, m_l = 32)."""
+    T, rows, k, m_l = 16, 3, 128, 32
+    jspec, tspec = specs(T, r, layout)
+    rng = np.random.default_rng(40 + r)
+    x = rng.normal(size=(rows, k)).astype(np.float32)
+    w = (rng.normal(size=(k, T * m_l)) / np.sqrt(k)).astype(np.float32)
+    jp = np.asarray(jcl.make_parity_weights(jnp.asarray(w), jspec))
+    w_st = jnp.asarray(w).reshape(k, T, m_l).transpose(1, 0, 2)
+    pw = jnp.asarray(jp) if layout == "dedicated" else \
+        jcl.unfold_parity(jnp.asarray(jp), T, r)
+    gen = tcoding.generator_tensor(tspec.code)
+    for mask in single_masks(T):
+        te, tc = tcdc.eq12_plan(tspec, torch.tensor(mask),
+                                torch.tensor(mask), m_l)
+        t = tcdc.cdc_coded_matmul(torch.from_numpy(x), torch.from_numpy(w),
+                                  torch.from_numpy(jp.copy()), layout, T, r,
+                                  gen, te, tc, mask)
+        je, jc = jcdc.eq12_plan(jspec, jnp.asarray(mask), jnp.asarray(mask),
+                                m_l)
+        j = jcdc.cdc_coded_matmul_pallas(
+            jnp.asarray(x), w_st, pw, jnp.asarray(gen.numpy()), je, jc,
+            jnp.asarray(mask), interpret=True)
+        close(t, j, msg=f"(16, {r}) {layout} mask={mask}")
+
+
+def test_fused_head_plain_t16_matches_reference_pallas():
+    """Kernel 2's plain version at T = 16 == the reference's Pallas kernel
+    in interpret mode: equal tokens, max within 1e-5, every mask with <= 1
+    dead shard, a vocab that cuts the last shard."""
+    T, k, m_l, b = 16, 64, 24, 3
+    rng = np.random.default_rng(44)
+    x = rng.normal(size=(b, k)).astype(np.float32)
+    w = rng.normal(size=(T, k, m_l)).astype(np.float32)
+    pw = w.sum(0)
+    vocab = T * m_l - 5
+    for mask in single_masks(T):
+        tt, tm = cdc_decode.cdc_fused_head_argmax(
+            torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(pw),
+            mask, vocab=vocab)
+        pt, pm = jdec.cdc_fused_head_argmax_pallas(
+            jnp.asarray(x), jnp.asarray(w), jnp.asarray(pw),
+            jnp.asarray(mask), vocab=vocab, interpret=True)
+        np.testing.assert_array_equal(tt.numpy(), np.asarray(pt))
+        close(tm, pm, msg=f"mask {mask}")
+
+
+@pytest.mark.parametrize("T,r,layout", [(4, 2, "folded"), (4, 1, "dedicated"),
+                                        (16, 2, "folded")])
+def test_coded_matmul_plain_bf16_matches_reference_pallas(T, r, layout):
+    """Kernel 1's plain version on bf16 x, weights and parity == the
+    reference's Pallas kernel in interpret mode on the same bf16 values,
+    within 2e-2, and its output dtype is the reference's (x's: bf16)."""
+    rows, k = 4, 128
+    m_l = 2 * T if layout == "folded" else 24
+    jspec, tspec = specs(T, r, layout)
+    rng = np.random.default_rng(50 + T + r)
+    x = rng.normal(size=(rows, k)).astype(np.float32)
+    w = (rng.normal(size=(k, T * m_l)) / np.sqrt(k)).astype(np.float32)
+    jw = jnp.asarray(w).astype(jnp.bfloat16)
+    jp = jcl.make_parity_weights(jw, jspec)
+    tw = torch.from_numpy(w).to(torch.bfloat16)
+    tp = tcl.make_parity_weights(tw, tspec)
+    assert tp.dtype == torch.bfloat16 and jp.dtype == jnp.bfloat16
+    gen = tcoding.generator_tensor(tspec.code)
+    pw = jp if layout == "dedicated" else jcl.unfold_parity(jp, T, r)
+    for mask in single_masks(T):
+        te, tc = tcdc.eq12_plan(tspec, torch.tensor(mask),
+                                torch.tensor(mask), m_l)
+        t = tcdc.cdc_coded_matmul(torch.from_numpy(x).to(torch.bfloat16), tw,
+                                  tp, layout, T, r, gen, te, tc, mask)
+        je, jc = jcdc.eq12_plan(jspec, jnp.asarray(mask), jnp.asarray(mask),
+                                m_l)
+        j = jcdc.cdc_coded_matmul_pallas(
+            jnp.asarray(x).astype(jnp.bfloat16),
+            jw.reshape(k, T, m_l).transpose(1, 0, 2), pw,
+            jnp.asarray(gen.numpy()), je, jc, jnp.asarray(mask),
+            interpret=True)
+        assert t.dtype == torch.bfloat16 and j.dtype == jnp.bfloat16
+        close(t.float(), np.asarray(j.astype(jnp.float32)), BTOL,
+              msg=f"bf16 ({T}, {r}) {layout} mask={mask}")
+
+
+@pytest.mark.parametrize("x_bf16", [False, True])
+def test_fused_head_plain_bf16_matches_reference_pallas(x_bf16):
+    """Kernel 2's plain version on bf16 head weights (float32 x as the
+    serving round gives it, or bf16 x) == the reference's Pallas kernel in
+    interpret mode: equal tokens, max within 2e-2, int32 token and float32
+    max as the reference returns them."""
+    T, k, m_l, b = 4, 64, 40, 3
+    rng = np.random.default_rng(46)
+    x = rng.normal(size=(b, k)).astype(np.float32)
+    w = rng.normal(size=(T, k, m_l)).astype(np.float32)
+    jw = jnp.asarray(w).astype(jnp.bfloat16)
+    tw = torch.from_numpy(w).to(torch.bfloat16)
+    jx = jnp.asarray(x).astype(jnp.bfloat16) if x_bf16 else jnp.asarray(x)
+    tx = torch.from_numpy(x).to(torch.bfloat16) if x_bf16 else \
+        torch.from_numpy(x)
+    vocab = T * m_l - 3
+    for mask in single_masks(T):
+        tt, tm = cdc_decode.cdc_fused_head_argmax(
+            tx, tw, cdc_decode.head_parity(tw), mask, vocab=vocab)
+        pt, pm = jdec.cdc_fused_head_argmax_pallas(
+            jx, jw, jw.sum(0), jnp.asarray(mask), vocab=vocab,
+            interpret=True)
+        assert tt.dtype == torch.int32 and pt.dtype == jnp.int32
+        assert tm.dtype == torch.float32 and pm.dtype == jnp.float32
+        np.testing.assert_array_equal(tt.numpy(), np.asarray(pt))
+        close(tm, pm, BTOL, msg=f"mask {mask}")
+
+
+@pytest.mark.parametrize("T,r", [(4, 2), (16, 2)])
+def test_encode_plain_bf16_matches_reference_kernel(T, r):
+    """Kernel 4's plain version on bf16 shards == the reference's Pallas
+    encode in interpret mode within 2e-2, with bf16 parity as the
+    reference returns it."""
+    rng = np.random.default_rng(48 + T)
+    w = rng.normal(size=(T, 128, 64)).astype(np.float32)
+    gen = jcoding.generator_matrix(T, r)
+    want = jops.cdc_encode(jnp.asarray(w).astype(jnp.bfloat16), gen)
+    got = tops.cdc_encode(torch.from_numpy(w).to(torch.bfloat16), gen)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    close(got.float(), np.asarray(want.astype(jnp.float32)), BTOL)
+
+
+@pytest.mark.parametrize("T", [3, 6, 12, 32])
+@pytest.mark.parametrize("kernel", ["coded_matmul", "fused_head",
+                                    "decode_merge", "encode", "decode"])
+def test_kernels_refuse_a_code_width_they_have_no_case_for(kernel, T):
+    """Each coded kernel's wrapper validates T (and r) before any build or
+    launch: a ValueError naming T and the T it is built for. The widths
+    they are built for pass."""
+    check = {"coded_matmul": lambda t: tcdc.check_code(t, 2),
+             "fused_head": cdc_decode.check_head,
+             "decode_merge": tcdc.check_merge,
+             "encode": lambda t: tenc.check_code(t, 2),
+             "decode": cdc_decode.check_decode}[kernel]
+    with pytest.raises(ValueError, match=f"T={T}.*(2, 4, 8, 16)"):
+        check(T)
+    for ok in (2, 4, 8, 16):
+        check(ok)
+    if kernel == "coded_matmul":
+        with pytest.raises(ValueError, match="T=16, r=5"):
+            tcdc.check_code(16, 5)
+    if kernel == "encode":
+        with pytest.raises(ValueError, match="T=16, r=5"):
+            tenc.check_code(16, 5)
