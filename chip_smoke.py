@@ -11,7 +11,8 @@ Phases, each of which raises on failure (exit code non-zero):
      granite-3-8b's full-width shapes: the parity encode (rtol = atol =
      1e-5; wq, wk, w1 stacked over 40 layers and the head, r = 1..4, both
      layouts, a ragged shape, T = 2, 8 and 16; on bf16 the whole stacked
-     encode within 2e-2, bitwise repeatable), the coded GEMM and the fused
+     encode at N(0, 1) weights within 2e-2, bitwise repeatable), the
+     coded GEMM and the fused
      head under the all-valid mask and every single dead shard (float32,
      rtol = atol = 1e-4; the coded GEMM also at (T, r) = (4, 3) dedicated,
      (4, 4) folded, (8, 3) and (8, 4) in both layouts, and T = 16 at r =
@@ -28,11 +29,12 @@ Phases, each of which raises on failure (exit code non-zero):
      instantiation (bulk copies or ordinary loads, 4/8/16 rows a block)
      must launch and repeats must be bitwise equal; kernel 2 also at its
      plan's edges (T = 2, 4, 8, 16; rows 1-17; ragged m_l, k = 4093, an
-     offset head; integer-valued inputs, so tokens and max equal the plain
-     version's to the bit; float32 and bf16) with ties across tiles and
-     across k splits resolving to the smaller id, every (T, instantiation)
-     launched, and kernel 6 at rows 1-1000, d 4096/12800/4093, bf16 and
-     strided rows, bitwise repeatable;
+     offset head, shards apart and stacked; integer-valued inputs, so
+     tokens and max equal the plain version's to the bit; float32 and
+     bf16) with ties across tiles and across k splits resolving to the
+     smaller id, every (T, instantiation) launched, and kernel 6 at rows
+     1-1000, d 4096/12800/4093, bf16 and strided rows, bitwise
+     repeatable;
   3. serve granite-3-8b at full width (40 layers, d 4096, T=4, r=2 folded,
      float32, random weights from a seeded torch.Generator) through
      ServingEngine.generate: 4 requests, prompt 16, 16 new tokens, fault
@@ -73,12 +75,15 @@ Phases, each of which raises on failure (exit code non-zero):
      1 200 times a round through both producers, kernel 2 once), and on
      the reference variant: identical token streams;
   9. a bf16 coded granite-3-8b at full width (Model.init(dtype=bf16), T =
-     4, r = 2 folded): its parity encoded by kernel 4 on bf16, the first
-     decode step's max logit of the fused round within 6e-2 (the
-     reference's bf16 TOL) of the bf16 reference variant's, 16 tokens
+     4, r = 2 folded): its parity encoded by kernel 4 on bf16, 16 tokens
      served through kernels 1, 2 and 6 on bf16 (200 + 1 + 81 launches a
-     round), the leading tokens on which the fused and reference streams
-     agree reported, device time per round by the profiler.
+     round) and on the reference variant; the first served round's max
+     logit from the fused round's own kernel-2 call within 6e-2 (the
+     reference's bf16 TOL) of the reference round's, and where a fused
+     stream leaves the reference one, its token within 6e-2 of the
+     reference's max (a rounding tie; the split's top-2 gap is logged);
+     the leading tokens on which the streams agree reported, device time
+     per round by the profiler.
 Phases 3 and 5 also count the RMSNorm kernel: 2 x 40 + 1 = 81 launches
 per decode round (fused and reference variants) and per prefill.
 Peak device memory is printed per phase. The line before the last is the
@@ -87,6 +92,7 @@ Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -305,12 +311,14 @@ def check_head_edges(dtype=torch.float32) -> float:
     shard's last tile); T = 2 at an aligned m_l = 12292; ragged m_l 1001
     and 2051 (ordinary loads, each row block) with the vocab cut 7 columns
     short; k = 4093; the head at a 4-byte offset (ordinary loads at
-    granite's width). Integer-valued inputs, exact in bf16 too: tokens and
-    max must equal the plain version's to the bit, ties (frequent here)
-    included. Every (T, instantiation) of the storage type must launch
-    (on bf16, granite's T = 4 head, whose shards start between 16-byte
-    boundaries, with box rows a vector wider than the tile), and two
-    launches on the same inputs give the same bits."""
+    granite's width); column shards 4 and 8 columns apart (the 2-D map
+    at shard offsets off and on a 16-byte boundary) and shards stored one
+    after another (the 3-D map). Integer-valued inputs, exact in bf16
+    too: tokens and max must equal the plain version's to the bit, ties
+    (frequent here) included. Every (T, instantiation) of the storage
+    type must launch (on bf16, granite's T = 4 head, whose shards start
+    between 16-byte boundaries, with box rows a vector wider than the
+    tile), and two launches on the same inputs give the same bits."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import cdc_decode
     vocab = get_arch("granite-3-8b").vocab
@@ -318,16 +326,23 @@ def check_head_edges(dtype=torch.float32) -> float:
     gen = torch.Generator(device="cuda").manual_seed(24)
     rows_all = (1, 4, 5, 8, 9, 12, 17)
     ts = (2, 4, 8, 16)
-    cases = [(t, _pad_head(vocab, t), K, rows_all, 0, vocab) for t in ts]
-    cases += [(2, 12292, K, (4, 5, 9), 0, 2 * 12292 - 5)]
-    cases += [(t, 1001, 4093, (4, 5), 0, t * 1001 - 7) for t in ts]
-    cases += [(t, 2051, K, (17,), 0, t * 2051 - 7) for t in ts]
-    cases += [(4, 12292, 4093, (4,), 0, vocab), (4, 12292, K, (4, 9), 1,
-                                                 vocab)]
+    # (T, m_l, k, rows, offset, vocab, gap between shards: None = stacked)
+    cases = [(t, _pad_head(vocab, t), K, rows_all, 0, vocab, 0) for t in ts]
+    cases += [(2, 12292, K, (4, 5, 9), 0, 2 * 12292 - 5, 0)]
+    cases += [(t, 1001, 4093, (4, 5), 0, t * 1001 - 7, 0) for t in ts]
+    cases += [(t, 2051, K, (17,), 0, t * 2051 - 7, 0) for t in ts]
+    cases += [(4, 12292, 4093, (4,), 0, vocab, 0),
+              (4, 12292, K, (4, 9), 1, vocab, 0)]
+    cases += [(4, 2048, K, (4, 9), 0, 4 * 2048 - 7, gap)
+              for gap in (4, 8, None)]
     seen, worst, n, lead = set(), 0.0, 0, 0
-    for t, m_l, k, rows_list, offset, voc in cases:
-        buf = _int_head((k, t * m_l + offset), gen).to(dtype)
-        w_shards = buf[:, offset:].reshape(k, t, m_l).permute(1, 0, 2)
+    for t, m_l, k, rows_list, offset, voc, gap in cases:
+        if gap is None:
+            buf = w_shards = _int_head((t, k, m_l), gen).to(dtype)
+        else:
+            buf = _int_head((k, t * (m_l + gap) + offset), gen).to(dtype)
+            w_shards = buf[:, offset:].reshape(k, t, m_l + gap)[..., :m_l] \
+                .permute(1, 0, 2)
         pw = cdc_decode.head_parity(w_shards)
         for rows in rows_list:
             x = _int_head((rows, k), gen, -2, 2).to(dtype)
@@ -366,8 +381,9 @@ def check_head_edges(dtype=torch.float32) -> float:
                              "differ")
     log(f"kernel cdc_fused_head_argmax at its plan's edges ({dtype}): {n} "
         f"cases (T 2/4/8/16, rows 1-17, m_l 1001/2051/12292/granite, k "
-        f"4093, offset head, every mask) equal to the plain version to the "
-        f"bit; repeats bitwise equal; (T, instantiation) launched "
+        f"4093, offset head, shards 4 and 8 columns apart, stacked shards, "
+        f"every mask) equal to the plain version to the bit; repeats "
+        f"bitwise equal; (T, instantiation) launched "
         f"{sorted(seen)}")
     return worst
 
@@ -1021,12 +1037,17 @@ def check_encode(cfg) -> float:
     return worst
 
 
-def check_encode_bf16(cfg) -> float:
+def check_encode_bf16(cfg) -> tuple[float, float]:
     """Kernel 4 on bf16 shards (bf16 parity, float32 math) against its
     plain version within 2e-2: the whole stacked encode of granite-3-8b
     at T = 4, r = 2 folded (wq, wk, wv, w1, w3 over all layers and the
     head), each leaf encoded twice to the same bits; the dedicated layout,
-    a ragged shape (the scalar path) and T = 16 at r = 2."""
+    a ragged shape (the scalar path) and T = 16 at r = 2. Unit-scale
+    N(0, 1) weights, as the CPU test of the plain version holds them:
+    parities of typical size 1-4, so rtol = atol = 2e-2 is a few bf16
+    steps and a shard dropped from a parity row (an error of ~0.25 or
+    more) fails.
+    Returns (max abs err, max |parity|)."""
     from repro_torch.core.coding import generator_matrix
     from repro_torch.kernels import cdc_encode as enc
     from repro_torch.models.common import TPCtx
@@ -1038,10 +1059,10 @@ def check_encode_bf16(cfg) -> float:
                ("wq", (L, K, T * GEMMS["wq"]), T, 3, "dedicated"),
                ("ragged", (1000, T * 100), T, 2, "folded"),
                ("T=16", (K, 16 * 256), 16, 2, "folded")]
-    worst = 0.0
+    worst = scale = 0.0
     for name, shape, t, r, layout in leaves:
-        w = (torch.randn(shape, generator=gen, device="cuda")
-             / K ** 0.5).to(torch.bfloat16)
+        w = torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
         sh = _shards(w, t)
         g = generator_matrix(t, r)
         got = enc.cdc_encode(sh, g, layout=layout)
@@ -1054,13 +1075,15 @@ def check_encode_bf16(cfg) -> float:
         torch.testing.assert_close(got, want, **BF16_TOL, msg=lambda m: (
             f"bf16 encode {name} {shape} T={t} r={r} {layout}: {m}"))
         worst = max(worst, float((got.float() - want.float()).abs().max()))
+        scale = max(scale, float(want.float().abs().max()))
         del w, sh, got, again, want
     torch.cuda.empty_cache()
     log(f"kernel cdc_encode on bf16: {len(leaves)} leaves (granite's whole "
         f"stacked encode at T=4, r=2 folded; dedicated; ragged; T=16) within "
-        f"rtol=atol=2e-2 of the plain version, max abs err {worst:.3e}; "
-        f"every leaf encoded twice to the same bits")
-    return worst
+        f"rtol=atol=2e-2 of the plain version at N(0, 1) weights (max "
+        f"|parity| {scale:.3f}), max abs err {worst:.3e}; every leaf "
+        f"encoded twice to the same bits")
+    return worst, scale
 
 
 def _phase_memory(name: str):
@@ -1368,6 +1391,13 @@ def time_kernels(cfg, rows: int = 4) -> list[dict]:
                           .reshape(K, r * m_l)], dim=1)
         cdc_matmul.cdc_coded_matmul.variants.clear()
         ms = _time(lambda: _run_coded(x, w, wc, spec, valid), flush)
+        if not out:
+            # the phase's first reading ran ~12% above kernel_times.py's
+            # at the same shape: timed again, both logged
+            first, ms = ms, _time(lambda: _run_coded(x, w, wc, spec, valid),
+                                  flush)
+            log(f"cdc_coded_matmul {name} [rows={rws}, T={T}, r={r}]: the "
+                f"phase's first reading {first:.4f} ms, then {ms:.4f} ms")
         variant, = cdc_matmul.cdc_coded_matmul.variants
         plain = _time(lambda: _run_coded(x, w, wc, spec, valid, plain=True),
                       flush)
@@ -1422,41 +1452,44 @@ def time_kernels(cfg, rows: int = 4) -> list[dict]:
 
 def time_wide_and_bf16(cfg, gen, flush, rows: int = 4) -> list[dict]:
     """Kernels 1 and 2 on bf16 storage at T = 4 and in float32 at T = 16,
-    at the decode round's rows: kernel 1 at granite's w1, wq and wk (r = 2
-    folded), kernel 2 at its head; beside their plain versions and one
-    torch.matmul of x over the same weights, concatenated, in their
-    storage type. Bounds: the bytes in their storage type, or the FLOPs at
-    the type's peak (bf16: the tensor cores')."""
+    at the decode round's rows: kernel 1 at granite's w1 (r = 2 and 4), wq
+    and wk (r = 2), folded (``kernel_times.WIDE_AND_BF16``, the shapes
+    ``kernel_times.py --new`` times), kernel 2 at its head; beside their
+    plain versions and one torch.matmul of x over the same weights,
+    concatenated, in their storage type. Bounds: the bytes in their
+    storage type, or the FLOPs at the type's peak (bf16: the tensor
+    cores')."""
+    from kernel_times import WIDE_AND_BF16
     from repro_torch.core.coded_layer import unfold_parity
     from repro_torch.kernels import cdc_decode, cdc_matmul, ref
     from repro_torch.models.common import TPCtx
     out = []
-    for dtype, t in ((torch.bfloat16, T), (torch.float32, T16)):
+    for t, dtype, gemms in WIDE_AND_BF16:
         e = 2 if dtype == torch.bfloat16 else 4
         peak = BF16_FLOPS if e == 2 else F32_FLOPS
         tag = f"T={t} {str(dtype).split('.')[-1]}"
-        for name in ("w1", "wq", "wk"):
-            m_l = GEMMS[name] * T // t
-            spec, x, w, wc = _coded_case(m_l, rows, "folded", gen, r=R, t=t,
+        for name, width, r in gemms:
+            m_l = width // t
+            spec, x, w, wc = _coded_case(m_l, rows, "folded", gen, r=r, t=t,
                                          dtype=dtype)
             valid = (True,) * t
-            wcat = torch.cat([w, unfold_parity(wc, t, R).permute(1, 0, 2)
-                              .reshape(K, R * m_l)], dim=1)
+            wcat = torch.cat([w, unfold_parity(wc, t, r).permute(1, 0, 2)
+                              .reshape(K, r * m_l)], dim=1)
             cdc_matmul.cdc_coded_matmul.variants.clear()
             ms = _time(lambda: _run_coded(x, w, wc, spec, valid), flush)
             variant, = cdc_matmul.cdc_coded_matmul.variants
             plain = _time(lambda: _run_coded(x, w, wc, spec, valid,
                                              plain=True), flush)
             lib = _time(lambda: torch.matmul(x, wcat), flush)
-            bound, by = _bound(e * (rows * K + (t + R) * K * m_l
+            bound, by = _bound(e * (rows * K + (t + r) * K * m_l
                                     + rows * t * m_l) + 8.0 * m_l,
-                               2.0 * rows * K * m_l * (t + R), peak)
-            out.append({"gemm": name, "r": R, "rows": rows, "m_l": m_l,
+                               2.0 * rows * K * m_l * (t + r), peak)
+            out.append({"gemm": name, "r": r, "rows": rows, "m_l": m_l,
                         "case": tag, "ms": ms, "plain_ms": plain,
                         "library_ms": lib, "bound_ms": bound,
                         "bound_by": by, "variant": variant})
             log(f"cdc_coded_matmul {name} {tag} [rows={rows}, k={K}, "
-                f"m_l={m_l}, r={R} folded]: kernel {ms:.4f} ms, plain "
+                f"m_l={m_l}, r={r} folded]: kernel {ms:.4f} ms, plain "
                 f"{plain:.4f} ms, library matmul {lib:.4f} ms, bound "
                 f"{bound:.4f} ms ({by}); {variant}")
             del x, w, wc, wcat
@@ -1760,41 +1793,81 @@ def serve_t16(cfg) -> dict:
             "peak_gib": peak}
 
 
-def first_step_max(eng, batch, vocab: int) -> tuple:
-    """The first decode step's max logit per request, from one prefill
-    each: the fused round's (kernel 2's max, after kernels 1 and 6) and the
-    reference variant's (the max of its logits)."""
-    import dataclasses
-    from repro_torch.kernels import cdc_decode, ops
-    st = eng.stepper
-    v = st._mask(eng.valid)
-    logits0, state = st.prefill(batch, eng.valid)
-    tok0 = st.greedy(logits0)
-    fm = dataclasses.replace(st.model, ctx=dataclasses.replace(
-        st.model.ctx, fused_body=True))
-    hidden, _ = fm.decode(st.params, state, tok0, v, return_hidden=True)
-    w = st.params["lm_head"]["w"]
-    w_shards = w.view(w.shape[0], st.n_shards, -1).permute(1, 0, 2)
-    _, fmax = ops.fused_head_argmax(
-        hidden[:, -1].to(torch.float32).contiguous(), w_shards,
-        cdc_decode.head_parity(w_shards), v, vocab=vocab)
-    _, state = st.prefill(batch, eng.valid)
-    logits1, _ = st.decode_one(state, tok0, eng.valid)
-    return fmax, logits1[:, -1].to(torch.float32).max(-1).values
+@contextlib.contextmanager
+def recorded_rounds():
+    """Keep what every decode round of VStep computes, adding no device
+    work: the fused round's (token, max logit) from its own kernel-2 call
+    (``ops.fused_head_argmax``), and the reference round's last-position
+    logits."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.executor import vstep
+    rec: dict[str, list] = {"fused": [], "reference": []}
+    head, reference = ops.fused_head_argmax, vstep.VStep._round
+
+    def fused_head(*a, **kw):
+        out = head(*a, **kw)
+        rec["fused"].append(out)
+        return out
+
+    def reference_round(self, *a):
+        out = reference(self, *a)
+        rec["reference"].append(out[2][:, 0])
+        return out
+
+    ops.fused_head_argmax, vstep.VStep._round = fused_head, reference_round
+    try:
+        yield rec
+    finally:
+        ops.fused_head_argmax, vstep.VStep._round = head, reference
+
+
+def split_report(ft, rt, fused: list, reference: list, tol: float) -> list:
+    """Where a fused stream first leaves the reference stream (token j >=
+    1, made by decode round j - 1 from the same history): the reference
+    round's top-2 logit gap, how far below the reference's max it puts the
+    fused token, and kernel 2's max there. A fused token within ``tol`` of
+    the reference's max is a bf16 rounding tie; one further below is a
+    fault, and raises."""
+    out = []
+    for i, (a, b) in enumerate(zip(ft, rt)):
+        j = int(np.argmin(np.append(a == b, False)))
+        if j == len(a):
+            continue
+        if j == 0:
+            raise AssertionError(f"bf16 stream {i}: the prefill tokens "
+                                 f"differ ({a[0]} vs {b[0]})")
+        logits = reference[j - 1][i].float()
+        top = logits.topk(2).values
+        below = float(top[0] - logits[int(a[j])])
+        out.append({"stream": i, "token": j, "fused": int(a[j]),
+                    "reference": int(b[j]),
+                    "reference_top2_gap": float(top[0] - top[1]),
+                    "fused_below_reference_max": below,
+                    "fused_max": float(fused[j - 1][1][i]),
+                    "reference_max": float(top[0])})
+        if below > tol:
+            raise AssertionError(f"bf16 stream {i} leaves the reference at "
+                                 f"token {j} for a token {below:.4f} below "
+                                 f"the reference's max (TOL {tol}): "
+                                 f"{out[-1]}")
+    return out
 
 
 def serve_bf16(cfg) -> dict:
     """A bf16 coded granite-3-8b at full width (Model.init(dtype=bf16), T
     = 4, r = 2 folded): its parity encoded by kernel 4 on bf16 (6 leaves at
-    init, 6 again at the engine's encode); the first decode step's max
-    logit of the fused round within the reference's bf16 TOL (6e-2) of
-    the bf16 reference variant's; 16 tokens served through the fused round
-    (kernels 1, 2 and 6 on bf16: their bf16 instantiations, 200 + 1 + 81
-    launches a round) and on the reference variant, the leading tokens on
-    which the two streams agree reported (bf16 rounds in other places on
-    the two paths: not required equal); device time per fused round by
-    the profiler; a bf16 re-encode bitwise equal to the first, and kernel
-    4 timed per leaf and whole on the bf16 weights."""
+    init, 6 again at the engine's encode); 16 tokens served through the
+    fused round (kernels 1, 2 and 6 on bf16: their bf16 instantiations,
+    200 + 1 + 81 launches a round) and on the reference variant. The max
+    logit of the first served round, from the fused round's own kernel-2
+    call, must be within the reference's bf16 TOL (6e-2) of the reference
+    round's; where a fused stream leaves the reference one (bf16 rounds
+    in other places on the two paths: the streams are not required
+    equal), its token must be within that TOL of the reference's max
+    (``split_report``). Reported: the leading tokens on which the streams
+    agree, device time per fused round by the profiler, a bf16 re-encode
+    bitwise equal to the first, and kernel 4 timed per leaf and whole on
+    the bf16 weights."""
     from repro_torch.kernels import cdc_encode
     from repro_torch.models import TPCtx, build
     from repro_torch.serve import ServeConfig, ServingEngine
@@ -1815,43 +1888,56 @@ def serve_bf16(cfg) -> dict:
         raise AssertionError(f"bf16 model: {encodes} encode launches for "
                              f"{len(leaves)} leaves (twice), parity dtypes "
                              f"{sorted({str(p.dtype) for p in leaves})}")
-    fmax, rmax = first_step_max(eng, batch, cfg.vocab)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(fmax, rmax, rtol=6e-2, atol=6e-2, msg=(
-        lambda m: f"bf16 first-step max logit, fused vs reference: {m}"))
-    fused = _serve_run(eng, batch)
+    with recorded_rounds() as rec_f:
+        fused = _serve_run(eng, batch)
     rounds = N_TOK - 1
     _check_launches("bf16 fused", fused, cfg, rounds, norms=True)
     if set(fused["k1_variants"]) != {"rb4-async-bf16"} or \
-            fused["k2_variants"] != {"rb4-async-lead-bf16": rounds}:
+            fused["k2_variants"] != {"rb4-async-lead-bf16": rounds} or \
+            len(rec_f["fused"]) != rounds or rec_f["reference"]:
         raise AssertionError(f"bf16 fused: instantiations "
                              f"{fused['k1_variants']} / "
-                             f"{fused['k2_variants']}")
+                             f"{fused['k2_variants']}, "
+                             f"{len(rec_f['fused'])} fused and "
+                             f"{len(rec_f['reference'])} reference rounds")
     med = float(np.median(fused["round_ms"]))
     breakdown = profile_rounds(eng._executors[4], eng.valid, med)
     encode = reencode_and_time(eng.stepper)
     del eng
     ref_eng = ServingEngine(model, params, scfg, use_fused=False)
-    reference = _serve_run(ref_eng, batch)
+    with recorded_rounds() as rec_r:
+        reference = _serve_run(ref_eng, batch)
     del ref_eng
+    if len(rec_r["reference"]) != rounds or rec_r["fused"]:
+        raise AssertionError(f"bf16 reference: {len(rec_r['reference'])} "
+                             f"reference and {len(rec_r['fused'])} fused "
+                             f"rounds")
+    fmax = rec_f["fused"][0][1]
+    rmax = rec_r["reference"][0].float().max(-1).values
+    torch.testing.assert_close(fmax, rmax, rtol=6e-2, atol=6e-2, msg=(
+        lambda m: f"bf16 first served round's max logit, fused vs "
+                  f"reference: {m}"))
     ft, rt = fused["tokens"], reference["tokens"]
     agree = [int(np.argmin(np.append(a == b, False))) for a, b in zip(ft, rt)]
+    splits = split_report(ft, rt, rec_f["fused"], rec_r["reference"], 6e-2)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"bf16 granite-3-8b (T=4, r=2 folded): parity by kernel 4 on bf16 "
-        f"({encodes} launches); first-step max logit fused "
-        f"{fmax.tolist()} vs reference {rmax.tolist()} (max abs diff "
-        f"{float((fmax - rmax).abs().max()):.4f}, TOL 6e-2); fused round "
-        f"median {med:.3f} ms, reference "
+        f"({encodes} launches); first served round's max logit, fused "
+        f"(kernel 2) {fmax.tolist()} vs reference {rmax.tolist()} (max abs "
+        f"diff {float((fmax - rmax).abs().max()):.4f}, TOL 6e-2); fused "
+        f"round median {med:.3f} ms, reference "
         f"{float(np.median(reference['round_ms'])):.3f} ms; leading tokens "
-        f"agreeing per stream {agree} of {N_TOK}; launches a round "
+        f"agreeing per stream {agree} of {N_TOK}; where they split {splits}; "
+        f"launches a round "
         f"{fused['k1'] // rounds} / {fused['k2'] // rounds} / "
         f"{norms_per_pass(cfg)} ({fused['k1_variants']}, "
         f"{fused['k2_variants']}, {fused['k6_variants']}); "
         f"max_memory_allocated {peak:.2f} GiB")
     return {"first_step_max": {"fused": fmax.tolist(),
                                "reference": rmax.tolist()},
-            "agree": agree, "round_ms": med, "breakdown": breakdown,
-            "encode": encode, "encodes": encodes, "peak_gib": peak}
+            "agree": agree, "splits": splits, "round_ms": med,
+            "breakdown": breakdown, "encode": encode, "encodes": encodes,
+            "peak_gib": peak}
 
 
 # ------------------------------------------------------------ phase 5 ----
@@ -2119,7 +2205,7 @@ def main() -> int:
     cfg = get_arch("granite-3-8b")
     torch.cuda.reset_peak_memory_stats()
     err4 = check_encode(cfg)
-    err4_bf16 = check_encode_bf16(cfg)
+    err4_bf16, _ = check_encode_bf16(cfg)
     err1 = max(check_coded_matmul(), check_coded_matmul_r34(),
                check_coded_matmul_t8(), check_coded_matmul_t16())
     err1_bf16 = check_coded_matmul_bf16()

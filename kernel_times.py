@@ -40,6 +40,14 @@ import torch.nn.functional as F
 
 K, T = 4096, 4
 SPIN_CYCLES = 4_000_000
+# Kernels 1 and 2 on bf16 weights at T = 4 and in float32 at T = 16, at the
+# decode round's 4 rows: (T, storage type, kernel 1's (gemm, full width,
+# r) folded); kernel 2 at granite's head. chip_smoke.py's phase 4 times
+# the same shapes.
+WIDE_AND_BF16 = tuple(
+    (t, dtype, (("w1", 12800, 2), ("w1", 12800, 4), ("wq", 4096, 2),
+                ("wk", 1024, 2)))
+    for t, dtype in ((T, torch.bfloat16), (16, torch.float32)))
 
 
 def _time(fn, flush, n=30) -> float:
@@ -200,9 +208,8 @@ def time_new(emit, gen, flush):
     from repro_torch.core.coding import CodeSpec
     from repro_torch.kernels import cdc_decode, cdc_matmul, ops
     from repro_torch.models.common import TPCtx
-    for t, dtype in ((T, torch.bfloat16), (16, torch.float32)):
-        for name, width, r in (("w1", 12800, 2), ("w1", 12800, 4),
-                               ("wq", 4096, 2), ("wk", 1024, 2)):
+    for t, dtype, gemms in WIDE_AND_BF16:
+        for name, width, r in gemms:
             m_l = width // t
             spec = CodedDenseSpec(CodeSpec(t, r), layout="folded")
             x = torch.randn((4, K), generator=gen, device="cuda").to(dtype)

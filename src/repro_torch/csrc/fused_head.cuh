@@ -19,12 +19,13 @@
 //    one TMA box [ks, bn] per stream (S = T + 1: the T head shards and the
 //    sum parity), and one consumer warp per stream does the FMAs from
 //    shared memory with 16-byte reads;
-//  * the head shards are read in place from lm_head.w through ONE 3-D
-//    tensor map with lm_head.w's strides ([k, T, m_l], or [T, k, m_l]
-//    for shards stored one after another: the smaller stride inner), so
-//    a box never runs into the next shard: m_l = 12292 is not a multiple
-//    of the tile, and the copy engine fills the columns past m_l with
-//    zeros. The parity [k, m_l] goes through a 2-D map;
+//  * the head shards are read in place: column shards of lm_head.w
+//    (shard_stride <= ldw) through ONE 2-D tensor map [k, (T - 1) *
+//    shard_stride + m_l], each box at column s * shard_stride + c0. A box
+//    of a shard's last tile (m_l = 12292 is not a multiple of the tile)
+//    runs into the next shard past m_l, zeros past the last one; those
+//    columns are never read back. Shards stored one after another take a
+//    3-D map [T, k, m_l]. The parity [k, m_l] goes through a 2-D map;
 //  * the launch plan (kernels/cdc_decode.py: head_plan) splits k so that
 //    (tiles x row blocks x splits) fills whole waves of the resident
 //    blocks. Each split writes its S raw partial sums to a workspace; the
@@ -35,16 +36,11 @@
 //  * shapes whose segments or strides are not multiples of 16 bytes take
 //    the same kernel with the producer copying by ordinary loads;
 //  * bf16 weights travel as bf16 and widen to float32 in the consumers'
-//    registers. A bf16 shard of m_l = 12292 is no whole number of 16-byte
-//    vectors, so no 3-D map can stride over it: bf16 column shards of
-//    lm_head.w are read through ONE 2-D map [k, T * m_l], each box at
-//    column s * m_l + c0. A box then runs into the next shard past m_l
-//    (zeros only past the last one); those columns are never read back.
-//    A copy must start on a 16-byte boundary, so where m_l is no whole
-//    number of vectors every box row is 8 elements wider (`lead`) and
-//    starts at the boundary before its tile; the consumer of a shard that
-//    starts 4 elements past one reads its rows 4 elements in, in 8-byte
-//    halves.
+//    registers. A copy must start on a 16-byte boundary, so where column
+//    shards start between two (a bf16 head of m_l = 12292) every box row
+//    is 8 elements wider (`lead`) and starts at the boundary before its
+//    tile; the consumer of a shard that starts 4 elements past one reads
+//    its rows 4 elements in, in 8-byte halves.
 #pragma once
 
 #include <type_traits>
@@ -70,10 +66,9 @@ struct HeadArgs {
   int64_t shard_stride, ldw, ldp;
   int vocab;
   unsigned valid_bits;
-  int rows_outer;     // the shards' map is [k, T, m_l] (else [T, k, m_l])
+  int rows_outer;     // column shards, one 2-D map (else [T, k, m_l])
   int bn, tps, nrb, ksplit, kchunk, ks;
   int x_bf16;
-  int map2d;          // the shards' map is [k, T * m_l] (bf16 column shards)
   int lead;           // elements a box row may start before its tile
 };
 
@@ -113,8 +108,7 @@ head_stream_kernel(const HeadArgs a,
 #pragma unroll
     for (int q = 0; q < CPL; ++q) acc[rr][q] = 0.f;
   if (warp == S) {
-    const int m_l = a.m_l, rows_outer = a.rows_outer, map2d = a.map2d;
-    const int lead = a.lead;
+    const int rows_outer = a.rows_outer;
     const int64_t ldw = a.ldw, sstr = a.shard_stride, ldp = a.ldp;
     const W* w = static_cast<const W*>(a.w);
     const W* pw = static_cast<const W*>(a.pw);
@@ -123,11 +117,8 @@ head_stream_kernel(const HeadArgs a,
     auto issue = [=](int s, int k0, W* dst, uint64_t* bar) {
       if (s >= T)
         stream::tma_2d(dst, mp, c0, k0, bar);
-      else if (map2d)
-        stream::tma_2d(dst, mw, (s * m_l + c0) / (lead ? V : 1) *
-                                    (lead ? V : 1), k0, bar);
-      else if (rows_outer)
-        stream::tma_3d(dst, mw, c0, s, k0, bar);
+      else if (rows_outer)     // the vector boundary at or before it
+        stream::tma_2d(dst, mw, (int)((s * sstr + c0) / V * V), k0, bar);
       else
         stream::tma_3d(dst, mw, c0, k0, s, bar);
     };
@@ -144,7 +135,8 @@ head_stream_kernel(const HeadArgs a,
     else
       stream::stage_x<RB>(static_cast<const float*>(a.x), a.b, a.k, r0, kb0,
                           kb1, nullptr, 0.f, xs, inv, NC);
-    const int shift = a.lead && warp < T ? (warp * a.m_l + c0) % V : 0;
+    const int shift =
+        a.lead && warp < T ? (int)((warp * a.shard_stride + c0) % V) : 0;
     stream::consume<RB>(ring, full, empty, xs, warp, kb0, kb1, a.ks, pitch,
                         sreg, acc, shift);
   }
@@ -326,12 +318,12 @@ extern "C" int cdc_fused_head_occupancy(int T, int w_bf16, int rb,
 // x_bf16 (else float32), w and pw when w_bf16. ws holds ksplit * tps * nrb
 // * (T + 1) * rb * bn_max(rb) floats when ksplit > 1; part_val / part_idx
 // tps * b; sem tps * nrb + nrb zeroed counters (left zeroed). On the copy
-// engine, float32 shards take a 3-D map (strides ordered to grow), bf16
-// column shards of one matrix (shard_stride <= ldw) the 2-D map [k, T *
-// m_l]. The parity's rows are ldp >= m_l apart (on the copy engine whole
-// 16-byte vectors: a bf16 parity of m_l = 12292 lives in padded rows). A
-// plan the kernel cannot run returns cudaErrorInvalidValue; otherwise the
-// cudaError_t of the launch.
+// engine, column shards of one matrix (shard_stride <= ldw) take the 2-D
+// map, shards stored one after another the 3-D one. The parity's rows are
+// ldp >= m_l apart (on the copy engine whole 16-byte vectors: a bf16
+// parity of m_l = 12292 lives in padded rows). A plan the kernel cannot
+// run returns cudaErrorInvalidValue; otherwise the cudaError_t of the
+// launch.
 extern "C" int cdc_fused_head_argmax(
     const void* x, int x_bf16, const void* w, const void* pw, int w_bf16,
     float* ws, float* part_val, int* part_idx, int* sem, int* tok,
@@ -342,13 +334,11 @@ extern "C" int cdc_fused_head_argmax(
   using namespace cdc;
   const int S = T + 1;
   const int V = w_bf16 ? 8 : 4;
-  // the shards' map puts the smaller of the two strides inner: [k, T, m_l]
-  // for lm_head.w's column shards, [T, k, m_l] for stacked shards; bf16
-  // column shards take the 2-D map, with box rows 8 elements wider where
-  // the shards do not start on 16-byte boundaries
+  // column shards take the 2-D map, with box rows a vector wider where
+  // they start half a vector past a 16-byte boundary; stacked shards the
+  // 3-D map [T, k, m_l]
   const int rows_outer = shard_stride <= ldw;
-  const int map2d = w_bf16 && rows_outer;
-  const int lead = async && map2d && m_l % V ? V : 0;
+  const int lead = async && rows_outer && shard_stride % V ? V : 0;
   const int pitch = (bn + V - 1) / V * V + lead;
   const int box = w_bf16 ? stream::box_elems<__nv_bfloat16>(ks, pitch)
                          : stream::box_elems<float>(ks, pitch);
@@ -365,14 +355,16 @@ extern "C" int cdc_fused_head_argmax(
       ldp >= m_l &&
       (!async ||
        (bn % V == 0 && m_l % 4 == 0 && ldw % V == 0 && ldp % V == 0 &&
-        (map2d || (m_l % V == 0 && shard_stride % V == 0)) &&
+        (rows_outer ? shard_stride % 4 == 0 &&
+                          (T - 1) * shard_stride + m_l < 0x7fffffff
+                    : m_l % V == 0 && shard_stride % V == 0) &&
         ((uintptr_t)w | (uintptr_t)pw) % 16 == 0));
   if (!ok) return (int)cudaErrorInvalidValue;
   const HeadArgs a{x,     w,        pw,  ws,    part_val,   part_idx,
                    sem,   tok,      vmax, b,    k,          m_l,
                    shard_stride,    ldw, ldp, vocab, valid_bits, rows_outer,
                    bn,    tps,      nrb, ksplit, kchunk,    ks,
-                   x_bf16, map2d, lead};
+                   x_bf16, lead};
   const long long grid = (long long)tps * nrb * ksplit;
   if (grid > 0x7fffffff) return (int)cudaErrorInvalidValue;
   CUtensorMap mw{}, mp{};
@@ -382,19 +374,17 @@ extern "C" int cdc_fused_head_argmax(
     const cuuint64_t pdims[2] = {(cuuint64_t)m_l, (cuuint64_t)k};
     const cuuint64_t pstr[1] = {(cuuint64_t)ldp * e};
     bool good;
-    if (map2d) {
-      const cuuint64_t wdims[2] = {(cuuint64_t)T * m_l, (cuuint64_t)k};
+    if (rows_outer) {
+      const cuuint64_t wdims[2] = {(cuuint64_t)(T - 1) * shard_stride + m_l,
+                                   (cuuint64_t)k};
       const cuuint64_t wstr[1] = {(cuuint64_t)ldw * e};
       good = stream::encode_map(&mw, w, 2, wdims, wstr, box2, w_bf16);
     } else {
-      const cuuint32_t wbox[3] = {(cuuint32_t)pitch,
-                                  rows_outer ? 1u : (cuuint32_t)ks,
-                                  rows_outer ? (cuuint32_t)ks : 1u};
-      const cuuint64_t inner = rows_outer ? T : k, outer = rows_outer ? k : T;
-      const cuuint64_t wdims[3] = {(cuuint64_t)m_l, inner, outer};
-      const cuuint64_t s_in = rows_outer ? shard_stride : ldw;
-      const cuuint64_t s_out = rows_outer ? ldw : shard_stride;
-      const cuuint64_t wstr[2] = {s_in * e, s_out * e};
+      const cuuint32_t wbox[3] = {(cuuint32_t)pitch, (cuuint32_t)ks, 1u};
+      const cuuint64_t wdims[3] = {(cuuint64_t)m_l, (cuuint64_t)k,
+                                   (cuuint64_t)T};
+      const cuuint64_t wstr[2] = {(cuuint64_t)ldw * e,
+                                  (cuuint64_t)shard_stride * e};
       good = stream::encode_map(&mw, w, 3, wdims, wstr, wbox, w_bf16);
     }
     if (!good || !stream::encode_map(&mp, pw, 2, pdims, pstr, box2, w_bf16))

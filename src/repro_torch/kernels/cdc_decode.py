@@ -98,16 +98,17 @@ def head_variant(b: int, m_l: int, ldw: int, shard_stride: int,
     takes. The copy engine needs the shards' and the parity's row strides
     ``ldw`` and ``ldp`` (m_l by default) in whole 16-byte units, m_l in
     whole float32 vectors (the split sums' 16-byte reads), 16-byte aligned
-    bases (``ptr_aligned``), and, for a 3-D map over the shards (float32,
-    or shards stored one after another), m_l and their offset
-    ``shard_stride`` in whole 16-byte units too; bf16 column shards of one
-    matrix take a 2-D map that needs neither."""
+    bases (``ptr_aligned``), and the shards' offset ``shard_stride``: in
+    whole float32 vectors for column shards of one matrix (``shard_stride
+    <= ldw``: one 2-D map, box rows widened by ``head_lead``), in whole
+    16-byte units, as m_l, for shards stored one after another (a 3-D
+    map)."""
     v = 16 // elem
     ldp = m_l if ldp is None else ldp
-    map2d = elem == 2 and shard_stride <= ldw
     aligned = (ptr_aligned and m_l % 4 == 0 and ldw % v == 0
                and ldp % v == 0
-               and (map2d or (m_l % v == 0 and shard_stride % v == 0)))
+               and (shard_stride % 4 == 0 if shard_stride <= ldw
+                    else m_l % v == 0 and shard_stride % v == 0))
     return stream_plan.row_block(b, m_l, 1, T + 1), aligned
 
 
@@ -123,15 +124,15 @@ def head_parity(w_shards: torch.Tensor) -> torch.Tensor:
         buf.copy_(w_shards.sum(0))
 
 
-def head_lead(m_l: int, ldw: int, shard_stride: int, aligned: bool,
-              elem: int = 4) -> int:
-    """Elements by which a box row of the copy engine's bf16 2-D map is
-    wider than its tile: a copy starts on a 16-byte boundary, and shards of
-    m_l columns that are no whole number of 16-byte vectors (granite's
-    12292 at T = 4) start between two."""
+def head_lead(ldw: int, shard_stride: int, aligned: bool, elem: int = 4
+              ) -> int:
+    """Elements by which a box row of the copy engine's 2-D map over
+    column shards is wider than its tile: a copy starts on a 16-byte
+    boundary, and shards whose offset is no whole number of 16-byte
+    vectors (granite's bf16 head, 12292 columns at T = 4) start between
+    two."""
     v = 16 // elem
-    map2d = elem == 2 and shard_stride <= ldw
-    return v if aligned and map2d and m_l % v else 0
+    return v if aligned and shard_stride <= ldw and shard_stride % v else 0
 
 
 @functools.lru_cache(maxsize=256)
@@ -211,7 +212,7 @@ def cdc_fused_head_argmax(x: torch.Tensor, w_shards: torch.Tensor,
     rb, aligned = head_variant(b, m_l, ldw, sstr, ptr_ok, T, elem, ldp)
     plan = head_plan(b, k, m_l, T, _n_sm(x.device),
                      head_occupancy(T, rb, aligned, bool(w_bf16)), aligned,
-                     elem, head_lead(m_l, ldw, sstr, aligned, elem))
+                     elem, head_lead(ldw, sstr, aligned, elem))
     dev = x.device
     tok = torch.empty(b, dtype=torch.int32, device=dev)
     vmax = torch.empty(b, dtype=torch.float32, device=dev)

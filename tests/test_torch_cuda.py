@@ -96,4 +96,5 @@ def test_fused_head_plan_edges_on_bf16_match_plain(smoke):
 
 def test_encode_kernel_on_bf16_matches_plain(smoke):
     from repro_torch.configs import get_arch
-    assert smoke.check_encode_bf16(get_arch("granite-3-8b")) <= 2e-2
+    err, scale = smoke.check_encode_bf16(get_arch("granite-3-8b"))
+    assert err <= 2e-2 + 2e-2 * scale

@@ -620,7 +620,7 @@ def test_head_plan_t16_and_bf16(T, elem, rows):
                           aligned, elem)
     check_limits(plan, T + 1)
     check_cover(plan, rows, k, m_l)
-    lead = tdec.head_lead(m_l, T * m_l, m_l, aligned, elem)
+    lead = tdec.head_lead(T * m_l, m_l, aligned, elem)
     assert lead == (8 if elem == 2 and m_l % 8 else 0)
     wide = tdec.head_plan(rows, k, m_l, T, N_SM, card_occupancy(rb),
                           aligned, elem, lead)
@@ -634,6 +634,30 @@ def test_head_plan_t16_and_bf16(T, elem, rows):
                     else torch.float32)
     pw = tdec.head_parity(w)
     assert pw.shape == (8, m_l) and pw.stride(0) * elem % 16 == 0
+
+
+@pytest.mark.parametrize("elem,gap,aligned,lead", [
+    (4, 4, True, 0), (4, 8, True, 0), (4, 2, False, 0),
+    (2, 4, True, 8), (2, 8, True, 0), (2, 2, False, 0),
+    (4, None, True, 0), (2, None, True, 0)])
+def test_head_shards_apart_or_stacked(elem, gap, aligned, lead):
+    """Kernel 2's copy engine at any shard offset: column shards ``gap``
+    columns apart go through the one 2-D map when the offset is whole
+    float32 vectors (box rows a vector wider where a bf16 offset is half
+    a 16-byte vector off), shards stored one after another (gap None)
+    through the 3-D map; the parity is contiguous."""
+    T, k, m_l = 4, 4096, 2048
+    ldw, sstr = (m_l, k * m_l) if gap is None else (T * (m_l + gap),
+                                                     m_l + gap)
+    rb, ok = tdec.head_variant(4, m_l, ldw, sstr, True, T, elem)
+    assert (rb, ok) == (4, aligned)
+    assert tdec.head_lead(ldw, sstr, ok, elem) == lead
+    plan = tdec.head_plan(4, k, m_l, T, N_SM, card_occupancy(rb), ok, elem,
+                          lead)
+    assert plan.variant == f"rb4-{'async' if ok else 'loads'}" + (
+        "-lead" if lead else "") + ("-bf16" if elem == 2 else "")
+    check_limits(plan, T + 1)
+    check_cover(plan, 4, k, m_l)
 
 
 def test_t16_plan_emulations_split_k():
