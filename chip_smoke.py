@@ -42,8 +42,12 @@ Phases, each of which raises on failure (exit code non-zero):
      it with the norms on their plain version (no kernel at all); the
      token streams must be identical and every fused round must launch the
      coded-GEMM kernel 200 times and the fused head once (its 4-row,
-     bulk-copy instantiation); torch.profiler gives the device time per
-     round by kernel and per launch of kernels 2 and 6;
+     bulk-copy instantiation). Fused rounds replay captured CUDA graphs
+     (one per mask: one replay per fused round, the launches credited to
+     the counts) and give the eager fused rounds' tokens fault-free and
+     with shard 2 erased; graph and eager rounds are timed in alternating
+     blocks in this call, and torch.profiler gives the device time per
+     round of each by kernel, and per launch of kernels 2 and 6;
   4. time each kernel at its main-path shape with CUDA events beside its
      plain version, one library call and its bandwidth/compute bound
      (kernel 1 also at 64 rows, kernel 2 at 16, kernels 1 and 2 on bf16
@@ -60,7 +64,14 @@ Phases, each of which raises on failure (exit code non-zero):
      recovers in-step, requeues beyond the budget and re-encodes, the
      planner reaches r=4, every encode launches the encode kernel once per
      parity leaf, and a re-encode of unchanged weights is bitwise equal;
-     the re-encode is timed per leaf and whole;
+     the re-encode is timed per leaf and whole. Fused rounds replay CUDA
+     graphs (one replay per fused round, at most T + 1 graphs per encode,
+     dropped at every re-encode and r change). The fault-free run prints
+     the --perf line (every launch costed; the fused round's bytes bound
+     within 5% of its weights' bytes over the HBM rate), the chaos run
+     writes a --trace validated with every injected erasure linked and 0
+     dropped events and prints the --slo-report, and the adapt-r run
+     writes a --profile trace;
   6. run the paper's coded-cost study through its port
      (launch.coded_overhead: run() and run_kernels() at the reference's
      defaults, T in {4, 8, 16} x r in {1, 2}), print its rows, require the
@@ -72,12 +83,14 @@ Phases, each of which raises on failure (exit code non-zero):
   8. serve granite-3-8b at full width at T = 16 (what launch.serve --coded
      --tp 16 builds: float32, r = 2 folded) through ServingEngine.generate,
      fault-free and with shard 5 killed at step 4, on fused rounds (kernel
-     1 200 times a round through both producers, kernel 2 once), and on
-     the reference variant: identical token streams;
+     1 200 times a round through both producers, kernel 2 once) replayed
+     from CUDA graphs, on eager fused rounds, and on the reference variant:
+     identical token streams;
   9. a bf16 coded granite-3-8b at full width (Model.init(dtype=bf16), T =
      4, r = 2 folded): its parity encoded by kernel 4 on bf16, 16 tokens
      served through kernels 1, 2 and 6 on bf16 (200 + 1 + 81 launches a
-     round) and on the reference variant; the first served round's max
+     round) on graph rounds (the eager fused rounds give the same tokens)
+     and on the reference variant; the first served round's max
      logit from the fused round's own kernel-2 call within 6e-2 (the
      reference's bf16 TOL) of the reference round's, and where a fused
      stream leaves the reference one, its token within 6e-2 of the
@@ -1111,25 +1124,53 @@ def serve_batch(vocab: int) -> dict:
 
 def _serve_run(eng, batch, fail_at=None, n_tok: int = N_TOK) -> dict:
     """One ServingEngine.generate of the 4 requests (n_tok new tokens),
-    with the launch counts of kernels 1, 2 and 6 read around it."""
+    with the launch counts of kernels 1, 2 and 6 read around it (a
+    replayed graph's launches are credited to the counts) and VStep's
+    round counters over the run."""
     from repro_torch.kernels import cdc_decode, cdc_matmul, rmsnorm
     counted = (cdc_matmul.cdc_coded_matmul,
                cdc_decode.cdc_fused_head_argmax, rmsnorm.rmsnorm)
     for fn in counted:
         fn.launches = 0
         fn.variants.clear()
+    vs = eng.executor(4).vstep
+    before = {k: getattr(vs, k) for k in VSTEP_COUNTERS}
     torch.cuda.synchronize()
     t = time.perf_counter()
     toks = eng.generate(batch, n_tok, fail_at=fail_at)
     torch.cuda.synchronize()
-    ex = eng._executors[4]
+    ex = eng.executor(4)
     out = {"tokens": toks, "seconds": time.perf_counter() - t,
            "round_ms": list(ex.round_ms[-(n_tok - 1):]),
-           "variants": ex.vstep.last_variant}
+           "variants": ex.vstep.last_variant, "graphs": vs.use_graphs,
+           "vstep": {k: getattr(vs, k) - before[k]
+                     for k in VSTEP_COUNTERS}}
     for key, fn in zip(("k1", "k2", "k6"), counted):
         out[key] = fn.launches
         out[f"{key}_variants"] = dict(fn.variants)
     return out
+
+
+VSTEP_COUNTERS = ("n_dispatches", "n_fused_rounds", "n_captures",
+                  "n_replays", "n_graph_drops")
+
+
+def _check_graph_run(name: str, res: dict, captures: int):
+    """A run on graph rounds: one replay per fused round, every round
+    fused, and at most ``captures`` new graphs (one per new mask)."""
+    c = res["vstep"]
+    if not res["graphs"] or c["n_replays"] != c["n_fused_rounds"] \
+            or c["n_fused_rounds"] != c["n_dispatches"] \
+            or c["n_captures"] > captures:
+        raise AssertionError(f"{name}: graph counters {c} (want a replay "
+                             f"per fused round, <= {captures} captures)")
+
+
+def _check_eager_run(name: str, res: dict):
+    c = res["vstep"]
+    if res["graphs"] or c["n_replays"] or c["n_captures"]:
+        raise AssertionError(f"{name}: an eager run captured or replayed: "
+                             f"{c}")
 
 
 def serve_full_width(cfg) -> dict:
@@ -1152,16 +1193,30 @@ def serve_full_width(cfg) -> dict:
         return _serve_run(eng, batch, fail_at)
 
     torch.cuda.reset_peak_memory_stats()
-    eng = ServingEngine(model, params, scfg, use_fused=True)
+    # fused rounds replay captured CUDA graphs (the default on the card)
+    eng = ServingEngine(model, params, scfg, use_fused=True,
+                        use_graphs=True)
     clean = run(eng)
-    breakdown = profile_rounds(eng._executors[4], eng.valid,
-                               float(np.median(clean["round_ms"])))
+    _check_graph_run("fault-free", clean, 1)
+    graph_eager = graph_vs_eager(eng, batch, clean)
     overlapped = run_overlapped(eng.stepper, batch, n_tok)
     if not np.array_equal(overlapped["tokens"], clean["tokens"]):
         raise AssertionError("overlapped executor tokens differ:\n"
                              f"{overlapped['tokens']}\nvs\n{clean['tokens']}")
-    faulty = run(eng, fail_at={4: 2})
-    del eng
+    faulty = run(eng, fail_at={4: 2})      # a second graph: shard 2 dead
+    _check_graph_run("erasure", faulty, 1)
+    eng.valid = np.ones(T, bool)
+    eng.use_graphs = False
+    faulty_eager = run(eng, fail_at={4: 2})
+    _check_eager_run("eager erasure", faulty_eager)
+    if not np.array_equal(faulty_eager["tokens"], faulty["tokens"]):
+        raise AssertionError("eager and graph rounds differ with shard 2 "
+                             f"erased:\n{faulty_eager['tokens']}\nvs\n"
+                             f"{faulty['tokens']}")
+    eng.use_graphs = True
+    vs = eng.executor(4).vstep
+    graph_counts = {k: getattr(vs, k) for k in VSTEP_COUNTERS}
+    del eng, vs
     ref_eng = ServingEngine(model, params, scfg, use_fused=False)
     reference = run(ref_eng)
     # the same reference variant with the norms on their plain version (the
@@ -1231,6 +1286,10 @@ def serve_full_width(cfg) -> dict:
         f"{clean['k2'] // rounds} fused head ({clean['k2_variants']}) + "
         f"{norms} rmsnorm ({clean['k6_variants']}; and {norms} rmsnorm per "
         f"prefill; the reference variant {norms} per round)")
+    log(f"graph rounds: {graph_counts['n_captures']} captures (fault-free, "
+        f"shard 2 dead), {graph_counts['n_replays']} replays for "
+        f"{graph_counts['n_fused_rounds']} fused rounds; tokens equal to "
+        f"eager fused rounds fault-free and with shard 2 erased")
     log(f"fused round median {med:.3f} ms (erasure run "
         f"{float(np.median(faulty['round_ms'])):.3f} ms, reference variant "
         f"{float(np.median(reference['round_ms'])):.3f} ms, with plain "
@@ -1238,7 +1297,53 @@ def serve_full_width(cfg) -> dict:
         f"{4 * 1e3 / med:.1f} tokens/s at 4 slots; "
         f"max_memory_allocated {peak / 2 ** 30:.2f} GiB")
     return {"k1": clean["k1"], "k2": clean["k2"], "k6": clean["k6"],
-            "breakdown": breakdown}
+            "breakdown": graph_eager["breakdown"],
+            "graph_vs_eager": graph_eager}
+
+
+def graph_vs_eager(eng, batch, first: dict, blocks: int = 3) -> dict:
+    """Round time of graph-replayed and eager fused rounds in alternating
+    blocks (eager, graph, eager, graph, ...; ``first``, a graph run, is
+    the first graph block), each block one generate of the 4 requests with
+    tokens identical to ``first``'s; then the profiler's device time over
+    3 more rounds of each. Leaves the engine on graph rounds."""
+    runs = {True: [first], False: []}
+    for i in range(2 * blocks - 1):
+        eng.use_graphs = i % 2 == 1
+        res = _serve_run(eng, batch)
+        if eng.use_graphs:
+            _check_graph_run(f"block {i + 1}", res, 0)
+        else:
+            _check_eager_run(f"block {i + 1}", res)
+        if not np.array_equal(res["tokens"], first["tokens"]):
+            raise AssertionError(f"{'graph' if eng.use_graphs else 'eager'}"
+                                 f" block {i + 1} tokens differ:\n"
+                                 f"{res['tokens']}\nvs\n{first['tokens']}")
+        runs[eng.use_graphs].append(res)
+    out = {}
+    for graphs, name in ((False, "eager"), (True, "graph")):
+        eng.use_graphs = graphs
+        ms = [x for r in runs[graphs] for x in r["round_ms"]]
+        med = float(np.median(ms))
+        log(f"{name} fused rounds ({len(runs[graphs])} blocks, {len(ms)} "
+            f"rounds): median {med:.3f} ms, block medians "
+            f"{[round(float(np.median(r['round_ms'])), 3) for r in runs[graphs]]}")
+        prof = profile_rounds(eng.executor(4), eng.valid, med)
+        out[name] = {"round_ms_median": med, "rounds": len(ms),
+                     "block_medians": [float(np.median(r["round_ms"]))
+                                       for r in runs[graphs]],
+                     "device_ms": prof.get("device_ms"),
+                     "idle_share": (1 - prof["device_ms"] / med
+                                    if prof else None),
+                     "profile": prof}
+    out["breakdown"] = out["eager"]["profile"]
+    log(f"graph vs eager (same call, alternating blocks): round median "
+        f"{out['graph']['round_ms_median']:.3f} vs "
+        f"{out['eager']['round_ms_median']:.3f} ms, device busy "
+        f"{out['graph']['device_ms']} vs {out['eager']['device_ms']} ms, "
+        f"idle share {out['graph']['idle_share']} vs "
+        f"{out['eager']['idle_share']}")
+    return out
 
 
 def run_overlapped(stepper, batch, n_tok: int) -> dict:
@@ -1755,9 +1860,16 @@ def serve_t16(cfg) -> dict:
     scfg = ServeConfig(max_len=16 + N_TOK + 8, batch=4,
                        cache_dtype=torch.float32)
     batch = serve_batch(cfg.vocab)
-    eng = ServingEngine(model, params, scfg, use_fused=True)
+    eng = ServingEngine(model, params, scfg, use_fused=True,
+                        use_graphs=True)
     clean = _serve_run(eng, batch)
+    _check_graph_run("T=16 fault-free", clean, 1)
     faulty = _serve_run(eng, batch, fail_at={4: 5})
+    _check_graph_run("T=16 shard 5 dead", faulty, 1)
+    eng.valid = np.ones(T16, bool)
+    eng.use_graphs = False
+    eager = _serve_run(eng, batch)
+    _check_eager_run("T=16 eager", eager)
     del eng
     ref_eng = ServingEngine(model, params, scfg, use_fused=False)
     reference = _serve_run(ref_eng, batch)
@@ -1772,7 +1884,8 @@ def serve_t16(cfg) -> dict:
                                  f"{res['k2_variants']}")
     if reference["k1"] or reference["k2"]:
         raise AssertionError("the T=16 reference variant launched a kernel")
-    for name, res in (("shard 5 dead", faulty), ("reference", reference)):
+    for name, res in (("shard 5 dead", faulty), ("reference", reference),
+                      ("eager fused", eager)):
         if not np.array_equal(res["tokens"], clean["tokens"]):
             raise AssertionError(f"T=16 {name} tokens differ from the fused "
                                  f"fault-free run:\n{res['tokens']}\nvs\n"
@@ -1781,8 +1894,12 @@ def serve_t16(cfg) -> dict:
     med = {n: float(np.median(r["round_ms"])) for n, r in
            (("fused", clean), ("erasure", faulty), ("reference", reference))}
     log(f"served granite-3-8b at T = 16 (r = 2 folded, float32; params in "
-        f"{init_s:.1f} s): identical streams fault-free, with shard 5 "
-        f"erased at step 4, and on the reference variant; per fused round "
+        f"{init_s:.1f} s): identical streams on graph rounds fault-free "
+        f"and with shard 5 erased at step 4 ({clean['vstep']['n_captures']} "
+        f"+ {faulty['vstep']['n_captures']} graphs captured, "
+        f"{clean['vstep']['n_replays']} + {faulty['vstep']['n_replays']} "
+        f"replays), on eager fused rounds, and on the reference variant; "
+        f"per fused round "
         f"{clean['k1'] // rounds} coded-GEMM launches "
         f"({clean['k1_variants']}) + {clean['k2'] // rounds} head "
         f"({clean['k2_variants']}); round medians {med} ms; "
@@ -1790,35 +1907,33 @@ def serve_t16(cfg) -> dict:
     log("T=16 first stream:", clean["tokens"][0].tolist())
     return {"k1": clean["k1"], "k2": clean["k2"],
             "k1_variants": clean["k1_variants"], "round_ms": med,
+            "eager_round_ms": float(np.median(eager["round_ms"])),
             "peak_gib": peak}
 
 
 @contextlib.contextmanager
 def recorded_rounds():
-    """Keep what every decode round of VStep computes, adding no device
-    work: the fused round's (token, max logit) from its own kernel-2 call
-    (``ops.fused_head_argmax``), and the reference round's last-position
-    logits."""
-    from repro_torch.kernels import ops
+    """Keep what every decode round of VStep computes: the fused round's
+    (token, max logit) from its own kernel-2 call (``VStep.last_head``,
+    which a graph replay rewrites: copied on the device after each round),
+    and the reference round's last-position logits."""
     from repro_torch.runtime.executor import vstep
     rec: dict[str, list] = {"fused": [], "reference": []}
-    head, reference = ops.fused_head_argmax, vstep.VStep._round
+    original = vstep.VStep.round
 
-    def fused_head(*a, **kw):
-        out = head(*a, **kw)
-        rec["fused"].append(out)
+    def recorded(self, *a):
+        out = original(self, *a)
+        if self.last_variant == "fused":
+            rec["fused"].append(tuple(t.clone() for t in self.last_head))
+        else:
+            rec["reference"].append(out[2][:, 0])
         return out
 
-    def reference_round(self, *a):
-        out = reference(self, *a)
-        rec["reference"].append(out[2][:, 0])
-        return out
-
-    ops.fused_head_argmax, vstep.VStep._round = fused_head, reference_round
+    vstep.VStep.round = recorded
     try:
         yield rec
     finally:
-        ops.fused_head_argmax, vstep.VStep._round = head, reference
+        vstep.VStep.round = original
 
 
 def split_report(ft, rt, fused: list, reference: list, tol: float) -> list:
@@ -1879,7 +1994,8 @@ def serve_bf16(cfg) -> dict:
     scfg = ServeConfig(max_len=16 + N_TOK + 8, batch=4,
                        cache_dtype=torch.bfloat16)
     batch = serve_batch(cfg.vocab)
-    eng = ServingEngine(model, params, scfg, use_fused=True)
+    eng = ServingEngine(model, params, scfg, use_fused=True,
+                        use_graphs=True)
     torch.cuda.synchronize()
     encodes = cdc_encode.cdc_encode.launches
     leaves = _parity_leaves(eng.params)
@@ -1891,6 +2007,7 @@ def serve_bf16(cfg) -> dict:
     with recorded_rounds() as rec_f:
         fused = _serve_run(eng, batch)
     rounds = N_TOK - 1
+    _check_graph_run("bf16 fused", fused, 1)
     _check_launches("bf16 fused", fused, cfg, rounds, norms=True)
     if set(fused["k1_variants"]) != {"rb4-async-bf16"} or \
             fused["k2_variants"] != {"rb4-async-lead-bf16": rounds} or \
@@ -1901,7 +2018,13 @@ def serve_bf16(cfg) -> dict:
                              f"{len(rec_f['fused'])} fused and "
                              f"{len(rec_f['reference'])} reference rounds")
     med = float(np.median(fused["round_ms"]))
-    breakdown = profile_rounds(eng._executors[4], eng.valid, med)
+    breakdown = profile_rounds(eng.executor(4), eng.valid, med)
+    eng.use_graphs = False
+    eager = _serve_run(eng, batch)
+    _check_eager_run("bf16 eager", eager)
+    if not np.array_equal(eager["tokens"], fused["tokens"]):
+        raise AssertionError(f"bf16 graph and eager fused rounds differ:\n"
+                             f"{fused['tokens']}\nvs\n{eager['tokens']}")
     encode = reencode_and_time(eng.stepper)
     del eng
     ref_eng = ServingEngine(model, params, scfg, use_fused=False)
@@ -1925,7 +2048,9 @@ def serve_bf16(cfg) -> dict:
         f"({encodes} launches); first served round's max logit, fused "
         f"(kernel 2) {fmax.tolist()} vs reference {rmax.tolist()} (max abs "
         f"diff {float((fmax - rmax).abs().max()):.4f}, TOL 6e-2); fused "
-        f"round median {med:.3f} ms, reference "
+        f"round median {med:.3f} ms on graph rounds (eager: "
+        f"{float(np.median(eager['round_ms'])):.3f} ms, identical tokens), "
+        f"reference "
         f"{float(np.median(reference['round_ms'])):.3f} ms; leading tokens "
         f"agreeing per stream {agree} of {N_TOK}; where they split {splits}; "
         f"launches a round "
@@ -1936,6 +2061,7 @@ def serve_bf16(cfg) -> dict:
     return {"first_step_max": {"fused": fmax.tolist(),
                                "reference": rmax.tolist()},
             "agree": agree, "splits": splits, "round_ms": med,
+            "eager_round_ms": float(np.median(eager["round_ms"])),
             "breakdown": breakdown, "encode": encode, "encodes": encodes,
             "peak_gib": peak}
 
@@ -1950,6 +2076,14 @@ SCHED_ARGS = ["--coded", "--tp", str(T), "--batch", "4", "--requests", "8",
               "--gen-tokens", "16", "--seed", str(CHAOS_SEED)]
 RUNS = {"fault-free": [], "chaos": ["--chaos", CHAOS],
         "chaos+adapt-r": ["--chaos", CHAOS, "--adapt-r"]}
+# the observability flags of each run on the card (the CPU runs that
+# give the expected counters take none): the perf line, the validated
+# trace and the SLO report, a torch.profiler trace
+SMOKE_OUT = ROOT / "build" / "smoke"
+OBS = {"fault-free": ["--perf"],
+       "chaos": ["--trace", str(SMOKE_OUT / "chaos.trace.json"),
+                 "--slo-report"],
+       "chaos+adapt-r": ["--profile", str(SMOKE_OUT / "profile")]}
 
 
 def _kernel_wrappers():
@@ -1963,10 +2097,13 @@ def _kernel_wrappers():
             "rmsnorm": rmsnorm.rmsnorm, "matmul": matmul.matmul}
 
 
-def _scheduler_run(model, params, vocab: int, argv: list[str], device: str):
+def _scheduler_run(model, params, vocab: int, argv: list[str], device: str,
+                   report: bool = False):
     """One run of the port's serving entry point (``launch.serve``): the
     stepper (whose build encodes the parity), the scheduler with the
-    chaos injector and planner the flags ask for, and the request stream."""
+    chaos injector, planner and observability the flags ask for, and the
+    request stream; with ``report``, the entry point's summary lines
+    (returning the perf summary and trace statistics)."""
     from repro_torch.launch import serve
     from repro_torch.serve import ModelStepper
     args = serve.parser().parse_args(argv + ["--device", device])
@@ -1974,7 +2111,8 @@ def _scheduler_run(model, params, vocab: int, argv: list[str], device: str):
                            max_len=args.prompt_len + args.gen_tokens + 8)
     sched = serve.build_scheduler(args, stepper, model.ctx.code_layout)
     done = serve.serve_requests(args, sched, vocab)
-    return stepper, sched, done
+    out = serve.report(args, sched, done) if report else {}
+    return stepper, sched, done, out
 
 
 def scheduler_counters_cpu() -> dict:
@@ -1988,8 +2126,8 @@ def scheduler_counters_cpu() -> dict:
     params = model.init(0, device="cpu")
     out = {}
     for name, extra in RUNS.items():
-        _, sched, done = _scheduler_run(model, params, cfg.vocab,
-                                        SCHED_ARGS + extra, "cpu")
+        _, sched, done, _ = _scheduler_run(model, params, cfg.vocab,
+                                           SCHED_ARGS + extra, "cpu")
         out[name] = {"counters": dict(sched.metrics.counters),
                      "r_series": [p["r"] for p in sched.metrics.plan_log],
                      "completed": len(done)}
@@ -2024,6 +2162,7 @@ def serve_scheduler(cfg, device: str = "cuda") -> dict:
     params = model.init(torch.Generator(device=device).manual_seed(0),
                         device=device)
     wrappers = _kernel_wrappers()
+    SMOKE_OUT.mkdir(parents=True, exist_ok=True)
     runs, timing = {}, None
     for name, extra in RUNS.items():
         torch.cuda.empty_cache()
@@ -2032,8 +2171,9 @@ def serve_scheduler(cfg, device: str = "cuda") -> dict:
             fn.launches = 0
         torch.cuda.synchronize()
         t = time.perf_counter()
-        stepper, sched, done = _scheduler_run(model, params, cfg.vocab,
-                                              SCHED_ARGS + extra, device)
+        stepper, sched, done, obs = _scheduler_run(
+            model, params, cfg.vocab, SCHED_ARGS + extra + OBS[name],
+            device, report=True)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
         launches = {k: fn.launches for k, fn in wrappers.items()}
@@ -2045,7 +2185,9 @@ def serve_scheduler(cfg, device: str = "cuda") -> dict:
                "launches": launches,
                "round_ms": float(np.median(sched.executor.round_ms)),
                "reencode_wall_ms": stepper.last_reencode_wall_ms,
-               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "graphs": _check_scheduler_graphs(name, sched, stepper, T)}
+        res.update(_check_observability(name, sched, stepper, obs))
         runs[name] = res
         want = expect[name]
         if len(done) != 8 or any(len(q.tokens) != 16 for q in done):
@@ -2099,6 +2241,107 @@ def serve_scheduler(cfg, device: str = "cuda") -> dict:
         "streams identical to the fault-free run, counters equal to the "
         "CPU run's")
     return {"runs": runs, "timing": timing}
+
+
+def _check_scheduler_graphs(name: str, sched, stepper, t: int) -> dict:
+    """A scheduler run on graph rounds: one replay per fused round, at
+    most T + 1 graphs per encode generation, none left from an older
+    generation; graphs dropped at most once per encode after the first
+    (a re-encode or an r change)."""
+    vs = sched.executor.vstep
+    gen = stepper.encode_generation
+    c = {k: getattr(vs, k) for k in VSTEP_COUNTERS}
+    stale = [k for k in vs._graphs if k[0] != gen]
+    if not vs.use_graphs or c["n_replays"] != c["n_fused_rounds"] \
+            or c["n_captures"] > (t + 1) * (gen + 1) \
+            or c["n_graph_drops"] > gen or stale:
+        raise AssertionError(f"{name}: graph counters {c}, {gen} encodes "
+                             f"after the first, stale graphs {stale}")
+    rs = [R] + [p["r"] for p in sched.metrics.plan_log if p["applied"]]
+    resizes = sum(a != b for a, b in zip(rs, rs[1:]))
+    log(f"scheduler {name}: {c['n_replays']} replays for "
+        f"{c['n_fused_rounds']} fused of {c['n_dispatches']} rounds, "
+        f"{c['n_captures']} graphs captured, dropped {c['n_graph_drops']} "
+        f"times beside {sched.metrics.counters['parity_reencodes']} "
+        f"re-encodes ({resizes} of them r changes; {gen} encodes after "
+        f"the first)")
+    return {**c, "encodes_after_first": gen, "r_changes": resizes}
+
+
+# the fused round's counted bytes over the weights' bytes, at full width:
+# activations, the KV cache and the embedding rows add under 5%
+PERF_BOUND_TOL = 0.05
+
+
+def _round_weight_bytes(stepper) -> float:
+    """Bytes a fused round must read at the least: every layer weight and
+    parity leaf, the LM head and its sum parity (a shard's width)."""
+    def leaves(node):
+        if isinstance(node, dict):
+            return [t for v in node.values() for t in leaves(v)]
+        return [node]
+    head = stepper.params["lm_head"]["w"]
+    return float(sum(t.numel() * t.element_size()
+                     for t in leaves(stepper.params["layers"]))
+                 + head.numel() * head.element_size()
+                 * (1 + 1 / stepper.n_shards))
+
+
+def _check_observability(name: str, sched, stepper, obs: dict) -> dict:
+    """What each run's observability flag must give: the perf line's
+    attribution (every launch costed; its bytes bound within 5% of the
+    round's weight bytes over the card's HBM rate), the chaos trace
+    (validated with every injected erasure linked, 0 dropped events) with
+    the SLO report, the profiler trace file."""
+    from repro_torch.obs.export import validate_chrome_trace
+    out = {}
+    if "--perf" in OBS[name] or "--profile" in OBS[name] \
+            or "--trace" in OBS[name]:
+        perf = obs.get("perf")
+        if not perf or any(c.get("custom_calls_uncosted") != 0
+                           for c in perf["variants"].values()) \
+                or "fused" not in perf["variants"]:
+            raise AssertionError(f"{name}: perf summary {perf}")
+        # the fused round at the run's last code geometry
+        fused = perf["variants"]["fused"]
+        want = _round_weight_bytes(stepper) / HBM_BYTES_PER_S * 1e6
+        got = fused["bound_step_s"] * 1e6
+        if fused["dominant"] != "memory" or \
+                abs(got / want - 1) > PERF_BOUND_TOL:
+            raise AssertionError(f"{name}: fused-round bound {got:.1f} us, "
+                                 f"weights alone {want:.1f} us")
+        out["perf"] = {k: v for k, v in perf.items() if k != "variants"}
+        out["perf"]["weight_bound_us"] = want
+        out["perf"]["attributions"] = sched.executor.perf.n_attributions
+        out["perf"]["fused"] = fused
+        log(f"scheduler {name}: fused-round bound {got / 1e3:.4f} ms "
+            f"(weights alone {want / 1e3:.4f} ms), {fused['flops'] / 1e9:.3f}"
+            f" GFLOP ({fused['useful_flops'] / 1e9:.3f} useful, "
+            f"{fused['bytes'] / 1e9:.3f} GB), "
+            f"{sched.executor.perf.n_attributions} attribution(s)")
+    if "--trace" in OBS[name]:
+        path = OBS[name][OBS[name].index("--trace") + 1]
+        with open(path) as f:
+            stats = validate_chrome_trace(json.load(f),
+                                          require_fault_links=True,
+                                          require_span_closure=True)
+        if stats["dropped_events"] != 0 or \
+                stats["n_linked"] != stats["n_injected_erasures"]:
+            raise AssertionError(f"{name}: trace {stats}")
+        out["trace"] = stats
+        log(f"scheduler {name}: trace validated with every fault linked "
+            f"({stats['n_linked']} of {stats['n_injected_erasures']} "
+            f"injected erasures, {stats['dropped_events']} dropped events, "
+            f"{stats['n_span_trees']} span trees)")
+    if "--profile" in OBS[name]:
+        path = Path(OBS[name][OBS[name].index("--profile") + 1]) / \
+            "trace.json"
+        size = path.stat().st_size if path.exists() else 0
+        if size == 0:
+            raise AssertionError(f"{name}: no profiler trace at {path}")
+        out["profile_bytes"] = size
+        log(f"scheduler {name}: torch.profiler trace {path} ({size} bytes)")
+    return out
 
 
 def reencode_and_time(stepper) -> dict:
@@ -2278,6 +2521,7 @@ def main() -> int:
     runs = {n: {k: v for k, v in r.items() if k != "tokens"}
             for n, r in sched["runs"].items()}
     log(json.dumps({"shapes": timed, "round": served["breakdown"],
+                    "graph_vs_eager": served["graph_vs_eager"],
                     "encode": sched["timing"], "scheduler": runs,
                     "study": study, "decode_merge_entry": entry,
                     "t16": t16, "bf16": bf16,

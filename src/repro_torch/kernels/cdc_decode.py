@@ -25,7 +25,7 @@ import functools
 import torch
 
 from repro_torch.core.coding import host_mask
-from repro_torch.kernels import build, ref, stream_plan
+from repro_torch.kernels import accounting, build, ref, stream_plan
 from repro_torch.kernels.cdc_matmul import _n_sm, _tile_counters, mask_bits
 
 
@@ -48,6 +48,7 @@ def _decode_lib():
     return fn
 
 
+@accounting.costed("cdc_decode")
 def cdc_decode(y_shards: torch.Tensor, parity: torch.Tensor, valid
                ) -> torch.Tensor:
     """y [T, m, n] (any trailing shape), parity [m, n] of y's dtype, valid
@@ -178,6 +179,7 @@ def _check(cond: bool, msg: str):
         raise ValueError(f"cdc_fused_head_argmax: {msg}")
 
 
+@accounting.costed("cdc_fused_head_argmax")
 def cdc_fused_head_argmax(x: torch.Tensor, w_shards: torch.Tensor,
                           parity_w: torch.Tensor, valid, *, vocab: int
                           ) -> tuple[torch.Tensor, torch.Tensor]:

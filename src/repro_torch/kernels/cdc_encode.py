@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.coded_layer import fold_parity_slots
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import accounting, build, ref
 
 # the (T, r) cases the kernel is built for: r <= T at T in {2, 4, 8}, and
 # r <= 4 at T = 16 (the coded-overhead study's T = 16 and the planner's r)
@@ -71,6 +71,7 @@ def encode_plain(w_shards: torch.Tensor, gen, layout: str) -> torch.Tensor:
     return fold_parity_slots(parity, w_shards.shape[0])
 
 
+@accounting.costed("cdc_encode")
 def cdc_encode(w_shards: torch.Tensor, gen, *, layout: str = "dedicated"
                ) -> torch.Tensor:
     """Parity weights of the shards [T, k, m_l] or [L, T, k, m_l] (unit

@@ -24,9 +24,10 @@ import torch
 
 from repro_torch.core.coded_layer import folded_slot_map, unfold_parity
 from repro_torch.core.coding import generator_tensor, host_mask
-from repro_torch.kernels import build, ref, stream_plan
+from repro_torch.kernels import accounting, build, ref, stream_plan
 
 _sem: dict[int, torch.Tensor] = {}   # per-device tile counters (see below)
+_sem_retired: list[torch.Tensor] = []  # outgrown counters, kept alive
 _sms: dict[int, int] = {}            # SMs per device
 # kernel 1's cases: the largest r built for each code width T (r >= 1)
 CODED_MAX_R = {2: 2, 4: 4, 8: 4, 16: 4}
@@ -145,9 +146,13 @@ def _n_sm(device: torch.device) -> int:
 
 def _tile_counters(device: torch.device, n: int) -> torch.Tensor:
     """Zeroed per-tile arrival counters. Each launch leaves them at zero
-    again, so one buffer per device serves every launch on its stream."""
+    again, so one buffer per device serves every launch on its stream. An
+    outgrown buffer is never freed: a captured CUDA graph may still hold
+    its address."""
     sem = _sem.get(device.index)
     if sem is None or sem.numel() < n:
+        if sem is not None:
+            _sem_retired.append(sem)
         sem = _sem[device.index] = torch.zeros(max(n, 4096),
                                                dtype=torch.int32,
                                                device=device)
@@ -186,6 +191,7 @@ def _check(cond: bool, msg: str):
         raise ValueError(f"cdc_coded_matmul: {msg}")
 
 
+@accounting.costed("cdc_coded_matmul")
 def cdc_coded_matmul(x: torch.Tensor, w: torch.Tensor, w_cdc: torch.Tensor,
                      layout: str, T: int, r: int, gen: torch.Tensor,
                      esel: torch.Tensor, coef: torch.Tensor, valid, *,
@@ -285,6 +291,7 @@ def decode_merge_plain(ys, parity, layout, T, r, gen, esel, coef, valid):
                                     torch.as_tensor(host_mask(valid)))
 
 
+@accounting.costed("cdc_decode_merge")
 def cdc_decode_merge(ys: torch.Tensor, parity: torch.Tensor, layout: str,
                      T: int, r: int, gen: torch.Tensor, esel: torch.Tensor,
                      coef: torch.Tensor, valid) -> torch.Tensor:

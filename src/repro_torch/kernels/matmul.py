@@ -19,7 +19,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build, ref, stream_plan
+from repro_torch.kernels import accounting, build, ref, stream_plan
 from repro_torch.kernels.cdc_matmul import _n_sm, _tile_counters
 
 ROWS_MAX = 16             # the few-rows path's largest m
@@ -110,6 +110,7 @@ def _prepare(x: torch.Tensor, w: torch.Tensor, out_dtype, ptr_ok: bool):
 _prepared: dict[tuple, tuple] = {}
 
 
+@accounting.costed("matmul")
 def matmul(x: torch.Tensor, w: torch.Tensor, *, out_dtype=None
            ) -> torch.Tensor:
     """x [m, k] @ w [k, n] -> [m, n] in ``out_dtype``."""

@@ -28,6 +28,7 @@ import torch
 from repro_torch.core import coded_layer
 from repro_torch.core.coding import generator_tensor, host_mask
 from repro_torch.kernels import cdc_decode as _decode
+from repro_torch.kernels import cdc_encode as _encode
 from repro_torch.kernels import ref
 from repro_torch.kernels.cdc_decode import cdc_fused_head_argmax
 from repro_torch.kernels.cdc_encode import cdc_encode  # noqa: F401
@@ -103,6 +104,50 @@ KERNEL_COSTS: dict = {
 }
 
 
+def _dims(t) -> tuple[str, list[int]]:
+    return str(t.dtype).replace("torch.", ""), list(t.shape)
+
+
+def _cost_operands(name: str, a: dict) -> list:
+    """A wrapper's operands as (dtype, dims) in the reference kernel's
+    operand order (what its ``KERNEL_COSTS`` model reads)."""
+    if name == "cdc_coded_matmul":
+        k, m = a["w"].shape
+        T, r = a["T"], a["r"]
+        wd = _dims(a["w"])[0]
+        out = [("bool", [T]), _dims(a["esel"]), _dims(a["coef"]),
+               _dims(a["gen"]), _dims(a["x"]), (wd, [T, k, m // T]),
+               (wd, [r, k, m // T])]
+        return out + ([_dims(a["gamma"])] if a["gamma"] is not None else [])
+    if name == "cdc_fused_head_argmax":
+        return [("bool", [a["w_shards"].shape[0]]), _dims(a["x"]),
+                _dims(a["w_shards"]), _dims(a["parity_w"])]
+    if name == "cdc_encode":
+        gen = a["gen"]
+        g = gen if isinstance(gen, torch.Tensor) \
+            else _encode.host_generator(gen)
+        return [("float32", list(g.shape)), _dims(a["w_shards"])]
+    return [_dims(t) for k, t in a.items()
+            if isinstance(t, torch.Tensor) and k != "valid"]
+
+
+def kernel_cost(name: str, arguments: dict, result
+                ) -> tuple[float, float] | None:
+    """(FLOPs, bytes) of one wrapper call from its bound ``arguments`` and
+    ``result``: the ``KERNEL_COSTS`` model's dot-equivalent FLOPs, and the
+    bytes of every tensor operand (the host mask aside) and output, each
+    counted once. None for a wrapper with no cost model."""
+    model = KERNEL_COSTS.get(name)
+    if model is None:
+        return None
+    outs = list(result) if isinstance(result, tuple) else [result]
+    flops = float(model([_dims(t) for t in outs],
+                        _cost_operands(name, arguments)))
+    tensors = [t for k, t in arguments.items()
+               if isinstance(t, torch.Tensor) and k != "valid"] + outs
+    return flops, float(sum(t.numel() * t.element_size() for t in tensors))
+
+
 def _dead(valid) -> int:
     if valid is None:
         return 0
@@ -110,10 +155,11 @@ def _dead(valid) -> int:
     return int(v.size - v.sum())
 
 
-@functools.lru_cache(maxsize=256)
+@functools.lru_cache(maxsize=None)
 def decode_plan(spec, valid: tuple, valid_parity: tuple, m_l: int,
                 device: str):
-    """Decode plan + generator on ``device``, computed once per mask."""
+    """Decode plan + generator on ``device``, computed once per mask and
+    never evicted: a captured CUDA graph holds their addresses."""
     esel, coef = eq12_plan(spec, torch.tensor(valid),
                            torch.tensor(valid_parity), m_l)
     gen = generator_tensor(spec.code)

@@ -16,7 +16,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import accounting, build, ref
 
 THREADS = 256        # threads a row (RMS_THREADS in csrc/rmsnorm.cu)
 MAX_VALUES = 128     # values of the row a thread holds (RMS_MAX_VALUES)
@@ -58,6 +58,7 @@ def _lib():
     return fn
 
 
+@accounting.costed("rmsnorm")
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, *, eps: float = 1e-6
             ) -> torch.Tensor:
     """x [..., d] (float32 or bf16), gamma [d] -> x's shape and dtype."""

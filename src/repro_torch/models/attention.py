@@ -68,8 +68,9 @@ def _apply_mask(s, msk, n_head_dims: int):
         idx = (None,) * (n_head_dims + 1)
     else:
         idx = (slice(None),) + (None,) * n_head_dims
-    return torch.where(msk[idx], s, torch.tensor(NEG_INF, dtype=s.dtype,
-                                                 device=s.device))
+    # a Python scalar, not a device tensor: no host-to-device copy, so the
+    # round can be captured in a CUDA graph
+    return torch.where(msk[idx], s, NEG_INF)
 
 
 def _chunk_pos(pos, n: int, chunk: int):

@@ -1,8 +1,8 @@
 """Flight recorder: structured, dual-stamped event tracing for the runtime.
 
 A copy of the reference package's ring buffer and emission API
-(``FlightRecorder``, ``NULL_RECORDER``); its Perfetto export and trace
-validation are not ported yet. Every lifecycle transition becomes a
+(``FlightRecorder``, ``NULL_RECORDER``); ``obs.export`` writes it as a
+Perfetto/Chrome trace and validates it. Every lifecycle transition becomes a
 structured ``TraceEvent`` held in a bounded ring buffer, stamped with
 BOTH clocks —
 
@@ -28,7 +28,8 @@ Event taxonomy (``kind``, dot-namespaced):
   planner.plan                                  — one planner decision with
      the window stats it saw (est unavailability, window max dead, reason)
   perf.attribution / perf.counter               — roofline cost attribution
-     (kinds kept for compatibility; nothing in the port emits them yet)
+     (once per code geometry) and the per-harvest achieved-vs-roofline
+     counter samples (``obs.perf``; rendered as Perfetto counter tracks)
 
 ``track`` names the Perfetto track the event renders on: ``requests``,
 ``rounds``, ``planner``, ``perf``, ``slot:<i>``, ``shard:<i>``.

@@ -2,10 +2,11 @@
 state, ``vstep`` advances them one round (reference or fused variant),
 and ``pool`` dispatches rounds and harvests their tokens."""
 from repro_torch.runtime.executor.pool import RoundHandle, SlotPoolExecutor
-from repro_torch.runtime.executor.slotbatch import (blank_state, read_slot,
+from repro_torch.runtime.executor.slotbatch import (blank_state,
+                                                    clone_state, read_slot,
                                                     request_batch,
                                                     write_slot)
 from repro_torch.runtime.executor.vstep import VStep
 
 __all__ = ["RoundHandle", "SlotPoolExecutor", "VStep", "blank_state",
-           "read_slot", "request_batch", "write_slot"]
+           "clone_state", "read_slot", "request_batch", "write_slot"]

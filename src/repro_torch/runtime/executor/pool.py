@@ -16,9 +16,24 @@ when the pool is given a ``RuntimeMetrics``.
 ``round_hooks`` are called as ``hook(executor, valid)`` on the host right
 before each dispatch (the chaos harness replays modelled stalls into the
 measured round series there).
+
+``last_toks`` [n_slots, 1] is the pool's one token buffer for its whole
+life: admission writes a slot's first token into it, a fused round (and
+its CUDA graph) writes the next tokens into it, and a reference round's
+tokens are copied into it, so a captured graph always reads and writes
+the same memory.
+
+The reference executor's observability hooks: ``perf`` (an
+``obs.perf.PerfMonitor``: roofline attribution at the first harvest and
+after a geometry change, achieved rates every harvest), ``spans`` (an
+``obs.spans.SpanTracker``: each harvest stamps the measured round period
+and the unhidden block time onto the decode slices of the round, matched
+by ``RoundHandle.round_idx``) and ``profile`` (each dispatch inside
+``torch.profiler.record_function("decode_round")``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any
@@ -37,24 +52,34 @@ from repro_torch.runtime.executor.vstep import VStep
 class RoundHandle:
     """An in-flight round: its host token buffer [n_slots, 1], the event
     that marks the copy done (None on the CPU), the (slot, tag) pairs
-    active at dispatch, and the dispatch time."""
+    active at dispatch, the dispatch time, the round variant dispatched,
+    and the VStep dispatch id (the ``round`` arg of this round's
+    round.dispatch event; the span flow-arrow anchor)."""
     toks: torch.Tensor
     ready: Any
     slots: tuple[tuple[int, Any], ...]
     t0: float
+    variant: str = "reference"
+    round_idx: int = 0
 
 
 class SlotPoolExecutor:
     """Batched execution engine over ``n_slots`` decode slots."""
 
     def __init__(self, stepper, n_slots: int, *, overlap: bool = True,
-                 use_fused: bool | str = "auto", metrics=None, tracer=None):
+                 use_fused: bool | str = "auto",
+                 use_graphs: bool | str = "auto", metrics=None,
+                 tracer=None, perf=None, profile: bool = False, spans=None):
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
         self.stepper = stepper
         self.n_slots = int(n_slots)
         self.overlap = bool(overlap)
-        self.vstep = VStep(stepper, use_fused=use_fused)
+        self.perf = perf
+        self.spans = spans
+        self.profile = bool(profile)
+        self.vstep = VStep(stepper, use_fused=use_fused,
+                           use_graphs=use_graphs)
         self.state = blank_state(stepper, self.n_slots)
         self.last_toks = torch.zeros((self.n_slots, 1), dtype=torch.int32,
                                      device=stepper.device)
@@ -100,9 +125,15 @@ class SlotPoolExecutor:
         for hook in self.round_hooks:
             hook(self, valid)
         t0 = time.perf_counter()
-        new_state, toks, _ = self.vstep.round(self.state, self.last_toks,
-                                              valid)
-        self.state, self.last_toks = new_state, toks
+        annotate = torch.profiler.record_function("decode_round") \
+            if self.profile else contextlib.nullcontext()
+        with annotate:
+            new_state, toks, _ = self.vstep.round(self.state,
+                                                  self.last_toks, valid)
+        self.state = new_state
+        if toks is not self.last_toks:
+            self.last_toks.copy_(toks)
+        toks = self.last_toks
         if toks.device.type == "cuda":
             host = torch.empty(toks.shape, dtype=toks.dtype,
                                pin_memory=True)
@@ -121,7 +152,9 @@ class SlotPoolExecutor:
                     ~np.asarray(valid, bool))],
                 wall_args={"dispatch_host_ms":
                            (time.perf_counter() - t_host) * 1e3})
-        return RoundHandle(host, ready, occupants, t0)
+        return RoundHandle(host, ready, occupants, t0,
+                           self.vstep.last_variant,
+                           round_idx=self.vstep.n_dispatches)
 
     def _harvest(self, handle: RoundHandle | None
                  ) -> list[tuple[int, Any, int]]:
@@ -132,11 +165,15 @@ class SlotPoolExecutor:
             handle.ready.synchronize()
         t_ready = time.perf_counter()
         period = (t_ready - handle.t0) * 1e3
+        block = (t_ready - t_block) * 1e3
         self.round_ms.append(period)
         if self.metrics is not None:
             self.metrics.observe_round_ms(period)
+        if self.perf is not None:
+            self.perf.observe_round(self, period, handle.variant)
+        if self.spans is not None:
+            self.spans.on_round_wall(handle.round_idx, period, block)
         if self.tracer.enabled:
-            block = (t_ready - t_block) * 1e3
             self.tracer.emit(
                 "round.harvest", track="rounds", overlap=self.overlap,
                 n_harvested=len(handle.slots), wall_dur_ms=period,

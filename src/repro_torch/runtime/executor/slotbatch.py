@@ -46,6 +46,11 @@ def write_slot(stacked: Any, idx: int, row: Any, axis: int = SLOT_AXIS
     return _map(put, stacked, row)
 
 
+def clone_state(stacked: Any) -> Any:
+    """A copy of the whole stacked state."""
+    return _map(torch.clone, stacked)
+
+
 def read_slot(stacked: Any, idx: int, axis: int = SLOT_AXIS) -> Any:
     """Slot ``idx`` as a batch-1 per-row state (a copy)."""
     return _map(lambda s: s.narrow(axis, int(idx), 1).clone(), stacked)

@@ -1,8 +1,7 @@
 """Runtime telemetry: counters, bounded histograms, queue-depth stats.
 
-A copy of the reference package's ``runtime/metrics.py`` without the
-perf-attribution gauges (the roofline monitor is not ported yet), so the
-snapshot has every reference key except ``perf``.
+A copy of the reference package's ``runtime/metrics.py``; the snapshot
+has the reference's keys, the ``perf`` gauges of ``obs.perf`` among them.
 
 Memory is bounded regardless of run length: latency, queueing, TTFT and
 measured round times are fixed-bucket log-spaced histograms (exact
@@ -169,6 +168,10 @@ class RuntimeMetrics:
         self.plan_log: deque[dict] = deque(maxlen=self.PLAN_LOG_BOUND)
         self.start_ms: float | None = None
         self.end_ms: float | None = None
+        # roofline-anchored perf gauges (obs.perf merges static attribution
+        # + per-round achieved rates here; empty when perf accounting is
+        # off) — exported via prometheus_text as repro_perf_* gauges
+        self.perf: dict = {}
 
     # ------------------------------------------------------------ write ----
     def register(self, name: str):
@@ -210,6 +213,10 @@ class RuntimeMetrics:
         """One adaptive-redundancy planner decision (window boundary)."""
         self.plan_log.append({"applied": bool(applied), **plan})
 
+    def set_perf(self, values: dict):
+        """Merge perf-attribution gauges (latest-value semantics)."""
+        self.perf.update(values)
+
     def mark(self, t_ms: float):
         if self.start_ms is None:
             self.start_ms = float(t_ms)
@@ -240,6 +247,7 @@ class RuntimeMetrics:
             "ttft": self.ttft_ms.dist(),
             "round_latency_measured": self.round_ms.dist(),
             "queue_depth": self.queue_depth.snapshot(),
+            "perf": dict(self.perf),
             "planner": {
                 "n_plans": len(self.plan_log),
                 "r_series": [[p["t_ms"], p["r"]] for p in self.plan_log],

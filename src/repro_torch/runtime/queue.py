@@ -15,9 +15,6 @@ back) are NEVER shed — neither at their own force-push nor as the victim
 of a later push — preserving the paper's "never loses a request" claim
 for admitted work; the queue may exceed the bound by the number of such
 protected requests.
-
-The reference queue also terminates a shed request's span tree; span
-trees are not ported yet, so this queue has no span hook.
 """
 from __future__ import annotations
 
@@ -36,10 +33,15 @@ def _protected(req: Request) -> bool:
 
 
 class AdmissionQueue:
-    def __init__(self, max_depth: int | None = None):
+    def __init__(self, max_depth: int | None = None, spans=None, clock=None):
         if max_depth is not None and max_depth < 1:
             raise ValueError(f"max_depth must be >= 1, got {max_depth}")
         self.max_depth = max_depth
+        # span emission point: shedding is the queue's decision, so the
+        # queue stamps the reason and terminates the victim's span tree
+        # (obs.spans.SpanTracker | None; clock supplies the sim stamp)
+        self.spans = spans
+        self.clock = clock
         self._q: list[tuple[tuple, Request]] = []    # sorted by key
 
     def __len__(self) -> int:
@@ -62,6 +64,10 @@ class AdmissionQueue:
                 victim = self._q.pop(i)[1]
                 victim.shed_reason = "queue_full" if victim is req \
                     else "displaced"
+                if self.spans is not None:
+                    t = self.clock.now() if self.clock is not None \
+                        else victim.arrival_ms
+                    self.spans.on_shed(victim, t, victim.shed_reason)
                 return victim
         return None    # every entry is in-flight work put back by 2MR
 

@@ -85,7 +85,10 @@ class Request:
         hybrid policy, for failures beyond the code's erasure budget.
 
         ``first_token_ms`` resets with the progress (TTFT then includes
-        the full requeue delay).
+        the full requeue delay); span state resets with it — the
+        scheduler's ``SpanTracker.on_requeue`` closes the discarded
+        decode episode and opens a ``fault_recovery`` span at the same
+        instant, so the span tree and the stamps never disagree.
         """
         self.state = RequestState.QUEUED
         self.tokens = []

@@ -25,10 +25,10 @@ dispatch for all slots, optional host/device overlap); ``batched=False``
 keeps sequential per-slot stepping over batch-1 states as the
 differential-test oracle. Every slot's tokens are host ints.
 
-Not ported yet: the reference's per-request span trees, roofline perf
-accounting and profiler annotations (its ``spans``, ``perf`` and
-``profile`` options), and encoder extras (the port serves decoder-only
-models).
+Observability as in the reference: per-request span trees (``spans``,
+on by default), roofline perf accounting (``perf``) and per-round
+profiler annotations (``profile``). Not ported yet: encoder extras (the
+port serves decoder-only models).
 """
 from __future__ import annotations
 
@@ -64,6 +64,11 @@ class RuntimeConfig:
     overlap: bool = True             # pipeline host work with device rounds
     use_fused: bool | str = "auto"   # fused coded-GEMM + fused-head round
     max_queue_depth: int | None = None   # shed beyond this depth
+    perf: bool = False               # roofline attribution + achieved rates
+    profile: bool = False            # torch.profiler annotations per round
+    spans: bool = True               # per-request span trees (obs.spans);
+    #                                  bounded memory, on by default like
+    #                                  the shard timeline
 
     def __post_init__(self):
         if self.n_slots < 1:
@@ -111,7 +116,15 @@ class ContinuousBatchingScheduler:
         self.shardlog = ShardTimeline(stepper.n_shards,
                                       t0_ms=self.clock.now())
         self.health.observers.append(self.shardlog)
-        self.queue = AdmissionQueue(max_depth=rcfg.max_queue_depth)
+        # per-request span trees (obs.spans): queue_wait -> prefill ->
+        # decode (per-round slices + stall) -> fault_recovery, gap-free
+        # over every request lifetime (bounded ring, SimClock stamps)
+        self.spans = None
+        if rcfg.spans:
+            from repro_torch.obs.spans import SpanTracker
+            self.spans = SpanTracker()
+        self.queue = AdmissionQueue(max_depth=rcfg.max_queue_depth,
+                                    spans=self.spans, clock=self.clock)
         self.slots = [_Slot(i) for i in range(rcfg.n_slots)]
         self.completed: list[Request] = []
         self.shed: list[Request] = []
@@ -128,10 +141,17 @@ class ContinuousBatchingScheduler:
         self.round_hooks: list[Any] = []
         self.executor: SlotPoolExecutor | None = None
         if rcfg.batched:
+            perf = None
+            if rcfg.perf:
+                # roofline-anchored round attribution: costed at first
+                # harvest, achieved rates + counter-track events per round
+                from repro_torch.obs.perf import PerfMonitor
+                perf = PerfMonitor(metrics=self.metrics, tracer=self.tracer)
             self.executor = SlotPoolExecutor(
                 stepper, rcfg.n_slots, overlap=rcfg.overlap,
                 use_fused=rcfg.use_fused, metrics=self.metrics,
-                tracer=self.tracer)
+                tracer=self.tracer, perf=perf, profile=rcfg.profile,
+                spans=self.spans)
 
     # --------------------------------------------------------- ingestion ----
     def submit(self, prompt, max_new_tokens: int,
@@ -154,6 +174,10 @@ class ContinuousBatchingScheduler:
                              rid=req.rid, prompt_len=int(req.prompt.size),
                              max_new_tokens=req.max_new_tokens,
                              deadline_ms=deadline_ms, priority=priority)
+        if self.spans is not None:
+            # before push: if the depth bound sheds req itself the queue
+            # terminates a tree that must already exist
+            self.spans.on_submit(req)
         victim = self.queue.push(req)
         if victim is not None:
             victim.state = RequestState.SHED
@@ -195,7 +219,7 @@ class ContinuousBatchingScheduler:
                                      fault=ev.kind.value,
                                      n_dead=self.health.n_dead,
                                      budget=self.health.budget)
-                self._requeue_inflight()
+                self._requeue_inflight(ev)
             elif action is HealthAction.REENCODE:
                 # a shard rejoined: fold it back into the code.
                 self.metrics.count("shards_healed")
@@ -220,12 +244,26 @@ class ContinuousBatchingScheduler:
                              r=int(self.stepper.model.ctx.code_r)
                              if self.stepper.coded else 0,
                              wall_dur_ms=self.stepper.last_reencode_wall_ms)
+        if self.spans is not None:
+            # heal_wait child on every open fault_recovery span (no-op on
+            # shard-rejoin re-encodes with nothing requeued)
+            self.spans.on_heal(
+                self.clock.now(),
+                reencode_wall_ms=self.stepper.last_reencode_wall_ms)
 
-    def _requeue_inflight(self):
+    def _requeue_inflight(self, ev=None):
         """2MR fallback: drain slots, swap the standby replica in, re-encode
         parity. Requests keep their original arrival order; shedding never
-        applies to in-flight work."""
+        applies to in-flight work. ``ev`` is the beyond-budget health event
+        that triggered the fallback: span trees carry its identity so the
+        trace exporter can draw the fault_recovery -> injector erasure
+        flow arrow."""
         self.metrics.count("beyond_budget_failures")
+        fault = None
+        if ev is not None:
+            fault = {"fault_shard": int(ev.shard),
+                     "fault_t_ms": float(ev.time_ms),
+                     "fault_kind": ev.kind.value}
         if self.executor is not None:
             # in-flight round (if any) was computed for requeued occupants
             self.executor.drop_pending()
@@ -242,6 +280,10 @@ class ContinuousBatchingScheduler:
                     "leaves a healthy window to finish in")
             req.reset_for_requeue()
             victims.append(req)
+            if self.spans is not None:
+                # resets with first_token_ms: the wasted decode episode
+                # closes, a fault_recovery span opens at the same stamp
+                self.spans.on_requeue(req, self.clock.now(), fault=fault)
             if self.tracer.enabled:
                 self.tracer.emit("request.requeue", track=f"slot:{slot.idx}",
                                  rid=req.rid, n_requeues=req.n_requeues)
@@ -280,6 +322,10 @@ class ContinuousBatchingScheduler:
             slot.occupancies += 1
             req.tokens.append(tok)
             req.first_token_ms = now
+            if self.spans is not None:
+                self.spans.on_admit(
+                    req, now,
+                    prefill_wall_ms=self.stepper.last_prefill_wall_ms)
             self.metrics.count("requests_admitted")
             self.metrics.count("tokens_generated")
             if self.tracer.enabled:
@@ -298,6 +344,8 @@ class ContinuousBatchingScheduler:
         req.state = RequestState.COMPLETED
         req.finished_ms = self.clock.now()
         self.completed.append(req)
+        if self.spans is not None:
+            self.spans.on_complete(req, req.finished_ms)
         self.metrics.count("requests_completed")
         self.metrics.observe_request(req.latency_ms, req.queueing_ms,
                                      ttft_ms=req.ttft_ms)
@@ -375,26 +423,52 @@ class ContinuousBatchingScheduler:
             self.metrics.observe_round_ms((time.perf_counter() - t0) * 1e3)
         return finished
 
-    def _round_latency(self) -> float:
-        """Simulated-clock advance of the round that just ran."""
+    def _round_latency(self) -> tuple[float, float]:
+        """(dt, stall) of the round that just ran: the simulated-clock
+        advance plus the deterministic straggler/fault excess over a
+        fault-free round (0 outside the injected-latency path: the plain
+        StragglerModel draw and the fixed step time model no fault)."""
         T, r = self.stepper.n_shards, 0
         if self.stepper.coded:
             r = int(self.stepper.model.ctx.code_r)
         if self.latency is not None:
             # injected latency: same fault schedule as the health events
-            return self.latency.round_ms(self.clock.now(), T, r,
-                                         mask=self.health.mask)
+            dt = self.latency.round_ms(self.clock.now(), T, r,
+                                       mask=self.health.mask)
+            return dt, float(getattr(self.latency, "last_stall_ms", 0.0))
         if self.rcfg.straggler is not None:
             times = self.rcfg.straggler.sample(self._rng, (T + r,))
             # coded rounds finish at the T-th of T+r arrivals; uncoded
             # rounds wait for all T shards (paper §6.2)
-            return float(request_latency(times, T)) if r \
+            dt = float(request_latency(times, T)) if r \
                 else float(times[:T].max())
-        return self.rcfg.step_time_ms
+            return dt, 0.0
+        return self.rcfg.step_time_ms, 0.0
+
+    def _round_id(self) -> int:
+        """Id of the round this step ran: the executor's dispatch counter
+        on the batched path (matches the ``round`` arg of its
+        round.dispatch event), the decode_rounds counter otherwise."""
+        if self.executor is not None:
+            return self.executor.vstep.n_dispatches
+        return self.metrics.counters["decode_rounds"]
 
     def _advance_clock(self):
-        if isinstance(self.clock, SimClock):
-            self.clock.advance(self._round_latency())
+        if not isinstance(self.clock, SimClock):
+            return
+        dt, stall = self._round_latency()
+        if self.spans is not None:
+            # decode slices tile each occupancy: [now, now + dt] for every
+            # slot still occupied after this round's harvest (a request
+            # completed or requeued this round already closed its decode
+            # span at `now`, which is exactly where its last slice ended)
+            now = self.clock.now()
+            ridx = self._round_id()
+            for slot in self.slots:
+                if not slot.free:
+                    self.spans.on_round(slot.request.rid, now, dt, ridx,
+                                        stall_ms=stall)
+        self.clock.advance(dt)
 
     # --------------------------------------------------------------- run ----
     def run(self) -> list[Request]:

@@ -51,8 +51,13 @@ class ModelStepper:
         spec = model.ctx.spec
         self.erasure_budget = int(spec.max_device_failures) if spec else 0
         # wall time of the last parity re-encode (on a CUDA device measured
-        # to the end of its kernels)
+        # to the end of its kernels) and of the last prefill's dispatch
         self.last_reencode_wall_ms: float = 0.0
+        self.last_prefill_wall_ms: float = 0.0
+        # bumped by every parity encode after the first: what a round
+        # captured against the old parity (a CUDA graph, the head cache)
+        # keys on
+        self.encode_generation: int = 0
 
     @property
     def device(self) -> torch.device:
@@ -76,6 +81,7 @@ class ModelStepper:
         if sync:
             torch.cuda.synchronize()
         self.last_reencode_wall_ms = (time.perf_counter() - t0) * 1e3
+        self.encode_generation += 1
 
     def reencode(self):
         """Offline parity re-encode (paper §5.1), after a heal or swap."""
@@ -100,6 +106,9 @@ class ModelStepper:
                              r_new=code_r, budget=self.erasure_budget)
         return True
 
+    def full_mask(self) -> np.ndarray:
+        return np.ones(self.n_shards, bool)
+
     def _mask(self, valid) -> torch.Tensor | None:
         """The host (CPU) bool mask the model layers consume."""
         if valid is None:
@@ -114,11 +123,13 @@ class ModelStepper:
     def prefill(self, batch: dict, valid=None) -> tuple[torch.Tensor, Any]:
         """Run the prompt through the decode path into a fresh per-row
         state. Returns (last-position logits [b, 1, V], state)."""
+        t0 = time.perf_counter()
         v = self._mask(valid) if self.coded else None
         tokens = self._tokens(batch["tokens"])
         state = self.model.init_decode(self.params, tokens.shape[0],
                                        self.max_len, self.cache_dtype)
         logits, state = self.model.decode(self.params, state, tokens, v)
+        self.last_prefill_wall_ms = (time.perf_counter() - t0) * 1e3
         return logits[:, -1:], state
 
     def decode_one(self, state, tok, valid=None) -> tuple[torch.Tensor, Any]:
@@ -155,19 +166,24 @@ class ServingEngine:
     """One batch at a time, caller-managed failure injection. ``generate``
     runs through the batched ``SlotPoolExecutor`` (every batch row is a
     slot); ``use_fused`` selects its round variant ("auto": the fused
-    kernels when the params live on a CUDA device)."""
+    kernels when the params live on a CUDA device) and ``use_graphs``
+    whether fused rounds replay captured CUDA graphs ("auto": on a CUDA
+    device); both may be changed between calls."""
 
     def __init__(self, model: Model, params, scfg: ServeConfig,
-                 use_fused: bool | str = "auto"):
+                 use_fused: bool | str = "auto",
+                 use_graphs: bool | str = "auto"):
         self.model = model
         self.scfg = scfg
         self.use_fused = use_fused
+        self.use_graphs = use_graphs
         self.stepper = ModelStepper(model, params, scfg.max_len,
                                     scfg.cache_dtype)
         self.valid = np.ones(self.stepper.n_shards, bool)
         self.metrics = {"requests": 0, "erasures_recovered": 0,
                         "requeued": 0}
-        self._executors: dict[int, Any] = {}   # batch size -> executor
+        # (batch size, use_fused, use_graphs) -> executor
+        self._executors: dict[tuple, Any] = {}
 
     @property
     def params(self):
@@ -192,21 +208,27 @@ class ServingEngine:
     def prefill(self, batch: dict):
         return self.stepper.prefill(batch, self.valid)
 
+    def executor(self, b: int):
+        """The executor ``generate`` runs a batch of ``b`` through under
+        the current ``use_fused`` and ``use_graphs``."""
+        from repro_torch.runtime.executor import SlotPoolExecutor
+        key = (b, self.use_fused, self.use_graphs)
+        ex = self._executors.get(key)
+        if ex is None:
+            ex = self._executors[key] = SlotPoolExecutor(
+                self.stepper, n_slots=b, overlap=False,
+                use_fused=self.use_fused, use_graphs=self.use_graphs)
+        return ex
+
     def generate(self, batch: dict, n_tokens: int,
                  fail_at: dict[int, int] | None = None) -> np.ndarray:
         """Greedy generation; ``fail_at`` maps step -> shard to kill
         mid-request (the paper's Case Study II)."""
-        from repro_torch.runtime.executor import SlotPoolExecutor
         tokens = np.asarray(batch["tokens"])
         b = tokens.shape[0]
-        ex = self._executors.get(b)
-        if ex is None:
-            ex = SlotPoolExecutor(self.stepper, n_slots=b, overlap=False,
-                                  use_fused=self.use_fused)
-            self._executors[b] = ex
-        else:
-            ex.drop_pending()
-            ex.evict_all()
+        ex = self.executor(b)
+        ex.drop_pending()
+        ex.evict_all()
         out = np.zeros((b, n_tokens), np.int64)
         for i in range(b):
             out[i, 0] = ex.admit(i, tokens[i], self.valid, tag=i)

@@ -120,11 +120,10 @@ def build_sched(side, stepper, *, events=(), chaos=None, latency=None,
 def outcome(sched, done) -> dict:
     """What must agree between the two packages: completions (rid order
     and tokens), counters, the simulated-clock snapshot and the planner's
-    decisions. The measured wall-clock series agrees only in count, and
-    the reference's perf gauges are not ported."""
+    decisions (the perf gauges among them, empty unless perf accounting
+    is on). The measured wall-clock series agrees only in count."""
     snap = sched.metrics.snapshot()
     measured = snap.pop("round_latency_measured")
-    snap.pop("perf", None)
     return {"done": [(r.rid, [int(t) for t in r.tokens]) for r in done],
             "counters": dict(sched.metrics.counters),
             "snapshot": snap, "n_measured": measured["n"],

@@ -98,3 +98,38 @@ def test_encode_kernel_on_bf16_matches_plain(smoke):
     from repro_torch.configs import get_arch
     err, scale = smoke.check_encode_bf16(get_arch("granite-3-8b"))
     assert err <= 2e-2 + 2e-2 * scale
+
+
+def test_replayed_round_equals_eager_round_bitwise(smoke):
+    """At smoke size on the card: rounds replayed from captured CUDA graphs
+    give the eager fused rounds' tokens, kernel-2 maxima and KV state to the
+    bit, across a mask change (a second graph) and a re-encode (graphs
+    dropped and captured again)."""
+    import numpy as np
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.models import TPCtx, build
+    from repro_torch.runtime.executor import SlotPoolExecutor
+    from repro_torch.serve import ModelStepper
+    cfg = smoke_config(get_arch("granite-3-8b"))
+    model = build(cfg, TPCtx(tp=4, mode="coded", code_r=2))
+    stepper = ModelStepper(model, model.init(0, device="cuda"), max_len=32)
+    graph, eager = (SlotPoolExecutor(stepper, 3, overlap=False,
+                                     use_fused=True, use_graphs=g)
+                    for g in (True, False))
+    full = np.ones(4, bool)
+    dead = np.array([True, False, True, True])
+    rng = np.random.default_rng(0)
+    for slot in range(3):
+        prompt = rng.integers(0, cfg.vocab, 5 + slot)
+        assert graph.admit(slot, prompt, full) == \
+            eager.admit(slot, prompt, full)
+    for i, valid in enumerate([full, full, dead, dead, full, full, dead]):
+        if i == 4:
+            stepper.reencode()
+        assert graph.step_round(valid) == eager.step_round(valid)
+        for a, b in zip(graph.vstep.last_head, eager.vstep.last_head):
+            assert torch.equal(a, b)
+    for name, t in graph.state["kv"].items():
+        assert torch.equal(t, eager.state["kv"][name]), name
+    vs = graph.vstep
+    assert (vs.n_captures, vs.n_replays, vs.n_graph_drops) == (4, 7, 1)

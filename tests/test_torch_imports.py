@@ -3,9 +3,14 @@
   * no module of src/repro_torch, and not chip_smoke.py, imports jax or
     the reference package ``repro``;
   * the entry points run on the CUDA device unless told otherwise: without
-    a card they raise instead of falling back to the CPU.
+    a card they raise instead of falling back to the CPU;
+  * every package imports cleanly when a fresh interpreter imports it
+    first (no import cycle).
 """
 import ast
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -95,3 +100,17 @@ def test_loading_every_port_module_loads_neither_jax_nor_reference():
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     assert out.returncode == 0, out.stderr
     assert len(mods) >= 30
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.serve", "repro_torch.obs", "repro_torch.runtime",
+    "repro_torch.kernels.ops", "repro_torch.launch.serve",
+    "repro_torch.models"])
+def test_package_imports_first_in_a_fresh_interpreter(module):
+    """No import cycle bites whichever package a program imports first
+    (``obs`` and ``runtime`` import each other's leaf modules)."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", f"import {module}"],
+                         capture_output=True, text=True, env=env,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]

@@ -109,7 +109,7 @@ def test_generate_with_erasure_matches_reference(pair, use_fused):
     got = eng.generate(batch, 6, fail_at={2: 1})
     np.testing.assert_array_equal(got, want)
     assert eng.metrics["erasures_recovered"] == 1
-    ex = eng._executors[2]
+    ex = eng.executor(2)
     assert ex.vstep.use_fused is use_fused
     assert ex.vstep.last_variant == ("fused" if use_fused else "reference")
     # the sequential oracle agrees as well
@@ -175,6 +175,6 @@ def test_generate_twice_reuses_the_executor(pair):
     eng = ServingEngine(model, params, ServeConfig(max_len=24, batch=2),
                         use_fused=True)
     first = eng.generate(batch, 4)
-    ex = eng._executors[2]
+    ex = eng.executor(2)
     np.testing.assert_array_equal(eng.generate(batch, 4), first)
-    assert eng._executors[2] is ex and eng.metrics["requests"] == 4
+    assert eng.executor(2) is ex and eng.metrics["requests"] == 4
