@@ -97,6 +97,34 @@ Phases, each of which raises on failure (exit code non-zero):
      reference's max (a rounding tie; the split's top-2 gap is logged);
      the leading tokens on which the streams agree reported, device time
      per round by the profiler.
+Every other code width (2 <= T <= 16, 1 <= r <= T) runs kernels 1-5's
+generic instantiations (T and r runtime values). Phase 2 also holds each
+against its plain version at T in {3, 5, 6, 12} at granite's widths for
+that T (kernel 1 within 1e-4 at r in {1, 2, 4, T}, r = 6 at T = 8 and
+12, (16, 16), and its plan's edges; kernel 2 within 1e-4 and to the bit
+on integer inputs at its plan's edges at T = 3 and 12; kernels 3, 4 and
+5 within 1e-5; bf16 for kernels 1, 2 and 4 within 2e-2), every generic
+instantiation launched; phase 4 times them at granite's T = 12 shapes,
+and phase 7 drives kernels 3 and 5's library entries at T = 12. Then:
+ 10. serve granite-3-8b at T = 12 (launch.serve --coded --tp 12: r = 2
+     folded, float32, heads padded to 36/9 with zero weights): 4 requests,
+     prompt 16, 16 new tokens, fault-free and with shard 7 killed at step
+     4, on graph rounds, eager fused rounds, the reference variant and
+     kernel-free: identical streams; 200 / 1 / 81 launches of kernels 1,
+     2 and 6 a fused round; device ms per round by kernel; kernel 4 timed
+     on a whole re-encode;
+ 11. h2o-danube-1.8b at full width (SWA, window 4096): launch.serve's
+     scheduler (4 slots, 8 requests, --perf) with the CPU run's counters,
+     then one batch with a 4090-token prompt and 16 new tokens, so decode
+     crosses the window: graph, eager, reference and kernel-free streams
+     identical, fault-free and with shard 1 dead; 120 / 1 / 49 launches a
+     fused round;
+ 12. deepseek-67b at full width, 12 of its 95 layers (~52 GB with the
+     parity; 95 float32 layers would need ~350 GB): 4 requests, prompt 16,
+     8 new tokens, fused graph rounds and the reference variant give the
+     same streams; 60 / 1 / 25 launches a fused round (kernels 1 and 2 at
+     k = 8192). chameleon-34b has the same layer widths and runs at smoke
+     size on the CPU only (tests/test_torch_dense_zoo.py).
 Phases 3 and 5 also count the RMSNorm kernel: 2 x 40 + 1 = 81 launches
 per decode round (fused and reference variants) and per prefill.
 Peak device memory is printed per phase. The line before the last is the
@@ -308,10 +336,10 @@ def check_fused_head(cfg) -> float:
 def head_variants(bf16: bool = False) -> tuple:
     """Every (T, instantiation) of kernel 2 in one storage type: rows
     blocks of 4, 8 and (up to 11 streams) 16, bulk copies or loads."""
-    from repro_torch.kernels.stream_plan import rb16_fits
+    from repro_torch.kernels.stream_plan import rb_fits
     return tuple((t, f"rb{rb}-{p}" + ("-bf16" if bf16 else ""))
                  for t in (2, 4, 8, 16) for rb in (4, 8, 16)
-                 if rb < 16 or rb16_fits(t + 1)
+                 if rb_fits(rb, t + 1)
                  for p in ("async", "loads"))
 
 
@@ -1099,6 +1127,322 @@ def check_encode_bf16(cfg) -> tuple[float, float]:
     return worst, scale
 
 
+# ------------------------------------------------ phase 2, any code width --
+
+TS_ANY = (3, 5, 6, 12)     # code widths without an instantiation of their own
+
+
+def granite_widths(t: int) -> dict:
+    """m_l of granite-3-8b's coded GEMMs at code width t, as ``launch.serve
+    --coded --tp t`` builds them (heads padded for t, columns to t * t):
+    at t = 12 wq 384, wk 96, w1 1068."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.attention import attn_dims
+    from repro_torch.models.common import TPCtx
+    cfg, ctx = get_arch("granite-3-8b"), TPCtx(tp=t)
+    hq, hkv, _ = attn_dims(cfg, t)
+    return {"wq": ctx.pad_dim(hq * cfg.hd) // t,
+            "wk": ctx.pad_dim(hkv * cfg.hd) // t,
+            "w1": ctx.pad_dim(cfg.d_ff) // t}
+
+
+def _generic_variants(rbs, suffix: str, bf16: bool) -> set:
+    """Instantiation names of a generic kernel (``-lead`` dropped): rows a
+    block x bulk copies or ordinary loads."""
+    return {f"rb{rb}-{p}" + ("-bf16" if bf16 else "") + suffix
+            for rb in rbs for p in ("async", "loads")}
+
+
+def check_coded_matmul_any(dtype=torch.float32) -> float:
+    """Kernel 1's generic instantiation (T and r runtime values) against
+    its plain version, within 1e-4 on float32 and 2e-2 on bf16: granite's
+    GEMMs at T in {3, 5, 6, 12} (bf16: 3 and 12) as launch.serve builds
+    them (wq, wk, w1: at T = 12 m_l 384, 96 and 1068, whose 89-column
+    slices are 4 bytes off a 16-byte boundary and take the ordinary
+    loads), r in {1, 2, 4, T}, folded, 4 rows, under the all-valid mask
+    and every single dead shard; the dedicated layout; r = 6 at T = 8 and
+    12; (16, 16), 32 streams; and the plan's edges at T = 3, 5, 6, 12 and
+    16 (rows 1, 5, 9 and 17, k = 4093, a ragged dedicated m_l, slices wide
+    enough for 16-row blocks).
+    Every generic instantiation of the storage type must launch: one
+    stream a consumer warp (``-any``: 4, 8 and 16 rows a block), two
+    (``-any2``, 17-24 streams: 4 and 8 rows) and three (``-any3``, 25-32
+    streams: 4 rows), bulk copies and ordinary loads; two launches of a
+    split plan give the same bits."""
+    from repro_torch.kernels import cdc_matmul
+    bf16 = dtype == torch.bfloat16
+    tol = BF16_TOL if bf16 else TOL
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    fn = cdc_matmul.cdc_coded_matmul
+    fn.variants.clear()
+    # (t, r, m_l, rows, layout, k, every single dead shard?)
+    cases = [(t, r, m_l, 4, "folded", K, True)
+             for t in ((3, 12) if bf16 else TS_ANY)
+             for r in sorted({1, 2, 4, t} & set(range(1, t + 1)))
+             for m_l in granite_widths(t).values()]
+    if not bf16:
+        cases += [(t, 2, granite_widths(t)["wq"], 4, "dedicated", K, True)
+                  for t in TS_ANY]
+        cases += [(t, 6, granite_widths(t)["w1"], 4, "folded", K, True)
+                  for t in (8, 12)]
+    cases += [(16, 16, 256, 4, "folded", K, True),
+              (16, 16, 800, 4, "folded", K, False),
+              (16, 15, 800, 4, "folded", K, False),
+              (6, 2, 2304, 17, "folded", K, False),
+              (6, 2, 2310, 17, "folded", K, False),
+              (12, 2, 384, 9, "folded", K, False),
+              (12, 2, 1068, 9, "folded", K, False),
+              (12, 12, 384, 9, "folded", K, False),
+              (12, 12, 1068, 9, "folded", K, False),
+              (12, 2, 384, 1, "folded", 4093, False),
+              (5, 3, 1001, 5, "dedicated", K, False),
+              (3, 2, 4269, 17, "folded", K, False),
+              (3, 3, 1410, 5, "folded", 4093, False),
+              (3, 1, 4269, 9, "dedicated", K, False)]
+    worst, n = 0.0, 0
+    for t, r, m_l, rows, layout, k, every in cases:
+        spec, x, w, wc = _coded_case(m_l, rows, layout, gen, k, r, t,
+                                     dtype)
+        masks = list(_masks(t)) if every else \
+            [(True,) * t, tuple(i != t // 2 for i in range(t))]
+        for valid in masks:
+            worst = max(worst, _coded_pair(
+                x, w, wc, spec, valid, tol,
+                f"({t}, {r}) {layout} m_l={m_l} rows={rows} k={k} {dtype}"))
+            n += 1
+        del x, w, wc
+    spec, x, w, wc = _coded_case(1068, 4, "folded", gen, K, 2, 12, dtype)
+    dead = tuple(i != 7 for i in range(12))
+    if not torch.equal(_run_coded(x, w, wc, spec, dead),
+                       _run_coded(x, w, wc, spec, dead)):
+        raise AssertionError("coded matmul (12, 2) w1: two launches on the "
+                             "same inputs differ")
+    del x, w, wc
+    seen = {v.replace("-lead", "") for v in fn.variants}
+    want = _generic_variants((4, 8, 16), "-any", bf16) | \
+        _generic_variants((4, 8), "-any2", bf16) | \
+        _generic_variants((4,), "-any3", bf16)
+    if want - seen:
+        raise AssertionError(f"kernel 1's generic instantiations never "
+                             f"launched: {sorted(want - seen)} (launched "
+                             f"{dict(fn.variants)})")
+    log(f"kernel cdc_coded_matmul, generic instantiation ({dtype}): {n} "
+        f"cases (T {', '.join(map(str, (3, 12) if bf16 else TS_ANY))} at "
+        f"granite's widths, r 1/2/4/T, every mask; r = 6 at T = 8 and 12; "
+        f"(16, 16); the plan's edges) within rtol=atol={tol['rtol']} of "
+        f"the plain version, max abs err {worst:.3e}; repeats bitwise "
+        f"equal; launches per instantiation {dict(fn.variants)}")
+    return worst
+
+
+def check_head_any(cfg, dtype=torch.float32) -> float:
+    """Kernel 2's generic instantiation (T a runtime value) against its
+    plain version: granite's head at T in {3, 5, 6, 12} (m_l 16386, 9835,
+    8196 and 4104) at 4 rows under every mask with <= 1 dead shard,
+    Gaussian float32 (tokens equal, max within 1e-4; bf16: integer-valued
+    inputs, equal to the bit); then its plan's edges at T = 3 and 12 on
+    integer-valued inputs (tokens and max equal to the bit, ties
+    included): rows 1, 4, 5, 9 and 17, an aligned m_l = 2048 and a ragged
+    1001 at k = 4093. Every (T, instantiation) must launch: 4, 8 and 16
+    rows a block at T = 3, 4 and 8 at T = 12 (13 streams), bulk copies
+    and ordinary loads."""
+    from repro_torch.kernels import cdc_decode
+    bf16 = dtype == torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    fn = cdc_decode.cdc_fused_head_argmax
+    worst, n, seen = 0.0, 0, set()
+    for t in TS_ANY:
+        m_l = _pad_head(cfg.vocab, t)
+        if bf16:
+            w = _int_head((K, t * m_l), gen).to(dtype)
+            x = _int_head((4, K), gen, -2, 2)
+        else:
+            w = torch.randn((K, t * m_l), generator=gen, device="cuda") \
+                / K ** 0.5
+            x = torch.randn((4, K), generator=gen, device="cuda")
+        w[:, cfg.vocab:] = 0
+        w_shards, pw = _head_views(w, t)
+        for valid in _masks(t):
+            fn.variants.clear()
+            _, err = _head_pair(x, w_shards, pw, valid, cfg.vocab)
+            seen |= {(t, v) for v in fn.variants}
+            worst, n = max(worst, err), n + 1
+        del w, w_shards, pw
+    for t in (3, 12):
+        for m_l, k, rows_list, voc in (
+                (_pad_head(cfg.vocab, t), K, (1, 4, 5, 9, 17), cfg.vocab),
+                (2048, K, (4, 5, 17), t * 2048 - 7),
+                (1001, 4093, (4, 5, 9), t * 1001 - 7)):
+            w = _int_head((k, t * m_l), gen).to(dtype)
+            w_shards = w.reshape(k, t, m_l).permute(1, 0, 2)
+            pw = cdc_decode.head_parity(w_shards)
+            for rows in rows_list:
+                x = _int_head((rows, k), gen, -2, 2).to(dtype)
+                for valid in _masks(t):
+                    fn.variants.clear()
+                    _, err = _head_pair(x, w_shards, pw, valid, voc)
+                    seen |= {(t, v) for v in fn.variants}
+                    if err != 0.0:
+                        raise AssertionError(
+                            f"fused head max differs by {err} on exact "
+                            f"inputs (T={t}, m_l={m_l}, k={k}, rows={rows},"
+                            f" {dtype})")
+                    n += 1
+            del w, w_shards, pw
+    got = {(t, v.replace("-lead", "")) for t, v in seen}
+    want = {(3, v) for v in _generic_variants((4, 8, 16), "-any", bf16)} | \
+        {(12, v) for v in _generic_variants((4, 8), "-any", bf16)}
+    if want - got:
+        raise AssertionError(f"kernel 2's generic instantiations never "
+                             f"launched: {sorted(want - got)} (launched "
+                             f"{sorted(got)})")
+    log(f"kernel cdc_fused_head_argmax, generic instantiation ({dtype}): "
+        f"{n} cases (granite's head at T {TS_ANY}, every mask; the plan's "
+        f"edges at T = 3 and 12 equal to the bit) with equal tokens, max "
+        f"abs err {worst:.3e}; (T, instantiation) launched {sorted(got)}")
+    return worst
+
+
+def check_elementwise_any() -> tuple[float, float]:
+    """Kernels 3 and 5's generic instantiations (T a runtime value) against
+    their plain versions within 1e-5 (bf16 2e-2): kernel 3 at granite's wq
+    and w1 widths for T in {3, 5, 6, 12} (4 rows), r in {1, 2, 4, T},
+    both layouts, under every mask with <= 1 dead shard, NaN in the dead
+    shard's outputs (the decode selects, so nothing of it may reach the
+    output), 16-byte groups and single columns; kernel 5 on y [T, 4, w1]
+    under every mask. Each instantiation (16-byte groups and single
+    elements, float32 and bf16) must launch. Returns the two max abs
+    errors."""
+    from repro_torch.core.coded_layer import CodedDenseSpec
+    from repro_torch.core.coding import CodeSpec
+    from repro_torch.kernels import cdc_decode, cdc_matmul, ref
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    dm, dec = cdc_matmul.cdc_decode_merge, cdc_decode.cdc_decode
+    dm.variants.clear()
+    dec.variants.clear()
+    worst3 = worst5 = 0.0
+    n3 = n5 = 0
+    for t in TS_ANY:
+        widths = granite_widths(t)
+        for r in sorted({1, 2, 4, t} & set(range(1, t + 1))):
+            for layout in ("folded", "dedicated"):
+                spec = CodedDenseSpec(CodeSpec(t, r), layout=layout)
+                for m_l in (widths["wq"], widths["w1"]):
+                    ys = torch.randn((t, 4, m_l), generator=gen,
+                                     device="cuda")
+                    pshape = (t, 4, r * m_l // t) if layout == "folded" \
+                        else (r, 4, m_l)
+                    par = torch.randn(pshape, generator=gen, device="cuda")
+                    for valid in _masks(t):
+                        vh, esel, coef, g = _dm_plan(spec, valid, m_l)
+                        y = ys.clone()
+                        for d, ok in enumerate(vh):
+                            if not ok:
+                                y[d] = float("nan")
+                        call = (y, par, layout, t, r, g, esel, coef, vh)
+                        got = dm(*call)
+                        want = cdc_matmul.decode_merge_plain(*call)
+                        torch.cuda.synchronize()
+                        if not torch.isfinite(got).all():
+                            raise AssertionError(
+                                f"decode_merge T={t} r={r} {layout}: the "
+                                f"dead shard's NaN reached the output")
+                        torch.testing.assert_close(
+                            got, want, rtol=1e-5, atol=1e-5,
+                            msg=lambda m: f"decode_merge T={t} r={r} "
+                                          f"{layout} m_l={m_l} {vh}: {m}")
+                        worst3 = max(worst3,
+                                     float((got - want).abs().max()))
+                        n3 += 1
+        y = torch.randn((t, 4, widths["w1"]), generator=gen, device="cuda")
+        p = torch.randn((4, widths["w1"]), generator=gen, device="cuda")
+        for valid in _masks(t):
+            got = dec(y, p, valid)
+            want = ref.cdc_decode_ref(y, p, torch.tensor(valid))
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+            worst5, n5 = max(worst5, float((got - want).abs().max())), n5 + 1
+    # bf16: the 16-byte groups (8 columns) and single elements
+    spec = CodedDenseSpec(CodeSpec(12, 2))
+    for m_l in (384, 1068):
+        ys = torch.randn((12, 4, m_l), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        par = torch.randn((12, 4, 2 * m_l // 12), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+        vh, esel, coef, g = _dm_plan(spec, tuple(i != 5 for i in range(12)),
+                                     m_l)
+        call = (ys, par, "folded", 12, 2, g, esel, coef, vh)
+        torch.testing.assert_close(dm(*call).float(),
+                                   cdc_matmul.decode_merge_plain(*call)
+                                   .float(), **BF16_TOL)
+        for yy in (ys, ys[:, :, :m_l - 1].contiguous()):
+            pp = yy.sum(0)
+            torch.testing.assert_close(
+                dec(yy, pp, vh).float(),
+                ref.cdc_decode_ref(yy, pp, torch.tensor(vh)).float(),
+                **BF16_TOL)
+    seen = (dict(dm.variants), dict(dec.variants))
+    if any(set(v) != {"vec", "scalar"} for v in seen):
+        raise AssertionError(f"kernels 3 / 5 instantiations launched: "
+                             f"{seen}; want vec and scalar")
+    log(f"kernels cdc_decode_merge / cdc_decode, generic instantiation: "
+        f"{n3} / {n5} cases (T {TS_ANY}, every mask; NaN in the dead shard "
+        f"for kernel 3) within rtol=atol=1e-5 of the plain versions, max abs "
+        f"err {worst3:.3e} / {worst5:.3e}; bf16 within 2e-2; launches "
+        f"{seen[0]} / {seen[1]}")
+    return worst3, worst5
+
+
+def check_encode_any() -> tuple[float, float]:
+    """Kernel 4's generic instantiation (T and r runtime values) against
+    its plain version: granite's w1 and wq at T in {3, 5, 6, 12} (k 4096,
+    w1 stacked over 2 layers), r in {1, 2, 4, T}, both layouts, within
+    1e-5, each encoded twice to the same bits; on bf16 (N(0, 1) weights)
+    T = 12 at r = 2 and 12 within 2e-2. Returns the max abs errors
+    (float32, bf16)."""
+    from repro_torch.core.coding import generator_matrix
+    from repro_torch.kernels import cdc_encode as enc
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    worst, worst_bf16, n = 0.0, 0.0, 0
+    for t in TS_ANY:
+        widths = granite_widths(t)
+        for shape in ((2, K, t * widths["w1"]), (K, t * widths["wq"])):
+            w = torch.randn(shape, generator=gen, device="cuda")
+            sh = _shards(w, t)
+            for r in sorted({1, 2, 4, t} & set(range(1, t + 1))):
+                for layout in ("folded", "dedicated"):
+                    g = generator_matrix(t, r)
+                    got = enc.cdc_encode(sh, g, layout=layout)
+                    again = enc.cdc_encode(sh, g, layout=layout)
+                    want = enc.encode_plain(sh, g, layout)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, again):
+                        raise AssertionError(f"encode T={t} r={r}: two "
+                                             f"launches differ")
+                    torch.testing.assert_close(
+                        got, want, rtol=1e-5, atol=1e-5,
+                        msg=lambda m: f"encode {shape} T={t} r={r} "
+                                      f"{layout}: {m}")
+                    worst = max(worst, float((got - want).abs().max()))
+                    n += 1
+            del w, sh
+    w = torch.randn((K, 12 * granite_widths(12)["w1"]), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    for r in (2, 12):
+        g = generator_matrix(12, r)
+        got = enc.cdc_encode(_shards(w, 12), g, layout="folded")
+        want = enc.encode_plain(_shards(w, 12), g, "folded")
+        torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+        worst_bf16 = max(worst_bf16,
+                         float((got.float() - want.float()).abs().max()))
+    log(f"kernel cdc_encode, generic instantiation: {n} cases (granite's "
+        f"w1 stacked and wq at T {TS_ANY}, r 1/2/4/T, both layouts) within "
+        f"rtol=atol=1e-5 of the plain version, max abs err {worst:.3e}, "
+        f"repeats bitwise equal; bf16 at T = 12, r = 2 and 12 within 2e-2 "
+        f"(max abs err {worst_bf16:.3e})")
+    return worst, worst_bf16
+
+
 def _phase_memory(name: str):
     log(f"{name}: max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
@@ -1511,7 +1855,7 @@ def time_kernels(cfg, rows: int = 4) -> list[dict]:
                       + 2 * m_l)
         bound, by = _bound(nbytes, 2.0 * rws * K * m_l * (T + r))
         rb = int(variant.split("-")[0][2:])
-        usage = _usage(f"coded_stream_kernelILi{T}ELi{r}ELi{rb}ELb"
+        usage = _usage(f"coded_stream_kernelILi{T}ELi{r}ELi1ELi{rb}ELb"
                        f"{int(variant.endswith('async'))}E", rb)
         out.append({"gemm": name, "r": r, "rows": rws, "m_l": m_l,
                     "ms": ms, "plain_ms": plain, "library_ms": lib,
@@ -1784,25 +2128,26 @@ def run_study(device: str = "cuda") -> dict:
             "errors": errs}
 
 
-def decode_merge_entry() -> dict:
+def decode_merge_entry(t: int = T) -> dict:
     """``core.decode_and_merge(use_fused=True)``, kernel 3's library entry,
     on a coded GEMM's own shard and parity outputs at granite's w1 and wq
-    widths (4 rows, T=4, r=2 folded), each shard dead in turn with NaN
-    outputs: it must rebuild x @ w, equal the reference decode_and_merge
-    to 1e-5 and launch kernel 3 once per call."""
+    widths at code width t (4 rows, r=2 folded), each shard dead in turn
+    with NaN outputs: it must rebuild x @ w, equal the reference
+    decode_and_merge to 1e-5 and launch kernel 3 once per call."""
     from repro_torch.core.coded_layer import decode_and_merge
     from repro_torch.kernels import cdc_matmul
     gen = torch.Generator(device="cuda").manual_seed(21)
     cdc_matmul.cdc_decode_merge.launches = 0
     n, worst = 0, 0.0
-    for m_l in (GEMMS["w1"], GEMMS["wq"]):
-        spec, x, w, wc = _coded_case(m_l, 4, "folded", gen)
+    widths = granite_widths(t)
+    for m_l in (widths["w1"], widths["wq"]):
+        spec, x, w, wc = _coded_case(m_l, 4, "folded", gen, t=t)
         exact = x @ w
-        ys = exact.reshape(4, T, m_l).movedim(1, 0).contiguous()
+        ys = exact.reshape(4, t, m_l).movedim(1, 0).contiguous()
         par = torch.matmul(x[None], wc)
-        for valid in _masks():
+        for valid in _masks(t):
             yd = ys.clone()
-            for d in range(T):
+            for d in range(t):
                 if not valid[d]:
                     yd[d] = float("nan")
             v = np.array(valid)
@@ -1817,10 +2162,49 @@ def decode_merge_entry() -> dict:
     if launches != n:
         raise AssertionError(f"{launches} decode-merge launches for {n} "
                              f"calls of decode_and_merge(use_fused=True)")
-    log(f"decode_and_merge(use_fused=True): {n} calls (w1, wq; every "
-        f"single dead shard) launched kernel 3 {launches} times, equal to "
+    log(f"decode_and_merge(use_fused=True) at T = {t}: {n} calls (w1, "
+        f"wq; every single dead shard) launched kernel 3 {launches} times, "
+        f"equal to "
         f"the reference decode_and_merge within 1e-5 (max abs err "
         f"{worst:.3e}) and to x @ w within 1e-4")
+    return {"launches": launches, "max_abs_err": worst}
+
+
+def decode_entry(t: int = 12) -> dict:
+    """``ops.cdc_decode``, kernel 5's library entry (the r = 1 decode), on
+    a GEMM's own shard outputs at granite's w1 width at code width t (4
+    rows) with their sum parity, each shard dead in turn (its outputs
+    garbage: the decode zeroes a dead shard by multiplying): it must
+    rebuild x @ w within 1e-4, equal the plain version within 1e-5 and
+    launch kernel 5 once per call."""
+    from repro_torch.kernels import cdc_decode, ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(45)
+    cdc_decode.cdc_decode.launches = 0
+    m_l = granite_widths(t)["w1"]
+    x = torch.randn((4, K), generator=gen, device="cuda")
+    w = torch.randn((K, t * m_l), generator=gen, device="cuda") / K ** 0.5
+    ys = (x @ w).reshape(4, t, m_l).movedim(1, 0).contiguous()
+    par = ys.sum(0)
+    n, worst = 0, 0.0
+    for valid in _masks(t):
+        yd = ys.clone()
+        for d in range(t):
+            if not valid[d]:
+                yd[d] = torch.randn((4, m_l), generator=gen, device="cuda")
+        got = ops.cdc_decode(yd, par, valid)
+        want = ref.cdc_decode_ref(yd, par, torch.tensor(valid))
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(got, ys, rtol=1e-4, atol=1e-4)
+        worst, n = max(worst, float((got - want).abs().max())), n + 1
+    launches = cdc_decode.cdc_decode.launches
+    if launches != n:
+        raise AssertionError(f"{launches} decode launches for {n} calls of "
+                             f"ops.cdc_decode")
+    log(f"ops.cdc_decode at T = {t}: {n} calls (w1; every single dead "
+        f"shard) launched kernel 5 {launches} times, equal to the plain "
+        f"version within 1e-5 (max abs err {worst:.3e}) and to the shards "
+        f"of x @ w within 1e-4")
     return {"launches": launches, "max_abs_err": worst}
 
 
@@ -2344,7 +2728,7 @@ def _check_observability(name: str, sched, stepper, obs: dict) -> dict:
     return out
 
 
-def reencode_and_time(stepper) -> dict:
+def reencode_and_time(stepper, t: int = T, r: int = R) -> dict:
     """A re-encode of unchanged weights must give bitwise-equal parity;
     then kernel 4 per leaf and for the whole re-encode, its bound, its
     plain version (the tensordot-and-fold path) and torch.matmul on a
@@ -2368,7 +2752,7 @@ def reencode_and_time(stepper) -> dict:
         f"last_reencode_wall_ms {', '.join(f'{x:.3f}' for x in walls)}")
     scratch = torch.empty(64 * 2 ** 20, device="cuda")   # 256 MB > L2
     flush = scratch.zero_
-    g = generator_matrix(T, R)
+    g = generator_matrix(t, r)
     raw = stepper._raw_params
     dtype = raw["lm_head"]["w"].dtype
     e = torch.finfo(dtype).bits / 8
@@ -2382,18 +2766,18 @@ def reencode_and_time(stepper) -> dict:
               ("lm_head", raw["lm_head"]["w"])]
     rows = []
     for name, w in leaves:
-        sh = _shards(w, T)
+        sh = _shards(w, t)
         ms = _time(lambda: enc.cdc_encode(sh, g, layout="folded"), flush, 10)
         plain = _time(lambda: enc.encode_plain(sh, g, "folded"), flush, 5)
         flat = sh.contiguous().reshape(sh.shape[:-2] + (-1,))
         lib = _time(lambda: torch.matmul(gt, flat), flush, 10)
         del flat
-        n = sh.numel()                     # T * (L *) k * m_l
-        bound, by = _bound(e * n * (T + R) / T, 2.0 * n * R, peak)
+        n = sh.numel()                     # t * (L *) k * m_l
+        bound, by = _bound(e * n * (t + r) / t, 2.0 * n * r, peak)
         rows.append({"leaf": name, "shape": list(w.shape), "ms": ms,
                      "plain_ms": plain, "library_ms": lib,
                      "bound_ms": bound, "bound_by": by})
-        log(f"cdc_encode {name} {list(w.shape)} {dtype} T={T} r={R} folded: "
+        log(f"cdc_encode {name} {list(w.shape)} {dtype} T={t} r={r} folded: "
             f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library matmul "
             f"{lib:.4f} ms, bound {bound:.4f} ms ({by})")
     whole = _time(lambda: stepper.model.encode_offline(raw), flush, 10)
@@ -2405,6 +2789,415 @@ def reencode_and_time(stepper) -> dict:
         f"{total['library_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms")
     return {"leaves": rows, "whole_ms": whole, "total": total,
             "reencode_wall_ms": walls}
+
+
+def time_t12(cfg, rows: int = 4) -> list[dict]:
+    """The generic instantiations at granite's T = 12 shapes (what
+    ``launch.serve --coded --tp 12`` runs; r = 2 folded, 4 rows, no shard
+    dead): kernel 1 at wq, wk and w1 (w1's 89-column slices on the
+    ordinary loads), kernel 2 at the head, kernel 3 at w1 with shard 2
+    dead and kernel 5 at [12, 4, 1068]; beside their plain versions, one
+    library call (torch.matmul of x over the same weights, concatenated;
+    none for 3 and 5) and their bounds. Kernel 4's T = 12 row, a whole
+    re-encode, is timed in ``serve_t12``."""
+    from repro_torch.core.coded_layer import CodedDenseSpec, unfold_parity
+    from repro_torch.core.coding import CodeSpec
+    from repro_torch.kernels import cdc_decode, cdc_matmul, ref
+    gen = torch.Generator(device="cuda").manual_seed(44)
+    scratch = torch.empty(64 * 2 ** 20, device="cuda")   # 256 MB > L2
+    flush = scratch.zero_
+    t, r, out = T12, R, []
+    valid = (True,) * t
+    for name, m_l in granite_widths(t).items():
+        spec, x, w, wc = _coded_case(m_l, rows, "folded", gen, r=r, t=t)
+        wcat = torch.cat([w, unfold_parity(wc, t, r).permute(1, 0, 2)
+                          .reshape(K, r * m_l)], dim=1)
+        cdc_matmul.cdc_coded_matmul.variants.clear()
+        ms = _time(lambda: _run_coded(x, w, wc, spec, valid), flush)
+        variant, = cdc_matmul.cdc_coded_matmul.variants
+        plain = _time(lambda: _run_coded(x, w, wc, spec, valid, plain=True),
+                      flush)
+        lib = _time(lambda: torch.matmul(x, wcat), flush)
+        bound, by = _bound(4.0 * (rows * K + (t + r) * K * m_l
+                                  + rows * t * m_l + 2 * m_l),
+                           2.0 * rows * K * m_l * (t + r))
+        rb = int(variant.split("-")[0][2:])
+        usage = _usage(f"coded_stream_kernelILi0ELi0ELi1ELi{rb}ELb"
+                       f"{int('-async' in variant)}E", rb)
+        out.append({"gemm": name, "r": r, "rows": rows, "m_l": m_l,
+                    "case": "T=12 float32", "ms": ms, "plain_ms": plain,
+                    "library_ms": lib, "bound_ms": bound, "bound_by": by,
+                    "variant": variant, "ptxas": usage})
+        log(f"cdc_coded_matmul {name} T=12 [rows={rows}, k={K}, m_l={m_l}, "
+            f"r={r} folded]: kernel {ms:.4f} ms ({ms / bound:.2f}x the "
+            f"bound), plain {plain:.4f} ms, library matmul {lib:.4f} ms, "
+            f"bound {bound:.4f} ms ({by}); {variant}: {usage}")
+        del x, w, wc, wcat
+    m_l = _pad_head(cfg.vocab, t)
+    w = torch.randn((K, t * m_l), generator=gen, device="cuda") / K ** 0.5
+    w_shards, pw = _head_views(w, t)
+    wcat = torch.cat([w, pw], dim=1)
+    x = torch.randn((rows, K), generator=gen, device="cuda")
+    cdc_decode.cdc_fused_head_argmax.variants.clear()
+    ms = _time(lambda: cdc_decode.cdc_fused_head_argmax(
+        x, w_shards, pw, valid, vocab=cfg.vocab), flush)
+    variant, = cdc_decode.cdc_fused_head_argmax.variants
+    vt = torch.tensor(valid)
+    plain = _time(lambda: ref.fused_head_argmax_ref(x, w_shards, pw, vt,
+                                                    cfg.vocab), flush)
+    lib = _time(lambda: torch.matmul(x, wcat), flush)
+    bound, by = _bound(4.0 * (rows * K + (t + 1) * K * m_l + 2 * rows),
+                       2.0 * rows * K * m_l * (t + 1))
+    rb = int(variant.split("-")[0][2:])
+    usage = _usage(f"head_stream_kernelILi0ELi{rb}ELb"
+                   f"{int('-async' in variant)}EfE", rb)
+    out.append({"gemm": "lm_head", "rows": rows, "m_l": m_l,
+                "case": "T=12 float32", "ms": ms, "plain_ms": plain,
+                "library_ms": lib, "bound_ms": bound, "bound_by": by,
+                "variant": variant, "ptxas": usage})
+    log(f"cdc_fused_head_argmax T=12 [b={rows}, k={K}, m_l={m_l}]: kernel "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, library matmul {lib:.4f} ms, "
+        f"bound {bound:.4f} ms ({by}); {variant}: {usage}")
+    del w, w_shards, pw, wcat
+    m_l = granite_widths(t)["w1"]
+    spec = CodedDenseSpec(CodeSpec(t, r))
+    dead2 = tuple(i != 2 for i in range(t))
+    vh, esel, coef, g = _dm_plan(spec, dead2, m_l)
+    ys = torch.randn((t, rows, m_l), generator=gen, device="cuda")
+    par = torch.randn((t, rows, r * m_l // t), generator=gen, device="cuda")
+    call = (ys, par, "folded", t, r, g, esel, coef, vh)
+    cdc_matmul.cdc_decode_merge.variants.clear()
+    ms = _time(lambda: cdc_matmul.cdc_decode_merge(*call), flush)
+    plain = _time(lambda: cdc_matmul.decode_merge_plain(*call), flush)
+    _row(out, "cdc_decode_merge", f"[{t}, {rows}, {m_l}] r={r} folded",
+         ms, plain, None, 4.0 * (2 * t * rows * m_l) + 8.0 * m_l,
+         rows * m_l * (2.0 * t + 2))
+    # the generic instantiation (T a runtime value) of the one launched
+    out[-1]["variant"] = "generic-" + "".join(
+        cdc_matmul.cdc_decode_merge.variants)
+    y = torch.randn((t, rows, m_l), generator=gen, device="cuda")
+    p = y.sum(0)
+    vt = torch.tensor(dead2, device="cuda")
+    n = p.numel()
+    cdc_decode.cdc_decode.variants.clear()
+    ms = _time(lambda: cdc_decode.cdc_decode(y, p, dead2), flush)
+    plain = _time(lambda: ref.cdc_decode_ref(y, p, vt), flush)
+    _row(out, "cdc_decode", str([t, rows, m_l]), ms, plain, None,
+         4.0 * (2 * t + 1) * n, n * (3.0 * t + 1))
+    out[-1]["variant"] = "generic-" + "".join(cdc_decode.cdc_decode.variants)
+    log(f"  instantiations: cdc_decode_merge {out[-2]['variant']}, "
+        f"cdc_decode {out[-1]['variant']}")
+    return out
+
+
+# ----------------------------------------------------- phases 10 - 12 ----
+
+T12 = 12
+
+
+def _perf_of_fused_round(eng, weights_only: bool = True) -> dict:
+    """What ``--perf`` attributes to the engine's fused round (counted on
+    clones of its slot state): every launch costed, and (``weights_only``:
+    a short KV cache) the bytes bound within 5% of the round's weight
+    bytes over the HBM rate."""
+    from repro_torch.obs.perf import attribute_round_costs
+    ex = eng.executor(4)
+    fused = attribute_round_costs(ex.vstep, ex.state, ex.last_toks)["fused"]
+    want = _round_weight_bytes(eng.stepper) / HBM_BYTES_PER_S * 1e3
+    got = fused.bound_step_s * 1e3
+    if fused.custom_calls_uncosted or fused.dominant != "memory" or \
+            (weights_only and abs(got / want - 1) > PERF_BOUND_TOL):
+        raise AssertionError(f"perf of the fused round: {fused} (weights "
+                             f"alone {want:.4f} ms)")
+    log(f"perf of the fused round (T = {fused.T}, r = {fused.r}): "
+        f"{fused.useful_flops / 1e9:.3f} GFLOP useful, "
+        f"{fused.flops / 1e9:.3f} in all (parity_device_equiv "
+        f"{fused.parity_device_equiv:.3f}), {fused.bytes / 1e9:.3f} GB, "
+        f"bound {got:.4f} ms (weights alone {want:.4f} ms), 0 uncosted")
+    return {"flops": fused.flops, "useful_flops": fused.useful_flops,
+            "bytes": fused.bytes, "bound_ms": got, "weight_bound_ms": want,
+            "parity_device_equiv": fused.parity_device_equiv}
+
+
+def _serve_every_way(tag: str, cfg, model, params, scfg, batch, t: int,
+                     dead: int, on_engine) -> dict:
+    """The requests through ServingEngine.generate every way the port
+    serves them, fault-free and with shard ``dead`` killed at step 4: on
+    graph rounds, on eager fused rounds, on the reference variant, and
+    kernel-free (the reference variant with plain norms). Every stream
+    must equal the fault-free graph run's; each fused round launches
+    kernel 1 for every coded GEMM and kernel 2 once, kernel 6 for every
+    round and prefill; the reference runs launch no coded kernel, the
+    kernel-free one none at all. ``on_engine(eng)`` runs on the fused
+    engine between its graph and eager runs (all shards healthy). Returns
+    the runs, the profiler's device time of a graph round and what
+    ``on_engine`` returned."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import transformer
+    from repro_torch.serve import ServingEngine
+    rounds, down = N_TOK - 1, f"shard {dead} dead"
+    eng = ServingEngine(model, params, scfg, use_fused=True,
+                        use_graphs=True)
+    runs = {"graph": _serve_run(eng, batch)}
+    runs[f"graph, {down}"] = _serve_run(eng, batch, fail_at={4: dead})
+    for name in ("graph", f"graph, {down}"):
+        _check_graph_run(f"{tag} {name}", runs[name], 1)
+    eng.valid = np.ones(t, bool)
+    prof = profile_rounds(eng.executor(4), eng.valid,
+                          float(np.median(runs["graph"]["round_ms"])))
+    extra = on_engine(eng)
+    eng.use_graphs = False
+    runs["eager"] = _serve_run(eng, batch)
+    runs[f"eager, {down}"] = _serve_run(eng, batch, fail_at={4: dead})
+    for name in ("eager", f"eager, {down}"):
+        _check_eager_run(f"{tag} {name}", runs[name])
+    del eng
+    ref_eng = ServingEngine(model, params, scfg, use_fused=False)
+    runs["reference"] = _serve_run(ref_eng, batch)
+    runs[f"reference, {down}"] = _serve_run(ref_eng, batch,
+                                            fail_at={4: dead})
+    norm = transformer.rmsnorm
+    transformer.rmsnorm = lambda p, x, eps: ref.rmsnorm_ref(x, p["g"], eps)
+    try:
+        runs["kernel-free"] = _serve_run(ref_eng, batch)
+    finally:
+        transformer.rmsnorm = norm
+    del ref_eng
+    clean = runs["graph"]
+    for name, res in runs.items():
+        if name.startswith(("graph", "eager")):
+            _check_launches(f"{tag} {name}", res, cfg, rounds, norms=True)
+        elif res["k1"] or res["k2"]:
+            raise AssertionError(f"{tag} {name} launched a coded kernel")
+        if not np.array_equal(res["tokens"], clean["tokens"]):
+            raise AssertionError(f"{tag} {name} tokens differ from the "
+                                 f"fault-free graph run:\n{res['tokens']}\n"
+                                 f"vs\n{clean['tokens']}")
+    if runs["kernel-free"]["k6"]:
+        raise AssertionError(f"the {tag} kernel-free run launched kernel 6")
+    return {"runs": runs, "profile": prof, **extra}
+
+
+def serve_t12(cfg) -> dict:
+    """granite-3-8b at full width at T = 12, what ``launch.serve --coded
+    --tp 12`` builds (float32, r = 2 folded, heads padded to 36/9 with
+    zero weights), through ServingEngine.generate: 4 requests, prompt 16,
+    16 new tokens, every way the port serves them, fault-free and with
+    shard 7 killed at step 4 (``_serve_every_way``): every stream
+    identical. Each fused round launches kernel 1 200 times and kernel 2
+    once (their generic instantiations) and kernel 6 81 times; the
+    engine's encode launches kernel 4 once a parity leaf; the profiler
+    gives the device ms per round by kernel, the perf attribution the
+    round's bound; kernel 4 is timed on a whole re-encode."""
+    from repro_torch.kernels import cdc_encode
+    from repro_torch.models import TPCtx, build
+    from repro_torch.serve import ServeConfig
+    torch.cuda.reset_peak_memory_stats()
+    model = build(cfg, TPCtx(tp=T12, mode="coded", code_r=R))
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    scfg = ServeConfig(max_len=16 + N_TOK + 8, batch=4,
+                       cache_dtype=torch.float32)
+    rounds = N_TOK - 1
+    cdc_encode.cdc_encode.launches = 0
+
+    def on_engine(eng):
+        k4 = cdc_encode.cdc_encode.launches    # the engine's encode
+        if k4 != len(_parity_leaves(eng.params)):
+            raise AssertionError(f"T=12 engine: {k4} encode launches for "
+                                 f"{len(_parity_leaves(eng.params))} "
+                                 f"leaves")
+        return {"k4": k4, "perf": _perf_of_fused_round(eng),
+                "encode": reencode_and_time(eng.stepper, T12, R)}
+
+    out = _serve_every_way("T=12", cfg, model, params, scfg,
+                           serve_batch(cfg.vocab), T12, 7, on_engine)
+    runs = out.pop("runs")
+    clean = runs["graph"]
+    for name, res in runs.items():
+        if res["k1"] and (
+                not all(v.endswith("-any") for v in res["k1_variants"])
+                or set(res["k2_variants"]) != {"rb4-async-any"}):
+            raise AssertionError(f"T=12 {name}: instantiations "
+                                 f"{res['k1_variants']} / "
+                                 f"{res['k2_variants']}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    meds = {n: float(np.median(r["round_ms"])) for n, r in runs.items()}
+    log(f"served granite-3-8b at T = 12 (r = 2 folded, float32, heads "
+        f"padded to 36/9; params in {init_s:.1f} s): identical streams on "
+        f"graph and eager fused rounds and the reference variant, "
+        f"fault-free and with shard 7 erased at step 4, and kernel-free; "
+        f"per fused round {clean['k1'] // rounds} coded-GEMM launches "
+        f"({clean['k1_variants']}) + {clean['k2'] // rounds} head "
+        f"({clean['k2_variants']}) + {norms_per_pass(cfg)} rmsnorm; round "
+        f"medians {meds} ms; max_memory_allocated {peak:.2f} GiB")
+    log("T=12 first stream:", clean["tokens"][0].tolist())
+    return {"k1": clean["k1"], "k2": clean["k2"], "k6": clean["k6"],
+            "k1_variants": clean["k1_variants"], "round_ms": meds,
+            "peak_gib": peak, "init_s": init_s, **out}
+
+
+H2O = "h2o-danube-1.8b"
+H2O_ARGS = ["--arch", H2O, "--coded", "--tp", str(T), "--batch", "4",
+            "--requests", "8", "--arrival-gap-ms", "2", "--prompt-len", "16",
+            "--gen-tokens", "16", "--seed", str(CHAOS_SEED)]
+H2O_PROMPT = 4090     # + 16 new tokens: decode crosses the 4096 window
+
+
+def serve_h2o(device: str = "cuda") -> dict:
+    """h2o-danube-1.8b at full width (24 layers, d 2560, 32/8 heads of 80,
+    d_ff 6912, vocab 32000, sliding window 4096; float32, T = 4, r = 2
+    folded). (a) Through the serving entry point (``launch.serve --arch
+    h2o-danube-1.8b --coded --perf``: the scheduler, 4 slots, 8 requests):
+    every request completes and the counters equal the same run's at
+    smoke size on the CPU; the perf line costs every launch and its
+    fused-round bound is within 5% of the weights' bytes over the HBM
+    rate. (b) Through ServingEngine.generate: 4 requests with a 4090-token
+    prompt and 16 new tokens, so decode crosses the window and the ring
+    cache (4096 slots) wraps; graph and eager fused rounds, the reference
+    variant and the kernel-free run, fault-free and with shard 1 dead at
+    step 4, all give the same streams; each fused round launches kernel 1
+    120 times, kernel 2 once and kernel 6 49 times; the perf attribution
+    of that round (every launch costed)."""
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.models import TPCtx, build
+    from repro_torch.serve import ServeConfig
+    cfg = get_arch(H2O)
+    # (a) the serving entry point, against its CPU run at smoke size
+    scfg_cpu = smoke_config(cfg)
+    m_cpu = build(scfg_cpu, TPCtx(tp=T, mode="coded", code_r=R))
+    _, s_cpu, d_cpu, _ = _scheduler_run(m_cpu, m_cpu.init(0, device="cpu"),
+                                        scfg_cpu.vocab, H2O_ARGS, "cpu")
+    want = dict(s_cpu.metrics.counters)
+    torch.cuda.reset_peak_memory_stats()
+    model = build(cfg, TPCtx(tp=T, mode="coded", code_r=R))
+    params = model.init(torch.Generator(device=device).manual_seed(0),
+                        device=device)
+    wrappers = _kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    stepper, sched, done, obs = _scheduler_run(
+        model, params, cfg.vocab, H2O_ARGS + ["--perf"], device,
+        report=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    c = dict(sched.metrics.counters)
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    if len(done) != 8 or any(len(q.tokens) != 16 for q in done) or \
+            c != want or len(d_cpu) != 8:
+        raise AssertionError(f"h2o scheduler: {len(done)}/8 completed, "
+                             f"counters {c} vs the CPU run's {want}")
+    passes = sched.executor.vstep.n_dispatches + c["requests_admitted"]
+    if launches["rmsnorm"] != norms_per_pass(cfg) * passes or not \
+            launches["cdc_coded_matmul"]:
+        raise AssertionError(f"h2o scheduler launches {launches}")
+    perf = _check_observability("fault-free", sched, stepper, obs)
+    sched_out = {"counters": c, "seconds": secs, "launches": launches,
+                 "round_ms": float(np.median(sched.executor.round_ms)),
+                 "graphs": _check_scheduler_graphs("h2o fault-free", sched,
+                                                   stepper, T), **perf}
+    log(f"h2o-danube-1.8b scheduler: 8/8 completed, {c['decode_rounds']} "
+        f"rounds in {secs:.2f} s, round_ms median "
+        f"{sched_out['round_ms']:.3f}, counters equal to the CPU run's, "
+        f"launches {launches}")
+    del stepper, sched, done
+    torch.cuda.empty_cache()
+    # (b) one batch across the window
+    scfg = ServeConfig(max_len=H2O_PROMPT + N_TOK + 8, batch=4,
+                       cache_dtype=torch.float32)
+    if model.init_decode(params, 1, scfg.max_len)["kv"]["k"].shape[2] != \
+            cfg.window:
+        raise AssertionError("h2o: the ring cache is not the window")
+    batch = {"tokens": np.random.default_rng(0).integers(
+        0, cfg.vocab, (4, H2O_PROMPT))}
+    # the 4096-slot KV cache is ~5% of the round's bytes beside the weights
+    out = _serve_every_way(
+        "h2o", cfg, model, params, scfg, batch, T, 1,
+        lambda eng: {"perf": _perf_of_fused_round(eng, weights_only=False)})
+    runs = out.pop("runs")
+    clean, rounds = runs["graph"], N_TOK - 1
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    meds = {n: float(np.median(r["round_ms"])) for n, r in runs.items()}
+    log(f"served h2o-danube-1.8b (window {cfg.window}) with a "
+        f"{H2O_PROMPT}-token prompt and {N_TOK} new tokens: identical "
+        f"streams on graph and eager fused rounds and the reference variant "
+        f"(fault-free and with shard 1 erased at step 4), and kernel-free; "
+        f"per fused round {clean['k1'] // rounds} coded-GEMM + "
+        f"{clean['k2'] // rounds} head + {norms_per_pass(cfg)} rmsnorm "
+        f"launches; round medians {meds} ms; max_memory_allocated "
+        f"{peak:.2f} GiB")
+    return {"scheduler": sched_out, "k1": clean["k1"], "k2": clean["k2"],
+            "k6": clean["k6"], "round_ms": meds, "peak_gib": peak, **out}
+
+
+DEEPSEEK_LAYERS = 12      # of 95: 95 float32 layers would need ~350 GB
+
+
+def serve_deepseek() -> dict:
+    """deepseek-67b at full width (d 8192, 64/8 heads, d_ff 22016, vocab
+    102400; float32, T = 4, r = 2 folded), 12 of its 95 layers (~52 GB
+    with the parity), through ServingEngine.generate: 4 requests, prompt
+    16, 8 new tokens; fused graph rounds and the reference variant give
+    the same streams. Each fused round launches kernel 1 60 times (at k =
+    8192), kernel 2 once and kernel 6 25 times; the perf attribution of
+    the round: every launch costed, its bytes bound within 5% of the
+    weights' bytes over the HBM rate."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import TPCtx, build
+    from repro_torch.serve import ServeConfig, ServingEngine
+    cfg = dataclasses.replace(get_arch("deepseek-67b"),
+                              n_layers=DEEPSEEK_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    model = build(cfg, TPCtx(tp=T, mode="coded", code_r=R))
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_tok = 8
+    scfg = ServeConfig(max_len=16 + n_tok + 8, batch=4,
+                       cache_dtype=torch.float32)
+    batch = serve_batch(cfg.vocab)
+    eng = ServingEngine(model, params, scfg, use_fused=True,
+                        use_graphs=True)
+    fused = _serve_run(eng, batch, n_tok=n_tok)
+    _check_graph_run("deepseek fused", fused, 1)
+    med = float(np.median(fused["round_ms"]))
+    prof = profile_rounds(eng.executor(4), eng.valid, med)
+    perf = _perf_of_fused_round(eng)
+    del eng
+    ref_eng = ServingEngine(model, params, scfg, use_fused=False)
+    reference = _serve_run(ref_eng, batch, n_tok=n_tok)
+    del ref_eng
+    rounds = n_tok - 1
+    _check_launches("deepseek fused", fused, cfg, rounds, norms=True)
+    if reference["k1"] or reference["k2"]:
+        raise AssertionError("the deepseek reference variant launched a "
+                             "coded kernel")
+    if not np.array_equal(fused["tokens"], reference["tokens"]):
+        raise AssertionError(f"deepseek fused tokens differ from the "
+                             f"reference variant's:\n{fused['tokens']}\nvs"
+                             f"\n{reference['tokens']}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    meds = {"fused": med,
+            "reference": float(np.median(reference["round_ms"]))}
+    log(f"served deepseek-67b at full width, {DEEPSEEK_LAYERS} of 95 "
+        f"layers (params in {init_s:.1f} s): fused graph rounds and the "
+        f"reference variant give the same {n_tok}-token streams; per fused "
+        f"round {fused['k1'] // rounds} coded-GEMM "
+        f"({fused['k1_variants']}) + {fused['k2'] // rounds} head "
+        f"({fused['k2_variants']}) + {norms_per_pass(cfg)} rmsnorm "
+        f"launches; round medians {meds} ms; max_memory_allocated "
+        f"{peak:.2f} GiB")
+    return {"k1": fused["k1"], "k2": fused["k2"], "k6": fused["k6"],
+            "k1_variants": fused["k1_variants"], "round_ms": meds,
+            "profile": prof, "perf": perf, "peak_gib": peak,
+            "init_s": init_s}
 
 
 # --------------------------------------------------------------- main ----
@@ -2427,7 +3220,11 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     report = build.build_all()
-    log(f"built {sorted(report)} in {time.perf_counter() - t0:.1f} s")
+    build_s = {"total": time.perf_counter() - t0,
+               **{n: r["seconds"] for n, r in report.items()}}
+    log(f"built {sorted(report)} in {build_s['total']:.1f} s (each source "
+        f"done after: " + ", ".join(f"{n} {r['seconds']:.1f} s"
+                                    for n, r in report.items()) + ")")
     spills = []
     for name, rep in report.items():
         entry = ""
@@ -2461,20 +3258,38 @@ def main() -> int:
     err6 = max(check_rmsnorm(), check_rmsnorm_edges())
     err7 = max(check_matmul(), edge7)
     err1 = max(err1, edge1)
+    # every other code width: the generic instantiations of kernels 1-5
+    any_err = {"cdc_coded_matmul": check_coded_matmul_any(),
+               "cdc_fused_head_argmax": check_head_any(cfg)}
+    any_err["cdc_decode_merge"], any_err["cdc_decode"] = \
+        check_elementwise_any()
+    any_err["cdc_encode"], err4_any_bf16 = check_encode_any()
+    any_bf16 = {"cdc_coded_matmul": check_coded_matmul_any(torch.bfloat16),
+                "cdc_fused_head_argmax": check_head_any(cfg, torch.bfloat16),
+                "cdc_encode": err4_any_bf16}
     _phase_memory("kernel checks")
     served = serve_full_width(cfg)
     torch.cuda.empty_cache()
     timed = time_kernels(cfg)
+    timed12 = time_t12(cfg)
     torch.cuda.empty_cache()
     sched = serve_scheduler(cfg)
     torch.cuda.empty_cache()
     study = run_study()
     entry = decode_merge_entry()
+    entry12 = {"cdc_decode_merge": decode_merge_entry(T12),
+               "cdc_decode": decode_entry(T12)}
     _phase_memory("study and library entry")
     t16 = serve_t16(cfg)
     _phase_memory("serving at T = 16")
     bf16 = serve_bf16(cfg)
     _phase_memory("serving on bf16 weights")
+    t12 = serve_t12(cfg)
+    _phase_memory("serving at T = 12")
+    h2o = serve_h2o()
+    _phase_memory("serving h2o-danube-1.8b")
+    deepseek = serve_deepseek()
+    _phase_memory("serving deepseek-67b (12 layers)")
     w1 = timed[0]
     head = next(t for t in timed if t.get("gemm") == "lm_head")
     small = {(t["kernel"], t["shape"]): t for t in timed if "kernel" in t}
@@ -2517,6 +3332,35 @@ def main() -> int:
                  study["launches"]["matmul"], err7,
                  small[("matmul", "[512, 512] @ [512, 512]")]),
     ]
+    # the generic instantiations at T = 12: kernels 1, 2 and 6's launches
+    # from the T = 12 serving run (phase 10), kernel 4's from its engine's
+    # encode, kernels 3 and 5's from their library entries at T = 12
+    rows12 = {t.get("gemm", t.get("kernel")): t for t in timed12}
+    enc12 = t12["encode"]["total"]
+    kernels += [
+        {**entry_of("cdc_coded_matmul", "coded_matmul.cuh",
+                    "src/repro/kernels/cdc_matmul.py:130", t12["k1"],
+                    any_err["cdc_coded_matmul"], rows12["w1"]),
+         "name": "cdc_coded_matmul (T=12, w1)"},
+        {**entry_of("cdc_fused_head_argmax", "fused_head.cuh",
+                    "src/repro/kernels/cdc_decode.py:138", t12["k2"],
+                    any_err["cdc_fused_head_argmax"], rows12["lm_head"]),
+         "name": "cdc_fused_head_argmax (T=12)"},
+        {**entry_of("cdc_decode_merge", "cdc_decode_merge.cu",
+                    "src/repro/kernels/cdc_matmul.py:208",
+                    entry12["cdc_decode_merge"]["launches"],
+                    any_err["cdc_decode_merge"], rows12["cdc_decode_merge"]),
+         "name": "cdc_decode_merge (T=12)"},
+        {**entry_of("cdc_encode", "cdc_encode.cu",
+                    "src/repro/kernels/cdc_encode.py:30", t12["k4"],
+                    any_err["cdc_encode"], {**enc12, "bound_by": "bytes"}),
+         "name": "cdc_encode (T=12, whole re-encode)"},
+        {**entry_of("cdc_decode", "cdc_decode.cu",
+                    "src/repro/kernels/cdc_decode.py:56",
+                    entry12["cdc_decode"]["launches"],
+                    any_err["cdc_decode"], rows12["cdc_decode"]),
+         "name": "cdc_decode (T=12)"},
+    ]
     log(card)
     runs = {n: {k: v for k, v in r.items() if k != "tokens"}
             for n, r in sched["runs"].items()}
@@ -2527,7 +3371,13 @@ def main() -> int:
                     "t16": t16, "bf16": bf16,
                     "bf16_max_abs_err": {"cdc_coded_matmul": err1_bf16,
                                          "cdc_fused_head_argmax": err2_bf16,
-                                         "cdc_encode": err4_bf16}}))
+                                         "cdc_encode": err4_bf16},
+                    "generic": {"max_abs_err": any_err,
+                                "bf16_max_abs_err": any_bf16,
+                                "t12_shapes": timed12,
+                                "entries_t12": entry12},
+                    "build": build_s, "t12": t12, "h2o": h2o,
+                    "deepseek": deepseek}, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

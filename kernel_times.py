@@ -20,7 +20,8 @@ serving round finds them (CUDA events around a ~2 us kernel read the
 events' own floor). Kernels 3 and 5 are timed by torch.profiler too
 (device time per call over 200 calls, back to back) at the kernel table's
 shapes and at 2048 rows, beside an empty kernel (``torch.cuda._sleep(0)``)
-that gives the card's launch floor, and by events at 2048 rows. Needs only
+that gives the card's launch floor, and by events at 2048 rows. The first
+line is the build: nvcc's wall time for the checkout's sources. Needs only
 the wrappers' public signatures, which both sides share. ``--new`` adds
 what only this tree runs: kernels 1 and 2 on bf16 weights (T = 4) and at
 T = 16 (float32), beside ``torch.matmul`` over the same weights in their
@@ -32,6 +33,7 @@ import argparse
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -105,7 +107,9 @@ def main(argv=None) -> int:
     from repro_torch.kernels import (build, cdc_decode, cdc_matmul, matmul,
                                      ops, rmsnorm)
     set_true_f32()
-    build.build_all()
+    t0 = time.perf_counter()
+    built = build.build_all()
+    build_s = time.perf_counter() - t0
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
@@ -114,6 +118,10 @@ def main(argv=None) -> int:
 
     def emit(**row):
         print(json.dumps({"tag": args.tag, "card": card, **row}), flush=True)
+
+    # nvcc's wall time for the sources this run had to build (all of them
+    # in a fresh checkout, one nvcc each, in parallel)
+    emit(kernel="build", sources=sorted(built), seconds=build_s)
 
     for name, m_l, r, rows in [("w1", 3200, 2, 4), ("w1", 3200, 4, 4),
                                ("wq", 1024, 2, 4), ("wk", 256, 2, 4),

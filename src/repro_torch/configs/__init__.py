@@ -1,3 +1,4 @@
-from repro_torch.configs.base import ArchConfig, get_arch, smoke_config
+from repro_torch.configs.base import (ArchConfig, all_archs, get_arch,
+                                      smoke_config)
 
-__all__ = ["ArchConfig", "get_arch", "smoke_config"]
+__all__ = ["ArchConfig", "all_archs", "get_arch", "smoke_config"]

@@ -2,7 +2,9 @@
 
 A copy of the reference package's ``configs/base.py`` (the dataclass, the
 registry and ``smoke_config``), kept here so that the port imports nothing
-of the reference. Only the architectures the port serves are registered.
+of the reference. Only the architectures the port serves are registered:
+the dense decoders (granite-3-8b, h2o-danube-1.8b and -3-4b, deepseek-67b)
+and chameleon-34b, which the reference builds as a dense decoder.
 """
 from __future__ import annotations
 
@@ -53,6 +55,12 @@ class ArchConfig:
     def is_encdec(self) -> bool:
         return self.encoder_layers > 0
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch decode at 500k context? (SWA window or SSM
+        state.)"""
+        return self.attn_kind == "swa" or bool(self.ssm_kind)
+
 
 _REGISTRY: dict[str, ArchConfig] = {}
 
@@ -68,9 +76,17 @@ def get_arch(name: str) -> ArchConfig:
     return _REGISTRY[name]
 
 
+def all_archs() -> dict[str, ArchConfig]:
+    if not _REGISTRY:
+        load_all()
+    return dict(_REGISTRY)
+
+
 def load_all() -> None:
     """Import every config module (they self-register)."""
-    from repro_torch.configs import granite_3_8b  # noqa: F401
+    from repro_torch.configs import (chameleon_34b,  # noqa: F401
+                                     deepseek_67b, granite_3_8b,
+                                     h2o_danube_1_8b, h2o_danube_3_4b)
 
 
 def smoke_config(cfg: ArchConfig) -> ArchConfig:

@@ -3,7 +3,10 @@
 ``params_from_jax`` takes the reference's params as a nested dict of numpy
 arrays (what ``jax.tree.map(np.asarray, params)`` gives) and returns the
 port's params on ``device``. Base weights are carried over as they are;
-parity leaves are recomputed by the port's own ``encode_tree``.
+parity leaves are recomputed by the port's own ``encode_tree`` from them,
+so at padded head counts the parity covers the padded columns as the
+reference's base weights hold them (zeros), not the reference's ``init``
+parity, which was encoded before they were zeroed.
 """
 from __future__ import annotations
 

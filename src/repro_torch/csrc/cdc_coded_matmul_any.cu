@@ -1,0 +1,7 @@
+// Kernel 1 (coded_matmul.cuh) on float32 weights, the generic
+// instantiation: every code 2 <= T <= 16, 1 <= R <= T that the cases of
+// cdc_coded_matmul.cu and cdc_coded_matmul_t16.cu do not cover.
+#define CDC_CODED_CASES(X)
+#define CDC_CODED_ANY
+#define CDC_CODED_TYPES(Y) Y(float)
+#include "coded_matmul.cuh"

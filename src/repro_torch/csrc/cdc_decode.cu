@@ -25,7 +25,10 @@
 //  * a plane that is no whole number of vectors, or a misaligned view,
 //    takes the same kernel at V = 1;
 //  * the shard sum is taken in ascending t, the outputs rebuilt in the
-//    registers that held the loads.
+//    registers that held the loads;
+//  * T = 2, 4, 8 and 16 have their own instantiations; every other
+//    T <= 16 takes the generic one, T a runtime value and the per-shard
+//    registers MAX_T wide (unrolled loops, the first T used).
 // Storage float32 or bf16 (the output has y's type); the math is float32.
 #include "scalar.cuh"
 
@@ -33,31 +36,39 @@ namespace cdc {
 
 constexpr int DEC_THREADS = 64;
 
-template <int T, int V, typename TV>
+// TT: the code width of an instantiation, or 0 for the generic one (T
+// from the arguments).
+template <int TT, int V, typename TV>
 __global__ void __launch_bounds__(DEC_THREADS)
 decode_kernel(const TV* __restrict__ y, const TV* __restrict__ p,
-              TV* __restrict__ out, int64_t n, unsigned valid_bits) {
+              TV* __restrict__ out, int64_t n, int T_arg,
+              unsigned valid_bits) {
   using IO = VecIO<V, TV>;
-  float vm[T];
+  constexpr int TM = TT ? TT : MAX_T;
+  const int T = TT ? TT : T_arg;
+  float vm[TM];
 #pragma unroll
-  for (int t = 0; t < T; ++t) vm[t] = ((valid_bits >> t) & 1u) ? 1.f : 0.f;
+  for (int t = 0; t < TM; ++t) vm[t] = ((valid_bits >> t) & 1u) ? 1.f : 0.f;
   const int64_t i = (int64_t)blockIdx.x * DEC_THREADS + threadIdx.x;
   if (i < n / V) {
     const int64_t e0 = i * V;
-    typename IO::R r[T];
+    typename IO::R r[TM];
 #pragma unroll
-    for (int t = 0; t < T; ++t) r[t] = IO::load(y + t * n + e0);
+    for (int t = 0; t < TM; ++t)
+      if (t < T) r[t] = IO::load(y + t * n + e0);
     const typename IO::R rp = IO::load(p + e0);
     float miss[V];
 #pragma unroll
     for (int q = 0; q < V; ++q) {
       float tot = 0.f;
 #pragma unroll
-      for (int t = 0; t < T; ++t) tot += IO::get(r[t], q) * vm[t];
+      for (int t = 0; t < TM; ++t)
+        if (t < T) tot += IO::get(r[t], q) * vm[t];
       miss[q] = IO::get(rp, q) - tot;
     }
 #pragma unroll
-    for (int t = 0; t < T; ++t) {
+    for (int t = 0; t < TM; ++t) {
+      if (t >= T) break;
 #pragma unroll
       for (int q = 0; q < V; ++q)
         IO::set(r[t], q, IO::get(r[t], q) * vm[t] + (1.f - vm[t]) * miss[q]);
@@ -66,17 +77,17 @@ decode_kernel(const TV* __restrict__ y, const TV* __restrict__ p,
   }
 }
 
-template <int T, typename TV>
+template <int TT, typename TV>
 static int run(int vec, const void* y, const void* p, void* out, int64_t n,
-               unsigned valid_bits, cudaStream_t strm) {
+               int T, unsigned valid_bits, cudaStream_t strm) {
   constexpr int V = 16 / (int)sizeof(TV);
   if (vec != 1 && vec != V) return (int)cudaErrorInvalidValue;
-  auto kern = vec == V ? decode_kernel<T, V, TV> : decode_kernel<T, 1, TV>;
+  auto kern = vec == V ? decode_kernel<TT, V, TV> : decode_kernel<TT, 1, TV>;
   const int64_t blocks = (n / vec + DEC_THREADS - 1) / DEC_THREADS;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
   kern<<<(unsigned)blocks, DEC_THREADS, 0, strm>>>(
       static_cast<const TV*>(y), static_cast<const TV*>(p),
-      static_cast<TV*>(out), n, valid_bits);
+      static_cast<TV*>(out), n, T, valid_bits);
   return (int)cudaGetLastError();
 }
 
@@ -85,23 +96,25 @@ static int dispatch(int T, int vec, const void* y, const void* p, void* out,
                     int64_t n, unsigned valid_bits, cudaStream_t strm) {
   switch (T) {
     case 2:
-      return run<2, TV>(vec, y, p, out, n, valid_bits, strm);
+      return run<2, TV>(vec, y, p, out, n, T, valid_bits, strm);
     case 4:
-      return run<4, TV>(vec, y, p, out, n, valid_bits, strm);
+      return run<4, TV>(vec, y, p, out, n, T, valid_bits, strm);
     case 8:
-      return run<8, TV>(vec, y, p, out, n, valid_bits, strm);
+      return run<8, TV>(vec, y, p, out, n, T, valid_bits, strm);
     case 16:
-      return run<16, TV>(vec, y, p, out, n, valid_bits, strm);
+      return run<16, TV>(vec, y, p, out, n, T, valid_bits, strm);
     default:
-      return (int)cudaErrorInvalidValue;
+      return T >= 2 && T <= MAX_T
+                 ? run<0, TV>(vec, y, p, out, n, T, valid_bits, strm)
+                 : (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace cdc
 
 // C interface (loaded with ctypes). y [T, n], p [n] and out [T, n]
-// contiguous, of one storage type (bf16 = 1: bfloat16, else float32); T in
-// {2, 4, 8, 16}; vec 1, or 16 bytes' worth when n is whole vectors and the
+// contiguous, of one storage type (bf16 = 1: bfloat16, else float32);
+// 2 <= T <= 16; vec 1, or 16 bytes' worth when n is whole vectors and the
 // bases are 16-byte aligned. Returns the cudaError_t of the launch.
 extern "C" int cdc_decode(const void* y, const void* p, void* out, int T,
                           long long n, unsigned valid_bits, int bf16,

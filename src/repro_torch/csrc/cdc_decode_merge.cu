@@ -29,7 +29,10 @@
 //    (c / wd + j + 1) % T, column j * wd + c % wd), computed once a group;
 //  * one (row, group) a thread, in blocks of 64 threads (the launch that
 //    measured fastest, as for kernel 5); ragged m_l (or slice width) and
-//    misaligned views take the same kernel at V = 1.
+//    misaligned views take the same kernel at V = 1;
+//  * T = 2, 4, 8 and 16 have their own instantiations; every other
+//    T <= 16 takes the generic one, T a runtime value and the per-shard
+//    registers MAX_T wide (unrolled loops, the first T used).
 // Storage float32 or bf16 (the output has ys' type); the math is float32.
 #include "coded_tile.cuh"
 
@@ -37,26 +40,30 @@ namespace cdc {
 
 constexpr int DM_THREADS = 64;
 
-template <int T, int V, typename TV>
+// TT: the code width of an instantiation, or 0 for the generic one (T
+// from the arguments).
+template <int TT, int V, typename TV>
 __global__ void __launch_bounds__(DM_THREADS)
 decode_merge_kernel(const TV* __restrict__ ys, const TV* __restrict__ par,
                     const float* __restrict__ gen,
                     const int* __restrict__ esel,
                     const float* __restrict__ coef, TV* __restrict__ out,
-                    int rows, int m_l, int R, int folded,
+                    int rows, int m_l, int T_arg, int R, int folded,
                     unsigned valid_bits) {
   using IO = VecIO<V, TV>;
-  constexpr unsigned all = (1u << T) - 1u;
+  constexpr int TM = TT ? TT : MAX_T;
+  const int T = TT ? TT : T_arg;
+  const unsigned all = (1u << T) - 1u;
   const bool any_dead = (valid_bits & all) != all;
   const int groups = m_l / V, wd = folded ? m_l / T : 1;
   const int64_t i = (int64_t)blockIdx.x * DM_THREADS + threadIdx.x;
   if (i < (int64_t)rows * groups) {
     const int row = (int)(i / groups);
     const int c = (int)(i - (int64_t)row * groups) * V;
-    typename IO::R r[T] = {};
+    typename IO::R r[TM] = {};
 #pragma unroll
-    for (int t = 0; t < T; ++t)
-      if ((valid_bits >> t) & 1u)
+    for (int t = 0; t < TM; ++t)
+      if (t < T && ((valid_bits >> t) & 1u))
         r[t] = IO::load(ys + ((int64_t)t * rows + row) * m_l + c);
     TV* orow = out + (int64_t)row * T * m_l + c;
     if (any_dead) {
@@ -82,35 +89,37 @@ decode_merge_kernel(const TV* __restrict__ ys, const TV* __restrict__ par,
         pv[q] = e[q] == e[0] ? IO::get(rp, q) : ld(par + pidx(e[q], c + q));
 #pragma unroll
       for (int q = 0; q < V; ++q) {
-        float y[T], o[T];
+        float y[TM], o[TM];
 #pragma unroll
-        for (int t = 0; t < T; ++t)
-          y[t] = ((valid_bits >> t) & 1u) ? IO::get(r[t], q) : 0.f;
-        eq12_decode<T>(y, pv[q], gen + e[q] * T, cf[q], valid_bits, o);
+        for (int t = 0; t < TM; ++t)
+          if (t < T) y[t] = ((valid_bits >> t) & 1u) ? IO::get(r[t], q) : 0.f;
+        eq12_decode<TM>(y, pv[q], gen + e[q] * T, cf[q], valid_bits, o, T);
 #pragma unroll
-        for (int t = 0; t < T; ++t) IO::set(r[t], q, o[t]);
+        for (int t = 0; t < TM; ++t)
+          if (t < T) IO::set(r[t], q, o[t]);
       }
     }
 #pragma unroll
-    for (int t = 0; t < T; ++t) IO::store(orow + (int64_t)t * m_l, r[t]);
+    for (int t = 0; t < TM; ++t)
+      if (t < T) IO::store(orow + (int64_t)t * m_l, r[t]);
   }
 }
 
-template <int T, typename TV>
+template <int TT, typename TV>
 static int run(int vec, const void* ys, const void* par, const float* gen,
                const int* esel, const float* coef, void* out, int rows,
-               int m_l, int R, int folded, unsigned valid_bits,
+               int m_l, int T, int R, int folded, unsigned valid_bits,
                cudaStream_t strm) {
   constexpr int V = 16 / (int)sizeof(TV);
   if (vec != 1 && vec != V) return (int)cudaErrorInvalidValue;
-  auto kern = vec == V ? decode_merge_kernel<T, V, TV>
-                       : decode_merge_kernel<T, 1, TV>;
+  auto kern = vec == V ? decode_merge_kernel<TT, V, TV>
+                       : decode_merge_kernel<TT, 1, TV>;
   const int64_t blocks =
       ((int64_t)rows * (m_l / vec) + DM_THREADS - 1) / DM_THREADS;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
   kern<<<(unsigned)blocks, DM_THREADS, 0, strm>>>(
       static_cast<const TV*>(ys), static_cast<const TV*>(par), gen, esel,
-      coef, static_cast<TV*>(out), rows, m_l, R, folded, valid_bits);
+      coef, static_cast<TV*>(out), rows, m_l, T, R, folded, valid_bits);
   return (int)cudaGetLastError();
 }
 
@@ -119,9 +128,9 @@ static int dispatch(int T, int vec, const void* ys, const void* par,
                     const float* gen, const int* esel, const float* coef,
                     void* out, int rows, int m_l, int R, int folded,
                     unsigned valid_bits, cudaStream_t strm) {
-#define DM_CASE(TT)                                                      \
-  case TT:                                                               \
-    return run<TT, TV>(vec, ys, par, gen, esel, coef, out, rows, m_l, R, \
+#define DM_CASE(TT)                                                        \
+  case TT:                                                                 \
+    return run<TT, TV>(vec, ys, par, gen, esel, coef, out, rows, m_l, T, R, \
                        folded, valid_bits, strm);
   switch (T) {
     DM_CASE(2)
@@ -129,7 +138,10 @@ static int dispatch(int T, int vec, const void* ys, const void* par,
     DM_CASE(8)
     DM_CASE(16)
     default:
-      return (int)cudaErrorInvalidValue;
+      return T >= 2 && T <= MAX_T
+                 ? run<0, TV>(vec, ys, par, gen, esel, coef, out, rows, m_l,
+                              T, R, folded, valid_bits, strm)
+                 : (int)cudaErrorInvalidValue;
   }
 #undef DM_CASE
 }
@@ -139,8 +151,8 @@ static int dispatch(int T, int vec, const void* ys, const void* par,
 // C interface (loaded with ctypes). ys [T, rows, m_l], the parity
 // (dedicated [R, rows, m_l] or folded [T, rows, R * m_l / T]) and out
 // [rows, T, m_l] contiguous, of one storage type (bf16 = 1: bfloat16, else
-// float32); gen [R, T], esel [m_l], coef [m_l] on the device. T in {2, 4,
-// 8, 16}; vec 1, or 16 bytes' worth when m_l (and, folded, m_l / T) is
+// float32); gen [R, T], esel [m_l], coef [m_l] on the device. 2 <= T <= 16,
+// 1 <= R <= T; vec 1, or 16 bytes' worth when m_l (and, folded, m_l / T) is
 // whole vectors and the bases are 16-byte aligned. Returns the cudaError_t
 // of the launch.
 extern "C" int cdc_decode_merge(const void* ys, const void* par,
@@ -151,7 +163,7 @@ extern "C" int cdc_decode_merge(const void* ys, const void* par,
                                 void* stream) {
   using namespace cdc;
   const int V = bf16 ? 8 : 4;
-  if (rows < 1 || m_l < 1 || R < 1 || (folded && m_l % T != 0) ||
+  if (rows < 1 || m_l < 1 || R < 1 || R > T || (folded && m_l % T != 0) ||
       (vec != 1 &&
        (vec != V || m_l % V != 0 || (folded && (m_l / T) % V != 0) ||
         ((uintptr_t)ys | (uintptr_t)par | (uintptr_t)out) % 16)))

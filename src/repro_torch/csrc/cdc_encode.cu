@@ -24,7 +24,11 @@
 //    so no fold copy is made either;
 //  * the generator rides in the kernel's parameter space (constant bank);
 //  * no atomics and a fixed summation order: encoding the same weights
-//    twice gives the same bits.
+//    twice gives the same bits;
+//  * the codes of the serving paths and the cost study have their own
+//    instantiations; every other 2 <= T <= 16, 1 <= r <= T takes the
+//    generic one, T and r runtime values and the accumulators MAX_T rows
+//    deep (unrolled loops, the first r used).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -35,7 +39,7 @@ namespace cdc_enc {
 using cdc::VecIO;
 
 constexpr int THREADS = 256;
-constexpr int MAX_T = 16;
+using cdc::MAX_T;
 
 struct Gen {
   float g[MAX_T * MAX_T];  // row j at g[j * T]
@@ -44,12 +48,15 @@ struct Gen {
 // One thread: VEC columns starting at c of row `row` of layer blockIdx.y.
 // For VEC > 1 the wrapper guarantees m_l % VEC == 0, 16-byte aligned rows
 // and shard offsets, and (folded) a slice width wd % VEC == 0, so the VEC
-// columns never straddle a slice.
-template <int T, int R, int VEC, typename TV>
+// columns never straddle a slice. TT, RR: the code of an instantiation, or
+// 0, 0 for the generic one (T, R from the arguments).
+template <int TT, int RR, int VEC, typename TV>
 __global__ void __launch_bounds__(THREADS)
 encode_kernel(const TV* __restrict__ w, TV* __restrict__ out,
-              const Gen gen, int k, int m_l, int64_t ld_t, int64_t ld_k,
-              int64_t ld_l, int folded) {
+              const __grid_constant__ Gen gen, int k, int m_l, int64_t ld_t,
+              int64_t ld_k, int64_t ld_l, int folded, int T_arg, int R_arg) {
+  constexpr int TM = TT ? TT : MAX_T, RM = TT ? RR : MAX_T;
+  const int T = TT ? TT : T_arg, R = TT ? RR : R_arg;
   const int nv = m_l / VEC + (m_l % VEC != 0);
   const uint32_t item = blockIdx.x * THREADS + threadIdx.x;
   if (item >= (uint32_t)k * (uint32_t)nv) return;
@@ -59,24 +66,28 @@ encode_kernel(const TV* __restrict__ w, TV* __restrict__ out,
   const TV* src = w + l * ld_l + (int64_t)row * ld_k + c;
 
   using IO = VecIO<VEC, TV>;
-  float acc[R][VEC];
+  float acc[RM][VEC];
 #pragma unroll
-  for (int j = 0; j < R; ++j)
+  for (int j = 0; j < RM; ++j)
 #pragma unroll
     for (int e = 0; e < VEC; ++e) acc[j][e] = 0.f;
 #pragma unroll
-  for (int i = 0; i < T; ++i) {
+  for (int i = 0; i < TM; ++i) {
+    if (i >= T) break;
     const typename IO::R v = IO::load(src + i * ld_t);
 #pragma unroll
-    for (int j = 0; j < R; ++j)
+    for (int j = 0; j < RM; ++j) {
+      if (j >= R) break;
 #pragma unroll
       for (int e = 0; e < VEC; ++e)
         acc[j][e] = fmaf(gen.g[j * T + i], IO::get(v, e), acc[j][e]);
+    }
   }
 
   const int wd = folded ? m_l / T : 1, s = c / wd, o = c % wd;
 #pragma unroll
-  for (int j = 0; j < R; ++j) {
+  for (int j = 0; j < RM; ++j) {
+    if (j >= R) break;
     typename IO::R v;
 #pragma unroll
     for (int e = 0; e < VEC; ++e) IO::set(v, e, acc[j][e]);
@@ -91,19 +102,19 @@ encode_kernel(const TV* __restrict__ w, TV* __restrict__ out,
   }
 }
 
-template <int T, int R, typename TV>
+template <int TT, int RR, typename TV>
 static int launch(int vec, dim3 grid, cudaStream_t st, const void* w,
                   void* out, const Gen& gen, int k, int m_l, int64_t ld_t,
-                  int64_t ld_k, int64_t ld_l, int folded) {
+                  int64_t ld_k, int64_t ld_l, int folded, int T, int R) {
   constexpr int V = 16 / (int)sizeof(TV);
   const TV* wi = static_cast<const TV*>(w);
   TV* o = static_cast<TV*>(out);
   if (vec == V)
-    encode_kernel<T, R, V, TV><<<grid, THREADS, 0, st>>>(
-        wi, o, gen, k, m_l, ld_t, ld_k, ld_l, folded);
+    encode_kernel<TT, RR, V, TV><<<grid, THREADS, 0, st>>>(
+        wi, o, gen, k, m_l, ld_t, ld_k, ld_l, folded, T, R);
   else if (vec == 1)
-    encode_kernel<T, R, 1, TV><<<grid, THREADS, 0, st>>>(
-        wi, o, gen, k, m_l, ld_t, ld_k, ld_l, folded);
+    encode_kernel<TT, RR, 1, TV><<<grid, THREADS, 0, st>>>(
+        wi, o, gen, k, m_l, ld_t, ld_k, ld_l, folded, T, R);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
@@ -115,14 +126,16 @@ static int launch(int vec, dim3 grid, cudaStream_t st, const void* w,
 // else float32; vec is 1 or 16 bytes' worth (4 float32, 8 bf16). gen_host
 // is a host array [R, T] of float32; returns the cudaError_t of the
 // launch. Cases: T in {2, 4, 8} with 1 <= R <= T, and T = 16 with 1 <= R
-// <= 4; anything else returns cudaErrorInvalidValue. The case key T * 16 +
-// R is unique because R < 16.
+// <= 4, each its own instantiation; every other 2 <= T <= 16, 1 <= R <= T
+// the generic one; anything else returns cudaErrorInvalidValue. The case
+// key T * 32 + R is unique because R <= 16 < 32.
 extern "C" int cdc_encode(const void* w, void* out, const float* gen_host,
                           int L, int k, int T, int R, int m_l, long long ld_t,
                           long long ld_k, long long ld_l, int folded,
                           int vec, int bf16, void* stream) {
   using namespace cdc_enc;
-  if (T > MAX_T || R < 1 || R > T || vec < 1) return (int)cudaErrorInvalidValue;
+  if (T < 2 || T > MAX_T || R < 1 || R > T || vec < 1)
+    return (int)cudaErrorInvalidValue;
   Gen gen;
   for (int i = 0; i < R * T; ++i) gen.g[i] = gen_host[i];
   const int64_t nv = m_l / vec + (m_l % vec != 0);
@@ -132,13 +145,14 @@ extern "C" int cdc_encode(const void* w, void* out, const float* gen_host,
   const dim3 grid((unsigned)((items + THREADS - 1) / THREADS), L);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define ENC_CASE(TT, RR)                                                 \
-  case TT * 16 + RR:                                                     \
+  case TT * 32 + RR:                                                     \
     return bf16 ? launch<TT, RR, __nv_bfloat16>(vec, grid, st, w, out,   \
                                                 gen, k, m_l, ld_t, ld_k, \
-                                                ld_l, folded)            \
+                                                ld_l, folded, T, R)      \
                 : launch<TT, RR, float>(vec, grid, st, w, out, gen, k,   \
-                                        m_l, ld_t, ld_k, ld_l, folded);
-  switch (T * 16 + R) {
+                                        m_l, ld_t, ld_k, ld_l, folded,   \
+                                        T, R);
+  switch (T * 32 + R) {
     ENC_CASE(2, 1)
     ENC_CASE(2, 2)
     ENC_CASE(4, 1)
@@ -158,7 +172,11 @@ extern "C" int cdc_encode(const void* w, void* out, const float* gen_host,
     ENC_CASE(16, 3)
     ENC_CASE(16, 4)
     default:
-      return (int)cudaErrorInvalidValue;
+      return bf16 ? launch<0, 0, __nv_bfloat16>(vec, grid, st, w, out, gen,
+                                               k, m_l, ld_t, ld_k, ld_l,
+                                               folded, T, R)
+                  : launch<0, 0, float>(vec, grid, st, w, out, gen, k, m_l,
+                                        ld_t, ld_k, ld_l, folded, T, R);
   }
 #undef ENC_CASE
 }

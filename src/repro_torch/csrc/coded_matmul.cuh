@@ -2,7 +2,10 @@
 // float32 or bf16, x and the output as float32 or bf16, float32 math.
 // Each translation unit cdc_coded_matmul*.cu instantiates a set of (T, R)
 // cases and storage types (CDC_CODED_CASES, CDC_CODED_TYPES) and becomes
-// its own library, so that nvcc builds the sets in parallel.
+// its own library, so that nvcc builds the sets in parallel; the
+// cdc_coded_matmul_any*.cu units (CDC_CODED_ANY) hold the generic
+// instantiation that takes every other code, 2 <= T <= 16 and 1 <= R <= T,
+// with T and R as runtime values.
 //
 // Replaces the TPU kernel cdc_coded_matmul_pallas
 // (src/repro/kernels/cdc_matmul.py): x [rows, k] against the T column
@@ -44,7 +47,14 @@
 //    whose row strides are not multiples of 16, take the same kernel with
 //    the producer copying by ordinary loads;
 //  * bf16 weights travel as bf16 (bf16 tensor maps, a stage of 32 KB holds
-//    twice the k rows) and widen to float32 in the consumers' registers.
+//    twice the k rows) and widen to float32 in the consumers' registers;
+//  * the generic instantiation reads T and R from its arguments. Up to 16
+//    streams it keeps one consumer warp a stream; beyond (r = T at T = 16
+//    is 32 streams: one warp each would be 33 warps, past a block's 1024
+//    threads and the register file) a warp owns two streams (up to 24)
+//    or three, consuming each from every stage with its own accumulators.
+//    Its per-shard arrays are MAX_T wide, used up to T, in unrolled loops
+//    (registers).
 #pragma once
 
 #include <type_traits>
@@ -73,18 +83,37 @@ struct CodedArgs {
   int bn, tps, wd, nrb, ksplit, kchunk, ks;
   int x_bf16;
   int lead;           // elements a box row may start before its tile
+  int T, R;           // the code (read by the generic instantiation only)
 };
 
+// The generic instantiation: a consumer warp owns one stream up to 16
+// streams, two up to 24 and three up to 32 (at most 16, 12 and 11
+// consumer warps), so that its accumulators fit the registers that its
+// thread count leaves each thread (ptxas: 96 at 17 warps, 128 at 13, 170
+// at 12). 16-row blocks hold at most 12 streams (rb_fits).
+__host__ __device__ constexpr int streams_per_warp(int S) {
+  return S <= 16 ? 1 : S <= 24 ? 2 : 3;
+}
+__host__ __device__ constexpr int any_consumer_warps(int NSPW, int RB) {
+  return NSPW == 1 ? (RB == 16 ? 12 : 16) : NSPW == 2 ? 12 : 11;
+}
 
-// Two blocks per SM below 10 streams and 16 rows; beyond, a cap of
-// 65536 / (2 * threads) registers would spill.
-template <int T, int R, int RB, bool ASYNC, typename W>
-__global__ void __launch_bounds__(32 * (T + R + 1),
-                                  (RB < 16 && T + R < 10) ? 2 : 1)
+// One block: the column tile of every stream over one k range. TT, RR: the
+// code (T, R) of an instantiation, or 0, 0 for the generic one, which reads
+// T <= MAX_T and R <= T from the arguments and gives each consumer warp
+// NSPW streams. Two blocks per SM below 10 streams and 16 rows; beyond, a
+// cap of 65536 / (2 * threads) registers would spill.
+template <int TT, int RR, int NSPW, int RB, bool ASYNC, typename W>
+__global__ void __launch_bounds__(
+    TT ? 32 * (TT + RR + 1) : 32 * (any_consumer_warps(NSPW, RB) + 1),
+    (TT && RB < 16 && TT + RR < 10) ? 2 : 1)
 coded_stream_kernel(const CodedArgs a,
                     const __grid_constant__ CUtensorMap tm_w,
                     const __grid_constant__ CUtensorMap tm_p) {
-  constexpr int S = T + R, NC = 32 * S, NT = 32 * (S + 1);
+  constexpr int TM = TT ? TT : MAX_T;            // arrays over the shards
+  const int T = TT ? TT : a.T, S = T + (TT ? RR : a.R);
+  const int NCW = (S + NSPW - 1) / NSPW;         // consumer warps
+  const int NC = 32 * NCW, NT = NC + 32;
   using G = stream::Geo<RB>;
   constexpr int BNS = G::BN, CPL = G::CPL;
   extern __shared__ __align__(128) float smem[];
@@ -117,15 +146,17 @@ coded_stream_kernel(const CodedArgs a,
     return s < T ? s * m_l + c0 : folded ? (s - T) * wd + o0 : c0;
   };
 
-  stream::ring_init<G::NSTAGE>(full, empty, S);
-  float acc[RB][CPL];
+  stream::ring_init<G::NSTAGE>(full, empty, NCW);
+  float acc[NSPW][RB][CPL];
 #pragma unroll
-  for (int rr = 0; rr < RB; ++rr)
+  for (int i = 0; i < NSPW; ++i)
 #pragma unroll
-    for (int q = 0; q < CPL; ++q) acc[rr][q] = 0.f;
-  if (warp == S) {
+    for (int rr = 0; rr < RB; ++rr)
+#pragma unroll
+      for (int q = 0; q < CPL; ++q) acc[i][rr][q] = 0.f;
+  if (warp == NCW) {
     // the lambdas capture scalars by value: no local lives in memory
-    const int pld = a.folded ? R * a.wd : a.m_l;
+    const int pld = a.folded ? (S - T) * a.wd : a.m_l;
     const int k = a.k;
     const int64_t ldw = a.ldw;
     const W* w = static_cast<const W*>(a.w);
@@ -152,8 +183,8 @@ coded_stream_kernel(const CodedArgs a,
       }
       return pw + ((int64_t)j * k + kk) * pld + c0;
     };
-    stream::produce<S, G::NSTAGE, ASYNC>(issue, src, ring, full, empty, kb0,
-                                         kb1, a.ks, width, pitch, sreg);
+    stream::produce<G::NSTAGE, ASYNC>(S, issue, src, ring, full, empty, kb0,
+                                      kb1, a.ks, width, pitch, sreg);
   } else {
     if (a.x_bf16)
       stream::stage_x<RB>(static_cast<const __nv_bfloat16*>(a.x), a.rows,
@@ -161,12 +192,24 @@ coded_stream_kernel(const CodedArgs a,
     else
       stream::stage_x<RB>(static_cast<const float*>(a.x), a.rows, a.k, r0,
                           kb0, kb1, a.gamma, a.eps, xs, inv, NC);
-    stream::consume<RB>(ring, full, empty, xs, warp, kb0, kb1, a.ks, pitch,
-                        sreg, acc, lead ? first_col(warp) % V : 0);
+    if constexpr (TT != 0) {
+      stream::consume<RB>(ring, full, empty, xs, warp, kb0, kb1, a.ks, pitch,
+                          sreg, acc[0], lead ? first_col(warp) % V : 0);
+    } else {
+      auto shift = [=](int s) -> int { return lead ? first_col(s) % V : 0; };
+      stream::consume_multi<RB, NSPW>(ring, full, empty, xs, warp, NCW, S,
+                                      kb0, kb1, a.ks, pitch, sreg, acc,
+                                      shift);
+    }
   }
   __syncthreads();        // every stage consumed: reuse ring and staging
   float* tot = smem;      // [S][RB][BN] <= G::RING + G::XS
-  if (warp < S) stream::store_acc<RB, W>(tot, warp, acc);
+  if (warp < NCW) {
+#pragma unroll
+    for (int i = 0; i < NSPW; ++i)
+      if (warp + i * NCW < S)
+        stream::store_acc<RB, W>(tot, warp + i * NCW, acc[i]);
+  }
   __syncthreads();
 
   // epilogue: one (row, column) of the tile per thread and step
@@ -175,21 +218,24 @@ coded_stream_kernel(const CodedArgs a,
     const int rr = i / width, cl = i - rr * width;
     const int row = r0 + rr, c = c0 + cl;
     if (row >= a.rows) continue;
-    float y[T], o[T];
+    float y[TM], o[TM];
 #pragma unroll
-    for (int t = 0; t < T; ++t) y[t] = tot[(t * RB + rr) * BNS + cl];
+    for (int t = 0; t < TM; ++t)
+      if (t < T) y[t] = tot[(t * RB + rr) * BNS + cl];
     const int e = a.esel[c];
-    eq12_decode<T>(y, tot[((T + e) * RB + rr) * BNS + cl], a.gen + e * T,
-                   a.coef[c], a.valid_bits, o);
+    eq12_decode<TM>(y, tot[((T + e) * RB + rr) * BNS + cl], a.gen + e * T,
+                    a.coef[c], a.valid_bits, o, T);
     if (a.ksplit == 1) {
 #pragma unroll
-      for (int t = 0; t < T; ++t)
-        st_as(a.out, a.x_bf16, (int64_t)row * m + (int64_t)t * a.m_l + c,
-              o[t]);
+      for (int t = 0; t < TM; ++t)
+        if (t < T)
+          st_as(a.out, a.x_bf16, (int64_t)row * m + (int64_t)t * a.m_l + c,
+                o[t]);
     } else {
       float* dst = a.ws + ((int64_t)split * a.rows + row) * m + c;
 #pragma unroll
-      for (int t = 0; t < T; ++t) dst[(int64_t)t * a.m_l] = o[t];
+      for (int t = 0; t < TM; ++t)
+        if (t < T) dst[(int64_t)t * a.m_l] = o[t];
     }
   }
   if (a.ksplit == 1) return;
@@ -215,18 +261,18 @@ coded_stream_kernel(const CodedArgs a,
 }
 
 // Launch (grid > 0) or report the resident blocks per SM (*occ) of one
-// instantiation. The dynamic shared memory limit is raised once per
-// instantiation.
-template <int T, int R, int RB, bool ASYNC, typename W>
-static int run(const CodedArgs& a, const CUtensorMap& tm_w,
+// instantiation for the code (T, R). The dynamic shared memory limit is
+// raised once per instantiation.
+template <int TT, int RR, int NSPW, int RB, bool ASYNC, typename W>
+static int run(int T, int R, const CodedArgs& a, const CUtensorMap& tm_w,
                const CUtensorMap& tm_p, int grid, cudaStream_t st,
                int* occ) {
-  constexpr int NT = 32 * (T + R + 1);
+  const int NT = 32 * ((T + R + NSPW - 1) / NSPW + 1);
   using G = stream::Geo<RB>;
   constexpr int smem = G::SMEM;
-  static_assert((T + R) * RB * G::BN <= G::RING + G::XS,
+  static_assert(TT == 0 || stream::rb_fits(RB, TT + RR),
                 "the epilogue's sums fit the ring and the staging");
-  auto kern = coded_stream_kernel<T, R, RB, ASYNC, W>;
+  auto kern = coded_stream_kernel<TT, RR, NSPW, RB, ASYNC, W>;
   static bool attr = false;
   if (!attr) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -241,39 +287,59 @@ static int run(const CodedArgs& a, const CUtensorMap& tm_w,
   return (int)cudaGetLastError();
 }
 
-template <int T, int R, typename W>
-static int pick(int rb, int async, const CodedArgs& a, const CUtensorMap& mw,
-                const CUtensorMap& mp, int grid, cudaStream_t st, int* occ) {
-  if (rb == 4)
-    return async ? run<T, R, 4, true, W>(a, mw, mp, grid, st, occ)
-                 : run<T, R, 4, false, W>(a, mw, mp, grid, st, occ);
-  if (rb == 8)
-    return async ? run<T, R, 8, true, W>(a, mw, mp, grid, st, occ)
-                 : run<T, R, 8, false, W>(a, mw, mp, grid, st, occ);
-  if constexpr (stream::rb16_fits(T + R)) {
-    if (rb == 16)
-      return async ? run<T, R, 16, true, W>(a, mw, mp, grid, st, occ)
-                   : run<T, R, 16, false, W>(a, mw, mp, grid, st, occ);
+template <int TT, int RR, int NSPW, typename W>
+static int pick(int T, int R, int rb, int async, const CodedArgs& a,
+                const CUtensorMap& mw, const CUtensorMap& mp, int grid,
+                cudaStream_t st, int* occ) {
+#define CDC_RUN(RBV)                                                       \
+  return async ? run<TT, RR, NSPW, RBV, true, W>(T, R, a, mw, mp, grid, st, \
+                                                 occ)                      \
+               : run<TT, RR, NSPW, RBV, false, W>(T, R, a, mw, mp, grid,   \
+                                                  st, occ);
+  if (!stream::rb_fits(rb, T + R)) return (int)cudaErrorInvalidValue;
+  if (rb == 4) { CDC_RUN(4) }
+  // 8 rows hold at most 24 streams, 16 rows 12: never three streams a
+  // warp, or two
+  if constexpr (NSPW < 3) {
+    if (rb == 8) { CDC_RUN(8) }
   }
+  if constexpr (NSPW == 1 && (TT == 0 || stream::rb_fits(16, TT + RR))) {
+    if (rb == 16) { CDC_RUN(16) }
+  }
+#undef CDC_RUN
   return (int)cudaErrorInvalidValue;
 }
 
-// The translation unit's cases (T, R) of storage type W; anything else
-// returns cudaErrorInvalidValue. The case key T * 16 + R is unique because
-// R < 16.
+// The translation unit's cases (T, R) of storage type W, and with
+// CDC_CODED_ANY the generic instantiation for every other 2 <= T <=
+// MAX_T, 1 <= R <= T; anything else returns cudaErrorInvalidValue. The
+// case key T * 32 + R is unique because R <= MAX_T < 32.
 template <typename W>
 static int dispatch_w(int T, int R, int rb, int async, const CodedArgs& a,
                       const CUtensorMap& mw, const CUtensorMap& mp, int grid,
                       cudaStream_t st, int* occ) {
 #define CDC_CASE(TT, RR) \
-  case TT * 16 + RR:     \
-    return pick<TT, RR, W>(rb, async, a, mw, mp, grid, st, occ);
-  switch (T * 16 + R) {
+  case TT * 32 + RR:     \
+    return pick<TT, RR, 1, W>(T, R, rb, async, a, mw, mp, grid, st, occ);
+  switch (T * 32 + R) {
     CDC_CODED_CASES(CDC_CASE)
     default:
-      return (int)cudaErrorInvalidValue;
+      break;
   }
 #undef CDC_CASE
+#ifdef CDC_CODED_ANY
+  if (T >= 2 && T <= MAX_T && R >= 1 && R <= T) {
+    switch (streams_per_warp(T + R)) {
+      case 1:
+        return pick<0, 0, 1, W>(T, R, rb, async, a, mw, mp, grid, st, occ);
+      case 2:
+        return pick<0, 0, 2, W>(T, R, rb, async, a, mw, mp, grid, st, occ);
+      default:
+        return pick<0, 0, 3, W>(T, R, rb, async, a, mw, mp, grid, st, occ);
+    }
+  }
+#endif
+  return (int)cudaErrorInvalidValue;
 }
 
 static int dispatch(int T, int R, int w_bf16, int rb, int async,
@@ -322,7 +388,7 @@ static bool coded_plan_ok(int rows, int k, int T, int R, int m_l,
   const int pstride = folded ? R * wd : m_l;   // the parity's row
   return rows >= 1 && k >= 1 && m_l >= 1 && bn >= 1 &&
          bn <= stream::bn_max(rb) && pitch <= 256 &&
-         (rb != 16 || stream::rb16_fits(S)) && ks >= 1 && ks <= 256 &&
+         S <= 2 * MAX_T && stream::rb_fits(rb, S) && ks >= 1 && ks <= 256 &&
          S * stream::box_elems<W>(ks, pitch) <= stream::stage_elems<W>() &&
          kchunk >= 1 && kchunk <= stream::kmax(rb) &&
          (int64_t)ksplit * kchunk >= k &&
@@ -361,7 +427,7 @@ extern "C" int cdc_coded_matmul(
                     eps, out,       ws,   sem, rows, k,     m_l,
                     ldw, folded,    valid_bits,      bn,    tps,
                     wd,  nrb,       ksplit,          kchunk, ks, x_bf16,
-                    lead};
+                    lead, T,        R};
   const long long grid = (long long)n_slices * tps * nrb * ksplit;
   if (grid > 0x7fffffff) return (int)cudaErrorInvalidValue;
   CUtensorMap mw{}, mp{};

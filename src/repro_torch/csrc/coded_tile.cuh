@@ -35,22 +35,27 @@ __device__ __forceinline__ void warp_argmax(float& v, int& id) {
 // zeroed by SELECT (a NaN in a dead shard cannot spread), and every dead
 // shard takes (p_e - sum_t gen_e[t] * y[t]) * coef, where p_e is the
 // column's selected parity equation e and gen_e its generator row. y[] of
-// a dead shard is ignored: it may hold anything.
-template <int T>
-__device__ __forceinline__ void eq12_decode(const float (&y)[T], float p_e,
+// a dead shard is ignored: it may hold anything. The code width is TM, or
+// n < TM in the generic instantiations (arrays MAX_T wide, the first n
+// used; the unrolled loops stay in registers).
+template <int TM>
+__device__ __forceinline__ void eq12_decode(const float (&y)[TM], float p_e,
                                             const float* __restrict__ gen_e,
                                             float coef, unsigned valid_bits,
-                                            float (&o)[T]) {
-  float yz[T];
+                                            float (&o)[TM], int n = TM) {
+  float yz[TM];
   float sum = 0.f;
 #pragma unroll
-  for (int t = 0; t < T; ++t) {
-    yz[t] = ((valid_bits >> t) & 1u) ? y[t] : 0.f;
-    sum = fmaf(gen_e[t], yz[t], sum);
+  for (int t = 0; t < TM; ++t) {
+    if (t < n) {
+      yz[t] = ((valid_bits >> t) & 1u) ? y[t] : 0.f;
+      sum = fmaf(gen_e[t], yz[t], sum);
+    }
   }
   const float miss = (p_e - sum) * coef;
 #pragma unroll
-  for (int t = 0; t < T; ++t) o[t] = ((valid_bits >> t) & 1u) ? yz[t] : miss;
+  for (int t = 0; t < TM; ++t)
+    if (t < n) o[t] = ((valid_bits >> t) & 1u) ? yz[t] : miss;
 }
 
 // Cross-block completion: every block calls this after writing its

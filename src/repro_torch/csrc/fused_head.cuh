@@ -1,7 +1,10 @@
 // Fused coded LM head + Eq. 12 decode + greedy argmax, sm_90a: weights
 // stored as float32 or bf16, x as float32 or bf16, float32 math. Each
 // translation unit cdc_fused_head*.cu instantiates a set of T and storage
-// types (CDC_HEAD_TS, CDC_HEAD_TYPES) and becomes its own library.
+// types (CDC_HEAD_TS, CDC_HEAD_TYPES) and becomes its own library; with
+// CDC_HEAD_ANY (cdc_fused_head_any.cu) the generic instantiation takes
+// every other 2 <= T <= 16 as a runtime value (T + 1 <= 17 consumer
+// warps, its per-shard arrays MAX_T wide in unrolled loops).
 //
 // Replaces the TPU kernel cdc_fused_head_argmax_pallas
 // (src/repro/kernels/cdc_decode.py): the T head-shard GEMMs and the
@@ -70,15 +73,23 @@ struct HeadArgs {
   int bn, tps, nrb, ksplit, kchunk, ks;
   int x_bf16;
   int lead;           // elements a box row may start before its tile
+  int T;              // the code width (read by the generic instantiation)
 };
 
-template <int T, int RB, bool ASYNC, typename W>
-__global__ void __launch_bounds__(32 * (T + 2),
-                                  (RB < 16 && T + 1 < 10) ? 2 : 1)
+// TT: the code width of an instantiation, or 0 for the generic one, which
+// reads T <= MAX_T from the arguments.
+// The generic one's 16-row blocks hold at most 12 streams (rb_fits): 13
+// warps, and the registers that leaves each thread.
+template <int TT, int RB, bool ASYNC, typename W>
+__global__ void __launch_bounds__(32 * (TT ? TT + 2 : RB == 16 ? 13
+                                                              : MAX_T + 2),
+                                  (TT && RB < 16 && TT + 1 < 10) ? 2 : 1)
 head_stream_kernel(const HeadArgs a,
                    const __grid_constant__ CUtensorMap tm_w,
                    const __grid_constant__ CUtensorMap tm_p) {
-  constexpr int S = T + 1, NC = 32 * S, NT = 32 * (S + 1), NW = S + 1;
+  constexpr int TM = TT ? TT : MAX_T;            // arrays over the shards
+  const int T = TT ? TT : a.T;
+  const int S = T + 1, NC = 32 * S, NT = 32 * (S + 1), NW = S + 1;
   using G = stream::Geo<RB>;
   constexpr int BNS = G::BN, CPL = G::CPL;
   extern __shared__ __align__(128) float smem[];
@@ -126,8 +137,8 @@ head_stream_kernel(const HeadArgs a,
       return s < T ? w + (int64_t)s * sstr + (int64_t)kk * ldw + c0
                    : pw + (int64_t)kk * ldp + c0;
     };
-    stream::produce<S, G::NSTAGE, ASYNC>(issue, src, ring, full, empty, kb0,
-                                         kb1, a.ks, width, pitch, sreg);
+    stream::produce<G::NSTAGE, ASYNC>(S, issue, src, ring, full, empty, kb0,
+                                      kb1, a.ks, width, pitch, sreg);
   } else {
     if (a.x_bf16)
       stream::stage_x<RB>(static_cast<const __nv_bfloat16*>(a.x), a.b, a.k,
@@ -182,17 +193,19 @@ head_stream_kernel(const HeadArgs a,
     float best = -INFINITY;
     int bid = 0x7fffffff;
     for (int c = lane; c < width; c += 32) {
-      float yz[T];
+      float yz[TM];
       float sum = 0.f;
 #pragma unroll
-      for (int t = 0; t < T; ++t) {
+      for (int t = 0; t < TM; ++t) {
+        if (t >= T) break;
         const float vm = ((a.valid_bits >> t) & 1u) ? 1.f : 0.f;
         yz[t] = tot[(t * RB + rr) * BNS + c] * vm;
         sum += yz[t];
       }
       const float miss = tot[(T * RB + rr) * BNS + c] - sum;
 #pragma unroll
-      for (int t = 0; t < T; ++t) {
+      for (int t = 0; t < TM; ++t) {
+        if (t >= T) break;
         const float vm = ((a.valid_bits >> t) & 1u) ? 1.f : 0.f;
         const int gid = t * a.m_l + c0 + c;
         const float logit =
@@ -227,18 +240,18 @@ head_stream_kernel(const HeadArgs a,
 }
 
 // Launch (grid > 0) or report the resident blocks per SM (*occ) of one
-// instantiation. The dynamic shared memory limit is raised once per
-// instantiation.
-template <int T, int RB, bool ASYNC, typename W>
-static int run(const HeadArgs& a, const CUtensorMap& tm_w,
+// instantiation at code width T. The dynamic shared memory limit is raised
+// once per instantiation.
+template <int TT, int RB, bool ASYNC, typename W>
+static int run(int T, const HeadArgs& a, const CUtensorMap& tm_w,
                const CUtensorMap& tm_p, int grid, cudaStream_t st,
                int* occ) {
-  constexpr int NT = 32 * (T + 2);
+  const int NT = 32 * (T + 2);
   using G = stream::Geo<RB>;
   constexpr int smem = G::SMEM;
-  static_assert((T + 1) * RB * G::BN <= G::RING + G::XS,
+  static_assert(TT == 0 || stream::rb_fits(RB, TT + 1),
                 "the epilogue's sums fit the ring and the staging");
-  auto kern = head_stream_kernel<T, RB, ASYNC, W>;
+  auto kern = head_stream_kernel<TT, RB, ASYNC, W>;
   static bool attr = false;
   if (!attr) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -253,38 +266,46 @@ static int run(const HeadArgs& a, const CUtensorMap& tm_w,
   return (int)cudaGetLastError();
 }
 
-template <int T, typename W>
-static int pick(int rb, int async, const HeadArgs& a, const CUtensorMap& mw,
-                const CUtensorMap& mp, int grid, cudaStream_t st, int* occ) {
+template <int TT, typename W>
+static int pick(int T, int rb, int async, const HeadArgs& a,
+                const CUtensorMap& mw, const CUtensorMap& mp, int grid,
+                cudaStream_t st, int* occ) {
+  if (!stream::rb_fits(rb, T + 1)) return (int)cudaErrorInvalidValue;
   if (rb == 4)
-    return async ? run<T, 4, true, W>(a, mw, mp, grid, st, occ)
-                 : run<T, 4, false, W>(a, mw, mp, grid, st, occ);
+    return async ? run<TT, 4, true, W>(T, a, mw, mp, grid, st, occ)
+                 : run<TT, 4, false, W>(T, a, mw, mp, grid, st, occ);
   if (rb == 8)
-    return async ? run<T, 8, true, W>(a, mw, mp, grid, st, occ)
-                 : run<T, 8, false, W>(a, mw, mp, grid, st, occ);
-  if constexpr (stream::rb16_fits(T + 1)) {
+    return async ? run<TT, 8, true, W>(T, a, mw, mp, grid, st, occ)
+                 : run<TT, 8, false, W>(T, a, mw, mp, grid, st, occ);
+  if constexpr (TT == 0 || stream::rb_fits(16, TT + 1)) {
     if (rb == 16)
-      return async ? run<T, 16, true, W>(a, mw, mp, grid, st, occ)
-                   : run<T, 16, false, W>(a, mw, mp, grid, st, occ);
+      return async ? run<TT, 16, true, W>(T, a, mw, mp, grid, st, occ)
+                   : run<TT, 16, false, W>(T, a, mw, mp, grid, st, occ);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// The translation unit's T of storage type W; anything else returns
-// cudaErrorInvalidValue.
+// The translation unit's T of storage type W, and with CDC_HEAD_ANY the
+// generic instantiation for every other 2 <= T <= MAX_T; anything else
+// returns cudaErrorInvalidValue.
 template <typename W>
 static int dispatch_w(int T, int rb, int async, const HeadArgs& a,
                       const CUtensorMap& mw, const CUtensorMap& mp, int grid,
                       cudaStream_t st, int* occ) {
 #define CDC_CASE(TT) \
   case TT:           \
-    return pick<TT, W>(rb, async, a, mw, mp, grid, st, occ);
+    return pick<TT, W>(T, rb, async, a, mw, mp, grid, st, occ);
   switch (T) {
     CDC_HEAD_TS(CDC_CASE)
     default:
-      return (int)cudaErrorInvalidValue;
+      break;
   }
 #undef CDC_CASE
+#ifdef CDC_HEAD_ANY
+  if (T >= 2 && T <= MAX_T)
+    return pick<0, W>(T, rb, async, a, mw, mp, grid, st, occ);
+#endif
+  return (int)cudaErrorInvalidValue;
 }
 
 static int dispatch(int T, int w_bf16, int rb, int async, const HeadArgs& a,
@@ -346,7 +367,7 @@ extern "C" int cdc_fused_head_argmax(
                            : stream::stage_elems<float>();
   const bool ok =
       b >= 1 && k >= 1 && m_l >= 1 && bn >= 1 && bn <= stream::bn_max(rb) &&
-      pitch <= 256 && (rb != 16 || stream::rb16_fits(S)) && ks >= 1 &&
+      pitch <= 256 && T <= MAX_T && stream::rb_fits(rb, S) && ks >= 1 &&
       ks <= 256 &&
       S * box <= stage && kchunk >= 1 && kchunk <= stream::kmax(rb) &&
       (int64_t)ksplit * kchunk >= k && (int64_t)(ksplit - 1) * kchunk < k &&
@@ -364,7 +385,7 @@ extern "C" int cdc_fused_head_argmax(
                    sem,   tok,      vmax, b,    k,          m_l,
                    shard_stride,    ldw, ldp, vocab, valid_bits, rows_outer,
                    bn,    tps,      nrb, ksplit, kchunk,    ks,
-                   x_bf16, lead};
+                   x_bf16, lead,    T};
   const long long grid = (long long)tps * nrb * ksplit;
   if (grid > 0x7fffffff) return (int)cudaErrorInvalidValue;
   CUtensorMap mw{}, mp{};

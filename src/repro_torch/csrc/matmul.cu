@@ -87,8 +87,8 @@ matmul_rows_kernel(const RowsArgs<TO> a,
     auto src = [=](int, int kk) -> const float* {
       return w + (int64_t)kk * n + c0;
     };
-    stream::produce<1, G::NSTAGE, ASYNC>(issue, src, ring, full, empty, kb0,
-                                         kb1, a.ks, width, pitch, sreg);
+    stream::produce<G::NSTAGE, ASYNC>(1, issue, src, ring, full, empty,
+                                      kb0, kb1, a.ks, width, pitch, sreg);
   } else {
     stream::stage_x<RB>(a.x, a.M, a.K, r0, kb0, kb1, nullptr, 0.f, xs, inv,
                         32);

@@ -12,6 +12,9 @@
 
 namespace cdc {
 
+// The widest code (T shards, and r <= T parity rows) any kernel takes.
+constexpr int MAX_T = 16;
+
 __device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
   return __bfloat162float(*p);

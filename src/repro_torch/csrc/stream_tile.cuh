@@ -73,10 +73,14 @@ struct Geo {
 };
 
 // A block keeps its streams' float32 column sums ([S][RB][BN]) for its
-// epilogue in the ring and the staging; with 16 rows that holds at most 12
-// streams, so wider codes take blocks of 4 or 8 rows.
-__host__ __device__ constexpr bool rb16_fits(int streams) {
-  return streams * 16 * Geo<16>::BN <= Geo<16>::RING + Geo<16>::XS;
+// epilogue in the ring and the staging: with 16 rows that holds at most 12
+// streams, with 8 rows 24 and with 4 rows 36, so wider codes take blocks
+// of fewer rows.
+__host__ __device__ constexpr bool rb_fits(int rb, int streams) {
+  return rb == 4    ? streams * 4 * Geo<4>::BN <= Geo<4>::RING + Geo<4>::XS
+         : rb == 8  ? streams * 8 * Geo<8>::BN <= Geo<8>::RING + Geo<8>::XS
+         : rb == 16 ? streams * 16 * Geo<16>::BN <= Geo<16>::RING + Geo<16>::XS
+                    : false;
 }
 
 // Deepest k range and widest tile of a block with rb rows.
@@ -200,18 +204,18 @@ __device__ inline void ring_init(uint64_t* full, uint64_t* empty,
   __syncthreads();
 }
 
-// The producer warp. Stream s's box of the stage at k row k0 lands at
-// ring[stage][s * sreg] (elements of W): on the copy engine, issue(s, k0,
-// dst, bar) copies the whole [ks, pitch] box (lane s issues stream s's
-// copy); with ordinary loads the lanes copy the `width` elements at
-// src(s, kk) for each of the stage's rows into row kk of the box.
-template <int S, int NS, bool ASYNC, typename W, typename Issue,
-          typename Src>
-__device__ inline void produce(const Issue& issue, const Src& src, W* ring,
-                               uint64_t* full, uint64_t* empty, int kb0,
-                               int kb1, int ks, int width, int pitch,
-                               int sreg) {
-  static_assert(S <= 32, "one lane issues each stream's copy");
+// The producer warp of S <= 32 streams (a constant in the instantiations
+// of one code, a runtime value in the generic one). Stream s's box of the
+// stage at k row k0 lands at ring[stage][s * sreg] (elements of W): on the
+// copy engine, issue(s, k0, dst, bar) copies the whole [ks, pitch] box
+// (lane s issues stream s's copy); with ordinary loads the lanes copy the
+// `width` elements at src(s, kk) for each of the stage's rows into row kk
+// of the box.
+template <int NS, bool ASYNC, typename W, typename Issue, typename Src>
+__device__ inline void produce(int S, const Issue& issue, const Src& src,
+                               W* ring, uint64_t* full, uint64_t* empty,
+                               int kb0, int kb1, int ks, int width,
+                               int pitch, int sreg) {
   const int lane = threadIdx.x & 31;
   const int nst = (kb1 - kb0 + ks - 1) / ks;
   for (int it = 0; it < nst; ++it) {
@@ -305,14 +309,36 @@ __device__ __forceinline__ void load_row(const __nv_bfloat16* p,
 // ([kk - kb0][RB]). Columns past the tile's width compute on whatever the
 // box holds there (its padding, the next row) and are never written.
 template <int RB, typename W, bool HALF>
+__device__ __forceinline__ void fma_box(const W* wrow, const float* xr,
+                                        int nrow, int pitch,
+                                        float (&acc)[RB][Geo<RB>::CPL]) {
+  static_assert(RB % 4 == 0, "activations are read 4 rows at a time");
+  constexpr int CPL = Geo<RB>::CPL;
+#pragma unroll 2
+  for (int kk = 0; kk < nrow; ++kk) {
+    float wv[CPL];
+    load_row<CPL, HALF>(wrow + kk * pitch, wv);
+#pragma unroll
+    for (int g = 0; g < RB / 4; ++g) {
+      const float4 x4 = *reinterpret_cast<const float4*>(xr + kk * RB + 4 * g);
+      const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int q = 0; q < CPL; ++q)
+          acc[4 * g + i][q] = fmaf(xv[i], wv[q], acc[4 * g + i][q]);
+    }
+  }
+}
+
+template <int RB, typename W, bool HALF>
 __device__ inline void consume_rows(const W* ring, uint64_t* full,
                                     uint64_t* empty, const float* xs, int s,
                                     int kb0, int kb1, int ks, int pitch,
                                     int sreg,
                                     float (&acc)[RB][Geo<RB>::CPL],
                                     int shift) {
-  static_assert(RB % 4 == 0, "activations are read 4 rows at a time");
-  constexpr int NS = Geo<RB>::NSTAGE, CPL = Geo<RB>::CPL;
+  constexpr int NS = Geo<RB>::NSTAGE;
   const int lane = threadIdx.x & 31;
   const int nst = (kb1 - kb0 + ks - 1) / ks;
   for (int it = 0; it < nst; ++it) {
@@ -321,23 +347,7 @@ __device__ inline void consume_rows(const W* ring, uint64_t* full,
     mbar_wait(&full[st], (it / NS) & 1);
     const W* wrow = ring + st * stage_elems<W>() + s * sreg + shift +
                     col4<RB, W>(lane, 0);
-    const float* xr = xs + (k0 - kb0) * RB;
-#pragma unroll 2
-    for (int kk = 0; kk < nrow; ++kk) {
-      float wv[CPL];
-      load_row<CPL, HALF>(wrow + kk * pitch, wv);
-#pragma unroll
-      for (int g = 0; g < RB / 4; ++g) {
-        const float4 x4 =
-            *reinterpret_cast<const float4*>(xr + kk * RB + 4 * g);
-        const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int q = 0; q < CPL; ++q)
-            acc[4 * g + i][q] = fmaf(xv[i], wv[q], acc[4 * g + i][q]);
-      }
-    }
+    fma_box<RB, W, HALF>(wrow, xs + (k0 - kb0) * RB, nrow, pitch, acc);
     __syncwarp();
     if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[st]);
   }
@@ -355,6 +365,42 @@ __device__ inline void consume(const W* ring, uint64_t* full,
   else
     consume_rows<RB, W, false>(ring, full, empty, xs, s, kb0, kb1, ks,
                                pitch, sreg, acc, shift);
+}
+
+// The generic code's consumer warp: it owns the streams s0, s0 + step, ...
+// below S (at most NSPW of them), each with its own accumulators, and
+// consumes them one after another from every stage before releasing it.
+// shift(s) is stream s's `shift` (as in consume).
+template <int RB, int NSPW, typename W, typename Shift>
+__device__ inline void consume_multi(const W* ring, uint64_t* full,
+                                     uint64_t* empty, const float* xs,
+                                     int s0, int step, int S, int kb0,
+                                     int kb1, int ks, int pitch, int sreg,
+                                     float (&acc)[NSPW][RB][Geo<RB>::CPL],
+                                     const Shift& shift) {
+  constexpr int NS = Geo<RB>::NSTAGE;
+  const int lane = threadIdx.x & 31;
+  const int nst = (kb1 - kb0 + ks - 1) / ks;
+  for (int it = 0; it < nst; ++it) {
+    const int st = it % NS;
+    const int k0 = kb0 + it * ks, nrow = min(ks, kb1 - k0);
+    mbar_wait(&full[st], (it / NS) & 1);
+    const float* xr = xs + (k0 - kb0) * RB;
+#pragma unroll
+    for (int i = 0; i < NSPW; ++i) {
+      const int s = s0 + i * step;
+      if (s >= S) break;
+      const int sh = shift(s);
+      const W* wrow = ring + st * stage_elems<W>() + s * sreg + sh +
+                      col4<RB, W>(lane, 0);
+      if (sh % vec_elems<W>() != 0)
+        fma_box<RB, W, true>(wrow, xr, nrow, pitch, acc[i]);
+      else
+        fma_box<RB, W, false>(wrow, xr, nrow, pitch, acc[i]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
 }
 
 // The consumers write their accumulators to tot[(s * RB + rr) * BN + col]

@@ -9,7 +9,11 @@ never at import. A failed build raises: there is no fallback. Kernels 1 and
 instantiations build in parallel.
 
 ``check_t`` is the coded kernels' refusal of a code width they have no
-case for: a ``ValueError`` naming T, raised before any build or launch.
+case for (T outside 2..16): a ``ValueError`` naming T, raised before any
+build or launch. Within it, the codes of the serving paths have tuned
+instantiations and every other code takes a generic one (T and r runtime
+values); wider codes would need more threads and registers than one block
+has.
 """
 from __future__ import annotations
 
@@ -26,10 +30,12 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("cdc_coded_matmul", "cdc_coded_matmul_bf16", "cdc_coded_matmul_t16",
-           "cdc_fused_head", "cdc_fused_head_bf16", "cdc_encode",
-           "cdc_decode_merge", "cdc_decode", "rmsnorm", "matmul")
-# the code widths T the coded kernels (1-5) are built for
-KERNEL_T = (2, 4, 8, 16)
+           "cdc_coded_matmul_any", "cdc_coded_matmul_any_bf16",
+           "cdc_fused_head", "cdc_fused_head_bf16", "cdc_fused_head_any",
+           "cdc_encode", "cdc_decode_merge", "cdc_decode", "rmsnorm",
+           "matmul")
+# the code widths T the coded kernels (1-5) take (csrc/scalar.cuh: MAX_T)
+KERNEL_T = tuple(range(2, 17))
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
@@ -93,11 +99,20 @@ def bf16_flag(dtype: torch.dtype, who: str) -> int:
     return int(dtype == torch.bfloat16)
 
 
-def check_t(who: str, T: int, supported=KERNEL_T) -> None:
+def check_t(who: str, T: int) -> None:
     """Refuse a code width T that the kernel has no case for."""
-    if T not in supported:
+    if T not in KERNEL_T:
         raise ValueError(f"{who}: no kernel case for T={T}; the kernel is "
-                         f"built for T in {tuple(supported)}")
+                         f"built for T in {KERNEL_T[0]}..{KERNEL_T[-1]}")
+
+
+def check_r(who: str, T: int, r: int) -> None:
+    """Refuse a code width T, or a parity count r outside 1..T, that the
+    kernel has no case for."""
+    check_t(who, T)
+    if not 1 <= r <= T:
+        raise ValueError(f"{who}: no kernel case for T={T}, r={r}; r runs "
+                         f"1..{T} at T={T}")
 
 
 def elem_bytes(dtype: torch.dtype) -> int:

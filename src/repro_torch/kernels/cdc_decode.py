@@ -150,9 +150,16 @@ def head_plan(b: int, k: int, m_l: int, T: int, n_sm: int, occupancy: int,
                             elem, lead)
 
 
-def head_lib(bf16: bool) -> str:
-    """The library of kernel 2's instantiations for the weights' storage
-    type (csrc/cdc_fused_head*.cu)."""
+# kernel 2's tuned instantiations (csrc/cdc_fused_head.cu, _bf16.cu); every
+# other 2 <= T <= 16 takes the generic one (csrc/cdc_fused_head_any.cu)
+TUNED_T = (2, 4, 8, 16)
+
+
+def head_lib(T: int, bf16: bool) -> str:
+    """The library of kernel 2's instantiation for T and the weights'
+    storage type (csrc/cdc_fused_head*.cu)."""
+    if T not in TUNED_T:
+        return "cdc_fused_head_any"
     return "cdc_fused_head_bf16" if bf16 else "cdc_fused_head"
 
 
@@ -160,7 +167,7 @@ def head_occupancy(T: int, rb: int, aligned: bool, bf16: bool = False
                    ) -> int:
     """Resident blocks per SM of kernel 2's instantiation (T, storage
     type, rb, async), as the card reports it."""
-    return build.occupancy(head_lib(bf16), "cdc_fused_head_occupancy", T,
+    return build.occupancy(head_lib(T, bf16), "cdc_fused_head_occupancy", T,
                            int(bf16), rb, int(aligned))
 
 
@@ -224,7 +231,7 @@ def cdc_fused_head_argmax(x: torch.Tensor, w_shards: torch.Tensor,
                      * stream_plan.BN[plan.rb] if plan.ksplit > 1 else 0,
                      dtype=torch.float32, device=dev)
     sem = _tile_counters(dev, plan.counters + plan.nrb)
-    err = _lib(head_lib(bool(w_bf16)))(
+    err = _lib(head_lib(T, bool(w_bf16)))(
         x.data_ptr(), x_bf16, w_shards.data_ptr(), parity_w.data_ptr(),
         w_bf16, ws.data_ptr(), part_val.data_ptr(), part_idx.data_ptr(),
         sem.data_ptr(), tok.data_ptr(), vmax.data_ptr(), b, k, T, m_l, sstr,
@@ -235,7 +242,8 @@ def cdc_fused_head_argmax(x: torch.Tensor, w_shards: torch.Tensor,
         raise RuntimeError(f"cdc_fused_head_argmax kernel launch failed: "
                            f"cudaError {err} (plan {plan})")
     cdc_fused_head_argmax.launches += 1
-    cdc_fused_head_argmax.variants[plan.variant] += 1
+    cdc_fused_head_argmax.variants[
+        plan.variant + ("" if T in TUNED_T else "-any")] += 1
     return tok, vmax
 
 

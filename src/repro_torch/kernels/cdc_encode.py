@@ -20,11 +20,6 @@ import torch
 from repro_torch.core.coded_layer import fold_parity_slots
 from repro_torch.kernels import accounting, build, ref
 
-# the (T, r) cases the kernel is built for: r <= T at T in {2, 4, 8}, and
-# r <= 4 at T = 16 (the coded-overhead study's T = 16 and the planner's r)
-_MAX_R = {2: 2, 4: 4, 8: 8, 16: 4}
-
-
 def _lib():
     fn = build.load("cdc_encode").cdc_encode
     if fn.argtypes is None:
@@ -37,10 +32,10 @@ def _lib():
 def check_code(T: int, r: int) -> None:
     """Refuse a code the encode kernel has no case for (before any
     build)."""
-    build.check_t("cdc_encode", T, tuple(_MAX_R))
-    if not 0 <= r <= _MAX_R[T]:
-        raise ValueError(f"cdc_encode: no kernel case for T={T}, r={r}; r "
-                         f"runs 1..{_MAX_R[T]} at T={T}")
+    if r:
+        build.check_r("cdc_encode", T, r)
+    else:
+        build.check_t("cdc_encode", T)
 
 
 def _check(cond: bool, msg: str):

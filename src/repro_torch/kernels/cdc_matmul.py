@@ -29,16 +29,21 @@ from repro_torch.kernels import accounting, build, ref, stream_plan
 _sem: dict[int, torch.Tensor] = {}   # per-device tile counters (see below)
 _sem_retired: list[torch.Tensor] = []  # outgrown counters, kept alive
 _sms: dict[int, int] = {}            # SMs per device
-# kernel 1's cases: the largest r built for each code width T (r >= 1)
-CODED_MAX_R = {2: 2, 4: 4, 8: 4, 16: 4}
+# kernel 1's tuned instantiations: the largest r of each code width T
+# (csrc/cdc_coded_matmul.cu, _bf16.cu, _t16.cu); every other code with
+# 2 <= T <= 16, 1 <= r <= T takes the generic instantiation
+TUNED_MAX_R = {2: 2, 4: 4, 8: 4, 16: 4}
+
+
+def streams_per_warp(streams: int) -> int:
+    """Streams a consumer warp of the generic instantiation owns
+    (``streams_per_warp`` in csrc/coded_matmul.cuh)."""
+    return 1 if streams <= 16 else 2 if streams <= 24 else 3
 
 
 def check_code(T: int, r: int) -> None:
     """Refuse a code kernel 1 has no case for (before any build)."""
-    build.check_t("cdc_coded_matmul", T, tuple(CODED_MAX_R))
-    if not 1 <= r <= CODED_MAX_R[T]:
-        raise ValueError(f"cdc_coded_matmul: no kernel case for T={T}, "
-                         f"r={r}; r runs 1..{CODED_MAX_R[T]} at T={T}")
+    build.check_r("cdc_coded_matmul", T, r)
 
 
 def check_merge(T: int) -> None:
@@ -46,9 +51,12 @@ def check_merge(T: int) -> None:
     build.check_t("cdc_decode_merge", T)
 
 
-def coded_lib(T: int, bf16: bool) -> str:
-    """The library holding kernel 1's instantiations for T and the weights'
-    storage type (csrc/cdc_coded_matmul*.cu)."""
+def coded_lib(T: int, r: int, bf16: bool) -> str:
+    """The library holding kernel 1's instantiation for the code (T, r)
+    and the weights' storage type (csrc/cdc_coded_matmul*.cu)."""
+    if r > TUNED_MAX_R.get(T, 0):
+        return "cdc_coded_matmul_any_bf16" if bf16 else \
+            "cdc_coded_matmul_any"
     if T == 16:
         return "cdc_coded_matmul_t16"
     return "cdc_coded_matmul_bf16" if bf16 else "cdc_coded_matmul"
@@ -241,7 +249,7 @@ def cdc_coded_matmul(x: torch.Tensor, w: torch.Tensor, w_cdc: torch.Tensor,
     ldw = w.stride(0)
     ptr_ok = (w.data_ptr() | w_cdc.data_ptr()) % 16 == 0
     elem = build.elem_bytes(w.dtype)
-    lib = coded_lib(T, bool(w_bf16))
+    lib = coded_lib(T, r, bool(w_bf16))
     rb, aligned = coded_variant(rows, m_l, T, r, layout, ldw, ptr_ok, elem)
     plan = coded_plan(rows, k, m_l, T, r, layout, _n_sm(x.device),
                       build.occupancy(lib, "cdc_coded_matmul_occupancy", T,
@@ -263,7 +271,10 @@ def cdc_coded_matmul(x: torch.Tensor, w: torch.Tensor, w_cdc: torch.Tensor,
         raise RuntimeError(f"cdc_coded_matmul kernel launch failed: "
                            f"cudaError {err} (plan {plan})")
     cdc_coded_matmul.launches += 1
-    cdc_coded_matmul.variants[plan.variant] += 1
+    spw = streams_per_warp(T + r)
+    generic = "" if "_any" not in lib else \
+        "-any" + (str(spw) if spw > 1 else "")
+    cdc_coded_matmul.variants[plan.variant + generic] += 1
     return out
 
 

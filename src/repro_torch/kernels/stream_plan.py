@@ -30,23 +30,25 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def rb16_fits(streams: int) -> bool:
-    """A 16-row block keeps its streams' [streams, 16, 128] float32 sums
-    for its epilogue in the ring and the staging: at most 12 streams
-    (``stream::rb16_fits``)."""
-    return streams * 16 * BN[16] <= NSTAGE[16] * STAGE_FLOATS + XS_FLOATS[16]
+def rb_fits(rb: int, streams: int) -> bool:
+    """A block of ``rb`` rows keeps its streams' [streams, rb, BN[rb]]
+    float32 sums for its epilogue in the ring and the staging: at most 12
+    streams at 16 rows, 24 at 8 and 36 at 4 (``stream::rb_fits``)."""
+    return streams * rb * BN[rb] <= NSTAGE[rb] * STAGE_FLOATS + XS_FLOATS[rb]
 
 
 def row_block(rows: int, wd: int, n_slices: int = 1,
               streams: int = 1) -> int:
-    """Rows a block owns: 4 for a decode round's <= 4 rows, 8 up to 8
-    rows; beyond, 16 when the output has at least 16 column tiles of 128
-    (fewer row blocks stream the weights fewer times: granite's w1 at 64
-    rows) and the 16-row epilogue holds the streams, else 8 (more blocks
-    to fill the card and to share the split reduction: wq, wk; T = 16)."""
-    if rows <= 4:
+    """Rows a block owns: 4 for a decode round's <= 4 rows (and for codes
+    of more than 24 streams), 8 up to 8 rows; beyond, 16 when the output
+    has at least 16 column tiles of 128 (fewer row blocks stream the
+    weights fewer times: granite's w1 at 64 rows) and the 16-row epilogue
+    holds the streams, else 8 (more blocks to fill the card and to share
+    the split reduction: wq, wk; T = 16)."""
+    if rows <= 4 or not rb_fits(8, streams):
         return 4
-    if rows <= 8 or n_slices * _cdiv(wd, 128) < 16 or not rb16_fits(streams):
+    if rows <= 8 or n_slices * _cdiv(wd, 128) < 16 or \
+            not rb_fits(16, streams):
         return 8
     return 16
 

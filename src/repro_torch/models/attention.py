@@ -13,7 +13,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.common import (Params, TPCtx, col_dense,
-                                       linear_init, rope, row_dense)
+                                       encode_leaf, linear_init, rope,
+                                       row_dense)
 
 NEG_INF = -1e30
 
@@ -30,9 +31,16 @@ def attn_dims(cfg, tp: int) -> tuple[int, int, int]:
 
 def attn_init(gen: torch.Generator, cfg, ctx: TPCtx, dtype,
               layers: tuple[int, ...] = (), device=None) -> Params:
+    """Q/K/V/O weights at the run's head counts. Head counts that the TP
+    degree does not divide are padded with zero-weight heads as the
+    reference pads them (zero wq and wk/wv columns, zero wo rows: the
+    padded heads contribute nothing). The padded columns are zeroed BEFORE
+    the parity is encoded, so the parity holds the weights the layer
+    serves (the reference encodes first and zeroes after, which leaves its
+    ``init`` parity stale until ``encode_offline``)."""
     d, hd = cfg.d_model, cfg.hd
     hq_run, hkv_run, _ = attn_dims(cfg, ctx.tp)
-    kw = dict(layers=layers, device=device)
+    kw = dict(layers=layers, device=device, parity=False)
     p = {
         "wq": linear_init(gen, d, hq_run * hd, ctx, dtype, **kw),
         "wk": linear_init(gen, d, hkv_run * hd, ctx, dtype, **kw),
@@ -41,10 +49,15 @@ def attn_init(gen: torch.Generator, cfg, ctx: TPCtx, dtype,
                           scale=1.0 / (hq_run * hd) ** 0.5, coded=False,
                           **kw),
     }
-    if hq_run != cfg.n_heads or hkv_run != cfg.n_kv_heads:
-        raise NotImplementedError(
-            "padded attention heads (head counts not divisible by the TP "
-            "degree) are not ported yet")
+    if hq_run != cfg.n_heads:
+        p["wq"]["w"][..., cfg.n_heads * hd:hq_run * hd] = 0.0
+        p["wo"]["w"][..., cfg.n_heads * hd:hq_run * hd, :] = 0.0
+    if hkv_run != cfg.n_kv_heads:
+        for nm in ("wk", "wv"):
+            p[nm]["w"][..., cfg.n_kv_heads * hd:hkv_run * hd] = 0.0
+    if ctx.coded:
+        for nm in ("wq", "wk", "wv"):
+            encode_leaf(p[nm], ctx)
     return p
 
 
@@ -181,35 +194,42 @@ def _cache_update_per_row(cache, k, v, positions, s: int, C: int):
 
 
 def attention(ctx: TPCtx, p: Params, cfg, x: torch.Tensor, *, valid=None,
-              cache: Params, pos_offset, q_chunk: int = 512,
-              kv_chunk: int = 1024):
-    """x: [B, S, D] -> [B, S, D], against the per-row cache of one layer
-    ({"k","v": [B, C, Hkv, hd], "pos": [B, C], "len": [B]}), written in
-    place; pos_offset: [B] lengths before this call."""
+              cache: Params | None = None, pos_offset=0,
+              q_chunk: int = 512, kv_chunk: int = 1024):
+    """x: [B, S, D] -> [B, S, D].
+
+    With ``cache`` (decode and prefill), against the per-row cache of one
+    layer ({"k","v": [B, C, Hkv, hd], "pos": [B, C], "len": [B]}), written
+    in place; pos_offset: [B] lengths before this call. Without it (the
+    teacher-forced ``forward``), the S tokens attend each other at
+    positions pos_offset + [0, S) through the streaming path."""
     b, s, d = x.shape
     hd = cfg.hd
     hq_run, hkv_run, group = attn_dims(cfg, ctx.tp)
     kind = "swa" if cfg.attn_kind == "swa" else "causal"
     q = col_dense(ctx, p["wq"], x, hq_run * hd, valid) \
         .reshape(b, s, hq_run, hd)
-    positions = pos_offset[:, None] + torch.arange(s, device=x.device)
+    steps = torch.arange(s, device=x.device)
+    positions = pos_offset[:, None] + steps if cache is not None \
+        else steps + pos_offset
     k = col_dense(ctx, p["wk"], x, hkv_run * hd, valid) \
         .reshape(b, s, hkv_run, hd)
     v = col_dense(ctx, p["wv"], x, hkv_run * hd, valid) \
         .reshape(b, s, hkv_run, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    C = cache["k"].shape[1]
-    k_cached, v_cached, cpos = _cache_update_per_row(cache, k, v, positions,
-                                                     s, C)
-    if s == 1:
-        # decode: attend the whole cache as one chunk (grouped fast path)
-        k, v, k_pos = k_cached, v_cached, cpos
-        kv_chunk = max(kv_chunk, C)
-    else:
+    k_pos = positions
+    if cache is not None:
+        C = cache["k"].shape[1]
+        k_cached, v_cached, cpos = _cache_update_per_row(cache, k, v,
+                                                         positions, s, C)
+        if s == 1:
+            # decode: attend the whole cache as one chunk (grouped fast
+            # path)
+            k, v, k_pos = k_cached, v_cached, cpos
+            kv_chunk = max(kv_chunk, C)
         # prefill: the fresh K/V hold every cached token (the cache starts
         # empty), so attend over them with the streaming path
-        k_pos = positions
     out = _sdpa_chunked(q, k, v, positions, k_pos, kind=kind,
                         window=cfg.window, kv_chunk=kv_chunk,
                         q_chunk=q_chunk, group=group)

@@ -59,9 +59,12 @@ class TPCtx:
 
 def linear_init(gen: torch.Generator, k: int, m: int, ctx: TPCtx, dtype,
                 scale: float | None = None, coded: bool = True,
-                layers: tuple[int, ...] = (), device=None) -> Params:
+                layers: tuple[int, ...] = (), device=None,
+                parity: bool = True) -> Params:
     """A (possibly coded) linear layer's params, with optional leading
-    stacked-layer dims. Stores the padded weight; padded columns are 0."""
+    stacked-layer dims. Stores the padded weight; padded columns are 0.
+    parity=False leaves the parity leaf to the caller (``encode_leaf``),
+    who changes the weight first."""
     m_pad = ctx.pad_dim(m) if coded else m
     scale = scale if scale is not None else 1.0 / math.sqrt(k)
     w = torch.randn(layers + (k, m_pad), generator=gen, device=device,
@@ -70,8 +73,14 @@ def linear_init(gen: torch.Generator, k: int, m: int, ctx: TPCtx, dtype,
     if m_pad != m:
         w[..., m:] = 0.0
     p: Params = {"w": w.to(dtype)}
-    if coded and ctx.coded:
-        p["cdc"] = make_parity_weights(p["w"], ctx.spec)
+    if coded and ctx.coded and parity:
+        encode_leaf(p, ctx)
+    return p
+
+
+def encode_leaf(p: Params, ctx: TPCtx) -> Params:
+    """(Re)compute the parity leaf of one coded layer from its weight."""
+    p["cdc"] = make_parity_weights(p["w"], ctx.spec)
     return p
 
 
@@ -103,9 +112,7 @@ def encode_tree(params: Params, ctx: TPCtx) -> Params:
     def walk(node):
         if isinstance(node, dict):
             if "w" in node and "cdc" in node:
-                node = dict(node)
-                node["cdc"] = make_parity_weights(node["w"], ctx.spec)
-                return node
+                return encode_leaf(dict(node), ctx)
             return {k: walk(v) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return type(node)(walk(v) for v in node)

@@ -1,4 +1,4 @@
-"""Decoder-only LM (dense family): init, decode state, decode step.
+"""Decoder-only LM (dense body): init, forward, decode state, decode step.
 
 Layer weights are stacked on a leading [L, ...] axis as in the reference;
 the reference's layer ``scan`` is a Python loop over that axis here, each
@@ -18,10 +18,12 @@ from repro_torch.models.common import (Params, TPCtx, col_dense,
 def init_params(cfg, gen: torch.Generator, ctx: TPCtx,
                 dtype=torch.float32, device=None) -> Params:
     """Random parameters drawn from ``gen`` on ``device``, in the
-    reference's layout. Dense family only."""
-    if cfg.family != "dense" or cfg.n_experts or cfg.ssm_kind:
+    reference's layout. Dense bodies only: family ``dense``, and ``vlm``
+    (chameleon-34b), which the reference builds as a dense decoder over a
+    shared token vocabulary."""
+    if cfg.family not in ("dense", "vlm") or cfg.n_experts or cfg.ssm_kind:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only)")
+            f"family {cfg.family!r} is not ported yet (dense bodies only)")
     d, L = cfg.d_model, (cfg.n_layers,)
     vocab_pad = ctx.pad_dim(cfg.vocab)
     embed = torch.randn((vocab_pad, d), generator=gen, device=device)
@@ -50,6 +52,21 @@ def _layer_fwd(cfg, ctx: TPCtx, p: Params, x, valid, cache, pos_offset,
                                q_chunk=q_chunk, kv_chunk=kv_chunk)
     return x + ffn_mod.ffn(ctx, p["ffn"], cfg,
                            rmsnorm(p["ln2"], x, cfg.norm_eps), valid)
+
+
+def forward(cfg, params: Params, ctx: TPCtx, tokens: torch.Tensor,
+            valid=None, *, q_chunk: int = 512, kv_chunk: int = 1024
+            ) -> torch.Tensor:
+    """tokens: [B, S] -> logits [B, S, vocab] (float32), teacher-forced:
+    every position attends the tokens before it (or its window), no
+    cache."""
+    x = params["embed"][tokens.long()]
+    for i in range(cfg.n_layers):
+        x = _layer_fwd(cfg, ctx, tree_index(params["layers"], i), x, valid,
+                       None, 0, q_chunk, kv_chunk)
+    x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
+    logits = col_dense(ctx, params["lm_head"], x, cfg.vocab, valid)
+    return logits.to(torch.float32)
 
 
 def init_decode_state(cfg, ctx: TPCtx, batch: int, max_len: int,

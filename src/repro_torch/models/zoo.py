@@ -1,8 +1,9 @@
 """Uniform model API (decoder-only families so far).
 
-Model(cfg, ctx) exposes init / encode_offline / init_decode / decode with
-the reference's signatures, plus an explicit device. ``init`` defaults to
-the CUDA device and raises without one; pass device="cpu" to run there.
+Model(cfg, ctx) exposes init / encode_offline / forward / init_decode /
+decode with the reference's signatures, plus an explicit device. ``init``
+defaults to the CUDA device and raises without one; pass device="cpu" to
+run there.
 """
 from __future__ import annotations
 
@@ -37,6 +38,18 @@ class Model:
     def encode_offline(self, params: Params) -> Params:
         """The paper's offline CDC weight encode (rerun after weight load)."""
         return encode_tree(params, self.ctx)
+
+    def forward(self, params: Params, batch: dict, valid=None, *,
+                q_chunk: int = 512, kv_chunk: int = 1024) -> torch.Tensor:
+        """batch {"tokens": [B, S]} -> logits [B, S, vocab] (float32)."""
+        if self.cfg.is_encdec:
+            raise NotImplementedError("enc-dec models are not ported yet")
+        return transformer.forward(self.cfg, params, self.ctx,
+                                   torch.as_tensor(
+                                       batch["tokens"],
+                                       device=params["embed"].device),
+                                   valid, q_chunk=q_chunk,
+                                   kv_chunk=kv_chunk)
 
     def init_decode(self, params: Params, b: int, max_len: int,
                     dtype=torch.float32) -> Params:

@@ -133,3 +133,44 @@ def test_replayed_round_equals_eager_round_bitwise(smoke):
         assert torch.equal(t, eager.state["kv"][name]), name
     vs = graph.vstep
     assert (vs.n_captures, vs.n_replays, vs.n_graph_drops) == (4, 7, 1)
+
+
+# ------------------------------------------------ every code width T <= 16
+
+def test_coded_matmul_generic_instantiation_matches_plain(smoke):
+    assert smoke.check_coded_matmul_any() <= 1e-4
+    assert smoke.check_coded_matmul_any(torch.bfloat16) <= 2e-2
+
+
+def test_fused_head_generic_instantiation_matches_plain(smoke):
+    from repro_torch.configs import get_arch
+    cfg = get_arch("granite-3-8b")
+    assert smoke.check_head_any(cfg) <= 1e-4
+    assert smoke.check_head_any(cfg, torch.bfloat16) == 0.0
+
+
+def test_elementwise_generic_instantiations_match_plain(smoke):
+    err3, err5 = smoke.check_elementwise_any()
+    err4, err4_bf16 = smoke.check_encode_any()
+    assert max(err3, err4, err5) <= 1e-5 and err4_bf16 <= 2e-2
+
+
+def test_padded_heads_serve_at_t12_on_the_card(smoke):
+    """granite at smoke size, T = 12 (heads padded 4 -> 12): fused graph
+    rounds, with a shard erased mid-stream, give the reference variant's
+    tokens."""
+    import numpy as np
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.models import TPCtx, build
+    from repro_torch.serve import ServeConfig, ServingEngine
+    cfg = smoke_config(get_arch("granite-3-8b"))
+    model = build(cfg, TPCtx(tp=12, mode="coded", code_r=2))
+    params = model.init(0, device="cuda")
+    batch = {"tokens": np.random.default_rng(0).integers(0, cfg.vocab,
+                                                         (3, 7))}
+    scfg = ServeConfig(max_len=24, batch=3)
+    fused = ServingEngine(model, params, scfg, use_fused=True).generate(
+        batch, 8, fail_at={3: 5})
+    ref = ServingEngine(model, params, scfg, use_fused=False).generate(
+        batch, 8, fail_at={3: 5})
+    np.testing.assert_array_equal(fused, ref)

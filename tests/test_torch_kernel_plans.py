@@ -78,7 +78,7 @@ def check_limits(plan, streams):
     pitch = -(-plan.bn // v) * v + plan.lead
     assert pitch == plan.pitch <= 256
     assert 1 <= plan.bn <= stream_plan.BN[plan.rb]
-    assert plan.rb != 16 or stream_plan.rb16_fits(streams)
+    assert plan.rb != 16 or stream_plan.rb_fits(16, streams)
     assert 1 <= plan.ks <= 256
     assert streams * stream_plan.box_elems(plan.ks, pitch, plan.elem) \
         <= stream_plan.STAGE_BYTES // plan.elem
@@ -119,6 +119,83 @@ def test_coded_plan_ragged_shapes_take_ordinary_loads(m_l, rows, layout, k):
     wd = m_l // 4 if layout == "folded" else m_l
     check_limits(plan, 6)
     check_cover(plan, rows, k, m_l, wd if layout == "folded" else None)
+
+
+def granite_widths_at(T):
+    """granite-3-8b's coded GEMM widths at code width T as launch.serve
+    builds them: heads padded for T (attn_dims), columns to T * T."""
+    from repro_torch.models.attention import attn_dims
+    cfg, ctx = get_arch("granite-3-8b"), TPCtx(tp=T)
+    hq, hkv, _ = attn_dims(cfg, T)
+    return tuple(ctx.pad_dim(n) for n in (hq * cfg.hd, hkv * cfg.hd,
+                                          cfg.d_ff))
+
+
+@pytest.mark.parametrize("rows", [1, 4, 5, 9, 17, 64])
+@pytest.mark.parametrize("layout", ["folded", "dedicated"])
+@pytest.mark.parametrize("T", [3, 6, 12])
+def test_coded_plan_covers_granite_shapes_any_t(T, layout, rows):
+    """The generic instantiation's plans at granite's widths for T = 3, 6
+    and 12 and r in {1, 2, 4, T}: every stream's tile inside its slice, k
+    covered in order, a stage at least one k row of every stream (up to
+    24 streams), 16-row blocks only for <= 12 streams and 8-row blocks
+    only for <= 24 (wider codes take 4-row blocks, however many rows)."""
+    k = 4096
+    for width in granite_widths_at(T):
+        m_l = width // T
+        for r in sorted({1, 2, 4, T}):
+            plan = tcdc.coded_plan(rows, k, m_l, T, r, layout, N_SM, OCC)
+            wd = m_l // T if layout == "folded" else m_l
+            assert plan.wd == wd and plan.ks >= 1
+            assert stream_plan.rb_fits(plan.rb, T + r)
+            assert plan.rb == 4 or rows > 4
+            if T + r > 24:
+                assert plan.rb == 4
+            check_limits(plan, T + r)
+            check_cover(plan, rows, k, m_l,
+                        wd if layout == "folded" else None)
+            assert plan.blocks == len(plan.units())
+
+
+def test_coded_plan_t12_w1_slices_take_ordinary_loads():
+    """At T = 12 granite's w1 (d_ff 12800 padded to 12816, m_l 1068) has
+    folded slices of 89 float32 columns, 4 bytes off a 16-byte boundary:
+    the ordinary-load producer takes them; wq's 32-column and wk's
+    8-column slices take the copy engine."""
+    wq, wk, w1 = (w // 12 for w in granite_widths_at(12))
+    assert (wq, wk, w1) == (384, 96, 1068)
+    for m_l, aligned in ((wq, True), (wk, True), (w1, False)):
+        plan = tcdc.coded_plan(4, 4096, m_l, 12, 2, "folded", N_SM, OCC)
+        assert plan.aligned is aligned and plan.wd == m_l // 12
+
+
+def test_coded_plan_up_to_32_streams():
+    """(16, 16), the widest code: 32 streams, 4-row blocks at any rows,
+    stages of at least one k row of every stream."""
+    for rows in (4, 9, 64):
+        for m_l, lead in ((256, 0), (800, 4)):
+            plan = tcdc.coded_plan(rows, 4096, m_l, 16, 16, "folded", N_SM,
+                                   OCC)
+            assert plan.rb == 4 and plan.ks >= 1 and plan.lead == lead
+            check_limits(plan, 32)
+            check_cover(plan, rows, 4096, m_l, m_l // 16)
+
+
+@pytest.mark.parametrize("rows", [1, 4, 5, 9, 17])
+@pytest.mark.parametrize("T", [3, 6, 12])
+def test_head_plan_covers_granite_head_any_t(T, rows):
+    """Kernel 2's generic instantiation at granite's head for T = 3, 6 and
+    12 (m_l 16386, 8196, 4104): the plan covers the head once, 16-row
+    blocks only up to 11 shards."""
+    k = 4096
+    m_l = TPCtx(tp=T).pad_dim(get_arch("granite-3-8b").vocab) // T
+    rb, aligned = tdec.head_variant(rows, m_l, T * m_l, m_l, True, T)
+    assert aligned == (m_l % 4 == 0)
+    assert stream_plan.rb_fits(rb, T + 1)
+    plan = tdec.head_plan(rows, k, m_l, T, N_SM, 1, aligned)
+    check_limits(plan, T + 1)
+    check_cover(plan, rows, k, m_l)
+    assert plan.blocks == len(plan.units())
 
 
 def test_coded_plan_alignment_needs_strides_and_pointers():
@@ -214,7 +291,8 @@ def emulate_coded(plan, x, w, wc, layout, T, r, gen, esel, coef, valid):
 
 @pytest.mark.parametrize("T,r,layout", [(4, 2, "folded"), (4, 4, "folded"),
                                         (4, 3, "dedicated"),
-                                        (8, 3, "folded")])
+                                        (8, 3, "folded"), (3, 2, "folded"),
+                                        (12, 2, "folded")])
 def test_coded_plan_emulation_matches_reference(T, r, layout):
     """The split plan decodes each split's partials and adds them in split
     order: equal to the reference oracle and its Pallas kernel

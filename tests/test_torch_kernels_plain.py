@@ -524,20 +524,32 @@ def test_encode_plain_bf16_matches_reference_kernel(T, r):
                                     "decode_merge", "encode", "decode"])
 def test_kernels_refuse_a_code_width_they_have_no_case_for(kernel, T):
     """Each coded kernel's wrapper validates T (and r) before any build or
-    launch: a ValueError naming T and the T it is built for. The widths
-    they are built for pass."""
+    launch: every 2 <= T <= 16 (and 1 <= r <= T) passes, as the
+    reference's kernels take it; wider codes (T = 17, 32), and r outside
+    1..T, raise a ValueError naming T and the widths the kernel takes."""
     check = {"coded_matmul": lambda t: tcdc.check_code(t, 2),
              "fused_head": cdc_decode.check_head,
              "decode_merge": tcdc.check_merge,
              "encode": lambda t: tenc.check_code(t, 2),
              "decode": cdc_decode.check_decode}[kernel]
-    with pytest.raises(ValueError, match=f"T={T}.*(2, 4, 8, 16)"):
+    if T > 16:
+        with pytest.raises(ValueError, match=f"T={T}.*2..16"):
+            check(T)
+    else:
         check(T)
+    with pytest.raises(ValueError, match="T=17.*2..16"):
+        check(17)
     for ok in (2, 4, 8, 16):
         check(ok)
-    if kernel == "coded_matmul":
-        with pytest.raises(ValueError, match="T=16, r=5"):
-            tcdc.check_code(16, 5)
-    if kernel == "encode":
-        with pytest.raises(ValueError, match="T=16, r=5"):
-            tenc.check_code(16, 5)
+    coded = {"coded_matmul": tcdc.check_code,
+             "encode": tenc.check_code}.get(kernel)
+    if coded is not None:
+        for t in (8, 12):
+            for r in range(1, t + 1):
+                coded(t, r)
+        if T <= 16:
+            coded(T, T)
+            with pytest.raises(ValueError, match=f"T={T}, r={T + 1}"):
+                coded(T, T + 1)
+        with pytest.raises(ValueError, match="T=16, r=17"):
+            coded(16, 17)
