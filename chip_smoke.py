@@ -124,7 +124,28 @@ and phase 7 drives kernels 3 and 5's library entries at T = 12. Then:
      8 new tokens, fused graph rounds and the reference variant give the
      same streams; 60 / 1 / 25 launches a fused round (kernels 1 and 2 at
      k = 8192). chameleon-34b has the same layer widths and runs at smoke
-     size on the CPU only (tests/test_torch_dense_zoo.py).
+     size on the CPU only (tests/test_torch_dense_zoo.py);
+ 13. whisper-medium at full width (24 + 24 layers, d 1024, 16/16 heads,
+     d_ff 4096, vocab 51865, 1500 frames; float32, T = 4, r = 2 folded,
+     seeded random weights and frames): (a) launch.serve's scheduler (4
+     slots, 8 requests with fresh frames, prompt 16, 16 new tokens)
+     fault-free with --perf and under --chaos "exp:mtbf=800,mttr=120":
+     every request completes with the fault-free tokens, counters equal to
+     the CPU run's at smoke size, 12 kernel-4 launches per encode, the
+     perf line's fused-round bound within 5% of the weights, the
+     cross-attention bank and the self-attention cache the round reads;
+     (b) one batch of 4 through ServingEngine.generate with frames,
+     fault-free and with shard 2 killed at step 4, on graph rounds, eager
+     fused rounds, the reference variant and kernel-free (parity encoded
+     by kernel 4's plain version): identical streams; 120 / 1 / 0
+     launches of kernels 1, 2 and 6 a fused round, one capture per
+     (encode generation, mask) and one replay per fused round; (c) device
+     ms per round by kernel, the idle share, graph and eager round
+     medians, the admission time (encoder and cross K/V of one request)
+     and peak memory. Phase 2 also holds kernels 1, 2 and 4 at whisper's
+     widths (k = 1024; the head's 51865 words padded to 51872) against
+     their plain versions (1e-4; integer inputs to the bit; padded columns
+     never returned), and phase 4 times kernels 1 and 2 there.
 Phases 3 and 5 also count the RMSNorm kernel: 2 x 40 + 1 = 81 launches
 per decode round (fused and reference variants) and per prefill.
 Peak device memory is printed per phase. The line before the last is the
@@ -248,7 +269,7 @@ def _head_views(w, t: int = T):
     """The [t, k, m_l] shards of a head weight [k, t * m_l] (a view) and
     their sum parity as the serving round holds it."""
     from repro_torch.kernels.cdc_decode import head_parity
-    w_shards = w.view(K, t, -1).permute(1, 0, 2)
+    w_shards = w.view(w.shape[0], t, -1).permute(1, 0, 2)
     return w_shards, head_parity(w_shards)
 
 
@@ -1443,6 +1464,120 @@ def check_encode_any() -> tuple[float, float]:
     return worst, worst_bf16
 
 
+# ------------------------------------------------ phase 2, whisper widths --
+
+WHISPER = "whisper-medium"
+
+
+def whisper_widths(cfg) -> dict:
+    """m_l of whisper-medium's coded GEMMs at T = 4 (k = d = 1024): wq
+    (and wk, wv, cross wq) and w1; and its head's."""
+    from repro_torch.models.common import TPCtx
+    ctx = TPCtx(tp=T)
+    return {"wq": ctx.pad_dim(cfg.n_heads * cfg.hd) // T,
+            "w1": ctx.pad_dim(cfg.d_ff) // T,
+            "lm_head": ctx.pad_dim(cfg.vocab) // T}
+
+
+def check_whisper_kernels(cfg) -> tuple[float, float, float]:
+    """Kernels 1, 2 and 4 at whisper-medium's widths (k = 1024, T = 4, r =
+    2 folded), against their plain versions. Kernel 1 at wq (m_l 256: 64-
+    column folded slices) and w1 (m_l 1024) at rows 1, 4, 5 and 16 (the
+    row blocks' edges; k split into 42- and 32-row ranges with a short
+    last one), under every mask with <= 1 dead shard within 1e-4 on
+    Gaussian inputs, and on integer-valued inputs to the bit under the
+    all-valid mask (every sum exact; a dead shard's decode multiplies by
+    the generator's non-integer rows); two launches bitwise equal. Kernel
+    2 at the head (51865 words padded to 51872, m_l 12968, 51 tiles, 5 k
+    splits) at rows 1, 4 and 5 under every mask: within 1e-4 on Gaussian
+    inputs, and on integer inputs to the bit with the largest logits
+    planted in the padded columns 51865-51871 (never returned) and a tie
+    between two words in different shards and tiles (the smaller id wins).
+    Kernel 4 on the stacked leaves (24 layers of wq and w1) and the head
+    within 1e-5. Returns the max abs errors of kernels 1, 2 and 4."""
+    from repro_torch.core.coded_layer import make_parity_weights
+    from repro_torch.core.coding import generator_matrix
+    from repro_torch.kernels import cdc_encode as enc
+    gen = torch.Generator(device="cuda").manual_seed(51)
+    k, widths = cfg.d_model, whisper_widths(cfg)
+    worst1, n1 = 0.0, 0
+    for name in ("wq", "w1"):
+        for rows in (1, 4, 5, 16):
+            spec, x, w, wc = _coded_case(widths[name], rows, "folded", gen,
+                                         k)
+            for valid in _masks():
+                got = _run_coded(x, w, wc, spec, valid)
+                want = _run_coded(x, w, wc, spec, valid, plain=True)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got, want, **TOL, msg=lambda m: (
+                    f"whisper {name} rows={rows} mask={valid}: {m}"))
+                worst1, n1 = max(worst1, float((got - want).abs().max())), \
+                    n1 + 1
+            xi = _int_head((rows, k), gen, -2, 2)
+            wi = _int_head((k, T * widths[name]), gen)
+            wci = make_parity_weights(wi, spec)
+            full = (True,) * T
+            a = _run_coded(xi, wi, wci, spec, full)
+            b = _run_coded(xi, wi, wci, spec, full)
+            want = _run_coded(xi, wi, wci, spec, full, plain=True)
+            torch.cuda.synchronize()
+            if not (torch.equal(a, want) and torch.equal(a, b)):
+                raise AssertionError(f"whisper {name} rows={rows}: integer "
+                                     f"inputs differ from the plain "
+                                     f"version or between launches")
+            n1 += 1
+    # kernel 2 at the head
+    vocab, m_l = cfg.vocab, widths["lm_head"]
+    worst2, n2 = 0.0, 0
+    w = (torch.randn((k, T * m_l), generator=gen, device="cuda")
+         / k ** 0.5)
+    w[:, vocab:] = 0.0
+    w_shards, pw = _head_views(w)
+    for rows in (1, 4, 5):
+        x = torch.randn((rows, k), generator=gen, device="cuda")
+        for valid in _masks():
+            worst2 = max(worst2, _head_pair(x, w_shards, pw, valid,
+                                            vocab)[1])
+            n2 += 1
+    wi = _int_head((k, T * m_l), gen)
+    xi = _int_head((4, k), gen, 1, 2)
+    wi[:, vocab:] = 16.0                   # the padded columns: masked
+    tie = (10, 2 * m_l + 5000)             # shard 0 tile 0, shard 2 tile 19
+    for gid in tie:
+        wi[:, gid] = 8.0
+    w_shards, pw = _head_views(wi)
+    for valid in _masks():
+        tok, err = _head_pair(xi, w_shards, pw, valid, vocab)
+        if err != 0.0 or tok.tolist() != [min(tie)] * 4:
+            raise AssertionError(f"whisper head on exact inputs: tokens "
+                                 f"{tok.tolist()} (want {min(tie)}), max "
+                                 f"error {err} (mask {valid})")
+        n2 += 1
+    del w, wi, w_shards, pw
+    # kernel 4 on whisper's stacked leaves and the head
+    worst4, n4 = 0.0, 0
+    g = generator_matrix(T, R)
+    for shape in ((cfg.n_layers, k, T * widths["wq"]),
+                  (cfg.n_layers, k, T * widths["w1"]), (k, T * m_l)):
+        w = torch.randn(shape, generator=gen, device="cuda") / k ** 0.5
+        sh = _shards(w, T)
+        got = enc.cdc_encode(sh, g, layout="folded")
+        want = enc.encode_plain(sh, g, "folded")
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        worst4, n4 = max(worst4, float((got - want).abs().max())), n4 + 1
+        del w, sh, got, want
+    log(f"whisper widths (k = {k}): kernel cdc_coded_matmul {n1} cases "
+        f"(wq, w1; rows 1/4/5/16; every mask) within 1e-4 of the plain "
+        f"version (max abs err {worst1:.3e}), integer inputs to the bit; "
+        f"kernel cdc_fused_head_argmax {n2} cases (head m_l {m_l}, vocab "
+        f"{vocab}) within 1e-4 (max abs err {worst2:.3e}), integer inputs "
+        f"to the bit, padded columns never returned, the tie to id "
+        f"{min(tie)}; kernel cdc_encode {n4} leaves within 1e-5 (max abs "
+        f"err {worst4:.3e})")
+    return worst1, worst2, worst4
+
+
 def _phase_memory(name: str):
     log(f"{name}: max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
@@ -1896,6 +2031,66 @@ def time_kernels(cfg, rows: int = 4) -> list[dict]:
     del w, w_shards, pw, wcat
     out += time_wide_and_bf16(cfg, gen, flush, rows)
     out += time_small_kernels(gen, flush)
+    return out
+
+
+def time_whisper(cfg, rows: int = 4) -> list[dict]:
+    """Kernels 1 and 2 at whisper-medium's decode-round shapes (k = 1024,
+    T = 4, r = 2 folded, 4 rows): kernel 1 at wq and w1, kernel 2 at the
+    head (m_l 12968), beside their plain versions, one torch.matmul of x
+    over the same weights (concatenated) and their bounds."""
+    from repro_torch.core.coded_layer import unfold_parity
+    from repro_torch.kernels import cdc_decode, cdc_matmul, ref
+    gen = torch.Generator(device="cuda").manual_seed(53)
+    scratch = torch.empty(64 * 2 ** 20, device="cuda")   # 256 MB > L2
+    flush = scratch.zero_
+    k, widths = cfg.d_model, whisper_widths(cfg)
+    out = []
+    for name in ("wq", "w1"):
+        m_l = widths[name]
+        spec, x, w, wc = _coded_case(m_l, rows, "folded", gen, k)
+        valid = (True,) * T
+        wcat = torch.cat([w, unfold_parity(wc, T, R).permute(1, 0, 2)
+                          .reshape(k, R * m_l)], dim=1)
+        cdc_matmul.cdc_coded_matmul.variants.clear()
+        ms = _time(lambda: _run_coded(x, w, wc, spec, valid), flush)
+        variant, = cdc_matmul.cdc_coded_matmul.variants
+        plain = _time(lambda: _run_coded(x, w, wc, spec, valid, plain=True),
+                      flush)
+        lib = _time(lambda: torch.matmul(x, wcat), flush)
+        nbytes = 4 * (rows * k + (T + R) * k * m_l + rows * T * m_l)
+        bound, by = _bound(nbytes, 2.0 * rows * k * m_l * (T + R))
+        out.append({"gemm": f"whisper {name}", "r": R, "rows": rows,
+                    "k": k, "m_l": m_l, "ms": ms, "plain_ms": plain,
+                    "library_ms": lib, "bound_ms": bound, "bound_by": by,
+                    "variant": variant})
+        log(f"cdc_coded_matmul whisper {name} [rows={rows}, k={k}, "
+            f"m_l={m_l}, T={T}, r={R}]: kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, library matmul {lib:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}); {variant}")
+        del x, w, wc, wcat
+    m_l = widths["lm_head"]
+    w = torch.randn((k, T * m_l), generator=gen, device="cuda") / k ** 0.5
+    w[:, cfg.vocab:] = 0.0
+    w_shards, pw = _head_views(w)
+    wcat = torch.cat([w, pw], dim=1)
+    valid = (True,) * T
+    x = torch.randn((rows, k), generator=gen, device="cuda")
+    cdc_decode.cdc_fused_head_argmax.variants.clear()
+    ms = _time(lambda: cdc_decode.cdc_fused_head_argmax(
+        x, w_shards, pw, valid, vocab=cfg.vocab), flush)
+    variant, = cdc_decode.cdc_fused_head_argmax.variants
+    plain = _time(lambda: ref.fused_head_argmax_ref(
+        x, w_shards, pw, torch.tensor(valid), cfg.vocab), flush)
+    lib = _time(lambda: torch.matmul(x, wcat), flush)
+    nbytes = 4 * (rows * k + (T + 1) * k * m_l + 2 * rows)
+    bound, by = _bound(nbytes, 2.0 * rows * k * m_l * (T + 1))
+    out.append({"gemm": "whisper lm_head", "rows": rows, "k": k, "m_l": m_l,
+                "ms": ms, "plain_ms": plain, "library_ms": lib,
+                "bound_ms": bound, "bound_by": by, "variant": variant})
+    log(f"cdc_fused_head_argmax whisper [b={rows}, k={k}, m_l={m_l}]: "
+        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library matmul "
+        f"{lib:.4f} ms, bound {bound:.4f} ms ({by}); {variant}")
     return out
 
 
@@ -2481,7 +2676,7 @@ def _kernel_wrappers():
             "rmsnorm": rmsnorm.rmsnorm, "matmul": matmul.matmul}
 
 
-def _scheduler_run(model, params, vocab: int, argv: list[str], device: str,
+def _scheduler_run(model, params, argv: list[str], device: str,
                    report: bool = False):
     """One run of the port's serving entry point (``launch.serve``): the
     stepper (whose build encodes the parity), the scheduler with the
@@ -2494,7 +2689,7 @@ def _scheduler_run(model, params, vocab: int, argv: list[str], device: str,
     stepper = ModelStepper(model, params,
                            max_len=args.prompt_len + args.gen_tokens + 8)
     sched = serve.build_scheduler(args, stepper, model.ctx.code_layout)
-    done = serve.serve_requests(args, sched, vocab)
+    done = serve.serve_requests(args, sched)
     out = serve.report(args, sched, done) if report else {}
     return stepper, sched, done, out
 
@@ -2510,7 +2705,7 @@ def scheduler_counters_cpu() -> dict:
     params = model.init(0, device="cpu")
     out = {}
     for name, extra in RUNS.items():
-        _, sched, done, _ = _scheduler_run(model, params, cfg.vocab,
+        _, sched, done, _ = _scheduler_run(model, params,
                                            SCHED_ARGS + extra, "cpu")
         out[name] = {"counters": dict(sched.metrics.counters),
                      "r_series": [p["r"] for p in sched.metrics.plan_log],
@@ -2556,7 +2751,7 @@ def serve_scheduler(cfg, device: str = "cuda") -> dict:
         torch.cuda.synchronize()
         t = time.perf_counter()
         stepper, sched, done, obs = _scheduler_run(
-            model, params, cfg.vocab, SCHED_ARGS + extra + OBS[name],
+            model, params, SCHED_ARGS + extra + OBS[name],
             device, report=True)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
@@ -2671,12 +2866,14 @@ def _round_weight_bytes(stepper) -> float:
                  * (1 + 1 / stepper.n_shards))
 
 
-def _check_observability(name: str, sched, stepper, obs: dict) -> dict:
+def _check_observability(name: str, sched, stepper, obs: dict,
+                         least_bytes: float | None = None) -> dict:
     """What each run's observability flag must give: the perf line's
     attribution (every launch costed; its bytes bound within 5% of the
-    round's weight bytes over the card's HBM rate), the chaos trace
-    (validated with every injected erasure linked, 0 dropped events) with
-    the SLO report, the profiler trace file."""
+    round's least bytes over the card's HBM rate: the weights', unless
+    ``least_bytes`` gives them), the chaos trace (validated with every
+    injected erasure linked, 0 dropped events) with the SLO report, the
+    profiler trace file."""
     from repro_torch.obs.export import validate_chrome_trace
     out = {}
     if "--perf" in OBS[name] or "--profile" in OBS[name] \
@@ -2688,18 +2885,21 @@ def _check_observability(name: str, sched, stepper, obs: dict) -> dict:
             raise AssertionError(f"{name}: perf summary {perf}")
         # the fused round at the run's last code geometry
         fused = perf["variants"]["fused"]
-        want = _round_weight_bytes(stepper) / HBM_BYTES_PER_S * 1e6
+        if least_bytes is None:
+            least_bytes = _round_weight_bytes(stepper)
+        want = least_bytes / HBM_BYTES_PER_S * 1e6
         got = fused["bound_step_s"] * 1e6
         if fused["dominant"] != "memory" or \
                 abs(got / want - 1) > PERF_BOUND_TOL:
             raise AssertionError(f"{name}: fused-round bound {got:.1f} us, "
-                                 f"weights alone {want:.1f} us")
+                                 f"least bytes alone {want:.1f} us")
         out["perf"] = {k: v for k, v in perf.items() if k != "variants"}
         out["perf"]["weight_bound_us"] = want
         out["perf"]["attributions"] = sched.executor.perf.n_attributions
         out["perf"]["fused"] = fused
         log(f"scheduler {name}: fused-round bound {got / 1e3:.4f} ms "
-            f"(weights alone {want / 1e3:.4f} ms), {fused['flops'] / 1e9:.3f}"
+            f"(least bytes alone {want / 1e3:.4f} ms), "
+            f"{fused['flops'] / 1e9:.3f}"
             f" GFLOP ({fused['useful_flops'] / 1e9:.3f} useful, "
             f"{fused['bytes'] / 1e9:.3f} GB), "
             f"{sched.executor.perf.n_attributions} attribution(s)")
@@ -3070,7 +3270,7 @@ def serve_h2o(device: str = "cuda") -> dict:
     scfg_cpu = smoke_config(cfg)
     m_cpu = build(scfg_cpu, TPCtx(tp=T, mode="coded", code_r=R))
     _, s_cpu, d_cpu, _ = _scheduler_run(m_cpu, m_cpu.init(0, device="cpu"),
-                                        scfg_cpu.vocab, H2O_ARGS, "cpu")
+                                        H2O_ARGS, "cpu")
     want = dict(s_cpu.metrics.counters)
     torch.cuda.reset_peak_memory_stats()
     model = build(cfg, TPCtx(tp=T, mode="coded", code_r=R))
@@ -3081,7 +3281,7 @@ def serve_h2o(device: str = "cuda") -> dict:
         fn.launches = 0
     t0 = time.perf_counter()
     stepper, sched, done, obs = _scheduler_run(
-        model, params, cfg.vocab, H2O_ARGS + ["--perf"], device,
+        model, params, H2O_ARGS + ["--perf"], device,
         report=True)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
@@ -3109,7 +3309,7 @@ def serve_h2o(device: str = "cuda") -> dict:
     # (b) one batch across the window
     scfg = ServeConfig(max_len=H2O_PROMPT + N_TOK + 8, batch=4,
                        cache_dtype=torch.float32)
-    if model.init_decode(params, 1, scfg.max_len)["kv"]["k"].shape[2] != \
+    if model.empty_decode(1, scfg.max_len)["kv"]["k"].shape[2] != \
             cfg.window:
         raise AssertionError("h2o: the ring cache is not the window")
     batch = {"tokens": np.random.default_rng(0).integers(
@@ -3200,6 +3400,265 @@ def serve_deepseek() -> dict:
             "init_s": init_s}
 
 
+# ------------------------------------------------------------ phase 13 ----
+
+WHISPER_ARGS = ["--arch", WHISPER, "--coded", "--tp", str(T), "--batch", "4",
+                "--requests", "8", "--arrival-gap-ms", "2", "--prompt-len",
+                "16", "--gen-tokens", "16", "--seed", str(CHAOS_SEED)]
+WHISPER_RUNS = {"fault-free": [], "chaos": ["--chaos", CHAOS]}
+WHISPER_OBS = {"fault-free": ["--perf"], "chaos": []}   # the card's runs
+
+
+def _whisper_round_bytes(stepper, state) -> float:
+    """Bytes a whisper fused round must read at the least: every decoder
+    weight and parity leaf it multiplies (the cross-attention's wk and wv
+    only fill the bank at admission), the LM head and its sum parity (a
+    shard's width), the cross-attention bank and the self-attention cache
+    of the slot state, each once."""
+    def leaves(node, path=()):
+        if isinstance(node, dict):
+            return [t for k, v in node.items() for t in leaves(v, path + (k,))]
+        return [] if path[:2] in (("cross", "wk"), ("cross", "wv")) \
+            else [node]
+    head = stepper.params["lm_head"]["w"]
+    return float(sum(t.numel() * t.element_size()
+                     for t in leaves(stepper.params["dec_layers"])
+                     + leaves(state))
+                 + head.numel() * head.element_size()
+                 * (1 + 1 / stepper.n_shards))
+
+
+def _whisper_scheduler(cfg, model, params) -> dict:
+    """(a) whisper-medium through launch.serve's scheduler (4 slots, 8
+    requests with fresh frames, prompt 16, 16 new tokens) fault-free with
+    --perf and under chaos: every request completes with the fault-free
+    tokens, the counters equal the same runs' at smoke size on the CPU,
+    kernel 4 launches 12 times per encode, kernel 6 never, and the perf
+    line's fused-round bound is within 5% of the weights, bank and cache
+    bytes the round must read."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import TPCtx, build
+    cfg_cpu = smoke_config(cfg)
+    m_cpu = build(cfg_cpu, TPCtx(tp=T, mode="coded", code_r=R))
+    p_cpu = m_cpu.init(0, device="cpu")
+    want = {name: dict(_scheduler_run(m_cpu, p_cpu, WHISPER_ARGS + extra,
+                                      "cpu")[1].metrics.counters)
+            for name, extra in WHISPER_RUNS.items()}
+    wrappers = _kernel_wrappers()
+    runs = {}
+    for name, extra in WHISPER_RUNS.items():
+        for fn in wrappers.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stepper, sched, done, obs = _scheduler_run(
+            model, params, WHISPER_ARGS + extra + WHISPER_OBS[name], "cuda",
+            report=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        c = dict(sched.metrics.counters)
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        n_leaves = len(_parity_leaves(stepper.params))
+        res = {"tokens": {q.rid: list(q.tokens) for q in done},
+               "counters": c, "seconds": secs, "launches": launches,
+               "round_ms": float(np.median(sched.executor.round_ms)),
+               "graphs": _check_scheduler_graphs(f"whisper {name}", sched,
+                                                 stepper, T)}
+        if "--perf" in WHISPER_OBS[name]:
+            least = _whisper_round_bytes(stepper, sched.executor.state)
+            res.update(_check_observability("fault-free", sched, stepper,
+                                            obs, least_bytes=least))
+            res["least_bytes"] = least
+        if len(done) != 8 or any(len(q.tokens) != 16 for q in done) or \
+                c != want[name]:
+            raise AssertionError(f"whisper {name}: {len(done)}/8 completed, "
+                                 f"counters {c} vs the CPU run's "
+                                 f"{want[name]}")
+        if n_leaves != 12 or launches["cdc_encode"] != \
+                n_leaves * (1 + c["parity_reencodes"]) or \
+                launches["rmsnorm"] or not (
+                    launches["cdc_coded_matmul"]
+                    and launches["cdc_fused_head_argmax"]):
+            raise AssertionError(f"whisper {name}: launches {launches} "
+                                 f"({n_leaves} parity leaves, "
+                                 f"{c['parity_reencodes']} re-encodes)")
+        if name != "fault-free" and \
+                res["tokens"] != runs["fault-free"]["tokens"]:
+            raise AssertionError(f"whisper {name}: token streams differ "
+                                 f"from the fault-free run")
+        runs[name] = res
+        log(f"whisper scheduler {name}: 8/8 completed, {c['decode_rounds']}"
+            f" rounds in {secs:.2f} s, round_ms median {res['round_ms']:.3f}"
+            f", {c['erasures_recovered']} recovered in-step, "
+            f"{c['beyond_budget_failures']} beyond budget, "
+            f"{c['requests_requeued']} requeued, {c['parity_reencodes']} "
+            f"re-encodes, counters equal to the CPU run's, launches "
+            f"{launches}")
+        del stepper, sched, done
+    chaos = runs["chaos"]["counters"]
+    if not (chaos["erasures_recovered"] and chaos["beyond_budget_failures"]
+            and chaos["parity_reencodes"]):
+        raise AssertionError(f"whisper chaos run lacks a recovery, a "
+                             f"requeue or a re-encode: {chaos}")
+    return runs
+
+
+def _admission_ms(eng, batch, n: int = 3) -> dict:
+    """Wall ms of one request's encoder and cross K/V (``init_decode``)
+    and of its whole admission (the prompt's prefill too), medians of
+    ``n``, each ended by a synchronise."""
+    from repro_torch.runtime.executor import request_batch
+    st = eng.stepper
+    one = request_batch(batch["tokens"][0], {"frames": batch["frames"][0]})
+    v = st._mask(eng.valid)
+    out = {"encoder_and_cross_kv": [], "admission": []}
+    for _ in range(n):
+        for key, fn in (("encoder_and_cross_kv", lambda: st.model.init_decode(
+                st.params, one, 1, st.max_len, st.cache_dtype, valid=v)),
+                        ("admission", lambda: st.prefill(one, eng.valid))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out[key].append((time.perf_counter() - t0) * 1e3)
+    return {k: float(np.median(v)) for k, v in out.items()}
+
+
+def serve_whisper() -> dict:
+    """whisper-medium at full width (24 + 24 layers, d 1024, 16/16 heads,
+    d_ff 4096, vocab 51865, 1500 frames; float32, T = 4, r = 2 folded,
+    seeded random weights and frames). (a) ``_whisper_scheduler``. (b) One
+    batch of 4 through ServingEngine.generate with frames, fault-free and
+    with shard 2 killed at step 4, on graph rounds, eager fused rounds,
+    the reference variant and kernel-free (the reference variant on parity
+    encoded by kernel 4's plain version: no kernel at all): identical
+    streams; each fused round launches kernel 1 120 times (self wq, wk,
+    wv, cross wq, w1 of 24 layers), kernel 2 once and kernel 6 never, one
+    graph is captured per (encode generation, mask) and replayed per fused
+    round; the engine's encode launches kernel 4 12 times; every fused
+    round's max logit (kernel 2's) within 1e-4 of the reference round's.
+    (c) The device
+    ms per round by kernel, the idle share, the round medians, the
+    admission time (encoder and cross K/V of one request) and peak
+    memory."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import cdc_encode, ops
+    from repro_torch.models import TPCtx, build
+    from repro_torch.serve import ServeConfig, ServingEngine
+    cfg = get_arch(WHISPER)
+    torch.cuda.reset_peak_memory_stats()
+    model = build(cfg, TPCtx(tp=T, mode="coded", code_r=R))
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sched = _whisper_scheduler(cfg, model, params)
+    torch.cuda.empty_cache()
+    scfg = ServeConfig(max_len=16 + N_TOK + 8, batch=4,
+                       cache_dtype=torch.float32)
+    batch = model.dummy_batch(np.random.default_rng(0), 4, 16)
+    rounds, dead = N_TOK - 1, 2
+    down = f"shard {dead} dead"
+    cdc_encode.cdc_encode.launches = 0
+    eng = ServingEngine(model, params, scfg, use_fused=True,
+                        use_graphs=True)
+    k4 = cdc_encode.cdc_encode.launches
+    recs = {}
+    with recorded_rounds() as recs["graph"]:
+        runs = {"graph": _serve_run(eng, batch)}
+        runs[f"graph, {down}"] = _serve_run(eng, batch, fail_at={4: dead})
+    for name in ("graph", f"graph, {down}"):
+        _check_graph_run(f"whisper {name}", runs[name], 1)
+    eng.valid = np.ones(T, bool)
+    med = {"graph": float(np.median(runs["graph"]["round_ms"]))}
+    prof = {"graph": profile_rounds(eng.executor(4), eng.valid,
+                                    med["graph"])}
+    admission = _admission_ms(eng, batch)
+    eng.use_graphs = False
+    runs["eager"] = _serve_run(eng, batch)
+    runs[f"eager, {down}"] = _serve_run(eng, batch, fail_at={4: dead})
+    for name in ("eager", f"eager, {down}"):
+        _check_eager_run(f"whisper {name}", runs[name])
+    eng.valid = np.ones(T, bool)
+    med["eager"] = float(np.median(runs["eager"]["round_ms"]))
+    prof["eager"] = profile_rounds(eng.executor(4), eng.valid, med["eager"])
+    del eng
+    torch.cuda.empty_cache()
+    ref_eng = ServingEngine(model, params, scfg, use_fused=False)
+    with recorded_rounds() as recs["reference"]:
+        runs["reference"] = _serve_run(ref_eng, batch)
+        runs[f"reference, {down}"] = _serve_run(ref_eng, batch,
+                                                fail_at={4: dead})
+    del ref_eng
+    torch.cuda.empty_cache()
+    wrappers = _kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    encode = ops.cdc_encode
+    ops.cdc_encode = cdc_encode.encode_plain
+    try:
+        free_eng = ServingEngine(model, params, scfg, use_fused=False)
+    finally:
+        ops.cdc_encode = encode
+    runs["kernel-free"] = _serve_run(free_eng, batch)
+    runs[f"kernel-free, {down}"] = _serve_run(free_eng, batch,
+                                              fail_at={4: dead})
+    free_launches = {k: fn.launches for k, fn in wrappers.items()}
+    del free_eng
+    clean = runs["graph"]
+    for name, res in runs.items():
+        if name.startswith(("graph", "eager")):
+            _check_launches(f"whisper {name}", res, cfg, rounds, norms=False)
+        elif res["k1"] or res["k2"]:
+            raise AssertionError(f"whisper {name} launched a coded kernel")
+        if res["k6"]:
+            raise AssertionError(f"whisper {name} launched kernel 6")
+        if not np.array_equal(res["tokens"], clean["tokens"]):
+            raise AssertionError(f"whisper {name} tokens differ from the "
+                                 f"fault-free graph run:\n{res['tokens']}\n"
+                                 f"vs\n{clean['tokens']}")
+    if any(free_launches.values()):
+        raise AssertionError(f"the whisper kernel-free runs launched "
+                             f"{free_launches}")
+    # every fused round's max logit (kernel 2's own) against the reference
+    # round's. At random init the reference's embeddings (0.02) are 35x
+    # below the sinusoidal positions, and at 24 layers every stream settles
+    # on one token whatever its prompt: the logits still carry every layer
+    fused_max = torch.stack([m for _, m in recs["graph"]["fused"]])
+    ref_max = torch.stack([lg.max(-1).values
+                           for lg in recs["reference"]["reference"]])
+    torch.testing.assert_close(fused_max, ref_max, **TOL)
+    max_err = float((fused_max - ref_max).abs().max())
+    distinct = len(np.unique(clean["tokens"]))
+    if k4 != 12:
+        raise AssertionError(f"whisper engine: {k4} encode launches (12 "
+                             f"parity leaves)")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    meds = {n: float(np.median(r["round_ms"])) for n, r in runs.items()}
+    idle = {k: (1 - p["device_ms"] / med[k]) if p else None
+            for k, p in prof.items()}
+    log(f"served whisper-medium at full width (params in {init_s:.1f} s): "
+        f"identical streams on graph and eager fused rounds, the reference "
+        f"variant and kernel-free, fault-free and with shard {dead} erased "
+        f"at step 4; per fused round {clean['k1'] // rounds} coded-GEMM "
+        f"({clean['k1_variants']}) + {clean['k2'] // rounds} head "
+        f"({clean['k2_variants']}) + {clean['k6']} rmsnorm launches; "
+        f"{k4} encode launches per encode; every fused round's max logit "
+        f"within 1e-4 of the reference round's ({fused_max.numel()} rows, "
+        f"max abs err {max_err:.3e}; {distinct} distinct tokens in the "
+        f"streams); round medians {meds} ms; idle "
+        f"share graph {idle['graph']} / eager {idle['eager']}; admission "
+        f"{admission} ms; max_memory_allocated {peak:.2f} GiB")
+    log("whisper first stream:", clean["tokens"][0].tolist())
+    return {"k1": clean["k1"], "k2": clean["k2"], "k6": clean["k6"],
+            "k4_per_encode": k4, "round_ms": meds, "profile": prof,
+            "max_logit_err": max_err, "distinct_tokens": distinct,
+            "idle_share": idle, "admission_ms": admission,
+            "peak_gib": peak, "init_s": init_s, "scheduler": sched,
+            "vstep": {n: r["vstep"] for n, r in runs.items()}}
+
+
 # --------------------------------------------------------------- main ----
 
 def main() -> int:
@@ -3267,11 +3726,15 @@ def main() -> int:
     any_bf16 = {"cdc_coded_matmul": check_coded_matmul_any(torch.bfloat16),
                 "cdc_fused_head_argmax": check_head_any(cfg, torch.bfloat16),
                 "cdc_encode": err4_any_bf16}
+    wcfg = get_arch(WHISPER)
+    w_err = dict(zip(("cdc_coded_matmul", "cdc_fused_head_argmax",
+                      "cdc_encode"), check_whisper_kernels(wcfg)))
     _phase_memory("kernel checks")
     served = serve_full_width(cfg)
     torch.cuda.empty_cache()
     timed = time_kernels(cfg)
     timed12 = time_t12(cfg)
+    timed_w = time_whisper(wcfg)
     torch.cuda.empty_cache()
     sched = serve_scheduler(cfg)
     torch.cuda.empty_cache()
@@ -3290,6 +3753,8 @@ def main() -> int:
     _phase_memory("serving h2o-danube-1.8b")
     deepseek = serve_deepseek()
     _phase_memory("serving deepseek-67b (12 layers)")
+    whisper = serve_whisper()
+    _phase_memory("serving whisper-medium")
     w1 = timed[0]
     head = next(t for t in timed if t.get("gemm") == "lm_head")
     small = {(t["kernel"], t["shape"]): t for t in timed if "kernel" in t}
@@ -3361,6 +3826,20 @@ def main() -> int:
                     any_err["cdc_decode"], rows12["cdc_decode"]),
          "name": "cdc_decode (T=12)"},
     ]
+    # kernels 1 and 2 at whisper's widths: launches from its graph run
+    # (phase 13)
+    rows_w = {t["gemm"]: t for t in timed_w}
+    kernels += [
+        {**entry_of("cdc_coded_matmul", "coded_matmul.cuh",
+                    "src/repro/kernels/cdc_matmul.py:130", whisper["k1"],
+                    w_err["cdc_coded_matmul"], rows_w["whisper w1"]),
+         "name": "cdc_coded_matmul (whisper, w1)"},
+        {**entry_of("cdc_fused_head_argmax", "fused_head.cuh",
+                    "src/repro/kernels/cdc_decode.py:138", whisper["k2"],
+                    w_err["cdc_fused_head_argmax"],
+                    rows_w["whisper lm_head"]),
+         "name": "cdc_fused_head_argmax (whisper)"},
+    ]
     log(card)
     runs = {n: {k: v for k, v in r.items() if k != "tokens"}
             for n, r in sched["runs"].items()}
@@ -3377,7 +3856,9 @@ def main() -> int:
                                 "t12_shapes": timed12,
                                 "entries_t12": entry12},
                     "build": build_s, "t12": t12, "h2o": h2o,
-                    "deepseek": deepseek}, default=str))
+                    "deepseek": deepseek,
+                    "whisper": {**whisper, "shapes": timed_w,
+                                "max_abs_err": w_err}}, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

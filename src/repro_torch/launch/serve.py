@@ -26,6 +26,13 @@ by itself with ``--trace``, ``--metrics-port`` or ``--profile``), and
 ``--profile DIR`` writes a ``torch.profiler`` trace of the run with each
 round annotated as ``decode_round``.
 
+``--arch`` takes every config the port registers: the dense decoders and
+the encoder-decoder whisper-medium, whose requests each carry their own
+encoder frames (the frontend stub), drawn after the request's prompt:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \
+      --smoke --coded --device cpu
+
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --coded \
       --device cpu --perf --slo-report --trace /tmp/t.json
 
@@ -58,13 +65,12 @@ from repro_torch.runtime import (ContinuousBatchingScheduler, RuntimeConfig,
 from repro_torch.serve import ModelStepper, ServeConfig, ServingEngine
 
 
-def _legacy(args, cfg, model, params):
+def _legacy(args, model, params):
     eng = ServingEngine(model, params, ServeConfig(
         max_len=args.prompt_len + args.gen_tokens + 8, batch=args.batch,
         cache_dtype=torch.float32))
-    rng = np.random.default_rng(1)
-    batch = {"tokens": rng.integers(0, cfg.vocab,
-                                    (args.batch, args.prompt_len))}
+    batch = model.dummy_batch(np.random.default_rng(1), args.batch,
+                              args.prompt_len)
     fail_at = {args.fail_step: args.fail_shard} if args.fail_step >= 0 \
         else None
     toks = eng.generate(batch, args.gen_tokens, fail_at=fail_at)
@@ -199,23 +205,36 @@ def _profiler(args, device: torch.device):
     return torch.profiler.profile(activities=acts)
 
 
-def serve_requests(args, sched, vocab: int):
+def serve_requests(args, sched):
     """Submit ``--requests`` prompts (drawn from numpy seed 1, as the
-    reference does) and drain the scheduler (under the profiler with
-    ``--profile``, whose trace lands in ``DIR/trace.json``)."""
+    reference does; an enc-dec request's frames right after its prompt,
+    from the same generator) and drain the scheduler (under the profiler
+    with ``--profile``, whose trace lands in ``DIR/trace.json``)."""
+    cfg = sched.stepper.model.cfg
     rng = np.random.default_rng(1)
+
+    def extras():
+        # enc-dec: per-request encoder frames (the frontend stub), written
+        # into the executor's cross-attention bank at admission
+        if not cfg.is_encdec:
+            return None
+        return {"frames": rng.normal(
+            size=(cfg.enc_seq, cfg.d_model)).astype(np.float32)}
+
     with _profiler(args, sched.stepper.device) as prof:
         if args.deadline_ms is not None:
             for i in range(args.requests):
                 t = i * args.arrival_gap_ms
-                sched.submit(rng.integers(0, vocab, args.prompt_len),
+                sched.submit(rng.integers(0, cfg.vocab, args.prompt_len),
                              args.gen_tokens,
-                             deadline_ms=t + args.deadline_ms)
+                             deadline_ms=t + args.deadline_ms,
+                             extras=extras())
             completed = sched.run()
         else:
             arrivals = [(i * args.arrival_gap_ms,
-                         rng.integers(0, vocab, args.prompt_len),
-                         args.gen_tokens) for i in range(args.requests)]
+                         rng.integers(0, cfg.vocab, args.prompt_len),
+                         args.gen_tokens, extras())
+                        for i in range(args.requests)]
             completed = run_arrivals(sched, arrivals)
     if args.profile:
         out = Path(args.profile)
@@ -298,7 +317,7 @@ def main(argv=None):
     params = model.init(torch.Generator(device=device).manual_seed(0),
                         device=device)
     if args.legacy or args.fail_step >= 0:
-        return _legacy(args, cfg, model, params)
+        return _legacy(args, model, params)
 
     stepper = ModelStepper(model, params,
                            max_len=args.prompt_len + args.gen_tokens + 8)
@@ -311,7 +330,7 @@ def main(argv=None):
         print(f"metrics: http://127.0.0.1:{server.port}/metrics "
               f"(live trace: /trace)")
     try:
-        completed = serve_requests(args, sched, cfg.vocab)
+        completed = serve_requests(args, sched)
         report(args, sched, completed)
     finally:
         if server is not None:

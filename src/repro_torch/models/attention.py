@@ -1,4 +1,5 @@
-"""Attention: GQA, RoPE, causal masks, the per-row KV ring cache.
+"""Attention: GQA, RoPE, causal/sliding/bidirectional masks, the per-row KV
+ring cache, cross-attention over external KV.
 
 The QKV projections are column-parallel, so coded in coded mode; Wo is
 row-parallel and never coded. Attention is written as the reference writes
@@ -6,7 +7,10 @@ it — an einsum, a select of NEG_INF for masked scores, a softmax — not as
 ``scaled_dot_product_attention``, so masking and rounding follow the same
 steps. Decode attends the whole cache in one chunk with grouped heads (the
 expanded KV is never built); longer sequences stream KV chunks with an
-online softmax.
+online softmax. The chunks are views of the KV: the reference pads the
+last one with masked slots, which add exactly zero to the softmax's sums,
+so here it is just shorter and no chunk is copied (an encoder-decoder's
+cross-attention bank is read once a round).
 """
 from __future__ import annotations
 
@@ -94,7 +98,8 @@ def _chunk_pos(pos, n: int, chunk: int):
 def _sdpa_chunked(q, k, v, q_pos, k_pos, *, kind: str, window: int,
                   kv_chunk: int, q_chunk: int, group: int) -> torch.Tensor:
     """Online-softmax attention. q: [B, Sq, H, hd]; k/v: [B, Sk, Hkv, hd]
-    with H = group * Hkv; q_pos/k_pos: [Sq]/[Sk] or per-row [B, Sq]/[B, Sk].
+    with H = group * Hkv (any strides: chunks are views); q_pos/k_pos:
+    [Sq]/[Sk] or per-row [B, Sq]/[B, Sk].
     """
     b, sq, h, hd = q.shape
     sk = k.shape[1]
@@ -105,17 +110,7 @@ def _sdpa_chunked(q, k, v, q_pos, k_pos, *, kind: str, window: int,
         k = k.repeat_interleave(group, dim=2)
         v = v.repeat_interleave(group, dim=2)
     q_chunk = min(q_chunk, sq)
-    n_kv = -(-sk // kv_chunk)
-    pad_k = n_kv * kv_chunk - sk
-    if pad_k:
-        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_k))
-        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_k))
-        k_pos = torch.nn.functional.pad(k_pos, (0, pad_k),
-                                        value=-(10 ** 9))
-    hk = k.shape[2]
-    kc = k.reshape(b, n_kv, kv_chunk, hk, hd)
-    vc = v.reshape(b, n_kv, kv_chunk, hk, hd)
-    kpc = _chunk_pos(k_pos, n_kv, kv_chunk)
+    spans = [(a, min(a + kv_chunk, sk)) for a in range(0, sk, kv_chunk)]
 
     def kv_attend(qi, qpi, ki, vi, kpi, carry=None):
         if carry is None and group > 1:
@@ -140,8 +135,8 @@ def _sdpa_chunked(q, k, v, q_pos, k_pos, *, kind: str, window: int,
         return acc * corr[..., None] + pv, m_new, l_new
 
     def one_q_chunk(qi, qpi):
-        if n_kv == 1:
-            return kv_attend(qi, qpi, kc[:, 0], vc[:, 0], kpc[0])
+        if len(spans) == 1:
+            return kv_attend(qi, qpi, k, v, k_pos)
         qc = qi.shape[1]
         carry = (torch.zeros((b, h, qc, hd), dtype=torch.float32,
                              device=q.device),
@@ -149,8 +144,9 @@ def _sdpa_chunked(q, k, v, q_pos, k_pos, *, kind: str, window: int,
                             device=q.device),
                  torch.zeros((b, h, qc), dtype=torch.float32,
                              device=q.device))
-        for i in range(n_kv):
-            carry = kv_attend(qi, qpi, kc[:, i], vc[:, i], kpc[i], carry)
+        for a, e in spans:
+            carry = kv_attend(qi, qpi, k[:, a:e], v[:, a:e], k_pos[..., a:e],
+                              carry)
         acc, _, l_run = carry
         out = acc / torch.clamp(l_run[..., None], min=1e-30)
         return out.movedim(2, 1)                      # [B, qc, H, hd]
@@ -195,46 +191,75 @@ def _cache_update_per_row(cache, k, v, positions, s: int, C: int):
 
 def attention(ctx: TPCtx, p: Params, cfg, x: torch.Tensor, *, valid=None,
               cache: Params | None = None, pos_offset=0,
-              q_chunk: int = 512, kv_chunk: int = 1024):
+              q_chunk: int = 512, kv_chunk: int = 1024,
+              kind: str | None = None, kv_override=None):
     """x: [B, S, D] -> [B, S, D].
+
+    kind: the mask ("bidir" for an encoder and cross-attention: no RoPE,
+    only empty slots masked); by default causal, or swa for a
+    sliding-window config. kv_override: (k, v, k_pos) — cross-attention
+    with external KV ([B, Sk, Hkv, hd], positions [Sk] or [B, Sk]); only
+    wq runs, and RoPE rotates q unless the kind is bidir, as the
+    reference does.
 
     With ``cache`` (decode and prefill), against the per-row cache of one
     layer ({"k","v": [B, C, Hkv, hd], "pos": [B, C], "len": [B]}), written
-    in place; pos_offset: [B] lengths before this call. Without it (the
-    teacher-forced ``forward``), the S tokens attend each other at
-    positions pos_offset + [0, S) through the streaming path."""
+    in place; pos_offset: [B] lengths before this call (also given with
+    ``kv_override`` at decode). Without it (the teacher-forced
+    ``forward``, an encoder), the S tokens attend each other at positions
+    pos_offset + [0, S) through the streaming path."""
     b, s, d = x.shape
     hd = cfg.hd
     hq_run, hkv_run, group = attn_dims(cfg, ctx.tp)
-    kind = "swa" if cfg.attn_kind == "swa" else "causal"
+    if kind is None:
+        kind = "swa" if cfg.attn_kind == "swa" else "causal"
     q = col_dense(ctx, p["wq"], x, hq_run * hd, valid) \
         .reshape(b, s, hq_run, hd)
     steps = torch.arange(s, device=x.device)
-    positions = pos_offset[:, None] + steps if cache is not None \
+    per_row = isinstance(pos_offset, torch.Tensor) and pos_offset.ndim
+    positions = pos_offset[:, None] + steps if per_row \
         else steps + pos_offset
-    k = col_dense(ctx, p["wk"], x, hkv_run * hd, valid) \
-        .reshape(b, s, hkv_run, hd)
-    v = col_dense(ctx, p["wv"], x, hkv_run * hd, valid) \
-        .reshape(b, s, hkv_run, hd)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    k_pos = positions
-    if cache is not None:
-        C = cache["k"].shape[1]
-        k_cached, v_cached, cpos = _cache_update_per_row(cache, k, v,
-                                                         positions, s, C)
-        if s == 1:
-            # decode: attend the whole cache as one chunk (grouped fast
-            # path)
-            k, v, k_pos = k_cached, v_cached, cpos
-            kv_chunk = max(kv_chunk, C)
-        # prefill: the fresh K/V hold every cached token (the cache starts
-        # empty), so attend over them with the streaming path
+    if kind != "bidir":
+        q = rope(q, positions, cfg.rope_theta)
+    if kv_override is not None:
+        k, v, k_pos = kv_override
+    else:
+        k = col_dense(ctx, p["wk"], x, hkv_run * hd, valid) \
+            .reshape(b, s, hkv_run, hd)
+        v = col_dense(ctx, p["wv"], x, hkv_run * hd, valid) \
+            .reshape(b, s, hkv_run, hd)
+        if kind != "bidir":
+            k = rope(k, positions, cfg.rope_theta)
+        k_pos = positions
+        if cache is not None:
+            C = cache["k"].shape[1]
+            k_cached, v_cached, cpos = _cache_update_per_row(
+                cache, k, v, positions, s, C)
+            if s == 1:
+                # decode: attend the whole cache as one chunk (grouped
+                # fast path)
+                k, v, k_pos = k_cached, v_cached, cpos
+                kv_chunk = max(kv_chunk, C)
+            # prefill: the fresh K/V hold every cached token (the cache
+            # starts empty), so attend over them with the streaming path
     out = _sdpa_chunked(q, k, v, positions, k_pos, kind=kind,
                         window=cfg.window, kv_chunk=kv_chunk,
                         q_chunk=q_chunk, group=group)
     out = out.reshape(b, s, hq_run * hd).to(x.dtype)
     return row_dense(ctx, p["wo"], out)
+
+
+def cross_kv(ctx: TPCtx, p: Params, cfg, enc_out: torch.Tensor, valid=None):
+    """Cross-attention K/V of an encoder output [B, Se, D]: (k, v [B, Se,
+    Hkv, hd], positions [Se]); computed once per request."""
+    b, se, _ = enc_out.shape
+    hd = cfg.hd
+    _, hkv_run, _ = attn_dims(cfg, ctx.tp)
+    k = col_dense(ctx, p["wk"], enc_out, hkv_run * hd, valid) \
+        .reshape(b, se, hkv_run, hd)
+    v = col_dense(ctx, p["wv"], enc_out, hkv_run * hd, valid) \
+        .reshape(b, se, hkv_run, hd)
+    return k, v, torch.arange(se, dtype=torch.int32, device=enc_out.device)
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.float32, tp: int = 1,

@@ -137,6 +137,20 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return ops.rmsnorm(x, p["g"], eps=eps)
 
 
+def layernorm_init(d: int, layers: tuple[int, ...] = (), device=None
+                   ) -> Params:
+    return {"g": torch.ones(layers + (d,), device=device),
+            "b": torch.zeros(layers + (d,), device=device)}
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Row LayerNorm with float32 math (biased variance), output in x's
+    dtype. The reference's is plain JAX, not a TPU kernel, so one
+    ``F.layer_norm`` launch serves here."""
+    g, b = p["g"].to(torch.float32), p["b"].to(torch.float32)
+    return F.layer_norm(x.to(torch.float32), g.shape, g, b, eps).to(x.dtype)
+
+
 # ----------------------------------------------------------------- rope ----
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
@@ -152,6 +166,19 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     rot = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos,
                      x[..., 2 * half:]], dim=-1)
     return rot.to(x.dtype)
+
+
+def sinusoidal_pos(seq: int, d: int, dtype=torch.float32, device=None
+                   ) -> torch.Tensor:
+    """[seq, d] sinusoidal position table: sin in the even columns, cos in
+    the odd ones, as the reference builds it."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device)
+                    * (-math.log(10000.0) / d))
+    pe = torch.zeros((seq, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div[: (d + 1) // 2])
+    return pe.to(dtype)
 
 
 def activation(name: str, x: torch.Tensor) -> torch.Tensor:

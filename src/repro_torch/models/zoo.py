@@ -1,19 +1,22 @@
-"""Uniform model API (decoder-only families so far).
+"""Uniform model API over the ported families: dense decoders and the
+encoder-decoder (whisper).
 
 Model(cfg, ctx) exposes init / encode_offline / forward / init_decode /
-decode with the reference's signatures, plus an explicit device. ``init``
-defaults to the CUDA device and raises without one; pass device="cpu" to
-run there.
+decode with the reference's signatures, plus an explicit device.
+``batch`` is a dict: {"tokens": [B, S]}, and whisper adds {"frames": [B,
+enc_seq, D]} (the frontend stub). ``init`` defaults to the CUDA device
+and raises without one; pass device="cpu" to run there.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.common import TPCtx, encode_tree
 
 Params = dict[str, Any]
@@ -28,42 +31,77 @@ class Model:
              device: str | torch.device = "cuda") -> Params:
         """Random parameters; ``gen`` is a torch.Generator on ``device`` or
         an integer seed for one."""
-        if self.cfg.is_encdec:
-            raise NotImplementedError("enc-dec models are not ported yet")
         dev = resolve_device(device)
         if not isinstance(gen, torch.Generator):
             gen = torch.Generator(device=dev).manual_seed(int(gen))
-        return transformer.init_params(self.cfg, gen, self.ctx, dtype, dev)
+        family = encdec if self.cfg.is_encdec else transformer
+        return family.init_params(self.cfg, gen, self.ctx, dtype, dev)
 
     def encode_offline(self, params: Params) -> Params:
         """The paper's offline CDC weight encode (rerun after weight load)."""
         return encode_tree(params, self.ctx)
 
+    @staticmethod
+    def _frames(params: Params, batch: dict) -> torch.Tensor:
+        """The batch's frames on the params' device, in float32 (the
+        reference's default precision)."""
+        return torch.as_tensor(np.asarray(batch["frames"], np.float32),
+                               device=params["embed"].device)
+
     def forward(self, params: Params, batch: dict, valid=None, *,
                 q_chunk: int = 512, kv_chunk: int = 1024) -> torch.Tensor:
-        """batch {"tokens": [B, S]} -> logits [B, S, vocab] (float32)."""
+        """batch -> logits [B, S, vocab] (float32), teacher-forced."""
+        tokens = torch.as_tensor(batch["tokens"],
+                                 device=params["embed"].device)
         if self.cfg.is_encdec:
-            raise NotImplementedError("enc-dec models are not ported yet")
-        return transformer.forward(self.cfg, params, self.ctx,
-                                   torch.as_tensor(
-                                       batch["tokens"],
-                                       device=params["embed"].device),
-                                   valid, q_chunk=q_chunk,
-                                   kv_chunk=kv_chunk)
+            return encdec.forward(self.cfg, params, self.ctx, tokens,
+                                  self._frames(params, batch), valid,
+                                  q_chunk=q_chunk, kv_chunk=kv_chunk)
+        return transformer.forward(self.cfg, params, self.ctx, tokens, valid,
+                                   q_chunk=q_chunk, kv_chunk=kv_chunk)
 
-    def init_decode(self, params: Params, b: int, max_len: int,
-                    dtype=torch.float32) -> Params:
+    def init_decode(self, params: Params, batch: dict, b: int, max_len: int,
+                    dtype=torch.float32, valid=None) -> Params:
+        """A fresh per-row decode state for ``b`` rows. The enc-dec runs
+        its encoder over ``batch["frames"]`` under ``valid`` (its coded
+        GEMMs see the current mask) to fill the cross-attention bank."""
+        if self.cfg.is_encdec:
+            return encdec.init_decode_state(
+                self.cfg, self.ctx, params, self._frames(params, batch), b,
+                max_len, dtype, valid)
         return transformer.init_decode_state(
             self.cfg, self.ctx, b, max_len, dtype,
             device=params["embed"].device)
 
+    def empty_decode(self, b: int, max_len: int, dtype=torch.float32,
+                     device: str | torch.device = "cuda") -> Params:
+        """A decode state's tensors for ``b`` rows, allocated without
+        running the model (no encoder)."""
+        if self.cfg.is_encdec:
+            return encdec.empty_decode_state(self.cfg, self.ctx, b, max_len,
+                                             dtype, device)
+        return transformer.init_decode_state(self.cfg, self.ctx, b, max_len,
+                                             dtype, device=device)
+
     def decode(self, params: Params, state: Params, tokens: torch.Tensor,
                valid=None, *, kv_chunk: int = 1024, last_only: bool = False,
                return_hidden: bool = False):
-        return transformer.decode_step(self.cfg, params, self.ctx, state,
-                                       tokens, valid, kv_chunk=kv_chunk,
-                                       last_only=last_only,
-                                       return_hidden=return_hidden)
+        family = encdec if self.cfg.is_encdec else transformer
+        return family.decode_step(self.cfg, params, self.ctx, state, tokens,
+                                  valid, kv_chunk=kv_chunk,
+                                  last_only=last_only,
+                                  return_hidden=return_hidden)
+
+    def dummy_batch(self, rng: np.random.Generator, batch: int, seq: int
+                    ) -> dict:
+        """Random requests from a numpy generator: tokens [batch, seq],
+        then (enc-dec) frames [batch, enc_seq, D] drawn after them."""
+        out = {"tokens": rng.integers(0, self.cfg.vocab, (batch, seq))}
+        if self.cfg.is_encdec:
+            out["frames"] = rng.normal(
+                size=(batch, self.cfg.enc_seq, self.cfg.d_model)
+            ).astype(np.float32)
+        return out
 
 
 def build(cfg, ctx: TPCtx | None = None) -> Model:

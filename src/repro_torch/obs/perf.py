@@ -59,9 +59,12 @@ _DOTS = {aten.mm: 0, aten.bmm: 0, aten.addmm: 1, aten.baddbmm: 1,
          aten.mv: 0, aten.dot: 0}        # op -> index of its first factor
 _GATHERS = {aten.index, aten.index_select, aten.embedding, aten.gather}
 _SCATTERS = {aten.index_put, aten.index_put_, aten._index_put_impl_}
+# allocations and views whose schema marks no alias (``_unsafe_view``: the
+# reshape that follows a copy) launch nothing
 _NO_KERNEL = {aten.empty, aten.empty_strided, aten.empty_like,
               aten.new_empty, aten.new_empty_strided, aten.lift_fresh,
-              aten._local_scalar_dense, aten.resize_, aten.set_}
+              aten._local_scalar_dense, aten.resize_, aten.set_,
+              aten._unsafe_view}
 
 
 def _tensors(tree) -> list[torch.Tensor]:
@@ -177,6 +180,15 @@ def _clone_state(state):
     return clone_state(state)
 
 
+def _count_on_clones(fn, state, toks, valid) -> CostCounter:
+    """``count_round`` of ``fn(state, toks, valid)`` on clones of the slot
+    state and tokens, made before counting starts: a round reads its state
+    in place, so the copy is no part of it (an enc-dec's state holds the
+    whole cross-attention bank)."""
+    state, toks = _clone_state(state), toks.clone()
+    return count_round(lambda: fn(state, toks, valid))
+
+
 def _plain_round(stepper, state, toks) -> CostCounter:
     """The identical round through the PLAIN model on the RAW (uncoded)
     params: slot state is code-mode independent."""
@@ -185,12 +197,11 @@ def _plain_round(stepper, state, toks) -> CostCounter:
         model, ctx=dataclasses.replace(model.ctx, mode="plain",
                                        fused_body=False))
 
-    def run():
-        logits, _ = pmodel.decode(stepper._raw_params, _clone_state(state),
-                                  toks.clone(), None)
+    def run(state, toks, valid):
+        logits, _ = pmodel.decode(stepper._raw_params, state, toks, valid)
         torch.argmax(logits[:, -1:], dim=-1)
 
-    return count_round(run)
+    return _count_on_clones(run, state, toks, None)
 
 
 def attribute_round_costs(vstep, state, toks, hw: dict | None = None
@@ -206,11 +217,10 @@ def attribute_round_costs(vstep, state, toks, hw: dict | None = None
     r = int(st.model.ctx.code_r) if coded else 0
     valid = st._mask(st.full_mask()) if coded else None
 
-    raw = {"reference": count_round(lambda: vstep._round(
-        _clone_state(state), toks.clone(), valid))}
+    raw = {"reference": _count_on_clones(vstep._round, state, toks, valid)}
     if vstep.use_fused and coded:
-        raw["fused"] = count_round(lambda: vstep._round_fused(
-            _clone_state(state), toks.clone(), valid))
+        raw["fused"] = _count_on_clones(vstep._round_fused, state, toks,
+                                        valid)
     useful = raw["reference"].flops if not coded \
         else _plain_round(st, state, toks).flops
 

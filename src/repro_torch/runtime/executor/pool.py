@@ -95,10 +95,14 @@ class SlotPoolExecutor:
     def n_active(self) -> int:
         return int(self.active.sum())
 
-    def admit(self, slot: int, prompt, valid, tag: Any = None) -> int:
+    def admit(self, slot: int, prompt, valid, tag: Any = None,
+              extras: dict | None = None) -> int:
         """Prefill ``prompt`` into ``slot`` and activate it; returns the
-        first generated token."""
-        logits, row = self.stepper.prefill(request_batch(prompt), valid)
+        first generated token. ``extras`` carries per-request batch inputs
+        (enc-dec ``frames``): the encoder runs for this request and its
+        cross K/V land in the slot's row of the bank."""
+        logits, row = self.stepper.prefill(request_batch(prompt, extras),
+                                           valid)
         tok = self.stepper.greedy(logits)                     # [1, 1]
         self.state = write_slot(self.state, slot, row)
         self.last_toks[slot] = tok[0]

@@ -3,7 +3,14 @@
 Every decode-state leaf is laid out [L(layers), B(slots), ...], so the
 batch axis IS the slot axis (``SLOT_AXIS == 1``). With the per-row cache
 each row carries its own KV length and positions, so rows decode at
-independent positions in one round. Admission overwrites one row in place.
+independent positions in one round. Enc-dec states also carry the per-slot
+cross-attention bank (the encoder-derived K/V [L, B, Se, Hkv, hd] and
+positions [L, B, Se]), written row-wise at admission: the encoder runs
+once per request, and the bank holds decoded (r-independent) values, so a
+re-encode or ``set_code_r`` keeps it valid; the 2MR requeue path re-admits
+the request and so runs its encoder again. Admission overwrites one row in
+place, so the stacked state keeps its addresses (a captured round stays
+valid across admissions).
 """
 from __future__ import annotations
 
@@ -21,18 +28,24 @@ def _map(fn, *trees):
     return fn(*trees)
 
 
-def request_batch(prompt) -> dict:
-    """One request's prefill batch: [1, S] int32 tokens."""
-    return {"tokens": np.asarray(prompt, np.int32)[None, :]}
+def request_batch(prompt, extras: dict | None = None) -> dict:
+    """One request's prefill batch: [1, S] int32 tokens plus its extras
+    (enc-dec ``frames``) with a leading batch axis of 1. Both executors
+    build their prefill batches here."""
+    batch = {"tokens": np.asarray(prompt, np.int32)[None, :]}
+    for key, val in (extras or {}).items():
+        batch[key] = np.asarray(val)[None, ...]
+    return batch
 
 
 def blank_state(stepper, n_slots: int) -> Any:
-    """A zero-filled stacked per-row state with ``n_slots`` rows. Admission
-    overwrites a row wholesale before it is read; never-admitted rows step
-    through decode harmlessly (as in the reference, whose blank state is
-    zeros of the same shapes)."""
-    state = stepper.model.init_decode(stepper.params, n_slots,
-                                      stepper.max_len, stepper.cache_dtype)
+    """A zero-filled stacked per-row state with ``n_slots`` rows, allocated
+    from the state's layout without running the model (for an enc-dec, no
+    encoder over zero frames). Admission overwrites a row wholesale before
+    it is read; never-admitted rows step through decode harmlessly (as in
+    the reference, whose blank state is zeros of the same shapes)."""
+    state = stepper.model.empty_decode(n_slots, stepper.max_len,
+                                       stepper.cache_dtype, stepper.device)
     return _map(torch.zeros_like, state)
 
 

@@ -28,6 +28,10 @@ class Request:
     arrival_ms: float = 0.0
     deadline_ms: float | None = None    # SLO deadline (None = best effort)
     priority: int = 0                   # higher pops first
+    extras: dict | None = None          # extra per-request batch fields,
+    #                                     unbatched (enc-dec "frames"
+    #                                     [enc_seq, D]); admission adds the
+    #                                     leading batch axis
 
     # -- mutated by the scheduler ------------------------------------------
     state: RequestState = RequestState.QUEUED

@@ -27,8 +27,9 @@ differential-test oracle. Every slot's tokens are host ints.
 
 Observability as in the reference: per-request span trees (``spans``,
 on by default), roofline perf accounting (``perf``) and per-round
-profiler annotations (``profile``). Not ported yet: encoder extras (the
-port serves decoder-only models).
+profiler annotations (``profile``). A request's ``extras`` (enc-dec
+``frames``) reach its prefill on both paths; the batched one writes the
+encoder's cross K/V into the slot's row of the executor's bank.
 """
 from __future__ import annotations
 
@@ -157,16 +158,19 @@ class ContinuousBatchingScheduler:
     def submit(self, prompt, max_new_tokens: int,
                arrival_ms: float | None = None,
                deadline_ms: float | None = None,
-               priority: int = 0) -> Request:
+               priority: int = 0, extras: dict | None = None) -> Request:
         """Enqueue a request. ``arrival_ms`` records the true arrival
         instant when submission happens at the next round boundary; it
         must not lie in the future. ``deadline_ms``/``priority`` bend the
-        admission order; a full queue sheds the worst-ordered request."""
+        admission order; a full queue sheds the worst-ordered request.
+        ``extras`` carries per-request batch fields (enc-dec ``frames``)
+        into the request's prefill."""
         now = self.clock.now()
         arrival = now if arrival_ms is None else min(float(arrival_ms), now)
         req = Request(self._next_rid, np.asarray(prompt, np.int32),
                       int(max_new_tokens), arrival_ms=arrival,
-                      deadline_ms=deadline_ms, priority=priority)
+                      deadline_ms=deadline_ms, priority=priority,
+                      extras=extras)
         self._next_rid += 1
         self.metrics.count("requests_submitted")
         if self.tracer.enabled:
@@ -311,11 +315,11 @@ class ContinuousBatchingScheduler:
             req.admitted_ms = now
             if self.executor is not None:
                 tok = self.executor.admit(slot.idx, req.prompt, mask,
-                                          tag=req.rid)
+                                          tag=req.rid, extras=req.extras)
                 slot.request = req
             else:
                 logits, state = self.stepper.prefill(
-                    request_batch(req.prompt), mask)
+                    request_batch(req.prompt, req.extras), mask)
                 t = self.stepper.greedy(logits)
                 slot.request, slot.state, slot.last_tok = req, state, t
                 tok = int(t[0, 0])
@@ -487,8 +491,9 @@ class ContinuousBatchingScheduler:
 def run_arrivals(sched: ContinuousBatchingScheduler,
                  arrivals: list[tuple]) -> list[Request]:
     """Drive a timed workload: ``arrivals`` is [(time_ms, prompt,
-    max_new_tokens)]. Requests are submitted when the (simulated) clock
-    reaches their arrival time; idle gaps fast-forward the clock."""
+    max_new_tokens)] with an optional 4th ``extras`` dict per entry
+    (enc-dec ``frames``). Requests are submitted when the (simulated)
+    clock reaches their arrival time; idle gaps fast-forward the clock."""
     pending = deque(sorted(arrivals, key=lambda a: a[0]))
     rounds = 0
     while pending or sched.busy:
@@ -497,8 +502,9 @@ def run_arrivals(sched: ContinuousBatchingScheduler,
                 isinstance(sched.clock, SimClock):
             sched.clock.advance_to(pending[0][0])
         while pending and pending[0][0] <= sched.clock.now():
-            t, prompt, n = pending.popleft()
-            sched.submit(prompt, n, arrival_ms=t)
+            t, prompt, n, *rest = pending.popleft()
+            sched.submit(prompt, n, arrival_ms=t,
+                         extras=rest[0] if rest else None)
         sched.step()
         rounds += 1
         if rounds > sched.rcfg.max_rounds:

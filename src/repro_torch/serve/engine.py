@@ -122,12 +122,15 @@ class ModelStepper:
     # ---------------------------------------------------------- stepping ----
     def prefill(self, batch: dict, valid=None) -> tuple[torch.Tensor, Any]:
         """Run the prompt through the decode path into a fresh per-row
-        state. Returns (last-position logits [b, 1, V], state)."""
+        state (an enc-dec's encoder runs over ``batch["frames"]`` under the
+        same mask first). Returns (last-position logits [b, 1, V],
+        state)."""
         t0 = time.perf_counter()
         v = self._mask(valid) if self.coded else None
         tokens = self._tokens(batch["tokens"])
-        state = self.model.init_decode(self.params, tokens.shape[0],
-                                       self.max_len, self.cache_dtype)
+        state = self.model.init_decode(self.params, batch, tokens.shape[0],
+                                       self.max_len, self.cache_dtype,
+                                       valid=v)
         logits, state = self.model.decode(self.params, state, tokens, v)
         self.last_prefill_wall_ms = (time.perf_counter() - t0) * 1e3
         return logits[:, -1:], state
@@ -223,15 +226,21 @@ class ServingEngine:
     def generate(self, batch: dict, n_tokens: int,
                  fail_at: dict[int, int] | None = None) -> np.ndarray:
         """Greedy generation; ``fail_at`` maps step -> shard to kill
-        mid-request (the paper's Case Study II)."""
+        mid-request (the paper's Case Study II). Every batch field but the
+        tokens (enc-dec ``frames``) is split per row and admitted with its
+        row."""
         tokens = np.asarray(batch["tokens"])
+        extras_all = {k: np.asarray(v) for k, v in batch.items()
+                      if k != "tokens"}
         b = tokens.shape[0]
         ex = self.executor(b)
         ex.drop_pending()
         ex.evict_all()
         out = np.zeros((b, n_tokens), np.int64)
         for i in range(b):
-            out[i, 0] = ex.admit(i, tokens[i], self.valid, tag=i)
+            extras = {k: v[i] for k, v in extras_all.items()} or None
+            out[i, 0] = ex.admit(i, tokens[i], self.valid, tag=i,
+                                 extras=extras)
         for t in range(n_tokens - 1):
             if fail_at and t in fail_at:
                 self.inject_failure(fail_at[t])

@@ -135,6 +135,41 @@ def test_replayed_round_equals_eager_round_bitwise(smoke):
     assert (vs.n_captures, vs.n_replays, vs.n_graph_drops) == (4, 7, 1)
 
 
+def test_whisper_graph_round_equals_eager_round_bitwise(smoke):
+    """whisper at smoke size on the card, each slot with its own frames:
+    rounds replayed from captured CUDA graphs give the eager fused rounds'
+    tokens, kernel-2 maxima, self-attention cache and (untouched)
+    cross-attention bank to the bit, across a mask change."""
+    import numpy as np
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.models import TPCtx, build
+    from repro_torch.runtime.executor import SlotPoolExecutor
+    from repro_torch.serve import ModelStepper
+    cfg = smoke_config(get_arch("whisper-medium"))
+    model = build(cfg, TPCtx(tp=4, mode="coded", code_r=2))
+    stepper = ModelStepper(model, model.init(0, device="cuda"), max_len=32)
+    graph, eager = (SlotPoolExecutor(stepper, 3, overlap=False,
+                                     use_fused=True, use_graphs=g)
+                    for g in (True, False))
+    full = np.ones(4, bool)
+    dead = np.array([True, True, False, True])
+    rng = np.random.default_rng(0)
+    for slot in range(3):
+        prompt = rng.integers(0, cfg.vocab, 5 + slot)
+        extras = {"frames": rng.normal(size=(cfg.enc_seq, cfg.d_model))}
+        assert graph.admit(slot, prompt, full, extras=extras) == \
+            eager.admit(slot, prompt, full, extras=extras)
+    for valid in [full, full, dead, dead, full]:
+        assert graph.step_round(valid) == eager.step_round(valid)
+        for a, b in zip(graph.vstep.last_head, eager.vstep.last_head):
+            assert torch.equal(a, b)
+    for part in ("kv", "xkv"):
+        for name, t in graph.state[part].items():
+            assert torch.equal(t, eager.state[part][name]), (part, name)
+    vs = graph.vstep
+    assert (vs.n_captures, vs.n_replays) == (2, 5)
+
+
 # ------------------------------------------------ every code width T <= 16
 
 def test_coded_matmul_generic_instantiation_matches_plain(smoke):

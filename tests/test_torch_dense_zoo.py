@@ -30,8 +30,10 @@ from repro_torch.models.attention import attn_dims
 from repro_torch.serve import ServeConfig, ServingEngine
 
 TOL = dict(rtol=1e-4, atol=1e-4)
+# every config the port registers (whisper-medium's model is held against
+# the reference in tests/test_torch_encdec.py)
 NAMES = ("granite-3-8b", "h2o-danube-1.8b", "h2o-danube-3-4b",
-         "deepseek-67b", "chameleon-34b")
+         "deepseek-67b", "chameleon-34b", "whisper-medium")
 
 
 def masks(t):
@@ -151,7 +153,8 @@ def test_padded_logits_under_every_mask(padded):
                                  jnp.float32, per_row=True)
         jl, jst = jdecode(jparams, jst, jnp.asarray(toks), jnp.asarray(v))
         jl2, _ = jdecode(jparams, jst, jnp.asarray(nxt), jnp.asarray(v))
-        st = model.init_decode(params, 2, 16, torch.float32)
+        st = model.init_decode(params, {"tokens": toks}, 2, 16,
+                               torch.float32)
         tl, st = model.decode(params, st, torch.as_tensor(toks), v)
         tl2, _ = model.decode(params, st, torch.as_tensor(nxt), v)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL,
@@ -188,10 +191,10 @@ def test_port_init_parity_recovers_padded_heads(padded):
     params = model.init(0, device="cpu")
     toks = torch.as_tensor(np.random.default_rng(2).integers(
         0, model.cfg.vocab, (2, 5)))
-    clean, _ = model.decode(params, model.init_decode(params, 2, 8), toks,
+    clean, _ = model.decode(params, model.init_decode(params, {}, 2, 8), toks,
                             np.ones(t, bool))
     for mask in masks(t)[1:]:
-        got, _ = model.decode(params, model.init_decode(params, 2, 8), toks,
+        got, _ = model.decode(params, model.init_decode(params, {}, 2, 8), toks,
                               np.array(mask))
         np.testing.assert_allclose(got.numpy(), clean.numpy(), **TOL,
                                    err_msg=f"T={t} mask {mask}")
@@ -215,7 +218,7 @@ def test_swa_stream_crossing_the_window_matches_reference(use_fused):
                         use_fused=use_fused)
     got = eng.generate(batch, 8, fail_at={5: 2})
     np.testing.assert_array_equal(got, want)
-    assert model.init_decode(params, 2, 76)["kv"]["k"].shape[2] == 64
+    assert model.init_decode(params, batch, 2, 76)["kv"]["k"].shape[2] == 64
 
 
 @pytest.mark.parametrize("t", [3, 12])

@@ -63,8 +63,8 @@ def recorder(monkeypatch):
     return RecorderGraph
 
 
-def _stepper(layout="folded"):
-    cfg = smoke_config(get_arch("granite-3-8b"))
+def _stepper(layout="folded", arch="granite-3-8b"):
+    cfg = smoke_config(get_arch(arch))
     model = build(cfg, TPCtx(tp=T, mode="coded", code_r=R,
                              code_layout=layout))
     params = model.init(0, device="cpu")
@@ -79,8 +79,11 @@ def _prompts(cfg, n=N_SLOTS):
 def _serve(pool, cfg, masks, events=None):
     """Admit one prompt per slot, then one round per mask; ``events``
     maps a round index to a callable run before it. Returns the token
-    streams."""
-    out = [[pool.admit(i, p, masks[0], tag=i)]
+    streams. An enc-dec request carries its own frames."""
+    rng = np.random.default_rng(6)
+    extras = [{"frames": rng.normal(size=(cfg.enc_seq, cfg.d_model))}
+              if cfg.is_encdec else None for _ in range(N_SLOTS)]
+    out = [[pool.admit(i, p, masks[0], tag=i, extras=extras[i])]
            for i, p in enumerate(_prompts(cfg))]
     for i, valid in enumerate(masks):
         if events and i in events:
@@ -124,6 +127,25 @@ def test_replayed_tokens_equal_eager_and_reference(recorder, overlap):
                                 use_fused=fused, use_graphs=graphs)
         runs[name] = _serve(pool, cfg, MASKS + [ALL])
         assert pool.vstep.n_replays == (len(MASKS) + 1 if graphs else 0)
+    assert runs["graph"] == runs["eager"] == runs["reference"]
+
+
+def test_whisper_replayed_tokens_equal_eager_and_reference(recorder):
+    """whisper (smoke) through the graph policy: the cross-attention bank
+    is read in place by every replay, and the replayed tokens equal the
+    eager fused rounds' and the reference variant's across mask changes;
+    one capture per mask."""
+    stepper, cfg = _stepper(arch="whisper-medium")
+    runs = {}
+    for name, fused, graphs in (("graph", True, True),
+                                ("eager", True, False),
+                                ("reference", False, False)):
+        pool = SlotPoolExecutor(stepper, N_SLOTS, overlap=False,
+                                use_fused=fused, use_graphs=graphs)
+        runs[name] = _serve(pool, cfg, MASKS)
+        if graphs:
+            assert pool.vstep.n_captures == 3
+            assert pool.vstep.n_replays == len(MASKS)
     assert runs["graph"] == runs["eager"] == runs["reference"]
 
 

@@ -44,6 +44,13 @@ def test_port_imports_neither_jax_nor_reference(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_guard_covers_the_encoder_decoder():
+    """The encoder-decoder's modules are among the files the guard reads."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"src/repro_torch/models/encdec.py",
+            "src/repro_torch/configs/whisper_medium.py"} <= names
+
+
 def test_guard_catches_forbidden_imports(tmp_path):
     probe = tmp_path / "probe.py"
     probe.write_text("import jax.numpy as jnp\n"
@@ -68,6 +75,22 @@ def test_model_init_defaults_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         model.init(0)
     assert model.init(0, device="cpu")["embed"].device.type == "cpu"
+
+
+def test_whisper_entry_points_default_to_cuda(monkeypatch):
+    """whisper-medium's init and serving entry point run on the card unless
+    told otherwise, as the decoders' do."""
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import TPCtx, build
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = build(smoke_config(get_arch("whisper-medium")), TPCtx(tp=4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "whisper-medium", "--smoke", "--coded"])
+    assert model.init(0, device="cpu")["enc_layers"]["attn"]["wq"][
+        "w"].device.type == "cpu"
 
 
 def test_serve_runs_on_cpu_when_asked(capsys):
@@ -105,7 +128,8 @@ def test_loading_every_port_module_loads_neither_jax_nor_reference():
 @pytest.mark.parametrize("module", [
     "repro_torch.serve", "repro_torch.obs", "repro_torch.runtime",
     "repro_torch.kernels.ops", "repro_torch.launch.serve",
-    "repro_torch.models"])
+    "repro_torch.models", "repro_torch.models.encdec",
+    "repro_torch.configs.whisper_medium"])
 def test_package_imports_first_in_a_fresh_interpreter(module):
     """No import cycle bites whichever package a program imports first
     (``obs`` and ``runtime`` import each other's leaf modules)."""

@@ -430,6 +430,74 @@ def test_head_plan_at_the_decode_round():
     assert plan.units()[48][:2] == (48 * 252, 196)
 
 
+# whisper-medium at T = 4: k = d = 1024; wq (m_l 256, 64-column folded
+# slices) and w1 (m_l 1024); the head's 51865 words padded to 51872
+WHISPER = get_arch("whisper-medium")
+WHISPER_HEAD = TPCtx(tp=4).pad_dim(WHISPER.vocab) // 4
+
+
+@pytest.mark.parametrize("rows", [1, 4, 5, 16, 64])
+@pytest.mark.parametrize("m_l", [256, 1024], ids=["wq", "w1"])
+def test_coded_plan_covers_whisper_shapes(m_l, rows):
+    """Kernel 1 at whisper's k = 1024 (a quarter of granite's stages): the
+    copy engine's plan still covers the output once, every k split holds
+    at least one row (the short last one included), within the kernel's
+    limits; at the decode round's 4 rows (one block an SM) k splits into
+    25 ranges of 42 rows (wq: 100 blocks) and 15 of 70 (w1: 120)."""
+    plan = tcdc.coded_plan(rows, WHISPER.d_model, m_l, 4, 2, "folded",
+                           N_SM, 1)
+    assert plan.aligned and plan.wd == m_l // 4
+    check_limits(plan, 6)
+    check_cover(plan, rows, WHISPER.d_model, m_l, plan.wd)
+    assert plan.blocks == len(plan.units())
+    if rows == 4:
+        assert (plan.ksplit, plan.kchunk) == \
+            ((25, 42) if m_l == 256 else (15, 70))
+
+
+@pytest.mark.parametrize("rows", [1, 4, 5, 16])
+def test_head_plan_covers_whisper_head(rows):
+    """Kernel 2 at whisper's head (m_l 12968, k 1024): whole 16-byte rows,
+    so the copy engine; the plan covers the head once with the vocabulary
+    cut (51865) inside the last tile; at 4 rows 51 tiles (the last 168
+    wide) and 5 splits of 210."""
+    k, m_l = WHISPER.d_model, WHISPER_HEAD
+    rb, aligned = tdec.head_variant(rows, m_l, 4 * m_l, m_l)
+    assert aligned and m_l == 12968
+    plan = tdec.head_plan(rows, k, m_l, 4, N_SM, card_occupancy(rb),
+                          aligned)
+    check_limits(plan, 5)
+    check_cover(plan, rows, k, m_l)
+    cut = WHISPER.vocab - 3 * m_l
+    assert (plan.tiles - 1) * plan.bn < cut < m_l
+    if rows == 4:
+        assert (plan.tiles, plan.ksplit, plan.kchunk) == (51, 5, 210)
+        assert plan.units()[50][:2] == (50 * plan.bn, m_l - 50 * plan.bn)
+
+
+def test_head_plan_emulation_at_whisper_head():
+    """Kernel 2's plan at whisper's head, emulated on integer inputs with
+    the largest logits planted in the padded columns 51865-51871: tokens
+    and max equal to the oracle's (``fused_head_argmax_ref``) under every
+    mask, and never a padded column."""
+    T, b, k, m_l = 4, 4, WHISPER.d_model, WHISPER_HEAD
+    rng = np.random.default_rng(29)
+    x = rng.integers(1, 3, size=(b, k)).astype(np.float32)
+    w = rng.integers(-1, 2, size=(k, T * m_l)).astype(np.float32)
+    w[:, WHISPER.vocab:] = 16.0
+    w_shards = np.ascontiguousarray(w.reshape(k, T, m_l).transpose(1, 0, 2))
+    pw = w_shards.sum(0)
+    plan = tdec.head_plan(b, k, m_l, T, N_SM, 1)
+    for valid in masks(T):
+        tok, vmax = emulate_head(plan, x, w_shards, pw, valid, WHISPER.vocab)
+        jt, jm = jref.fused_head_argmax_ref(
+            jnp.asarray(x), jnp.asarray(w_shards), jnp.asarray(pw),
+            jnp.asarray(valid), WHISPER.vocab)
+        np.testing.assert_array_equal(tok, np.asarray(jt))
+        np.testing.assert_array_equal(vmax, np.asarray(jm))
+        assert (tok < WHISPER.vocab).all()
+
+
 @pytest.mark.parametrize("m_l,ldw,sstr,ptr_ok,rows,k", [
     (1001, 4 * 1001, 1001, True, 4, 4096),      # ragged m_l
     (1024, 4097, 1024, True, 9, 4096),          # odd row stride

@@ -84,12 +84,12 @@ def test_prefill_and_decode_logits(pair, mask):
                              per_row=True)
     jl, jst = jmodel.decode(jparams, jst, jnp.asarray(toks), jnp.asarray(v))
     jl2, _ = jmodel.decode(jparams, jst, jnp.asarray(nxt), jnp.asarray(v))
-    st = model.init_decode(params, 2, 16, torch.float32)
+    st = model.init_decode(params, {"tokens": toks}, 2, 16, torch.float32)
     tl, st = model.decode(params, st, torch.as_tensor(toks), v)
     tl2, _ = model.decode(params, st, torch.as_tensor(nxt), v)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     np.testing.assert_allclose(tl2.numpy(), np.asarray(jl2), **TOL)
-    hidden, _ = model.decode(params, model.init_decode(params, 2, 16),
+    hidden, _ = model.decode(params, model.init_decode(params, {}, 2, 16),
                              torch.as_tensor(toks), v, last_only=True,
                              return_hidden=True)
     assert hidden.shape == (2, 1, cfg.d_model)
