@@ -146,6 +146,29 @@ and phase 7 drives kernels 3 and 5's library entries at T = 12. Then:
      widths (k = 1024; the head's 51865 words padded to 51872) against
      their plain versions (1e-4; integer inputs to the bit; padded columns
      never returned), and phase 4 times kernels 1 and 2 there.
+ 14. xlstm-125m at full width (12 blocks, xLSTM[7:1]: the sLSTM at block
+     7; d 768, 4 heads, up-projection 1536, head width 384, vocab 50304;
+     float32, T = 4, r = 2 folded, seeded random weights): (a)
+     launch.serve's scheduler (4 slots, 8 requests, prompt 16, 16 new
+     tokens) fault-free with --perf and under --chaos
+     "exp:mtbf=800,mttr=120": every request completes with the fault-free
+     tokens, counters equal to the CPU run's at smoke size, 46 kernel-4
+     launches per encode, kernel 6 once a round and a prefill, the perf
+     line's fused-round bound within 5% of the weights plus the block
+     state as the plain recurrences move it (the mLSTM memories in 5
+     passes); (b) one batch of 4 with a 300-token prompt (3 chunks of the
+     chunkwise prefill, 300 sLSTM steps) and 16 new tokens, fault-free and
+     with shard 2 killed at step 4, on graph rounds, eager fused rounds,
+     the reference variant and kernel-free: identical streams, every fused
+     round's max logit within 1e-4 of the reference round's, 45 / 1 / 1
+     launches of kernels 1, 2 and 6 a fused round; (c) on the dedicated
+     layout (r = 2) a 2-dead reference round between graph replays, whose
+     replays then give the eager rounds' tokens; (d) device ms per round
+     by kernel, the idle share, graph, eager and reference round medians,
+     the admission prefill and peak memory. Phase 2 also holds kernels 1,
+     2 and 4 at xLSTM's widths (up: k 768, m_l 768; wq: k 1536, m_l 384;
+     the head: k 768, m_l 12576) against their plain versions, and phase 4
+     times kernels 1 and 2 there.
 Phases 3 and 5 also count the RMSNorm kernel: 2 x 40 + 1 = 81 launches
 per decode round (fused and reference variants) and per prefill.
 Peak device memory is printed per phase. The line before the last is the
@@ -1467,6 +1490,7 @@ def check_encode_any() -> tuple[float, float]:
 # ------------------------------------------------ phase 2, whisper widths --
 
 WHISPER = "whisper-medium"
+XLSTM = "xlstm-125m"
 
 
 def whisper_widths(cfg) -> dict:
@@ -1479,42 +1503,64 @@ def whisper_widths(cfg) -> dict:
             "lm_head": ctx.pad_dim(cfg.vocab) // T}
 
 
-def check_whisper_kernels(cfg) -> tuple[float, float, float]:
-    """Kernels 1, 2 and 4 at whisper-medium's widths (k = 1024, T = 4, r =
-    2 folded), against their plain versions. Kernel 1 at wq (m_l 256: 64-
-    column folded slices) and w1 (m_l 1024) at rows 1, 4, 5 and 16 (the
-    row blocks' edges; k split into 42- and 32-row ranges with a short
-    last one), under every mask with <= 1 dead shard within 1e-4 on
-    Gaussian inputs, and on integer-valued inputs to the bit under the
-    all-valid mask (every sum exact; a dead shard's decode multiplies by
-    the generator's non-integer rows); two launches bitwise equal. Kernel
-    2 at the head (51865 words padded to 51872, m_l 12968, 51 tiles, 5 k
-    splits) at rows 1, 4 and 5 under every mask: within 1e-4 on Gaussian
-    inputs, and on integer inputs to the bit with the largest logits
-    planted in the padded columns 51865-51871 (never returned) and a tie
-    between two words in different shards and tiles (the smaller id wins).
-    Kernel 4 on the stacked leaves (24 layers of wq and w1) and the head
-    within 1e-5. Returns the max abs errors of kernels 1, 2 and 4."""
+def whisper_shapes(cfg) -> dict:
+    """Kernel 1's (k, m_l) at wq and w1, kernel 2's head (k, m_l, vocab)
+    and kernel 4's leaves (24 layers of wq and w1 stacked, the head) at
+    whisper-medium's widths."""
+    k, w = cfg.d_model, whisper_widths(cfg)
+    return {"gemms": {"wq": (k, w["wq"]), "w1": (k, w["w1"])},
+            "head": (k, w["lm_head"], cfg.vocab),
+            "encode": [(cfg.n_layers, k, T * w["wq"]),
+                       (cfg.n_layers, k, T * w["w1"]), (k, T * w["lm_head"])]}
+
+
+def xlstm_shapes(cfg) -> dict:
+    """The same at xlstm-125m's widths (T = 4): kernel 1 at the mLSTM's
+    up (k = d = 768, m_l 768; the sLSTM's wx has its shape) and wq (and
+    wk, wv: k = 2d = 1536, m_l 384, 96-column folded slices), kernel 2 at
+    the head (k 768, 50304 words, m_l 12576), kernel 4 at their leaves."""
+    from repro_torch.models.common import TPCtx
+    ctx, d = TPCtx(tp=T), cfg.d_model
+    up, wq = ctx.pad_dim(4 * d) // T, ctx.pad_dim(2 * d) // T
+    head = ctx.pad_dim(cfg.vocab) // T
+    return {"gemms": {"up": (d, up), "wq": (2 * d, wq)},
+            "head": (d, head, cfg.vocab),
+            "encode": [(d, T * up), (2 * d, T * wq), (d, T * head)]}
+
+
+def check_width_kernels(tag: str, shapes: dict
+                        ) -> tuple[float, float, float]:
+    """Kernels 1, 2 and 4 at one model's widths (``whisper_shapes``,
+    ``xlstm_shapes``; T = 4, r = 2 folded), against their plain versions.
+    Kernel 1 at each GEMM at rows 1, 4, 5 and 16 (the row blocks' edges;
+    k split into ranges with a short last one), under every mask with <= 1
+    dead shard within 1e-4 on Gaussian inputs, and on integer-valued
+    inputs to the bit under the all-valid mask (every sum exact; a dead
+    shard's decode multiplies by the generator's non-integer rows); two
+    launches bitwise equal. Kernel 2 at the head at rows 1, 4 and 5 under
+    every mask: within 1e-4 on Gaussian inputs, and on integer inputs to
+    the bit with the largest logits planted in the padded columns (never
+    returned) and a tie between two words in different shards and tiles
+    (the smaller id wins). Kernel 4 on the leaves within 1e-5. Returns the
+    max abs errors of kernels 1, 2 and 4."""
     from repro_torch.core.coded_layer import make_parity_weights
     from repro_torch.core.coding import generator_matrix
     from repro_torch.kernels import cdc_encode as enc
     gen = torch.Generator(device="cuda").manual_seed(51)
-    k, widths = cfg.d_model, whisper_widths(cfg)
     worst1, n1 = 0.0, 0
-    for name in ("wq", "w1"):
+    for name, (k, m_l) in shapes["gemms"].items():
         for rows in (1, 4, 5, 16):
-            spec, x, w, wc = _coded_case(widths[name], rows, "folded", gen,
-                                         k)
+            spec, x, w, wc = _coded_case(m_l, rows, "folded", gen, k)
             for valid in _masks():
                 got = _run_coded(x, w, wc, spec, valid)
                 want = _run_coded(x, w, wc, spec, valid, plain=True)
                 torch.cuda.synchronize()
                 torch.testing.assert_close(got, want, **TOL, msg=lambda m: (
-                    f"whisper {name} rows={rows} mask={valid}: {m}"))
+                    f"{tag} {name} rows={rows} mask={valid}: {m}"))
                 worst1, n1 = max(worst1, float((got - want).abs().max())), \
                     n1 + 1
             xi = _int_head((rows, k), gen, -2, 2)
-            wi = _int_head((k, T * widths[name]), gen)
+            wi = _int_head((k, T * m_l), gen)
             wci = make_parity_weights(wi, spec)
             full = (True,) * T
             a = _run_coded(xi, wi, wci, spec, full)
@@ -1522,12 +1568,12 @@ def check_whisper_kernels(cfg) -> tuple[float, float, float]:
             want = _run_coded(xi, wi, wci, spec, full, plain=True)
             torch.cuda.synchronize()
             if not (torch.equal(a, want) and torch.equal(a, b)):
-                raise AssertionError(f"whisper {name} rows={rows}: integer "
+                raise AssertionError(f"{tag} {name} rows={rows}: integer "
                                      f"inputs differ from the plain "
                                      f"version or between launches")
             n1 += 1
     # kernel 2 at the head
-    vocab, m_l = cfg.vocab, widths["lm_head"]
+    k, m_l, vocab = shapes["head"]
     worst2, n2 = 0.0, 0
     w = (torch.randn((k, T * m_l), generator=gen, device="cuda")
          / k ** 0.5)
@@ -1549,17 +1595,16 @@ def check_whisper_kernels(cfg) -> tuple[float, float, float]:
     for valid in _masks():
         tok, err = _head_pair(xi, w_shards, pw, valid, vocab)
         if err != 0.0 or tok.tolist() != [min(tie)] * 4:
-            raise AssertionError(f"whisper head on exact inputs: tokens "
+            raise AssertionError(f"{tag} head on exact inputs: tokens "
                                  f"{tok.tolist()} (want {min(tie)}), max "
                                  f"error {err} (mask {valid})")
         n2 += 1
     del w, wi, w_shards, pw
-    # kernel 4 on whisper's stacked leaves and the head
+    # kernel 4 on the leaves
     worst4, n4 = 0.0, 0
     g = generator_matrix(T, R)
-    for shape in ((cfg.n_layers, k, T * widths["wq"]),
-                  (cfg.n_layers, k, T * widths["w1"]), (k, T * m_l)):
-        w = torch.randn(shape, generator=gen, device="cuda") / k ** 0.5
+    for shape in shapes["encode"]:
+        w = torch.randn(shape, generator=gen, device="cuda") / shape[-2] ** 0.5
         sh = _shards(w, T)
         got = enc.cdc_encode(sh, g, layout="folded")
         want = enc.encode_plain(sh, g, "folded")
@@ -1567,15 +1612,29 @@ def check_whisper_kernels(cfg) -> tuple[float, float, float]:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
         worst4, n4 = max(worst4, float((got - want).abs().max())), n4 + 1
         del w, sh, got, want
-    log(f"whisper widths (k = {k}): kernel cdc_coded_matmul {n1} cases "
-        f"(wq, w1; rows 1/4/5/16; every mask) within 1e-4 of the plain "
-        f"version (max abs err {worst1:.3e}), integer inputs to the bit; "
-        f"kernel cdc_fused_head_argmax {n2} cases (head m_l {m_l}, vocab "
-        f"{vocab}) within 1e-4 (max abs err {worst2:.3e}), integer inputs "
-        f"to the bit, padded columns never returned, the tie to id "
-        f"{min(tie)}; kernel cdc_encode {n4} leaves within 1e-5 (max abs "
-        f"err {worst4:.3e})")
+    gemms = ", ".join(f"{n} (k {k}, m_l {m})"
+                      for n, (k, m) in shapes["gemms"].items())
+    log(f"{tag} widths: kernel cdc_coded_matmul {n1} cases ({gemms}; rows "
+        f"1/4/5/16; every mask) within 1e-4 of the plain version (max abs "
+        f"err {worst1:.3e}), integer inputs to the bit; kernel "
+        f"cdc_fused_head_argmax {n2} cases (head k {shapes['head'][0]}, m_l "
+        f"{m_l}, vocab {vocab}) within 1e-4 (max abs err {worst2:.3e}), "
+        f"integer inputs to the bit, padded columns never returned, the "
+        f"tie to id {min(tie)}; kernel cdc_encode {n4} leaves within 1e-5 "
+        f"(max abs err {worst4:.3e})")
     return worst1, worst2, worst4
+
+
+def check_whisper_kernels(cfg) -> tuple[float, float, float]:
+    """``check_width_kernels`` at whisper-medium's widths (k = 1024; wq's
+    64-column folded slices, w1; the head's 51865 words padded to 51872,
+    m_l 12968, 51 tiles, 5 k splits)."""
+    return check_width_kernels("whisper", whisper_shapes(cfg))
+
+
+def check_xlstm_kernels(cfg) -> tuple[float, float, float]:
+    """``check_width_kernels`` at xlstm-125m's widths (``xlstm_shapes``)."""
+    return check_width_kernels("xlstm", xlstm_shapes(cfg))
 
 
 def _phase_memory(name: str):
@@ -1589,8 +1648,23 @@ def _phase_memory(name: str):
 
 def norms_per_pass(cfg) -> int:
     """RMSNorm launches of one model pass (a decode round or a prefill):
-    two per layer and the final norm."""
-    return 2 * cfg.n_layers + 1
+    two per layer and the final norm. The encoder-decoder's norms are
+    all LayerNorm (none); xLSTM's blocks use LayerNorm (its final norm
+    only)."""
+    if cfg.is_encdec:
+        return 0
+    return 1 if cfg.ssm_kind == "xlstm" else 2 * cfg.n_layers + 1
+
+
+def coded_gemms(cfg) -> int:
+    """Coded GEMMs of one decode round, one kernel-1 launch each in a
+    fused round: wq, wk, wv, w1 and w3 of every layer (whisper: self wq,
+    wk, wv, cross wq and w1); xLSTM: up, wq, wk and wv of every mLSTM
+    block and wx of every sLSTM block."""
+    if cfg.ssm_kind == "xlstm":
+        from repro_torch.models.transformer import xlstm_block_kinds
+        return sum(4 if k == "mlstm" else 1 for k in xlstm_block_kinds(cfg))
+    return 5 * cfg.n_layers
 
 
 N_TOK = 16
@@ -2034,20 +2108,21 @@ def time_kernels(cfg, rows: int = 4) -> list[dict]:
     return out
 
 
-def time_whisper(cfg, rows: int = 4) -> list[dict]:
-    """Kernels 1 and 2 at whisper-medium's decode-round shapes (k = 1024,
-    T = 4, r = 2 folded, 4 rows): kernel 1 at wq and w1, kernel 2 at the
-    head (m_l 12968), beside their plain versions, one torch.matmul of x
-    over the same weights (concatenated) and their bounds."""
+def time_width_kernels(tag: str, shapes: dict, rows: int = 4
+                       ) -> list[dict]:
+    """Kernels 1 and 2 at one model's decode-round shapes (``shapes`` as
+    ``whisper_shapes`` gives them; T = 4, r = 2 folded, 4 rows): kernel 1
+    at each GEMM, kernel 2 at the head, beside their plain versions, one
+    torch.matmul of x over the same weights (concatenated) and their
+    bounds, each logged beside the card's name and power limit."""
     from repro_torch.core.coded_layer import unfold_parity
     from repro_torch.kernels import cdc_decode, cdc_matmul, ref
     gen = torch.Generator(device="cuda").manual_seed(53)
     scratch = torch.empty(64 * 2 ** 20, device="cuda")   # 256 MB > L2
     flush = scratch.zero_
-    k, widths = cfg.d_model, whisper_widths(cfg)
+    card = card_line()
     out = []
-    for name in ("wq", "w1"):
-        m_l = widths[name]
+    for name, (k, m_l) in shapes["gemms"].items():
         spec, x, w, wc = _coded_case(m_l, rows, "folded", gen, k)
         valid = (True,) * T
         wcat = torch.cat([w, unfold_parity(wc, T, R).permute(1, 0, 2)
@@ -2060,38 +2135,51 @@ def time_whisper(cfg, rows: int = 4) -> list[dict]:
         lib = _time(lambda: torch.matmul(x, wcat), flush)
         nbytes = 4 * (rows * k + (T + R) * k * m_l + rows * T * m_l)
         bound, by = _bound(nbytes, 2.0 * rows * k * m_l * (T + R))
-        out.append({"gemm": f"whisper {name}", "r": R, "rows": rows,
+        out.append({"gemm": f"{tag} {name}", "r": R, "rows": rows,
                     "k": k, "m_l": m_l, "ms": ms, "plain_ms": plain,
                     "library_ms": lib, "bound_ms": bound, "bound_by": by,
                     "variant": variant})
-        log(f"cdc_coded_matmul whisper {name} [rows={rows}, k={k}, "
+        log(f"cdc_coded_matmul {tag} {name} [rows={rows}, k={k}, "
             f"m_l={m_l}, T={T}, r={R}]: kernel {ms:.4f} ms, plain "
             f"{plain:.4f} ms, library matmul {lib:.4f} ms, bound "
-            f"{bound:.4f} ms ({by}); {variant}")
+            f"{bound:.4f} ms ({by}); {variant}; {card}")
         del x, w, wc, wcat
-    m_l = widths["lm_head"]
+    k, m_l, vocab = shapes["head"]
     w = torch.randn((k, T * m_l), generator=gen, device="cuda") / k ** 0.5
-    w[:, cfg.vocab:] = 0.0
+    w[:, vocab:] = 0.0
     w_shards, pw = _head_views(w)
     wcat = torch.cat([w, pw], dim=1)
     valid = (True,) * T
     x = torch.randn((rows, k), generator=gen, device="cuda")
     cdc_decode.cdc_fused_head_argmax.variants.clear()
     ms = _time(lambda: cdc_decode.cdc_fused_head_argmax(
-        x, w_shards, pw, valid, vocab=cfg.vocab), flush)
+        x, w_shards, pw, valid, vocab=vocab), flush)
     variant, = cdc_decode.cdc_fused_head_argmax.variants
     plain = _time(lambda: ref.fused_head_argmax_ref(
-        x, w_shards, pw, torch.tensor(valid), cfg.vocab), flush)
+        x, w_shards, pw, torch.tensor(valid), vocab), flush)
     lib = _time(lambda: torch.matmul(x, wcat), flush)
     nbytes = 4 * (rows * k + (T + 1) * k * m_l + 2 * rows)
     bound, by = _bound(nbytes, 2.0 * rows * k * m_l * (T + 1))
-    out.append({"gemm": "whisper lm_head", "rows": rows, "k": k, "m_l": m_l,
+    out.append({"gemm": f"{tag} lm_head", "rows": rows, "k": k, "m_l": m_l,
                 "ms": ms, "plain_ms": plain, "library_ms": lib,
                 "bound_ms": bound, "bound_by": by, "variant": variant})
-    log(f"cdc_fused_head_argmax whisper [b={rows}, k={k}, m_l={m_l}]: "
+    log(f"cdc_fused_head_argmax {tag} [b={rows}, k={k}, m_l={m_l}]: "
         f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library matmul "
-        f"{lib:.4f} ms, bound {bound:.4f} ms ({by}); {variant}")
+        f"{lib:.4f} ms, bound {bound:.4f} ms ({by}); {variant}; {card}")
     return out
+
+
+def time_whisper(cfg, rows: int = 4) -> list[dict]:
+    """``time_width_kernels`` at whisper-medium's widths: kernel 1 at wq
+    and w1 (k = 1024), kernel 2 at the head (m_l 12968)."""
+    return time_width_kernels("whisper", whisper_shapes(cfg), rows)
+
+
+def time_xlstm(cfg, rows: int = 4) -> list[dict]:
+    """``time_width_kernels`` at xlstm-125m's widths: kernel 1 at up (k
+    768, m_l 768) and wq (k 1536, m_l 384), kernel 2 at the head (k 768,
+    m_l 12576)."""
+    return time_width_kernels("xlstm", xlstm_shapes(cfg), rows)
 
 
 def time_wide_and_bf16(cfg, gen, flush, rows: int = 4) -> list[dict]:
@@ -2406,9 +2494,9 @@ def decode_entry(t: int = 12) -> dict:
 # ------------------------------------------------------- phases 8, 9 ----
 
 def _check_launches(name: str, res: dict, cfg, rounds: int, norms: bool):
-    """Every fused round: kernel 1 for wq, wk, wv, w1, w3 of every layer,
+    """Every fused round: kernel 1 for every coded GEMM (``coded_gemms``),
     kernel 2 once; with ``norms``, kernel 6 for every round and prefill."""
-    gemms = 5 * cfg.n_layers
+    gemms = coded_gemms(cfg)
     if res["k1"] != gemms * rounds or res["k2"] != rounds:
         raise AssertionError(f"{name}: {res['k1']} coded-GEMM and "
                              f"{res['k2']} head launches over {rounds} fused "
@@ -2714,9 +2802,12 @@ def scheduler_counters_cpu() -> dict:
 
 
 def _parity_leaves(params) -> list[torch.Tensor]:
+    """Every parity leaf of a param tree (dicts, and xLSTM's block list)."""
+    if isinstance(params, list):
+        return [t for v in params for t in _parity_leaves(v)]
     out = []
     for v in params.values():
-        if isinstance(v, dict):
+        if isinstance(v, (dict, list)):
             out += _parity_leaves(v)
     if "cdc" in params:
         out.append(params["cdc"])
@@ -3405,8 +3496,6 @@ def serve_deepseek() -> dict:
 WHISPER_ARGS = ["--arch", WHISPER, "--coded", "--tp", str(T), "--batch", "4",
                 "--requests", "8", "--arrival-gap-ms", "2", "--prompt-len",
                 "16", "--gen-tokens", "16", "--seed", str(CHAOS_SEED)]
-WHISPER_RUNS = {"fault-free": [], "chaos": ["--chaos", CHAOS]}
-WHISPER_OBS = {"fault-free": ["--perf"], "chaos": []}   # the card's runs
 
 
 def _whisper_round_bytes(stepper, state) -> float:
@@ -3428,66 +3517,71 @@ def _whisper_round_bytes(stepper, state) -> float:
                  * (1 + 1 / stepper.n_shards))
 
 
-def _whisper_scheduler(cfg, model, params) -> dict:
-    """(a) whisper-medium through launch.serve's scheduler (4 slots, 8
-    requests with fresh frames, prompt 16, 16 new tokens) fault-free with
-    --perf and under chaos: every request completes with the fault-free
-    tokens, the counters equal the same runs' at smoke size on the CPU,
-    kernel 4 launches 12 times per encode, kernel 6 never, and the perf
-    line's fused-round bound is within 5% of the weights, bank and cache
-    bytes the round must read."""
+def _family_scheduler(tag: str, cfg, model, params, argv: list[str],
+                      n_leaves: int, least_bytes) -> dict:
+    """A full-width model through launch.serve's scheduler (``argv``: 4
+    slots, 8 requests, prompt 16, 16 new tokens) fault-free with --perf
+    and under --chaos: every request completes with the fault-free tokens,
+    the counters equal the same runs' at smoke size on the CPU, kernel 4
+    launches ``n_leaves`` times per encode, kernel 6 ``norms_per_pass``
+    times per round and prefill, and the perf line's fused-round bound is
+    within 5% of ``least_bytes(stepper, state)`` over the HBM rate."""
     from repro_torch.configs import smoke_config
     from repro_torch.models import TPCtx, build
+    runs_args = {"fault-free": [], "chaos": ["--chaos", CHAOS]}
+    obs_args = {"fault-free": ["--perf"], "chaos": []}   # the card's runs
     cfg_cpu = smoke_config(cfg)
     m_cpu = build(cfg_cpu, TPCtx(tp=T, mode="coded", code_r=R))
     p_cpu = m_cpu.init(0, device="cpu")
-    want = {name: dict(_scheduler_run(m_cpu, p_cpu, WHISPER_ARGS + extra,
+    want = {name: dict(_scheduler_run(m_cpu, p_cpu, argv + extra,
                                       "cpu")[1].metrics.counters)
-            for name, extra in WHISPER_RUNS.items()}
+            for name, extra in runs_args.items()}
     wrappers = _kernel_wrappers()
     runs = {}
-    for name, extra in WHISPER_RUNS.items():
+    for name, extra in runs_args.items():
         for fn in wrappers.values():
             fn.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         stepper, sched, done, obs = _scheduler_run(
-            model, params, WHISPER_ARGS + extra + WHISPER_OBS[name], "cuda",
+            model, params, argv + extra + obs_args[name], "cuda",
             report=True)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         c = dict(sched.metrics.counters)
         launches = {k: fn.launches for k, fn in wrappers.items()}
-        n_leaves = len(_parity_leaves(stepper.params))
+        passes = sched.executor.vstep.n_dispatches + c["requests_admitted"]
         res = {"tokens": {q.rid: list(q.tokens) for q in done},
                "counters": c, "seconds": secs, "launches": launches,
                "round_ms": float(np.median(sched.executor.round_ms)),
-               "graphs": _check_scheduler_graphs(f"whisper {name}", sched,
+               "graphs": _check_scheduler_graphs(f"{tag} {name}", sched,
                                                  stepper, T)}
-        if "--perf" in WHISPER_OBS[name]:
-            least = _whisper_round_bytes(stepper, sched.executor.state)
+        if "--perf" in obs_args[name]:
+            least = least_bytes(stepper, sched.executor.state)
             res.update(_check_observability("fault-free", sched, stepper,
                                             obs, least_bytes=least))
             res["least_bytes"] = least
         if len(done) != 8 or any(len(q.tokens) != 16 for q in done) or \
                 c != want[name]:
-            raise AssertionError(f"whisper {name}: {len(done)}/8 completed, "
+            raise AssertionError(f"{tag} {name}: {len(done)}/8 completed, "
                                  f"counters {c} vs the CPU run's "
                                  f"{want[name]}")
-        if n_leaves != 12 or launches["cdc_encode"] != \
+        if len(_parity_leaves(stepper.params)) != n_leaves or \
+                launches["cdc_encode"] != \
                 n_leaves * (1 + c["parity_reencodes"]) or \
-                launches["rmsnorm"] or not (
+                launches["rmsnorm"] != norms_per_pass(cfg) * passes or not (
                     launches["cdc_coded_matmul"]
                     and launches["cdc_fused_head_argmax"]):
-            raise AssertionError(f"whisper {name}: launches {launches} "
-                                 f"({n_leaves} parity leaves, "
-                                 f"{c['parity_reencodes']} re-encodes)")
+            raise AssertionError(f"{tag} {name}: launches {launches} "
+                                 f"({len(_parity_leaves(stepper.params))} "
+                                 f"parity leaves, {c['parity_reencodes']} "
+                                 f"re-encodes, {passes} passes)")
         if name != "fault-free" and \
                 res["tokens"] != runs["fault-free"]["tokens"]:
-            raise AssertionError(f"whisper {name}: token streams differ "
+            raise AssertionError(f"{tag} {name}: token streams differ "
                                  f"from the fault-free run")
         runs[name] = res
-        log(f"whisper scheduler {name}: 8/8 completed, {c['decode_rounds']}"
+        log(f"{tag} scheduler {name}: 8/8 completed, {c['decode_rounds']}"
             f" rounds in {secs:.2f} s, round_ms median {res['round_ms']:.3f}"
             f", {c['erasures_recovered']} recovered in-step, "
             f"{c['beyond_budget_failures']} beyond budget, "
@@ -3498,9 +3592,19 @@ def _whisper_scheduler(cfg, model, params) -> dict:
     chaos = runs["chaos"]["counters"]
     if not (chaos["erasures_recovered"] and chaos["beyond_budget_failures"]
             and chaos["parity_reencodes"]):
-        raise AssertionError(f"whisper chaos run lacks a recovery, a "
-                             f"requeue or a re-encode: {chaos}")
+        raise AssertionError(f"{tag} chaos run lacks a recovery, a requeue "
+                             f"or a re-encode: {chaos}")
     return runs
+
+
+def _whisper_scheduler(cfg, model, params) -> dict:
+    """(a) whisper-medium through launch.serve's scheduler (4 slots, 8
+    requests with fresh frames, prompt 16, 16 new tokens) fault-free with
+    --perf and under chaos (``_family_scheduler``): 12 kernel-4 launches
+    per encode, kernel 6 never, and the perf line's fused-round bound
+    within 5% of the weights, bank and cache bytes the round must read."""
+    return _family_scheduler("whisper", cfg, model, params, WHISPER_ARGS,
+                             12, _whisper_round_bytes)
 
 
 def _admission_ms(eng, batch, n: int = 3) -> dict:
@@ -3659,6 +3763,279 @@ def serve_whisper() -> dict:
             "vstep": {n: r["vstep"] for n, r in runs.items()}}
 
 
+# ------------------------------------------------------------ phase 14 ----
+
+XLSTM_ARGS = ["--arch", XLSTM, "--coded", "--tp", str(T), "--batch", "4",
+              "--requests", "8", "--arrival-gap-ms", "2", "--prompt-len",
+              "16", "--gen-tokens", "16", "--seed", str(CHAOS_SEED)]
+# the batch's prompt: prefill takes the chunkwise mLSTM form over 3 chunks
+# of 128 (the last padded by 84) and 300 sLSTM steps
+XLSTM_PROMPT = 300
+# passes of the plain mLSTM decode step over its memory C [B, nh, dh, dh]:
+# read and written by the scale, read and written by the rank-1 write,
+# read by the readout (one fused pass would read and write it once: 2)
+MLSTM_MEMORY_PASSES = 5
+
+
+def _xlstm_round_bytes(stepper, state) -> float:
+    """Bytes a fused xLSTM round moves at the least, as the port's plain
+    recurrences run it: every block weight and parity leaf, the LM head
+    and its sum parity (a shard's width), the mLSTM memories
+    ``MLSTM_MEMORY_PASSES`` times and every other block-state leaf read
+    and written once."""
+    def leaves(node):
+        if isinstance(node, dict):
+            node = list(node.values())
+        if isinstance(node, list):
+            return [t for v in node for t in leaves(v)]
+        return [node]
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    head = stepper.params["lm_head"]["w"]
+    memory = [b["c"] for b in state["blocks"] if b["c"].dim() == 4]
+    rest = [t for b in state["blocks"] for key, t in b.items()
+            if key != "c" or t.dim() != 4]
+    return float(nbytes(leaves(stepper.params["blocks"]))
+                 + nbytes([head]) * (1 + 1 / stepper.n_shards)
+                 + MLSTM_MEMORY_PASSES * nbytes(memory) + 2 * nbytes(rest))
+
+
+def _xlstm_scheduler(cfg, model, params) -> dict:
+    """(a) xlstm-125m through launch.serve's scheduler (4 slots, 8
+    requests, prompt 16, 16 new tokens) fault-free with --perf and under
+    chaos (``_family_scheduler``): 46 kernel-4 launches per encode (44
+    mLSTM leaves, wx, the head), kernel 6 once a round and a prefill, and
+    the perf line's fused-round bound within 5% of ``_xlstm_round_bytes``
+    over the HBM rate."""
+    return _family_scheduler("xlstm", cfg, model, params, XLSTM_ARGS,
+                             coded_gemms(cfg) + 1, _xlstm_round_bytes)
+
+
+def _prefill_ms(eng, prompt, n: int = 3) -> float:
+    """Wall ms of one request's admission prefill (``prompt`` through the
+    reference variant into a fresh block state), median of ``n``, each
+    ended by a synchronise."""
+    from repro_torch.runtime.executor import request_batch
+    one = request_batch(prompt)
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.stepper.prefill(one, eng.valid)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def _two_dead_between_replays(cfg, params, prompts) -> dict:
+    """The dedicated layout at r = 2 (two dead shards in budget) on two
+    4-slot pools, graph and eager fused rounds, masks all valid, all
+    valid, shard 2 dead, shards 1 and 2 dead, shard 2 dead, all valid,
+    all valid: the 2-dead round takes the eager reference variant on both
+    pools and writes the block state in place, and the replays after it
+    give the eager rounds' tokens; the block states end equal to the
+    bit."""
+    from repro_torch.models import TPCtx, build
+    from repro_torch.runtime.executor import SlotPoolExecutor
+    from repro_torch.serve import ModelStepper
+    model = build(cfg, TPCtx(tp=T, mode="coded", code_r=R,
+                             code_layout="dedicated"))
+    stepper = ModelStepper(model, params, max_len=64)
+    full = np.ones(T, bool)
+    one = full.copy()
+    one[2] = False
+    two = one.copy()
+    two[1] = False
+    masks = [full, full, one, two, one, full, full]
+    out = {}
+    for graphs in (True, False):
+        ex = SlotPoolExecutor(stepper, 4, overlap=False, use_fused=True,
+                              use_graphs=graphs)
+        first = [ex.admit(i, p[:16], full, tag=i) for i, p in
+                 enumerate(prompts)]
+        toks, variants = [first], []
+        for valid in masks:
+            toks.append([tok for _, _, tok in ex.step_round(valid)])
+            variants.append(ex.vstep.last_variant)
+        out[graphs] = {"tokens": toks, "variants": variants,
+                       "replays": ex.vstep.n_replays, "state": ex.state}
+    g, e = out[True], out[False]
+    want = ["fused"] * 3 + ["reference"] + ["fused"] * 3
+    same = all(torch.equal(a, b) for gb, eb in zip(g["state"]["blocks"],
+                                                   e["state"]["blocks"])
+               for a, b in zip(gb.values(), eb.values()))
+    if g["tokens"] != e["tokens"] or g["variants"] != want or \
+            e["variants"] != want or g["replays"] != 6 or not same:
+        raise AssertionError(f"xlstm 2-dead round between replays: tokens "
+                             f"{g['tokens']} vs eager {e['tokens']}, "
+                             f"variants {g['variants']} / {e['variants']}, "
+                             f"{g['replays']} replays, states equal {same}")
+    log(f"xlstm dedicated r = 2: a 2-dead reference round between graph "
+        f"replays; the replays after it give the eager rounds' tokens "
+        f"{g['tokens'][-1]}, block states equal to the bit")
+    return {"tokens": g["tokens"], "variants": g["variants"],
+            "replays": g["replays"]}
+
+
+def serve_xlstm(cfg=None) -> dict:
+    """xlstm-125m at full width (12 blocks, xLSTM[7:1]: sLSTM at block 7;
+    d 768, 4 heads, up-projection 1536, head width 384, vocab 50304;
+    float32, T = 4, r = 2 folded, seeded random weights). (a)
+    ``_xlstm_scheduler``. (b) One batch of 4 with a 300-token prompt and
+    16 new tokens through ServingEngine.generate, fault-free and with
+    shard 2 killed at step 4, on graph rounds, eager fused rounds, the
+    reference variant and kernel-free (the reference variant with plain
+    norms on parity encoded by kernel 4's plain version: no kernel at
+    all): identical streams; each fused round launches kernel 1 45 times
+    (up, wq, wk, wv of 11 mLSTM blocks, wx of the sLSTM), kernel 2 once
+    and kernel 6 once (every round and prefill: the final norm), one graph
+    is captured per (encode generation, mask) and replayed per fused
+    round; the engine's encode launches kernel 4 46 times; every fused
+    round's max logit (kernel 2's) within 1e-4 of the reference round's.
+    (c) A 2-dead round between replays (``_two_dead_between_replays``).
+    (d) The device ms per round by kernel, the idle share, the round
+    medians, the admission prefill time and peak memory."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import cdc_encode, ops, ref
+    from repro_torch.models import TPCtx, build, transformer
+    from repro_torch.serve import ServeConfig, ServingEngine
+    cfg = cfg or get_arch(XLSTM)
+    torch.cuda.reset_peak_memory_stats()
+    model = build(cfg, TPCtx(tp=T, mode="coded", code_r=R))
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_leaves = coded_gemms(cfg) + 1
+    sched = _xlstm_scheduler(cfg, model, params)
+    torch.cuda.empty_cache()
+    scfg = ServeConfig(max_len=XLSTM_PROMPT + N_TOK + 8, batch=4,
+                       cache_dtype=torch.float32)
+    batch = {"tokens": np.random.default_rng(0).integers(
+        0, cfg.vocab, (4, XLSTM_PROMPT))}
+    rounds, dead = N_TOK - 1, 2
+    down = f"shard {dead} dead"
+    cdc_encode.cdc_encode.launches = 0
+    eng = ServingEngine(model, params, scfg, use_fused=True,
+                        use_graphs=True)
+    k4 = cdc_encode.cdc_encode.launches
+    recs = {}
+    with recorded_rounds() as recs["graph"]:
+        runs = {"graph": _serve_run(eng, batch)}
+        runs[f"graph, {down}"] = _serve_run(eng, batch, fail_at={4: dead})
+    for name in ("graph", f"graph, {down}"):
+        _check_graph_run(f"xlstm {name}", runs[name], 1)
+    eng.valid = np.ones(T, bool)
+    med = {"graph": float(np.median(runs["graph"]["round_ms"]))}
+    prof = {"graph": profile_rounds(eng.executor(4), eng.valid,
+                                    med["graph"])}
+    admission_ms = _prefill_ms(eng, batch["tokens"][0])
+    eng.use_graphs = False
+    runs["eager"] = _serve_run(eng, batch)
+    runs[f"eager, {down}"] = _serve_run(eng, batch, fail_at={4: dead})
+    for name in ("eager", f"eager, {down}"):
+        _check_eager_run(f"xlstm {name}", runs[name])
+    eng.valid = np.ones(T, bool)
+    med["eager"] = float(np.median(runs["eager"]["round_ms"]))
+    prof["eager"] = profile_rounds(eng.executor(4), eng.valid, med["eager"])
+    del eng
+    torch.cuda.empty_cache()
+    ref_eng = ServingEngine(model, params, scfg, use_fused=False)
+    with recorded_rounds() as recs["reference"]:
+        runs["reference"] = _serve_run(ref_eng, batch)
+        runs[f"reference, {down}"] = _serve_run(ref_eng, batch,
+                                                fail_at={4: dead})
+    med["reference"] = float(np.median(runs["reference"]["round_ms"]))
+    del ref_eng
+    torch.cuda.empty_cache()
+    wrappers = _kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    encode, norm = ops.cdc_encode, transformer.rmsnorm
+    ops.cdc_encode = cdc_encode.encode_plain
+    transformer.rmsnorm = lambda p, x, eps: ref.rmsnorm_ref(x, p["g"], eps)
+    try:
+        free_eng = ServingEngine(model, params, scfg, use_fused=False)
+        runs["kernel-free"] = _serve_run(free_eng, batch)
+        runs[f"kernel-free, {down}"] = _serve_run(free_eng, batch,
+                                                  fail_at={4: dead})
+    finally:
+        ops.cdc_encode, transformer.rmsnorm = encode, norm
+    free_launches = {k: fn.launches for k, fn in wrappers.items()}
+    del free_eng
+    torch.cuda.empty_cache()
+    clean = runs["graph"]
+    for name, res in runs.items():
+        if name.startswith(("graph", "eager")):
+            _check_launches(f"xlstm {name}", res, cfg, rounds, norms=True)
+        elif res["k1"] or res["k2"]:
+            raise AssertionError(f"xlstm {name} launched a coded kernel")
+        if not np.array_equal(res["tokens"], clean["tokens"]):
+            raise AssertionError(f"xlstm {name} tokens differ from the "
+                                 f"fault-free graph run:\n{res['tokens']}\n"
+                                 f"vs\n{clean['tokens']}")
+    if any(free_launches.values()):
+        raise AssertionError(f"the xlstm kernel-free runs launched "
+                             f"{free_launches}")
+    if k4 != n_leaves:
+        raise AssertionError(f"xlstm engine: {k4} encode launches "
+                             f"({n_leaves} parity leaves)")
+    # every fused round's max logit (kernel 2's own) against the reference
+    # round's: random-init streams may settle on one token
+    fused_max = torch.stack([m for _, m in recs["graph"]["fused"]])
+    ref_max = torch.stack([lg.max(-1).values
+                           for lg in recs["reference"]["reference"]])
+    torch.testing.assert_close(fused_max, ref_max, **TOL)
+    max_err = float((fused_max - ref_max).abs().max())
+    distinct = len(np.unique(clean["tokens"]))
+    two_dead = _two_dead_between_replays(cfg, params, batch["tokens"])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    meds = {n: float(np.median(r["round_ms"])) for n, r in runs.items()}
+    idle = {k: (1 - p["device_ms"] / med[k]) if p else None
+            for k, p in prof.items()}
+    perf = sched["fault-free"]
+    # the least count with one fused pass over the mLSTM memories (read
+    # and written once) beside the plain step's
+    memory = sum(4 * 4 * cfg.n_heads * (2 * cfg.d_model // cfg.n_heads) ** 2
+                 for kind in transformer.xlstm_block_kinds(cfg)
+                 if kind == "mlstm")
+    least = {"plain_step": perf["least_bytes"],
+             "fused_step": perf["least_bytes"]
+             - (MLSTM_MEMORY_PASSES - 2) * memory, "mlstm_memory": memory}
+    fused = perf["perf"]["fused"]
+    log(f"xlstm perf: fused-round bound {fused['bound_step_s'] * 1e3:.4f} "
+        f"ms on {fused['bytes'] / 1e9:.4f} GB counted; least "
+        f"bytes {least['plain_step'] / 1e9:.4f} GB as the plain step runs "
+        f"({MLSTM_MEMORY_PASSES} passes over {memory / 1e6:.2f} MB of mLSTM "
+        f"memory), {least['fused_step'] / 1e9:.4f} GB with one fused pass "
+        f"({least['fused_step'] / HBM_BYTES_PER_S * 1e3:.4f} ms at the HBM "
+        f"rate)")
+    log(f"served xlstm-125m at full width (params in {init_s:.1f} s): "
+        f"identical streams on graph and eager fused rounds, the reference "
+        f"variant and kernel-free, fault-free and with shard {dead} erased "
+        f"at step 4, after a {XLSTM_PROMPT}-token prefill; per fused round "
+        f"{clean['k1'] // rounds} coded-GEMM ({clean['k1_variants']}) + "
+        f"{clean['k2'] // rounds} head ({clean['k2_variants']}) + "
+        f"{norms_per_pass(cfg)} rmsnorm launches; {k4} encode launches per "
+        f"encode; every fused round's max logit within 1e-4 of the "
+        f"reference round's ({fused_max.numel()} rows, max abs err "
+        f"{max_err:.3e}; {distinct} distinct tokens in the streams); round "
+        f"medians {meds} ms; idle share graph {idle['graph']} / eager "
+        f"{idle['eager']}; admission prefill {admission_ms:.3f} ms; "
+        f"max_memory_allocated {peak:.2f} GiB")
+    log("xlstm first stream:", clean["tokens"][0].tolist())
+    return {"k1": clean["k1"], "k2": clean["k2"], "k6": clean["k6"],
+            "k4_per_encode": k4, "round_ms": meds, "profile": prof,
+            "max_logit_err": max_err, "distinct_tokens": distinct,
+            "idle_share": idle, "admission_ms": admission_ms,
+            "peak_gib": peak, "init_s": init_s, "scheduler": sched,
+            "two_dead": two_dead, "least_bytes": least,
+            "vstep": {n: r["vstep"] for n, r in runs.items()}}
+
+
 # --------------------------------------------------------------- main ----
 
 def main() -> int:
@@ -3729,12 +4106,16 @@ def main() -> int:
     wcfg = get_arch(WHISPER)
     w_err = dict(zip(("cdc_coded_matmul", "cdc_fused_head_argmax",
                       "cdc_encode"), check_whisper_kernels(wcfg)))
+    xcfg = get_arch(XLSTM)
+    x_err = dict(zip(("cdc_coded_matmul", "cdc_fused_head_argmax",
+                      "cdc_encode"), check_xlstm_kernels(xcfg)))
     _phase_memory("kernel checks")
     served = serve_full_width(cfg)
     torch.cuda.empty_cache()
     timed = time_kernels(cfg)
     timed12 = time_t12(cfg)
     timed_w = time_whisper(wcfg)
+    timed_x = time_xlstm(xcfg)
     torch.cuda.empty_cache()
     sched = serve_scheduler(cfg)
     torch.cuda.empty_cache()
@@ -3755,6 +4136,8 @@ def main() -> int:
     _phase_memory("serving deepseek-67b (12 layers)")
     whisper = serve_whisper()
     _phase_memory("serving whisper-medium")
+    xlstm = serve_xlstm()
+    _phase_memory("serving xlstm-125m")
     w1 = timed[0]
     head = next(t for t in timed if t.get("gemm") == "lm_head")
     small = {(t["kernel"], t["shape"]): t for t in timed if "kernel" in t}
@@ -3840,6 +4223,23 @@ def main() -> int:
                     rows_w["whisper lm_head"]),
          "name": "cdc_fused_head_argmax (whisper)"},
     ]
+    # kernels 1 and 2 at xLSTM's widths: launches from its graph run
+    # (phase 14)
+    rows_x = {t["gemm"]: t for t in timed_x}
+    kernels += [
+        {**entry_of("cdc_coded_matmul", "coded_matmul.cuh",
+                    "src/repro/kernels/cdc_matmul.py:130", xlstm["k1"],
+                    x_err["cdc_coded_matmul"], rows_x["xlstm up"]),
+         "name": "cdc_coded_matmul (xlstm, up)"},
+        {**entry_of("cdc_coded_matmul", "coded_matmul.cuh",
+                    "src/repro/kernels/cdc_matmul.py:130", xlstm["k1"],
+                    x_err["cdc_coded_matmul"], rows_x["xlstm wq"]),
+         "name": "cdc_coded_matmul (xlstm, wq)"},
+        {**entry_of("cdc_fused_head_argmax", "fused_head.cuh",
+                    "src/repro/kernels/cdc_decode.py:138", xlstm["k2"],
+                    x_err["cdc_fused_head_argmax"], rows_x["xlstm lm_head"]),
+         "name": "cdc_fused_head_argmax (xlstm)"},
+    ]
     log(card)
     runs = {n: {k: v for k, v in r.items() if k != "tokens"}
             for n, r in sched["runs"].items()}
@@ -3858,7 +4258,9 @@ def main() -> int:
                     "build": build_s, "t12": t12, "h2o": h2o,
                     "deepseek": deepseek,
                     "whisper": {**whisper, "shapes": timed_w,
-                                "max_abs_err": w_err}}, default=str))
+                                "max_abs_err": w_err},
+                    "xlstm": {**xlstm, "shapes": timed_x,
+                              "max_abs_err": x_err}}, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

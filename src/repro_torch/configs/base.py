@@ -4,8 +4,9 @@ A copy of the reference package's ``configs/base.py`` (the dataclass, the
 registry and ``smoke_config``), kept here so that the port imports nothing
 of the reference. Only the architectures the port serves are registered:
 the dense decoders (granite-3-8b, h2o-danube-1.8b and -3-4b, deepseek-67b),
-chameleon-34b, which the reference builds as a dense decoder, and the
-encoder-decoder whisper-medium.
+chameleon-34b, which the reference builds as a dense decoder, the
+encoder-decoder whisper-medium, and the recurrent xlstm-125m (mLSTM and
+sLSTM blocks).
 """
 from __future__ import annotations
 
@@ -88,7 +89,7 @@ def load_all() -> None:
     from repro_torch.configs import (chameleon_34b,  # noqa: F401
                                      deepseek_67b, granite_3_8b,
                                      h2o_danube_1_8b, h2o_danube_3_4b,
-                                     whisper_medium)
+                                     whisper_medium, xlstm_125m)
 
 
 def smoke_config(cfg: ArchConfig) -> ArchConfig:

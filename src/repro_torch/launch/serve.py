@@ -26,11 +26,14 @@ by itself with ``--trace``, ``--metrics-port`` or ``--profile``), and
 ``--profile DIR`` writes a ``torch.profiler`` trace of the run with each
 round annotated as ``decode_round``.
 
-``--arch`` takes every config the port registers: the dense decoders and
-the encoder-decoder whisper-medium, whose requests each carry their own
-encoder frames (the frontend stub), drawn after the request's prompt:
+``--arch`` takes every config the port registers: the dense decoders,
+xlstm-125m (recurrent block state, slot axis 0) and the encoder-decoder
+whisper-medium, whose requests each carry their own encoder frames (the
+frontend stub), drawn after the request's prompt:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \
+      --smoke --coded --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \
       --smoke --coded --device cpu
 
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --coded \

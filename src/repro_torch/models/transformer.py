@@ -1,9 +1,13 @@
-"""Decoder-only LM (dense body): init, forward, decode state, decode step.
+"""Decoder-only LM (dense body or xLSTM): init, forward, decode state,
+decode step.
 
-Layer weights are stacked on a leading [L, ...] axis as in the reference;
-the reference's layer ``scan`` is a Python loop over that axis here, each
-layer reading views of its slice. The validity mask reaches every coded
-GEMM of every layer.
+Dense layer weights are stacked on a leading [L, ...] axis as in the
+reference; the reference's layer ``scan`` is a Python loop over that axis
+here, each layer reading views of its slice. xLSTM is heterogeneous (an
+mLSTM/sLSTM mix): its params and decode state are lists of per-block
+dicts (``params["blocks"]``, ``state["blocks"]``), and its state leads
+with the slot axis. The validity mask reaches every coded GEMM of every
+layer or block.
 """
 from __future__ import annotations
 
@@ -11,19 +15,34 @@ import torch
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import (Params, TPCtx, col_dense,
                                        linear_init, rmsnorm, tree_index)
+
+
+def xlstm_block_kinds(cfg) -> list[str]:
+    """The static mLSTM/sLSTM schedule: every ``slstm_every``-th block is
+    sLSTM (xLSTM[7:1] for the 125m config). Derived from cfg, never
+    stored in the params."""
+    return ["slstm" if cfg.slstm_every and (i + 1) % cfg.slstm_every == 0
+            else "mlstm" for i in range(cfg.n_layers)]
+
+
+def _is_xlstm(cfg) -> bool:
+    return cfg.ssm_kind == "xlstm"
 
 
 def init_params(cfg, gen: torch.Generator, ctx: TPCtx,
                 dtype=torch.float32, device=None) -> Params:
     """Random parameters drawn from ``gen`` on ``device``, in the
-    reference's layout. Dense bodies only: family ``dense``, and ``vlm``
-    (chameleon-34b), which the reference builds as a dense decoder over a
-    shared token vocabulary."""
-    if cfg.family not in ("dense", "vlm") or cfg.n_experts or cfg.ssm_kind:
+    reference's layout. Dense bodies (family ``dense``, and ``vlm``:
+    chameleon-34b, which the reference builds as a dense decoder over a
+    shared token vocabulary) and xLSTM (``ssm_kind == "xlstm"``)."""
+    if not _is_xlstm(cfg) and (cfg.family not in ("dense", "vlm")
+                               or cfg.n_experts or cfg.ssm_kind):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense bodies only)")
+            f"family {cfg.family!r} is not ported yet (dense bodies and "
+            f"xLSTM only)")
     d, L = cfg.d_model, (cfg.n_layers,)
     vocab_pad = ctx.pad_dim(cfg.vocab)
     embed = torch.randn((vocab_pad, d), generator=gen, device=device)
@@ -32,14 +51,19 @@ def init_params(cfg, gen: torch.Generator, ctx: TPCtx,
         "ln_f": {"g": torch.ones(d, device=device)},
         "lm_head": linear_init(gen, d, cfg.vocab, ctx, dtype,
                                scale=1.0 / d ** 0.5, device=device),
-        "layers": {
-            "ln1": {"g": torch.ones(L + (d,), device=device)},
-            "attn": attn_mod.attn_init(gen, cfg, ctx, dtype, layers=L,
-                                       device=device),
-            "ln2": {"g": torch.ones(L + (d,), device=device)},
-            "ffn": ffn_mod.ffn_init(gen, cfg, ctx, dtype, layers=L,
-                                    device=device),
-        },
+    }
+    if _is_xlstm(cfg):
+        params["blocks"] = [
+            xlstm_mod.BLOCKS[kind].init(gen, cfg, ctx, dtype, device)
+            for kind in xlstm_block_kinds(cfg)]
+        return params
+    params["layers"] = {
+        "ln1": {"g": torch.ones(L + (d,), device=device)},
+        "attn": attn_mod.attn_init(gen, cfg, ctx, dtype, layers=L,
+                                   device=device),
+        "ln2": {"g": torch.ones(L + (d,), device=device)},
+        "ffn": ffn_mod.ffn_init(gen, cfg, ctx, dtype, layers=L,
+                                device=device),
     }
     return params
 
@@ -61,9 +85,13 @@ def forward(cfg, params: Params, ctx: TPCtx, tokens: torch.Tensor,
     every position attends the tokens before it (or its window), no
     cache."""
     x = params["embed"][tokens.long()]
-    for i in range(cfg.n_layers):
-        x = _layer_fwd(cfg, ctx, tree_index(params["layers"], i), x, valid,
-                       None, 0, q_chunk, kv_chunk)
+    if _is_xlstm(cfg):
+        for kind, p in zip(xlstm_block_kinds(cfg), params["blocks"]):
+            x, _ = xlstm_mod.BLOCKS[kind].apply(ctx, p, cfg, x, valid)
+    else:
+        for i in range(cfg.n_layers):
+            x = _layer_fwd(cfg, ctx, tree_index(params["layers"], i), x,
+                           valid, None, 0, q_chunk, kv_chunk)
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
     logits = col_dense(ctx, params["lm_head"], x, cfg.vocab, valid)
     return logits.to(torch.float32)
@@ -72,7 +100,12 @@ def forward(cfg, params: Params, ctx: TPCtx, tokens: torch.Tensor,
 def init_decode_state(cfg, ctx: TPCtx, batch: int, max_len: int,
                       dtype=torch.float32, device=None) -> Params:
     """{"kv": {"k","v": [L,B,C,Hkv,hd], "pos": [L,B,C], "len": [L,B]}},
-    the per-row (slot-batched) layout."""
+    the per-row (slot-batched) layout; for xLSTM {"blocks": [one state
+    per block, batch axis leading]} (positionless: ``max_len`` and
+    ``dtype`` do not apply, the recurrences run in float32)."""
+    if _is_xlstm(cfg):
+        return {"blocks": [xlstm_mod.BLOCKS[kind].state(cfg, batch, device)
+                           for kind in xlstm_block_kinds(cfg)]}
     return {"kv": attn_mod.init_cache(cfg, batch, max_len, dtype, tp=ctx.tp,
                                       layers=(cfg.n_layers,),
                                       device=device)}
@@ -81,21 +114,27 @@ def init_decode_state(cfg, ctx: TPCtx, batch: int, max_len: int,
 def decode_step(cfg, params: Params, ctx: TPCtx, state: Params,
                 tokens: torch.Tensor, valid=None, *, kv_chunk: int = 1024,
                 last_only: bool = False, return_hidden: bool = False):
-    """tokens: [B, s] -> (logits [B, s, V] f32, state); the KV cache in
-    ``state`` is updated in place and returned.
+    """tokens: [B, s] -> (logits [B, s, V] f32, state); the KV cache (or
+    the xLSTM block states) in ``state`` is updated in place and
+    returned.
 
     last_only: logits for the final position only. return_hidden: skip
     the LM head and return the post-ln_f hidden states (the fused round
     feeds them to the fused head kernel)."""
     x = params["embed"][tokens.long()]
-    kv = state["kv"]
-    s = tokens.shape[1]
-    pos = kv["len"][0].clone()          # [B]; the same for every layer
-    for i in range(cfg.n_layers):
-        cache = {name: kv[name][i] for name in ("k", "v", "pos", "len")}
-        x = _layer_fwd(cfg, ctx, tree_index(params["layers"], i), x, valid,
-                       cache, pos, s, kv_chunk)
-    kv["len"] += s
+    if _is_xlstm(cfg):
+        for kind, p, st in zip(xlstm_block_kinds(cfg), params["blocks"],
+                               state["blocks"]):
+            x, _ = xlstm_mod.BLOCKS[kind].apply(ctx, p, cfg, x, valid, st)
+    else:
+        kv = state["kv"]
+        s = tokens.shape[1]
+        pos = kv["len"][0].clone()      # [B]; the same for every layer
+        for i in range(cfg.n_layers):
+            cache = {name: kv[name][i] for name in ("k", "v", "pos", "len")}
+            x = _layer_fwd(cfg, ctx, tree_index(params["layers"], i), x,
+                           valid, cache, pos, s, kv_chunk)
+        kv["len"] += s
     if last_only:
         x = x[:, -1:]
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)

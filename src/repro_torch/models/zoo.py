@@ -1,11 +1,14 @@
-"""Uniform model API over the ported families: dense decoders and the
-encoder-decoder (whisper).
+"""Uniform model API over the ported families: dense decoders, the
+encoder-decoder (whisper) and xLSTM.
 
 Model(cfg, ctx) exposes init / encode_offline / forward / init_decode /
 decode with the reference's signatures, plus an explicit device.
 ``batch`` is a dict: {"tokens": [B, S]}, and whisper adds {"frames": [B,
 enc_seq, D]} (the frontend stub). ``init`` defaults to the CUDA device
-and raises without one; pass device="cpu" to run there.
+and raises without one; pass device="cpu" to run there. An xLSTM decode
+state is a list of per-block recurrent states with the batch (slot) axis
+leading, independent of ``max_len``; ``init_decode`` and
+``empty_decode`` build it as ``transformer.init_decode_state`` does.
 """
 from __future__ import annotations
 

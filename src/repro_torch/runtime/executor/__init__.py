@@ -4,9 +4,10 @@ and ``pool`` dispatches rounds and harvests their tokens."""
 from repro_torch.runtime.executor.pool import RoundHandle, SlotPoolExecutor
 from repro_torch.runtime.executor.slotbatch import (blank_state,
                                                     clone_state, read_slot,
-                                                    request_batch,
+                                                    request_batch, slot_axis,
                                                     write_slot)
 from repro_torch.runtime.executor.vstep import VStep
 
 __all__ = ["RoundHandle", "SlotPoolExecutor", "VStep", "blank_state",
-           "clone_state", "read_slot", "request_batch", "write_slot"]
+           "clone_state", "read_slot", "request_batch", "slot_axis",
+           "write_slot"]

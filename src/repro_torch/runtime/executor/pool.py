@@ -43,7 +43,7 @@ import torch
 
 from repro_torch.obs.tracer import NULL_RECORDER
 from repro_torch.runtime.executor.slotbatch import (blank_state,
-                                                    request_batch,
+                                                    request_batch, slot_axis,
                                                     write_slot)
 from repro_torch.runtime.executor.vstep import VStep
 
@@ -73,6 +73,7 @@ class SlotPoolExecutor:
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
         self.stepper = stepper
+        self.slot_axis = slot_axis(stepper.model)
         self.n_slots = int(n_slots)
         self.overlap = bool(overlap)
         self.perf = perf
@@ -104,7 +105,7 @@ class SlotPoolExecutor:
         logits, row = self.stepper.prefill(request_batch(prompt, extras),
                                            valid)
         tok = self.stepper.greedy(logits)                     # [1, 1]
-        self.state = write_slot(self.state, slot, row)
+        self.state = write_slot(self.state, slot, row, axis=self.slot_axis)
         self.last_toks[slot] = tok[0]
         self.active[slot] = True
         self.tags[slot] = tag

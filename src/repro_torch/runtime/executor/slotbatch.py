@@ -1,16 +1,23 @@
 """Stack decode-slot states into one slot-batched state.
 
-Every decode-state leaf is laid out [L(layers), B(slots), ...], so the
-batch axis IS the slot axis (``SLOT_AXIS == 1``). With the per-row cache
-each row carries its own KV length and positions, so rows decode at
-independent positions in one round. Enc-dec states also carry the per-slot
-cross-attention bank (the encoder-derived K/V [L, B, Se, Hkv, hd] and
-positions [L, B, Se]), written row-wise at admission: the encoder runs
-once per request, and the bank holds decoded (r-independent) values, so a
-re-encode or ``set_code_r`` keeps it valid; the 2MR requeue path re-admits
-the request and so runs its encoder again. Admission overwrites one row in
-place, so the stacked state keeps its addresses (a captured round stays
-valid across admissions).
+Two layouts cover the ported families:
+
+  * dense and enc-dec: every decode-state leaf is laid out [L(layers),
+    B(slots), ...], so the batch axis IS the slot axis (``SLOT_AXIS ==
+    1``). With the per-row cache each row carries its own KV length and
+    positions, so rows decode at independent positions in one round.
+    Enc-dec states also carry the per-slot cross-attention bank (the
+    encoder-derived K/V [L, B, Se, Hkv, hd] and positions [L, B, Se]),
+    written row-wise at admission: the encoder runs once per request, and
+    the bank holds decoded (r-independent) values, so a re-encode or
+    ``set_code_r`` keeps it valid; the 2MR requeue path re-admits the
+    request and so runs its encoder again.
+  * xLSTM: the state is a list of per-block recurrent states whose leaves
+    lead with the batch axis (slot axis 0, ``slot_axis``); a round
+    overwrites every row's state instead of appending by position.
+
+Admission overwrites one row in place, so the stacked state keeps its
+addresses (a captured round stays valid across admissions).
 """
 from __future__ import annotations
 
@@ -22,9 +29,18 @@ import torch
 SLOT_AXIS = 1
 
 
+def slot_axis(model) -> int:
+    """Which leaf axis indexes slots for this family: 0 for xLSTM (block
+    state has no leading layer axis), 1 ([L, B, ...]) for everything
+    else."""
+    return 0 if model.cfg.ssm_kind == "xlstm" else SLOT_AXIS
+
+
 def _map(fn, *trees):
     if isinstance(trees[0], dict):
         return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    if isinstance(trees[0], list):
+        return [_map(fn, *sub) for sub in zip(*trees)]
     return fn(*trees)
 
 
@@ -43,7 +59,8 @@ def blank_state(stepper, n_slots: int) -> Any:
     from the state's layout without running the model (for an enc-dec, no
     encoder over zero frames). Admission overwrites a row wholesale before
     it is read; never-admitted rows step through decode harmlessly (as in
-    the reference, whose blank state is zeros of the same shapes)."""
+    the reference, whose blank state is zeros of the same shapes: an
+    xLSTM row's stabilizer m is 0 here, not -1e30)."""
     state = stepper.model.empty_decode(n_slots, stepper.max_len,
                                        stepper.cache_dtype, stepper.device)
     return _map(torch.zeros_like, state)

@@ -34,7 +34,8 @@ class ServeConfig:
 
 class ModelStepper:
     """Thin model stepper the runtime drives. Slot states are caller-owned
-    dicts of tensors (the per-row KV cache layout)."""
+    trees of tensors (the per-row KV cache layout, or xLSTM's list of
+    block states)."""
 
     def __init__(self, model: Model, params, max_len: int,
                  cache_dtype: Any = torch.float32, tracer=None):
@@ -89,7 +90,7 @@ class ModelStepper:
 
     def set_code_r(self, code_r: int) -> bool:
         """Re-size the parity budget and re-encode; returns True iff the
-        code geometry changed. KV states are r-independent."""
+        code geometry changed. Decode states are r-independent."""
         code_r = int(code_r)
         if code_r < 0:
             raise ValueError(f"code_r must be >= 0, got {code_r}")

@@ -33,7 +33,7 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 # every config the port registers (whisper-medium's model is held against
 # the reference in tests/test_torch_encdec.py)
 NAMES = ("granite-3-8b", "h2o-danube-1.8b", "h2o-danube-3-4b",
-         "deepseek-67b", "chameleon-34b", "whisper-medium")
+         "deepseek-67b", "chameleon-34b", "whisper-medium", "xlstm-125m")
 
 
 def masks(t):
@@ -82,12 +82,12 @@ def test_attn_dims_follow_the_reference():
 
 
 def test_init_refuses_other_families():
-    """Dense bodies only: the port still refuses MoE, hybrid, SSM and
-    audio families."""
+    """Dense bodies and xLSTM only: the port still refuses the MoE,
+    hybrid and audio families (an audio config without an encoder)."""
     base = get_arch("granite-3-8b")
     for kw in ({"family": "moe", "n_experts": 8}, {"family": "hybrid",
                                                    "ssm_kind": "mamba"},
-               {"family": "ssm", "ssm_kind": "xlstm"}, {"family": "audio"}):
+               {"family": "audio"}):
         cfg = smoke_config(dataclasses.replace(base, **kw))
         with pytest.raises(NotImplementedError, match="not ported"):
             build(cfg, TPCtx()).init(0, device="cpu")

@@ -16,7 +16,8 @@ import torch
 from repro_torch.configs import get_arch, smoke_config
 from repro_torch.kernels import accounting, cdc_decode, cdc_matmul, ref
 from repro_torch.models import TPCtx, attention, build
-from repro_torch.runtime.executor import SlotPoolExecutor, clone_state, vstep
+from repro_torch.runtime.executor import (SlotPoolExecutor, clone_state,
+                                          slotbatch, vstep)
 from repro_torch.serve import ModelStepper
 
 T, R = 4, 2
@@ -44,8 +45,8 @@ class RecorderGraph:
         saved = clone_state(state), toks.clone()
         self.fn, self.args = fn, args
         self.outputs = fn(*args)
-        for name, t in saved[0]["kv"].items():
-            state["kv"][name].copy_(t)
+        # whatever the state's tree (a KV cache, a bank, block states)
+        slotbatch._map(torch.Tensor.copy_, state, saved[0])
         toks.copy_(saved[1])
 
     def replay(self):
@@ -146,6 +147,35 @@ def test_whisper_replayed_tokens_equal_eager_and_reference(recorder):
         if graphs:
             assert pool.vstep.n_captures == 3
             assert pool.vstep.n_replays == len(MASKS)
+    assert runs["graph"] == runs["eager"] == runs["reference"]
+
+
+def test_xlstm_replayed_tokens_equal_eager_and_reference(recorder):
+    """xLSTM (smoke; dedicated r = 2, so two dead shards are in budget)
+    through the graph policy: the block state (slot axis 0) is written in
+    place by every replay and by the eager reference round a 2-dead mask
+    takes between replays, so the replays after it read the state that
+    round left. Replayed tokens equal the eager fused rounds' and the
+    reference variant's across the mask changes; one capture per mask
+    with at most one dead shard."""
+    stepper, cfg = _stepper("dedicated", arch="xlstm-125m")
+    masks = [ALL, ALL, _dead(1), _dead(1, 3), _dead(1), ALL, _dead(2),
+             _dead(0, 2), ALL]
+    runs = {}
+    for name, fused, graphs in (("graph", True, True),
+                                ("eager", True, False),
+                                ("reference", False, False)):
+        pool = SlotPoolExecutor(stepper, N_SLOTS, overlap=False,
+                                use_fused=fused, use_graphs=graphs)
+        ptrs = [t.data_ptr() for b in pool.state["blocks"]
+                for t in b.values()]
+        runs[name] = _serve(pool, cfg, masks)
+        assert pool.slot_axis == 0 and ptrs == [
+            t.data_ptr() for b in pool.state["blocks"] for t in b.values()]
+        if graphs:
+            assert pool.vstep.n_captures == 3
+            assert pool.vstep.n_replays == len(masks) - 2
+            assert pool.vstep.n_fused_rounds == len(masks) - 2
     assert runs["graph"] == runs["eager"] == runs["reference"]
 
 
