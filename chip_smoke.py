@@ -169,6 +169,27 @@ and phase 7 drives kernels 3 and 5's library entries at T = 12. Then:
      2 and 4 at xLSTM's widths (up: k 768, m_l 768; wq: k 1536, m_l 384;
      the head: k 768, m_l 12576) against their plain versions, and phase 4
      times kernels 1 and 2 there.
+ 15. hymba-1.5b at full width (32 layers of SWA attention, window 1024,
+     beside a mamba branch; d 1600, 25/5 heads of 64 run as 28/7 at T =
+     4, d_ff 5504, vocab 32001, SSM state 16; float32, T = 4, r = 2
+     folded, seeded random weights): (a) launch.serve's scheduler as in
+     phase 14, 7 kernel-4 launches per encode, kernel 6 65 times a round
+     and a prefill, the perf line's fused-round bound within 5% of the
+     weights, the KV cache and the mamba state as the plain step moves it;
+     (b) one batch of 4 with a 1016-token prompt and 16 new tokens (the
+     1024-entry ring wraps while the SSM state carries the whole history),
+     fault-free and with shard 2 killed at step 4, on graph rounds, eager
+     fused rounds, the reference variant and kernel-free: identical
+     streams, every fused round's max logit within 1e-4 of the reference
+     round's, 192 / 1 / 65 launches of kernels 1, 2 and 6 a fused round,
+     none of kernel 1's on the ordinary-load producer, and the fused
+     round's perf bound within 5% of the weights, the 1024-entry window
+     and the mamba state; (c) a 2-dead reference round between graph
+     replays at dedicated r = 2, which leaves the state's own tensors;
+     (d) as phase 14's. Phase 2 also holds kernels 1, 2 and 4 at hymba's
+     widths (k 1600; wk m_l 112, in_proj 800, w1 1376; the head m_l 8004)
+     against their plain versions, and phase 4 times kernels 1 and 2
+     there.
 Phases 3 and 5 also count the RMSNorm kernel: 2 x 40 + 1 = 81 launches
 per decode round (fused and reference variants) and per prefill.
 Peak device memory is printed per phase. The line before the last is the
@@ -1491,6 +1512,7 @@ def check_encode_any() -> tuple[float, float]:
 
 WHISPER = "whisper-medium"
 XLSTM = "xlstm-125m"
+HYMBA = "hymba-1.5b"
 
 
 def whisper_widths(cfg) -> dict:
@@ -1526,6 +1548,25 @@ def xlstm_shapes(cfg) -> dict:
     return {"gemms": {"up": (d, up), "wq": (2 * d, wq)},
             "head": (d, head, cfg.vocab),
             "encode": [(d, T * up), (2 * d, T * wq), (d, T * head)]}
+
+
+def hymba_shapes(cfg) -> dict:
+    """The same at hymba-1.5b's widths (T = 4, k = d = 1600): kernel 1 at
+    wk (and wv: 7 KV heads of 64, m_l 112, 28-column folded slices),
+    in_proj (m_l 800) and w1 (and w3: m_l 1376), kernel 2 at the head
+    (32001 words padded to 32016, m_l 8004), kernel 4 at the stacked
+    leaves (wq, wk, in_proj, w1 over 32 layers) and the head."""
+    from repro_torch.models.attention import attn_dims
+    from repro_torch.models.common import TPCtx
+    ctx, d, L = TPCtx(tp=T), cfg.d_model, cfg.n_layers
+    hq, hkv, _ = attn_dims(cfg, T)
+    wq, wk = ctx.pad_dim(hq * cfg.hd) // T, ctx.pad_dim(hkv * cfg.hd) // T
+    inp, w1 = ctx.pad_dim(2 * d) // T, ctx.pad_dim(cfg.d_ff) // T
+    head = ctx.pad_dim(cfg.vocab) // T
+    return {"gemms": {"wk": (d, wk), "in_proj": (d, inp), "w1": (d, w1)},
+            "head": (d, head, cfg.vocab),
+            "encode": [(L, d, T * wq), (L, d, T * wk), (L, d, T * inp),
+                       (L, d, T * w1), (d, T * head)]}
 
 
 def check_width_kernels(tag: str, shapes: dict
@@ -1637,6 +1678,11 @@ def check_xlstm_kernels(cfg) -> tuple[float, float, float]:
     return check_width_kernels("xlstm", xlstm_shapes(cfg))
 
 
+def check_hymba_kernels(cfg) -> tuple[float, float, float]:
+    """``check_width_kernels`` at hymba-1.5b's widths (``hymba_shapes``)."""
+    return check_width_kernels("hymba", hymba_shapes(cfg))
+
+
 def _phase_memory(name: str):
     log(f"{name}: max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
@@ -1659,12 +1705,13 @@ def norms_per_pass(cfg) -> int:
 def coded_gemms(cfg) -> int:
     """Coded GEMMs of one decode round, one kernel-1 launch each in a
     fused round: wq, wk, wv, w1 and w3 of every layer (whisper: self wq,
-    wk, wv, cross wq and w1); xLSTM: up, wq, wk and wv of every mLSTM
-    block and wx of every sLSTM block."""
+    wk, wv, cross wq and w1; the hybrid adds the mamba branch's in_proj);
+    xLSTM: up, wq, wk and wv of every mLSTM block and wx of every sLSTM
+    block."""
     if cfg.ssm_kind == "xlstm":
         from repro_torch.models.transformer import xlstm_block_kinds
         return sum(4 if k == "mlstm" else 1 for k in xlstm_block_kinds(cfg))
-    return 5 * cfg.n_layers
+    return (6 if cfg.family == "hybrid" else 5) * cfg.n_layers
 
 
 N_TOK = 16
@@ -2180,6 +2227,13 @@ def time_xlstm(cfg, rows: int = 4) -> list[dict]:
     768, m_l 768) and wq (k 1536, m_l 384), kernel 2 at the head (k 768,
     m_l 12576)."""
     return time_width_kernels("xlstm", xlstm_shapes(cfg), rows)
+
+
+def time_hymba(cfg, rows: int = 4) -> list[dict]:
+    """``time_width_kernels`` at hymba-1.5b's widths: kernel 1 at wk (m_l
+    112), in_proj (800) and w1 (1376), k 1600; kernel 2 at the head (k
+    1600, m_l 8004)."""
+    return time_width_kernels("hymba", hymba_shapes(cfg), rows)
 
 
 def time_wide_and_bf16(cfg, gen, flush, rows: int = 4) -> list[dict]:
@@ -3829,14 +3883,24 @@ def _prefill_ms(eng, prompt, n: int = 3) -> float:
     return float(np.median(times))
 
 
-def _two_dead_between_replays(cfg, params, prompts) -> dict:
+def _state_leaves(state) -> list[torch.Tensor]:
+    """Every tensor of a decode state (dicts and xLSTM's block list), in a
+    fixed order."""
+    if isinstance(state, dict):
+        return [t for k in sorted(state) for t in _state_leaves(state[k])]
+    if isinstance(state, list):
+        return [t for v in state for t in _state_leaves(v)]
+    return [state]
+
+
+def _two_dead_between_replays(tag: str, cfg, params, prompts) -> dict:
     """The dedicated layout at r = 2 (two dead shards in budget) on two
     4-slot pools, graph and eager fused rounds, masks all valid, all
     valid, shard 2 dead, shards 1 and 2 dead, shard 2 dead, all valid,
     all valid: the 2-dead round takes the eager reference variant on both
-    pools and writes the block state in place, and the replays after it
-    give the eager rounds' tokens; the block states end equal to the
-    bit."""
+    pools and writes the state in place (every leaf of the graph pool's
+    state keeps its address), and the replays after it give the eager
+    rounds' tokens; the states end equal to the bit."""
     from repro_torch.models import TPCtx, build
     from repro_torch.runtime.executor import SlotPoolExecutor
     from repro_torch.serve import ModelStepper
@@ -3855,67 +3919,58 @@ def _two_dead_between_replays(cfg, params, prompts) -> dict:
                               use_graphs=graphs)
         first = [ex.admit(i, p[:16], full, tag=i) for i, p in
                  enumerate(prompts)]
+        ptrs = [t.data_ptr() for t in _state_leaves(ex.state)]
         toks, variants = [first], []
         for valid in masks:
             toks.append([tok for _, _, tok in ex.step_round(valid)])
             variants.append(ex.vstep.last_variant)
         out[graphs] = {"tokens": toks, "variants": variants,
-                       "replays": ex.vstep.n_replays, "state": ex.state}
+                       "replays": ex.vstep.n_replays, "state": ex.state,
+                       "in_place": ptrs == [t.data_ptr() for t in
+                                            _state_leaves(ex.state)]}
     g, e = out[True], out[False]
     want = ["fused"] * 3 + ["reference"] + ["fused"] * 3
-    same = all(torch.equal(a, b) for gb, eb in zip(g["state"]["blocks"],
-                                                   e["state"]["blocks"])
-               for a, b in zip(gb.values(), eb.values()))
+    same = all(torch.equal(a, b) for a, b in zip(_state_leaves(g["state"]),
+                                                 _state_leaves(e["state"])))
     if g["tokens"] != e["tokens"] or g["variants"] != want or \
-            e["variants"] != want or g["replays"] != 6 or not same:
-        raise AssertionError(f"xlstm 2-dead round between replays: tokens "
+            e["variants"] != want or g["replays"] != 6 or not same or \
+            not (g["in_place"] and e["in_place"]):
+        raise AssertionError(f"{tag} 2-dead round between replays: tokens "
                              f"{g['tokens']} vs eager {e['tokens']}, "
                              f"variants {g['variants']} / {e['variants']}, "
-                             f"{g['replays']} replays, states equal {same}")
-    log(f"xlstm dedicated r = 2: a 2-dead reference round between graph "
-        f"replays; the replays after it give the eager rounds' tokens "
-        f"{g['tokens'][-1]}, block states equal to the bit")
+                             f"{g['replays']} replays, states equal {same}, "
+                             f"in place {g['in_place']} / {e['in_place']}")
+    log(f"{tag} dedicated r = 2: a 2-dead reference round between graph "
+        f"replays leaves the state's own tensors; the replays after it "
+        f"give the eager rounds' tokens {g['tokens'][-1]}, states equal to "
+        f"the bit")
     return {"tokens": g["tokens"], "variants": g["variants"],
             "replays": g["replays"]}
 
 
-def serve_xlstm(cfg=None) -> dict:
-    """xlstm-125m at full width (12 blocks, xLSTM[7:1]: sLSTM at block 7;
-    d 768, 4 heads, up-projection 1536, head width 384, vocab 50304;
-    float32, T = 4, r = 2 folded, seeded random weights). (a)
-    ``_xlstm_scheduler``. (b) One batch of 4 with a 300-token prompt and
-    16 new tokens through ServingEngine.generate, fault-free and with
-    shard 2 killed at step 4, on graph rounds, eager fused rounds, the
-    reference variant and kernel-free (the reference variant with plain
-    norms on parity encoded by kernel 4's plain version: no kernel at
-    all): identical streams; each fused round launches kernel 1 45 times
-    (up, wq, wk, wv of 11 mLSTM blocks, wx of the sLSTM), kernel 2 once
-    and kernel 6 once (every round and prefill: the final norm), one graph
-    is captured per (encode generation, mask) and replayed per fused
-    round; the engine's encode launches kernel 4 46 times; every fused
-    round's max logit (kernel 2's) within 1e-4 of the reference round's.
-    (c) A 2-dead round between replays (``_two_dead_between_replays``).
-    (d) The device ms per round by kernel, the idle share, the round
-    medians, the admission prefill time and peak memory."""
-    from repro_torch.configs import get_arch
+def _serve_one_batch(tag: str, cfg, model, params, prompt_len: int,
+                     n_leaves: int, on_engine=None) -> dict:
+    """(b) and (d) of phases 14 and 15: one batch of 4 seeded prompts of
+    ``prompt_len`` tokens and 16 new tokens through ServingEngine.generate,
+    fault-free and with shard 2 killed at step 4, on graph rounds, eager
+    fused rounds, the reference variant and kernel-free (the reference
+    variant with plain norms on parity encoded by kernel 4's plain version:
+    no kernel at all): identical streams; each fused round launches kernel
+    1 ``coded_gemms`` times, kernel 2 once and kernel 6 ``norms_per_pass``
+    times (and every prefill), one graph is captured per (encode
+    generation, mask) and replayed per fused round; the engine's encode
+    launches kernel 4 ``n_leaves`` times; every fused round's max logit
+    (kernel 2's) within 1e-4 of the reference round's. ``on_engine(eng)``
+    runs on the graph engine after its runs. Also the device ms per round
+    by kernel, the idle share, the round medians and the admission
+    prefill time."""
     from repro_torch.kernels import cdc_encode, ops, ref
-    from repro_torch.models import TPCtx, build, transformer
+    from repro_torch.models import transformer
     from repro_torch.serve import ServeConfig, ServingEngine
-    cfg = cfg or get_arch(XLSTM)
-    torch.cuda.reset_peak_memory_stats()
-    model = build(cfg, TPCtx(tp=T, mode="coded", code_r=R))
-    t0 = time.perf_counter()
-    params = model.init(torch.Generator(device="cuda").manual_seed(0),
-                        device="cuda")
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_leaves = coded_gemms(cfg) + 1
-    sched = _xlstm_scheduler(cfg, model, params)
-    torch.cuda.empty_cache()
-    scfg = ServeConfig(max_len=XLSTM_PROMPT + N_TOK + 8, batch=4,
+    scfg = ServeConfig(max_len=prompt_len + N_TOK + 8, batch=4,
                        cache_dtype=torch.float32)
     batch = {"tokens": np.random.default_rng(0).integers(
-        0, cfg.vocab, (4, XLSTM_PROMPT))}
+        0, cfg.vocab, (4, prompt_len))}
     rounds, dead = N_TOK - 1, 2
     down = f"shard {dead} dead"
     cdc_encode.cdc_encode.launches = 0
@@ -3927,17 +3982,18 @@ def serve_xlstm(cfg=None) -> dict:
         runs = {"graph": _serve_run(eng, batch)}
         runs[f"graph, {down}"] = _serve_run(eng, batch, fail_at={4: dead})
     for name in ("graph", f"graph, {down}"):
-        _check_graph_run(f"xlstm {name}", runs[name], 1)
+        _check_graph_run(f"{tag} {name}", runs[name], 1)
     eng.valid = np.ones(T, bool)
     med = {"graph": float(np.median(runs["graph"]["round_ms"]))}
     prof = {"graph": profile_rounds(eng.executor(4), eng.valid,
                                     med["graph"])}
     admission_ms = _prefill_ms(eng, batch["tokens"][0])
+    extra = on_engine(eng) if on_engine is not None else None
     eng.use_graphs = False
     runs["eager"] = _serve_run(eng, batch)
     runs[f"eager, {down}"] = _serve_run(eng, batch, fail_at={4: dead})
     for name in ("eager", f"eager, {down}"):
-        _check_eager_run(f"xlstm {name}", runs[name])
+        _check_eager_run(f"{tag} {name}", runs[name])
     eng.valid = np.ones(T, bool)
     med["eager"] = float(np.median(runs["eager"]["round_ms"]))
     prof["eager"] = profile_rounds(eng.executor(4), eng.valid, med["eager"])
@@ -3970,18 +4026,18 @@ def serve_xlstm(cfg=None) -> dict:
     clean = runs["graph"]
     for name, res in runs.items():
         if name.startswith(("graph", "eager")):
-            _check_launches(f"xlstm {name}", res, cfg, rounds, norms=True)
+            _check_launches(f"{tag} {name}", res, cfg, rounds, norms=True)
         elif res["k1"] or res["k2"]:
-            raise AssertionError(f"xlstm {name} launched a coded kernel")
+            raise AssertionError(f"{tag} {name} launched a coded kernel")
         if not np.array_equal(res["tokens"], clean["tokens"]):
-            raise AssertionError(f"xlstm {name} tokens differ from the "
+            raise AssertionError(f"{tag} {name} tokens differ from the "
                                  f"fault-free graph run:\n{res['tokens']}\n"
                                  f"vs\n{clean['tokens']}")
     if any(free_launches.values()):
-        raise AssertionError(f"the xlstm kernel-free runs launched "
+        raise AssertionError(f"the {tag} kernel-free runs launched "
                              f"{free_launches}")
     if k4 != n_leaves:
-        raise AssertionError(f"xlstm engine: {k4} encode launches "
+        raise AssertionError(f"{tag} engine: {k4} encode launches "
                              f"({n_leaves} parity leaves)")
     # every fused round's max logit (kernel 2's own) against the reference
     # round's: random-init streams may settle on one token
@@ -3989,13 +4045,82 @@ def serve_xlstm(cfg=None) -> dict:
     ref_max = torch.stack([lg.max(-1).values
                            for lg in recs["reference"]["reference"]])
     torch.testing.assert_close(fused_max, ref_max, **TOL)
-    max_err = float((fused_max - ref_max).abs().max())
-    distinct = len(np.unique(clean["tokens"]))
-    two_dead = _two_dead_between_replays(cfg, params, batch["tokens"])
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     meds = {n: float(np.median(r["round_ms"])) for n, r in runs.items()}
-    idle = {k: (1 - p["device_ms"] / med[k]) if p else None
-            for k, p in prof.items()}
+    return {"clean": clean, "prompts": batch["tokens"], "k4": k4,
+            "round_ms": meds, "profile": prof,
+            "idle_share": {k: (1 - p["device_ms"] / med[k]) if p else None
+                           for k, p in prof.items()},
+            "max_logit_err": float((fused_max - ref_max).abs().max()),
+            "rows": fused_max.numel(),
+            "distinct_tokens": len(np.unique(clean["tokens"])),
+            "admission_ms": admission_ms, "on_engine": extra,
+            "vstep": {n: r["vstep"] for n, r in runs.items()}}
+
+
+def _summary(one: dict) -> dict:
+    """What a family phase returns of ``_serve_one_batch``'s result."""
+    clean = one["clean"]
+    return {"k1": clean["k1"], "k2": clean["k2"], "k6": clean["k6"],
+            "k4_per_encode": one["k4"],
+            **{k: one[k] for k in ("round_ms", "profile", "max_logit_err",
+                                   "distinct_tokens", "idle_share",
+                                   "admission_ms", "vstep")}}
+
+
+def _served_line(tag: str, cfg, one: dict, what: str, init_s: float,
+                 peak: float):
+    clean, rounds = one["clean"], N_TOK - 1
+    log(f"served {cfg.name} at full width (params in {init_s:.1f} s): "
+        f"identical streams on graph and eager fused rounds, the reference "
+        f"variant and kernel-free, fault-free and with shard 2 erased at "
+        f"step 4, after {what}; per fused round {clean['k1'] // rounds} "
+        f"coded-GEMM ({clean['k1_variants']}) + {clean['k2'] // rounds} "
+        f"head ({clean['k2_variants']}) + {norms_per_pass(cfg)} rmsnorm "
+        f"launches; {one['k4']} encode launches per encode; every fused "
+        f"round's max logit within 1e-4 of the reference round's "
+        f"({one['rows']} rows, max abs err {one['max_logit_err']:.3e}; "
+        f"{one['distinct_tokens']} distinct tokens in the streams); round "
+        f"medians {one['round_ms']} ms; idle share graph "
+        f"{one['idle_share']['graph']} / eager {one['idle_share']['eager']}"
+        f"; admission prefill {one['admission_ms']:.3f} ms; "
+        f"max_memory_allocated {peak:.2f} GiB")
+    log(f"{tag} first stream:", clean["tokens"][0].tolist())
+
+
+def _init_full_width(cfg):
+    """The coded model (T = 4, r = 2 folded) and its seeded float32 params
+    on the card, and the seconds the init took."""
+    from repro_torch.models import TPCtx, build
+    model = build(cfg, TPCtx(tp=T, mode="coded", code_r=R))
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    torch.cuda.synchronize()
+    return model, params, time.perf_counter() - t0
+
+
+def serve_xlstm(cfg=None) -> dict:
+    """xlstm-125m at full width (12 blocks, xLSTM[7:1]: sLSTM at block 7;
+    d 768, 4 heads, up-projection 1536, head width 384, vocab 50304;
+    float32, T = 4, r = 2 folded, seeded random weights). (a)
+    ``_xlstm_scheduler``. (b) ``_serve_one_batch`` with a 300-token
+    prompt: 45 kernel-1 launches a fused round (up, wq, wk, wv of 11
+    mLSTM blocks, wx of the sLSTM), kernel 2 once and kernel 6 once (the
+    final norm), 46 kernel-4 launches an encode. (c) A 2-dead round
+    between replays (``_two_dead_between_replays``). (d) Peak memory and
+    the perf count beside the least one with a fused mLSTM step."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer
+    cfg = cfg or get_arch(XLSTM)
+    torch.cuda.reset_peak_memory_stats()
+    model, params, init_s = _init_full_width(cfg)
+    sched = _xlstm_scheduler(cfg, model, params)
+    torch.cuda.empty_cache()
+    one = _serve_one_batch("xlstm", cfg, model, params, XLSTM_PROMPT,
+                           coded_gemms(cfg) + 1)
+    two_dead = _two_dead_between_replays("xlstm", cfg, params,
+                                         one["prompts"])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     perf = sched["fault-free"]
     # the least count with one fused pass over the mLSTM memories (read
     # and written once) beside the plain step's
@@ -4013,27 +4138,125 @@ def serve_xlstm(cfg=None) -> dict:
         f"memory), {least['fused_step'] / 1e9:.4f} GB with one fused pass "
         f"({least['fused_step'] / HBM_BYTES_PER_S * 1e3:.4f} ms at the HBM "
         f"rate)")
-    log(f"served xlstm-125m at full width (params in {init_s:.1f} s): "
-        f"identical streams on graph and eager fused rounds, the reference "
-        f"variant and kernel-free, fault-free and with shard {dead} erased "
-        f"at step 4, after a {XLSTM_PROMPT}-token prefill; per fused round "
-        f"{clean['k1'] // rounds} coded-GEMM ({clean['k1_variants']}) + "
-        f"{clean['k2'] // rounds} head ({clean['k2_variants']}) + "
-        f"{norms_per_pass(cfg)} rmsnorm launches; {k4} encode launches per "
-        f"encode; every fused round's max logit within 1e-4 of the "
-        f"reference round's ({fused_max.numel()} rows, max abs err "
-        f"{max_err:.3e}; {distinct} distinct tokens in the streams); round "
-        f"medians {meds} ms; idle share graph {idle['graph']} / eager "
-        f"{idle['eager']}; admission prefill {admission_ms:.3f} ms; "
-        f"max_memory_allocated {peak:.2f} GiB")
-    log("xlstm first stream:", clean["tokens"][0].tolist())
-    return {"k1": clean["k1"], "k2": clean["k2"], "k6": clean["k6"],
-            "k4_per_encode": k4, "round_ms": meds, "profile": prof,
-            "max_logit_err": max_err, "distinct_tokens": distinct,
-            "idle_share": idle, "admission_ms": admission_ms,
-            "peak_gib": peak, "init_s": init_s, "scheduler": sched,
-            "two_dead": two_dead, "least_bytes": least,
-            "vstep": {n: r["vstep"] for n, r in runs.items()}}
+    _served_line("xlstm", cfg, one, f"a {XLSTM_PROMPT}-token prefill",
+                 init_s, peak)
+    return {**_summary(one), "peak_gib": peak, "init_s": init_s,
+            "scheduler": sched, "two_dead": two_dead, "least_bytes": least}
+
+
+# ------------------------------------------------------------ phase 15 ----
+
+HYMBA_ARGS = ["--arch", HYMBA, "--coded", "--tp", str(T), "--batch", "4",
+              "--requests", "8", "--arrival-gap-ms", "2", "--prompt-len",
+              "16", "--gen-tokens", "16", "--seed", str(CHAOS_SEED)]
+# the batch's prompt: with 16 new tokens max_len passes the 1024-token
+# window, so the ring holds 1024 entries and decode wraps it
+HYMBA_PROMPT = 1016
+
+
+def _hymba_least(stepper, state) -> dict:
+    """The parts of what a fused hymba round moves at the least, as the
+    port's plain mamba step runs it: every layer weight and parity leaf
+    (the mamba branch's too), the LM head and its sum parity (a shard's
+    width), the KV cache (k, v, positions, lengths) read once, the SSM
+    state ``mamba.STEP_STATE_PASSES`` times and the conv window read and
+    written."""
+    from repro_torch.models.mamba import STEP_STATE_PASSES
+
+    def nbytes(ts):
+        return float(sum(t.numel() * t.element_size() for t in ts))
+
+    head = stepper.params["lm_head"]["w"]
+    ssm, conv = state["mamba"]["ssm"], state["mamba"]["conv"]
+    return {"weights": nbytes(_state_leaves(stepper.params["layers"]))
+            + nbytes([head]) * (1 + 1 / stepper.n_shards),
+            "kv": nbytes(_state_leaves(state["kv"])),
+            "ssm_pass": nbytes([ssm]),
+            "mamba": STEP_STATE_PASSES * nbytes([ssm]) + 2 * nbytes([conv])}
+
+
+def _hymba_round_bytes(stepper, state) -> float:
+    """The sum of ``_hymba_least``'s parts."""
+    parts = _hymba_least(stepper, state)
+    return parts["weights"] + parts["kv"] + parts["mamba"]
+
+
+def _hymba_scheduler(cfg, model, params) -> dict:
+    """(a) hymba-1.5b through launch.serve's scheduler (4 slots, 8
+    requests, prompt 16, 16 new tokens) fault-free with --perf and under
+    chaos (``_family_scheduler``): 7 kernel-4 launches per encode (wq,
+    wk, wv, in_proj, w1, w3 stacked over the layers, the head), kernel 6
+    65 times a round and a prefill, and the perf line's fused-round bound
+    within 5% of ``_hymba_round_bytes`` over the HBM rate."""
+    return _family_scheduler("hymba", cfg, model, params, HYMBA_ARGS,
+                             coded_gemms(cfg) // cfg.n_layers + 1,
+                             _hymba_round_bytes)
+
+
+def _hymba_window_perf(eng) -> dict:
+    """The perf counter's fused round on the batch's slot state (the
+    1024-entry window full after the prompt): every launch costed, the
+    bound within 5% of ``_hymba_round_bytes`` (weights, window, mamba
+    state) over the HBM rate."""
+    from repro_torch.models.mamba import STEP_STATE_PASSES
+    from repro_torch.obs.perf import attribute_round_costs
+    ex = eng.executor(4)
+    fused = attribute_round_costs(ex.vstep, ex.state, ex.last_toks)["fused"]
+    parts = _hymba_least(eng.stepper, ex.state)
+    least = _hymba_round_bytes(eng.stepper, ex.state)
+    want = least / HBM_BYTES_PER_S * 1e3
+    got = fused.bound_step_s * 1e3
+    if fused.custom_calls_uncosted or fused.dominant != "memory" or \
+            abs(got / want - 1) > PERF_BOUND_TOL:
+        raise AssertionError(f"hymba perf over the window: {fused} (least "
+                             f"bytes {least / 1e9:.4f} GB, {want:.4f} ms)")
+    log(f"hymba perf over the 1024-entry window: fused-round bound "
+        f"{got:.4f} ms on {fused.bytes / 1e9:.4f} GB counted "
+        f"({fused.flops / 1e9:.3f} GFLOP, {fused.useful_flops / 1e9:.3f} "
+        f"useful); least bytes {least / 1e9:.4f} GB ({want:.4f} ms): "
+        f"weights {parts['weights'] / 1e9:.4f} GB, KV window "
+        f"{parts['kv'] / 1e9:.4f} GB, SSM state "
+        f"{parts['ssm_pass'] / 1e6:.2f} MB a pass x {STEP_STATE_PASSES}")
+    return {"bound_ms": got, "bytes": fused.bytes, "least_bytes": least,
+            "least_ms": want, "flops": fused.flops,
+            "useful_flops": fused.useful_flops, **parts}
+
+
+def serve_hymba(cfg=None) -> dict:
+    """hymba-1.5b at full width (32 layers of SWA attention, window 1024,
+    beside a mamba branch; d 1600, 25/5 heads of 64 run as 28/7, d_ff
+    5504, vocab 32001, SSM state 16; float32, T = 4, r = 2 folded, seeded
+    random weights). (a) ``_hymba_scheduler``. (b) ``_serve_one_batch``
+    with a 1016-token prompt (the ring of 1024 wraps in decode): 192
+    kernel-1 launches a fused round (wq, wk, wv, in_proj, w1, w3 of 32
+    layers), none on the ordinary-load producer, kernel 2 once and kernel
+    6 65 times, 7 kernel-4 launches an encode; the perf count of a fused
+    round over the full window (``_hymba_window_perf``). (c) A 2-dead
+    round between replays. (d) Peak memory."""
+    from repro_torch.configs import get_arch
+    cfg = cfg or get_arch(HYMBA)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model, params, init_s = _init_full_width(cfg)
+    sched = _hymba_scheduler(cfg, model, params)
+    torch.cuda.empty_cache()
+    one = _serve_one_batch("hymba", cfg, model, params, HYMBA_PROMPT,
+                           coded_gemms(cfg) // cfg.n_layers + 1,
+                           on_engine=_hymba_window_perf)
+    loads = [v for v in one["clean"]["k1_variants"] if "loads" in v]
+    if loads:
+        raise AssertionError(f"hymba: kernel 1 took the ordinary-load "
+                             f"producer: {one['clean']['k1_variants']}")
+    two_dead = _two_dead_between_replays("hymba", cfg, params,
+                                         one["prompts"])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _served_line("hymba", cfg, one, f"a {HYMBA_PROMPT}-token prefill "
+                 f"(the 1024-entry window wraps in decode)", init_s, peak)
+    secs = time.perf_counter() - t0
+    log(f"phase 15 (hymba-1.5b) took {secs:.1f} s")
+    return {**_summary(one), "peak_gib": peak, "init_s": init_s,
+            "scheduler": sched, "two_dead": two_dead,
+            "window_perf": one["on_engine"], "seconds": secs}
 
 
 # --------------------------------------------------------------- main ----
@@ -4109,6 +4332,9 @@ def main() -> int:
     xcfg = get_arch(XLSTM)
     x_err = dict(zip(("cdc_coded_matmul", "cdc_fused_head_argmax",
                       "cdc_encode"), check_xlstm_kernels(xcfg)))
+    hcfg = get_arch(HYMBA)
+    h_err = dict(zip(("cdc_coded_matmul", "cdc_fused_head_argmax",
+                      "cdc_encode"), check_hymba_kernels(hcfg)))
     _phase_memory("kernel checks")
     served = serve_full_width(cfg)
     torch.cuda.empty_cache()
@@ -4116,6 +4342,7 @@ def main() -> int:
     timed12 = time_t12(cfg)
     timed_w = time_whisper(wcfg)
     timed_x = time_xlstm(xcfg)
+    timed_h = time_hymba(hcfg)
     torch.cuda.empty_cache()
     sched = serve_scheduler(cfg)
     torch.cuda.empty_cache()
@@ -4138,6 +4365,8 @@ def main() -> int:
     _phase_memory("serving whisper-medium")
     xlstm = serve_xlstm()
     _phase_memory("serving xlstm-125m")
+    hymba = serve_hymba()
+    _phase_memory("serving hymba-1.5b")
     w1 = timed[0]
     head = next(t for t in timed if t.get("gemm") == "lm_head")
     small = {(t["kernel"], t["shape"]): t for t in timed if "kernel" in t}
@@ -4240,6 +4469,19 @@ def main() -> int:
                     x_err["cdc_fused_head_argmax"], rows_x["xlstm lm_head"]),
          "name": "cdc_fused_head_argmax (xlstm)"},
     ]
+    # kernels 1 and 2 at hymba's widths: launches from its graph run
+    # (phase 15)
+    rows_h = {t["gemm"]: t for t in timed_h}
+    kernels += [
+        {**entry_of("cdc_coded_matmul", "coded_matmul.cuh",
+                    "src/repro/kernels/cdc_matmul.py:130", hymba["k1"],
+                    h_err["cdc_coded_matmul"], rows_h[f"hymba {g}"]),
+         "name": f"cdc_coded_matmul (hymba, {g})"}
+        for g in ("wk", "in_proj", "w1")] + [
+        {**entry_of("cdc_fused_head_argmax", "fused_head.cuh",
+                    "src/repro/kernels/cdc_decode.py:138", hymba["k2"],
+                    h_err["cdc_fused_head_argmax"], rows_h["hymba lm_head"]),
+         "name": "cdc_fused_head_argmax (hymba)"}]
     log(card)
     runs = {n: {k: v for k, v in r.items() if k != "tokens"}
             for n, r in sched["runs"].items()}
@@ -4260,7 +4502,9 @@ def main() -> int:
                     "whisper": {**whisper, "shapes": timed_w,
                                 "max_abs_err": w_err},
                     "xlstm": {**xlstm, "shapes": timed_x,
-                              "max_abs_err": x_err}}, default=str))
+                              "max_abs_err": x_err},
+                    "hymba": {**hymba, "shapes": timed_h,
+                              "max_abs_err": h_err}}, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

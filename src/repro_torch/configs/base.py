@@ -5,8 +5,9 @@ registry and ``smoke_config``), kept here so that the port imports nothing
 of the reference. Only the architectures the port serves are registered:
 the dense decoders (granite-3-8b, h2o-danube-1.8b and -3-4b, deepseek-67b),
 chameleon-34b, which the reference builds as a dense decoder, the
-encoder-decoder whisper-medium, and the recurrent xlstm-125m (mLSTM and
-sLSTM blocks).
+encoder-decoder whisper-medium, the recurrent xlstm-125m (mLSTM and
+sLSTM blocks) and the hybrid hymba-1.5b (attention and a mamba branch in
+every layer).
 """
 from __future__ import annotations
 
@@ -89,7 +90,8 @@ def load_all() -> None:
     from repro_torch.configs import (chameleon_34b,  # noqa: F401
                                      deepseek_67b, granite_3_8b,
                                      h2o_danube_1_8b, h2o_danube_3_4b,
-                                     whisper_medium, xlstm_125m)
+                                     hymba_1_5b, whisper_medium,
+                                     xlstm_125m)
 
 
 def smoke_config(cfg: ArchConfig) -> ArchConfig:

@@ -27,13 +27,17 @@ by itself with ``--trace``, ``--metrics-port`` or ``--profile``), and
 round annotated as ``decode_round``.
 
 ``--arch`` takes every config the port registers: the dense decoders,
-xlstm-125m (recurrent block state, slot axis 0) and the encoder-decoder
-whisper-medium, whose requests each carry their own encoder frames (the
-frontend stub), drawn after the request's prompt:
+hymba-1.5b (attention + mamba: the conv window and SSM state beside the
+KV cache, slot axis 1), xlstm-125m (recurrent block state, slot axis 0)
+and the encoder-decoder whisper-medium, whose requests each carry their
+own encoder frames (the frontend stub), drawn after the request's
+prompt:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \
       --smoke --coded --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \
+      --smoke --coded --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
       --smoke --coded --device cpu
 
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --coded \

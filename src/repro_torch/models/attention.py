@@ -262,18 +262,28 @@ def cross_kv(ctx: TPCtx, p: Params, cfg, enc_out: torch.Tensor, valid=None):
     return k, v, torch.arange(se, dtype=torch.int32, device=enc_out.device)
 
 
+def heads_major(shape, dtype=torch.float32, device=None) -> torch.Tensor:
+    """Zeros of ``shape`` [..., B, S, H, hd] stored as [..., B, H, S, hd]
+    (a transposed view): a chunk of S rows is then a [B * H, rows, hd]
+    view for the attention's batched products, which read it in place
+    instead of reordering it."""
+    *lead, s, h, hd = shape
+    return torch.zeros(tuple(lead) + (h, s, hd), dtype=dtype,
+                       device=device).transpose(-3, -2)
+
+
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.float32, tp: int = 1,
                layers: tuple[int, ...] = (), device=None) -> Params:
     """Per-row KV ring cache: every batch row has its own position vector
-    and length, so rows decode at independent positions."""
+    and length, so rows decode at independent positions. K and V keep the
+    reference's shape [..., B, C, Hkv, hd] and are stored heads-major
+    (``heads_major``), so a decode round reads the cache once."""
     C = min(max_len, cfg.window) if cfg.attn_kind == "swa" else max_len
     _, hkv_run, _ = attn_dims(cfg, tp)
     hd = cfg.hd
     return {
-        "k": torch.zeros(layers + (batch, C, hkv_run, hd), dtype=dtype,
-                         device=device),
-        "v": torch.zeros(layers + (batch, C, hkv_run, hd), dtype=dtype,
-                         device=device),
+        "k": heads_major(layers + (batch, C, hkv_run, hd), dtype, device),
+        "v": heads_major(layers + (batch, C, hkv_run, hd), dtype, device),
         "pos": torch.full(layers + (batch, C), -(10 ** 9),
                           dtype=torch.int32, device=device),
         "len": torch.zeros(layers + (batch,), dtype=torch.int32,

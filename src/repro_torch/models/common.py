@@ -181,6 +181,12 @@ def sinusoidal_pos(seq: int, d: int, dtype=torch.float32, device=None
     return pe.to(dtype)
 
 
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """softplus as jax.nn.softplus computes it: max(x, 0) +
+    log1p(exp(-|x|))."""
+    return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
 def activation(name: str, x: torch.Tensor) -> torch.Tensor:
     if name == "silu":
         return F.silu(x)

@@ -113,31 +113,20 @@ def forward(cfg, params: Params, ctx: TPCtx, tokens: torch.Tensor,
     return logits.to(torch.float32)
 
 
-def _heads_major(shape, dtype, device) -> torch.Tensor:
-    """Zeros of ``shape`` [L, B, S, H, hd] stored as [L, B, H, S, hd]: a
-    chunk of S rows is then a [B * H, rows, hd] view for the attention's
-    batched products, which read it in place instead of reordering it."""
-    L, b, s, h, hd = shape
-    return torch.zeros((L, b, h, s, hd), dtype=dtype,
-                       device=device).transpose(2, 3)
-
-
 def empty_decode_state(cfg, ctx: TPCtx, batch: int, max_len: int,
                        dtype=torch.float32, device=None) -> Params:
     """The decode state's tensors, allocated and not computed: the
     per-row self-attention cache (empty) and a zero cross-attention bank
     {"k","v": [L, B, Se, Hkv, hd], "pos": [L, B, Se]}; K and V of both
-    stored heads-major (``_heads_major``)."""
+    stored heads-major (``attention.heads_major``)."""
     L, se, hd = cfg.n_layers, cfg.enc_seq, cfg.hd
     _, hkv_run, _ = attn_mod.attn_dims(cfg, ctx.tp)
     kv = attn_mod.init_cache(cfg, batch, max_len, dtype, tp=ctx.tp,
                              layers=(L,), device=device)
-    for name in ("k", "v"):
-        kv[name] = _heads_major(kv[name].shape, dtype, device)
     bank = (L, batch, se, hkv_run, hd)
     return {"kv": kv,
-            "xkv": {"k": _heads_major(bank, dtype, device),
-                    "v": _heads_major(bank, dtype, device),
+            "xkv": {"k": attn_mod.heads_major(bank, dtype, device),
+                    "v": attn_mod.heads_major(bank, dtype, device),
                     "pos": torch.zeros((L, batch, se), dtype=torch.int32,
                                        device=device)}}
 

@@ -1,13 +1,17 @@
-"""Decoder-only LM (dense body or xLSTM): init, forward, decode state,
-decode step.
+"""Decoder-only LM (dense body, hybrid attention + mamba, or xLSTM): init,
+forward, decode state, decode step.
 
-Dense layer weights are stacked on a leading [L, ...] axis as in the
-reference; the reference's layer ``scan`` is a Python loop over that axis
-here, each layer reading views of its slice. xLSTM is heterogeneous (an
-mLSTM/sLSTM mix): its params and decode state are lists of per-block
-dicts (``params["blocks"]``, ``state["blocks"]``), and its state leads
-with the slot axis. The validity mask reaches every coded GEMM of every
-layer or block.
+Layer weights are stacked on a leading [L, ...] axis as in the reference;
+the reference's layer ``scan`` is a Python loop over that axis here, each
+layer reading views of its slice. A hybrid layer (hymba) runs SWA
+attention and a mamba branch on the same normed input and averages them,
+``(a + m) * 0.5``, before the residual; its decode state adds
+``state["mamba"]`` ({"conv": [L, B, K-1, di], "ssm": [L, B, di, n]}) to
+the KV cache, slots on axis 1 like the cache, and each layer writes its
+slice of both in place. xLSTM is heterogeneous (an mLSTM/sLSTM mix): its
+params and decode state are lists of per-block dicts (``params["blocks"]``,
+``state["blocks"]``), and its state leads with the slot axis. The
+validity mask reaches every coded GEMM of every layer or block.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ import torch
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import (Params, TPCtx, col_dense,
                                        linear_init, rmsnorm, tree_index)
@@ -32,17 +37,22 @@ def _is_xlstm(cfg) -> bool:
     return cfg.ssm_kind == "xlstm"
 
 
+def _is_hybrid(cfg) -> bool:
+    return cfg.family == "hybrid"
+
+
 def init_params(cfg, gen: torch.Generator, ctx: TPCtx,
                 dtype=torch.float32, device=None) -> Params:
     """Random parameters drawn from ``gen`` on ``device``, in the
     reference's layout. Dense bodies (family ``dense``, and ``vlm``:
     chameleon-34b, which the reference builds as a dense decoder over a
-    shared token vocabulary) and xLSTM (``ssm_kind == "xlstm"``)."""
-    if not _is_xlstm(cfg) and (cfg.family not in ("dense", "vlm")
-                               or cfg.n_experts or cfg.ssm_kind):
+    shared token vocabulary), hybrid attention + mamba layers (family
+    ``hybrid``) and xLSTM (``ssm_kind == "xlstm"``)."""
+    if cfg.n_experts or not (_is_xlstm(cfg) or cfg.family in
+                             ("dense", "vlm", "hybrid")):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense bodies and "
-            f"xLSTM only)")
+            f"family {cfg.family!r} is not ported yet (dense bodies, "
+            f"hybrid and xLSTM only)")
     d, L = cfg.d_model, (cfg.n_layers,)
     vocab_pad = ctx.pad_dim(cfg.vocab)
     embed = torch.randn((vocab_pad, d), generator=gen, device=device)
@@ -57,23 +67,31 @@ def init_params(cfg, gen: torch.Generator, ctx: TPCtx,
             xlstm_mod.BLOCKS[kind].init(gen, cfg, ctx, dtype, device)
             for kind in xlstm_block_kinds(cfg)]
         return params
-    params["layers"] = {
+    layers = {
         "ln1": {"g": torch.ones(L + (d,), device=device)},
         "attn": attn_mod.attn_init(gen, cfg, ctx, dtype, layers=L,
                                    device=device),
-        "ln2": {"g": torch.ones(L + (d,), device=device)},
-        "ffn": ffn_mod.ffn_init(gen, cfg, ctx, dtype, layers=L,
-                                device=device),
     }
+    if _is_hybrid(cfg):
+        layers["mamba"] = mamba_mod.mamba_init(gen, cfg, ctx, dtype,
+                                               layers=L, device=device)
+    layers["ln2"] = {"g": torch.ones(L + (d,), device=device)}
+    layers["ffn"] = ffn_mod.ffn_init(gen, cfg, ctx, dtype, layers=L,
+                                     device=device)
+    params["layers"] = layers
     return params
 
 
-def _layer_fwd(cfg, ctx: TPCtx, p: Params, x, valid, cache, pos_offset,
-               q_chunk, kv_chunk):
+def _layer_fwd(cfg, ctx: TPCtx, p: Params, x, valid, cache, mamba_state,
+               pos_offset, q_chunk, kv_chunk):
     xn = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    x = x + attn_mod.attention(ctx, p["attn"], cfg, xn, valid=valid,
-                               cache=cache, pos_offset=pos_offset,
-                               q_chunk=q_chunk, kv_chunk=kv_chunk)
+    a = attn_mod.attention(ctx, p["attn"], cfg, xn, valid=valid,
+                           cache=cache, pos_offset=pos_offset,
+                           q_chunk=q_chunk, kv_chunk=kv_chunk)
+    if "mamba" in p:
+        m, _ = mamba_mod.mamba(ctx, p["mamba"], cfg, xn, valid, mamba_state)
+        a = (a + m) * 0.5
+    x = x + a
     return x + ffn_mod.ffn(ctx, p["ffn"], cfg,
                            rmsnorm(p["ln2"], x, cfg.norm_eps), valid)
 
@@ -91,7 +109,7 @@ def forward(cfg, params: Params, ctx: TPCtx, tokens: torch.Tensor,
     else:
         for i in range(cfg.n_layers):
             x = _layer_fwd(cfg, ctx, tree_index(params["layers"], i), x,
-                           valid, None, 0, q_chunk, kv_chunk)
+                           valid, None, None, 0, q_chunk, kv_chunk)
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
     logits = col_dense(ctx, params["lm_head"], x, cfg.vocab, valid)
     return logits.to(torch.float32)
@@ -100,23 +118,29 @@ def forward(cfg, params: Params, ctx: TPCtx, tokens: torch.Tensor,
 def init_decode_state(cfg, ctx: TPCtx, batch: int, max_len: int,
                       dtype=torch.float32, device=None) -> Params:
     """{"kv": {"k","v": [L,B,C,Hkv,hd], "pos": [L,B,C], "len": [L,B]}},
-    the per-row (slot-batched) layout; for xLSTM {"blocks": [one state
-    per block, batch axis leading]} (positionless: ``max_len`` and
-    ``dtype`` do not apply, the recurrences run in float32)."""
+    the per-row (slot-batched) layout; a hybrid adds {"mamba": {"conv":
+    [L,B,K-1,di] in ``dtype``, "ssm": [L,B,di,n] float32}} (zeros, as the
+    reference's); for xLSTM {"blocks": [one state per block, batch axis
+    leading]} (positionless: ``max_len`` and ``dtype`` do not apply, the
+    recurrences run in float32)."""
     if _is_xlstm(cfg):
         return {"blocks": [xlstm_mod.BLOCKS[kind].state(cfg, batch, device)
                            for kind in xlstm_block_kinds(cfg)]}
-    return {"kv": attn_mod.init_cache(cfg, batch, max_len, dtype, tp=ctx.tp,
-                                      layers=(cfg.n_layers,),
-                                      device=device)}
+    L = (cfg.n_layers,)
+    state = {"kv": attn_mod.init_cache(cfg, batch, max_len, dtype,
+                                       tp=ctx.tp, layers=L, device=device)}
+    if _is_hybrid(cfg):
+        state["mamba"] = mamba_mod.init_mamba_state(cfg, batch, dtype,
+                                                    layers=L, device=device)
+    return state
 
 
 def decode_step(cfg, params: Params, ctx: TPCtx, state: Params,
                 tokens: torch.Tensor, valid=None, *, kv_chunk: int = 1024,
                 last_only: bool = False, return_hidden: bool = False):
-    """tokens: [B, s] -> (logits [B, s, V] f32, state); the KV cache (or
-    the xLSTM block states) in ``state`` is updated in place and
-    returned.
+    """tokens: [B, s] -> (logits [B, s, V] f32, state); the KV cache (and
+    a hybrid's mamba state, or the xLSTM block states) in ``state`` is
+    updated in place and returned.
 
     last_only: logits for the final position only. return_hidden: skip
     the LM head and return the post-ln_f hidden states (the fused round
@@ -127,13 +151,14 @@ def decode_step(cfg, params: Params, ctx: TPCtx, state: Params,
                                state["blocks"]):
             x, _ = xlstm_mod.BLOCKS[kind].apply(ctx, p, cfg, x, valid, st)
     else:
-        kv = state["kv"]
+        kv, ms = state["kv"], state.get("mamba")
         s = tokens.shape[1]
         pos = kv["len"][0].clone()      # [B]; the same for every layer
         for i in range(cfg.n_layers):
             cache = {name: kv[name][i] for name in ("k", "v", "pos", "len")}
+            mst = None if ms is None else tree_index(ms, i)
             x = _layer_fwd(cfg, ctx, tree_index(params["layers"], i), x,
-                           valid, cache, pos, s, kv_chunk)
+                           valid, cache, mst, pos, s, kv_chunk)
         kv["len"] += s
     if last_only:
         x = x[:, -1:]

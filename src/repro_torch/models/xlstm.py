@@ -27,15 +27,14 @@ import torch.nn.functional as F
 
 from repro_torch.models.common import (Params, TPCtx, col_dense, layernorm,
                                        layernorm_init, linear_init,
-                                       row_dense)
+                                       row_dense, softplus)
 
 NEG_INF = -1e30       # the stabilizer's start, and a padded step's input gate
 
 
 def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
-    """-softplus(-x) with softplus as jax.nn.softplus computes it
-    (max(y, 0) + log1p(exp(-|y|)))."""
-    return -(torch.clamp(-x, min=0.0) + torch.log1p(torch.exp(-x.abs())))
+    """-softplus(-x), as the reference computes log-sigmoid."""
+    return -softplus(-x)
 
 
 def _write(state: Params | None, new: Params) -> Params:

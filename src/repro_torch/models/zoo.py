@@ -1,5 +1,5 @@
-"""Uniform model API over the ported families: dense decoders, the
-encoder-decoder (whisper) and xLSTM.
+"""Uniform model API over the ported families: dense decoders, the hybrid
+(hymba: attention + mamba), the encoder-decoder (whisper) and xLSTM.
 
 Model(cfg, ctx) exposes init / encode_offline / forward / init_decode /
 decode with the reference's signatures, plus an explicit device.
@@ -7,8 +7,10 @@ decode with the reference's signatures, plus an explicit device.
 enc_seq, D]} (the frontend stub). ``init`` defaults to the CUDA device
 and raises without one; pass device="cpu" to run there. An xLSTM decode
 state is a list of per-block recurrent states with the batch (slot) axis
-leading, independent of ``max_len``; ``init_decode`` and
-``empty_decode`` build it as ``transformer.init_decode_state`` does.
+leading, independent of ``max_len``; a hybrid's is the KV cache plus the
+mamba branch's conv window and SSM state ({"kv": ..., "mamba": {"conv",
+"ssm"}}, slots on axis 1); ``init_decode`` and ``empty_decode`` build
+both as ``transformer.init_decode_state`` does.
 """
 from __future__ import annotations
 

@@ -8,11 +8,14 @@ the card could take for the same round:
   * **Attribution** (once per code geometry): one eager round of each
     variant the executor owns — ``reference`` (full-logits coded decode)
     and ``fused`` (the kernels' round, the one its CUDA graph replays) —
-    runs on a clone of the slot state under a counting
-    ``TorchDispatchMode``: dot FLOPs of every matmul / bmm (einsum and
-    tensordot reach them), bytes of every launched op's operands and
-    outputs (a gather or scatter counts the rows it moves, not the whole
-    table; views and allocations launch nothing), and each kernel
+    runs on a clone of the slot state (made before counting starts: a
+    round reads its state in place, so an enc-dec's bank, a hybrid's
+    mamba state or xLSTM's block states count as the round moves them,
+    never as a copy) under a counting ``TorchDispatchMode``: dot FLOPs of
+    every matmul / bmm (einsum and tensordot reach them), bytes of every
+    launched op's operands and outputs (a gather or scatter counts the
+    rows it moves, not the whole table; an ``out=`` tensor is written, not
+    read; views and allocations launch nothing), and each kernel
     wrapper's own report (``kernels.accounting``: its ``KERNEL_COSTS``
     FLOPs and its operand-plus-output bytes; the torch ops inside a
     wrapper are not counted, so the CPU, where a wrapper runs its plain
@@ -140,7 +143,8 @@ class CostCounter(TorchDispatchMode):
             vals = args[2]
             self.bytes += 2 * _nbytes([vals]) + _nbytes(_tensors(args[1]))
         else:
-            self.bytes += _nbytes(_tensors((args, kwargs))) + _nbytes(outs)
+            ins = {k: v for k, v in kwargs.items() if k != "out"}
+            self.bytes += _nbytes(_tensors((args, ins))) + _nbytes(outs)
 
 
 def count_round(fn) -> CostCounter:

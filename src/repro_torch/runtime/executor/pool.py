@@ -1,7 +1,9 @@
 """Slot-pool executor: dispatch rounds, overlap host work, harvest tokens.
 
-The pool owns the stacked slot state and advances it one round per
-``step_round``. With ``overlap=True`` it pipelines host and device: round
+The pool owns the stacked slot state (``slotbatch``: a decoder's KV
+cache, with a hybrid's mamba conv window and SSM state beside it, an
+enc-dec's cross-attention bank, xLSTM's block states) and advances it one
+round per ``step_round``. With ``overlap=True`` it pipelines host and device: round
 N is dispatched, and only then are round N-1's tokens harvested, so host
 work runs while the device computes. Each round's tokens are copied at
 dispatch into pinned host memory with ``non_blocking=True`` and an event

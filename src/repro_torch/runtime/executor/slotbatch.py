@@ -1,11 +1,15 @@
-"""Stack decode-slot states into one slot-batched state.
+"""Stack and unstack decode-slot states into one slot-batched state.
 
 Two layouts cover the ported families:
 
-  * dense and enc-dec: every decode-state leaf is laid out [L(layers),
-    B(slots), ...], so the batch axis IS the slot axis (``SLOT_AXIS ==
-    1``). With the per-row cache each row carries its own KV length and
-    positions, so rows decode at independent positions in one round.
+  * dense, hybrid and enc-dec: every decode-state leaf is laid out
+    [L(layers), B(slots), ...], so the batch axis IS the slot axis
+    (``SLOT_AXIS == 1``). With the per-row cache each row carries its own
+    KV length and positions, so rows decode at independent positions in
+    one round. A hybrid's state also carries the mamba branch's conv
+    window [L, B, K-1, di] and SSM state [L, B, di, n] (``{"kv": ...,
+    "mamba": {"conv", "ssm"}}``), overwritten by every round as the cache
+    is appended to.
     Enc-dec states also carry the per-slot cross-attention bank (the
     encoder-derived K/V [L, B, Se, Hkv, hd] and positions [L, B, Se]),
     written row-wise at admission: the encoder runs once per request, and
@@ -34,6 +38,14 @@ def slot_axis(model) -> int:
     state has no leading layer axis), 1 ([L, B, ...]) for everything
     else."""
     return 0 if model.cfg.ssm_kind == "xlstm" else SLOT_AXIS
+
+
+def supports_slot_batching(model) -> bool:
+    """Every ported family slot-batches: decoders (dense and hybrid) via
+    per-row KV positions, enc-dec via the per-slot cross-attention bank,
+    xLSTM via its positionless [B, ...] block state. Kept as the API point
+    of the scheduler's auto mode (``RuntimeConfig.batched=None``)."""
+    return True
 
 
 def _map(fn, *trees):
@@ -66,6 +78,11 @@ def blank_state(stepper, n_slots: int) -> Any:
     return _map(torch.zeros_like, state)
 
 
+def stack_states(states: list[Any], axis: int = SLOT_AXIS) -> Any:
+    """Concatenate batch-1 per-row states along the slot axis."""
+    return _map(lambda *xs: torch.cat(xs, dim=axis), *states)
+
+
 def write_slot(stacked: Any, idx: int, row: Any, axis: int = SLOT_AXIS
                ) -> Any:
     """Write a batch-1 per-row state into slot ``idx`` of the stacked
@@ -84,3 +101,9 @@ def clone_state(stacked: Any) -> Any:
 def read_slot(stacked: Any, idx: int, axis: int = SLOT_AXIS) -> Any:
     """Slot ``idx`` as a batch-1 per-row state (a copy)."""
     return _map(lambda s: s.narrow(axis, int(idx), 1).clone(), stacked)
+
+
+def unstack_states(stacked: Any, n_slots: int, axis: int = SLOT_AXIS
+                   ) -> list[Any]:
+    """Every slot as a batch-1 per-row state (copies)."""
+    return [read_slot(stacked, i, axis=axis) for i in range(n_slots)]

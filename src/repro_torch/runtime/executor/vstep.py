@@ -21,8 +21,9 @@ variant) the fused round is captured once per key — the stepper's parity
 ``encode_generation`` and the host mask, so at most T + 1 graphs per
 encode — and every fused round replays its key's graph. The graph's
 static inputs are the stacked decode state (the KV cache, an enc-dec's
-cross-attention bank, xLSTM's block states: every round, fused or
-reference, updates it in place and returns the same tensors) and the
+cross-attention bank, a hybrid's mamba conv window and SSM state beside
+its cache, xLSTM's block states: every round, fused or reference,
+updates it in place and returns the same tensors) and the
 caller's token buffer [n_slots, 1], into which the round writes its
 argmax. Before a key is captured, one eager round runs on clones of
 the state and tokens (the warm-up: kernel builds, first-launch attributes,

@@ -20,10 +20,12 @@ steady-state properties of a request STREAM:
     latency process. The measured wall time of every real round is
     recorded beside it (``RuntimeMetrics.round_ms``).
 
-Execution: by default the pool lives in a ``SlotPoolExecutor`` (one round
-dispatch for all slots, optional host/device overlap); ``batched=False``
-keeps sequential per-slot stepping over batch-1 states as the
-differential-test oracle. Every slot's tokens are host ints.
+Execution: by default (``batched=None``: auto, batched when the family
+supports slot batching, as every ported one does) the pool lives in a
+``SlotPoolExecutor`` (one round dispatch for all slots, optional
+host/device overlap); ``batched=False`` keeps sequential per-slot
+stepping over batch-1 states as the differential-test oracle. Every
+slot's tokens are host ints.
 
 Observability as in the reference: per-request span trees (``spans``,
 on by default), roofline perf accounting (``perf``) and per-round
@@ -45,7 +47,8 @@ from repro_torch.core.seeds import stream_rng
 from repro_torch.obs.shardlog import ShardTimeline
 from repro_torch.obs.tracer import NULL_RECORDER, FlightRecorder
 from repro_torch.runtime.clock import Clock, SimClock
-from repro_torch.runtime.executor import SlotPoolExecutor, request_batch
+from repro_torch.runtime.executor import (SlotPoolExecutor, request_batch,
+                                          supports_slot_batching)
 from repro_torch.runtime.health import HealthAction, ShardHealthController
 from repro_torch.runtime.metrics import RuntimeMetrics
 from repro_torch.runtime.queue import AdmissionQueue
@@ -61,7 +64,8 @@ class RuntimeConfig:
     seed: int = 0
     max_requeues: int = 8            # liveness guard for event storms
     max_rounds: int = 100_000
-    batched: bool = True             # False: sequential per-slot oracle
+    batched: bool | None = None      # None: auto (batched when supported);
+    #                                  False: sequential per-slot oracle
     overlap: bool = True             # pipeline host work with device rounds
     use_fused: bool | str = "auto"   # fused coded-GEMM + fused-head round
     max_queue_depth: int | None = None   # shed beyond this depth
@@ -140,8 +144,11 @@ class ContinuousBatchingScheduler:
         # per-round hook point: fn(scheduler) runs at the top of every
         # round, before health events apply (chaos injector, planner)
         self.round_hooks: list[Any] = []
+        batched = rcfg.batched
+        if batched is None:
+            batched = supports_slot_batching(stepper.model)
         self.executor: SlotPoolExecutor | None = None
-        if rcfg.batched:
+        if batched:
             perf = None
             if rcfg.perf:
                 # roofline-anchored round attribution: costed at first

@@ -34,8 +34,8 @@ class ServeConfig:
 
 class ModelStepper:
     """Thin model stepper the runtime drives. Slot states are caller-owned
-    trees of tensors (the per-row KV cache layout, or xLSTM's list of
-    block states)."""
+    trees of tensors (the per-row KV cache layout, with a hybrid's mamba
+    state beside it, or xLSTM's list of block states)."""
 
     def __init__(self, model: Model, params, max_len: int,
                  cache_dtype: Any = torch.float32, tracer=None):

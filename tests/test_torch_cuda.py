@@ -209,6 +209,47 @@ def test_xlstm_graph_round_equals_eager_round_bitwise(smoke):
     assert (vs.n_captures, vs.n_replays) == (2, 5)
 
 
+def test_hybrid_graph_round_equals_eager_round_bitwise(smoke):
+    """hymba at smoke size on the card (dedicated r = 2): rounds replayed
+    from captured CUDA graphs give the eager fused rounds' tokens,
+    kernel-2 maxima and decode states (the KV cache and the mamba conv
+    window and SSM state, slot axis 1, written in place) to the bit,
+    across mask changes and a 2-dead round between replays (the eager
+    reference variant on both pools)."""
+    import numpy as np
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.models import TPCtx, build
+    from repro_torch.runtime.executor import SlotPoolExecutor
+    from repro_torch.serve import ModelStepper
+    cfg = smoke_config(get_arch("hymba-1.5b"))
+    model = build(cfg, TPCtx(tp=4, mode="coded", code_r=2,
+                             code_layout="dedicated"))
+    stepper = ModelStepper(model, model.init(0, device="cuda"), max_len=80)
+    graph, eager = (SlotPoolExecutor(stepper, 3, overlap=False,
+                                     use_fused=True, use_graphs=g)
+                    for g in (True, False))
+    ptrs = [t.data_ptr() for t in smoke._state_leaves(graph.state)]
+    full = np.ones(4, bool)
+    dead = np.array([True, False, True, True])
+    two = np.array([True, False, False, True])
+    rng = np.random.default_rng(0)
+    for slot in range(3):
+        prompt = rng.integers(0, cfg.vocab, 60 + slot)
+        assert graph.admit(slot, prompt, full) == \
+            eager.admit(slot, prompt, full)
+    for valid in [full, full, dead, two, dead, full]:
+        assert graph.step_round(valid) == eager.step_round(valid)
+        if graph.vstep.last_variant == "fused":
+            for a, b in zip(graph.vstep.last_head, eager.vstep.last_head):
+                assert torch.equal(a, b)
+    for a, b in zip(smoke._state_leaves(graph.state),
+                    smoke._state_leaves(eager.state)):
+        assert torch.equal(a, b)
+    assert [t.data_ptr() for t in smoke._state_leaves(graph.state)] == ptrs
+    vs = graph.vstep
+    assert (vs.n_captures, vs.n_replays) == (2, 5)
+
+
 # ------------------------------------------------ every code width T <= 16
 
 def test_coded_matmul_generic_instantiation_matches_plain(smoke):

@@ -30,10 +30,12 @@ from repro_torch.models.attention import attn_dims
 from repro_torch.serve import ServeConfig, ServingEngine
 
 TOL = dict(rtol=1e-4, atol=1e-4)
-# every config the port registers (whisper-medium's model is held against
-# the reference in tests/test_torch_encdec.py)
+# every config the port registers (whisper-medium's, xlstm-125m's and
+# hymba-1.5b's models are held against the reference in
+# tests/test_torch_encdec.py, test_torch_xlstm.py and test_torch_hybrid.py)
 NAMES = ("granite-3-8b", "h2o-danube-1.8b", "h2o-danube-3-4b",
-         "deepseek-67b", "chameleon-34b", "whisper-medium", "xlstm-125m")
+         "deepseek-67b", "chameleon-34b", "whisper-medium", "xlstm-125m",
+         "hymba-1.5b")
 
 
 def masks(t):
@@ -82,12 +84,10 @@ def test_attn_dims_follow_the_reference():
 
 
 def test_init_refuses_other_families():
-    """Dense bodies and xLSTM only: the port still refuses the MoE,
-    hybrid and audio families (an audio config without an encoder)."""
+    """Dense bodies, the hybrid and xLSTM only: the port still refuses the
+    MoE and audio families (an audio config without an encoder)."""
     base = get_arch("granite-3-8b")
-    for kw in ({"family": "moe", "n_experts": 8}, {"family": "hybrid",
-                                                   "ssm_kind": "mamba"},
-               {"family": "audio"}):
+    for kw in ({"family": "moe", "n_experts": 8}, {"family": "audio"}):
         cfg = smoke_config(dataclasses.replace(base, **kw))
         with pytest.raises(NotImplementedError, match="not ported"):
             build(cfg, TPCtx()).init(0, device="cpu")

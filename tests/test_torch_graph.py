@@ -179,6 +179,43 @@ def test_xlstm_replayed_tokens_equal_eager_and_reference(recorder):
     assert runs["graph"] == runs["eager"] == runs["reference"]
 
 
+def test_hybrid_replayed_tokens_equal_eager_and_reference(recorder,
+                                                         monkeypatch):
+    """hymba (smoke; dedicated r = 2) through the graph policy: the KV
+    cache and the mamba branch's conv window and SSM state (slot axis 1)
+    are written in place by every replay and by the eager reference round
+    a 2-dead mask takes between replays. Replayed tokens equal the eager
+    fused rounds' and the reference variant's across the mask changes;
+    one capture per mask with at most one dead shard; a replay credits 6
+    coded GEMMs a layer (wq, wk, wv, in_proj, w1, w3), one head and 2L + 1
+    norms."""
+    _counting_plain_versions(monkeypatch)
+    stepper, cfg = _stepper("dedicated", arch="hymba-1.5b")
+    masks = [ALL, ALL, _dead(1), _dead(1, 3), _dead(1), ALL]
+    runs = {}
+    for name, fused, graphs in (("graph", True, True),
+                                ("eager", True, False),
+                                ("reference", False, False)):
+        pool = SlotPoolExecutor(stepper, N_SLOTS, overlap=False,
+                                use_fused=fused, use_graphs=graphs)
+        leaves = [pool.state["kv"][k] for k in sorted(pool.state["kv"])] \
+            + [pool.state["mamba"][k] for k in ("conv", "ssm")]
+        ptrs = [t.data_ptr() for t in leaves]
+        runs[name] = _serve(pool, cfg, masks)
+        assert pool.slot_axis == 1 and ptrs == [t.data_ptr()
+                                                for t in leaves]
+        assert pool.state["mamba"]["ssm"].data_ptr() == ptrs[-1]
+        if graphs:
+            vs = pool.vstep
+            assert (vs.n_captures, vs.n_replays) == (2, len(masks) - 1)
+            delta = next(iter(vs._graphs.values())).launches
+            assert {n: d[0] for n, d in delta.items()} == {
+                "cdc_coded_matmul": 6 * cfg.n_layers,
+                "cdc_fused_head_argmax": 1,
+                "rmsnorm": 2 * cfg.n_layers + 1}
+    assert runs["graph"] == runs["eager"] == runs["reference"]
+
+
 def test_graphs_drop_on_reencode_and_set_code_r(recorder):
     stepper, cfg = _stepper()
     twin, _ = _stepper()

@@ -45,13 +45,15 @@ def test_port_imports_neither_jax_nor_reference(path):
 
 
 def test_guard_covers_the_encoder_decoder():
-    """The encoder-decoder's and xLSTM's modules are among the files the
-    guard reads."""
+    """The encoder-decoder's, xLSTM's and the hybrid's modules are among
+    the files the guard reads."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"src/repro_torch/models/encdec.py",
             "src/repro_torch/configs/whisper_medium.py",
             "src/repro_torch/models/xlstm.py",
-            "src/repro_torch/configs/xlstm_125m.py"} <= names
+            "src/repro_torch/configs/xlstm_125m.py",
+            "src/repro_torch/models/mamba.py",
+            "src/repro_torch/configs/hymba_1_5b.py"} <= names
 
 
 def test_guard_catches_forbidden_imports(tmp_path):
@@ -133,7 +135,8 @@ def test_loading_every_port_module_loads_neither_jax_nor_reference():
     "repro_torch.kernels.ops", "repro_torch.launch.serve",
     "repro_torch.models", "repro_torch.models.encdec",
     "repro_torch.configs.whisper_medium", "repro_torch.models.xlstm",
-    "repro_torch.configs.xlstm_125m"])
+    "repro_torch.configs.xlstm_125m", "repro_torch.models.mamba",
+    "repro_torch.configs.hymba_1_5b"])
 def test_package_imports_first_in_a_fresh_interpreter(module):
     """No import cycle bites whichever package a program imports first
     (``obs`` and ``runtime`` import each other's leaf modules)."""
