@@ -26,7 +26,7 @@ Phases, each of which raises on failure (exit code non-zero):
      GEMM (1e-4, TF32 off), bf16 where a kernel takes it (2e-2, GEMM
      5e-2); kernels 1 and 7 also at the edges of their launch plans (row
      blocks, tile and stage remainders, misaligned views), where every
-     instantiation (bulk copies or ordinary loads, 4/8/16 rows a block)
+     instantiation (bulk copies or row copies, 4/8/16 rows a block)
      must launch and repeats must be bitwise equal; kernel 2 also at its
      plan's edges (T = 2, 4, 8, 16; rows 1-17; ragged m_l, k = 4093, an
      offset head, shards apart and stacked; integer-valued inputs, so
@@ -105,14 +105,22 @@ that T (kernel 1 within 1e-4 at r in {1, 2, 4, T}, r = 6 at T = 8 and
 on integer inputs at its plan's edges at T = 3 and 12; kernels 3, 4 and
 5 within 1e-5; bf16 for kernels 1, 2 and 4 within 2e-2), every generic
 instantiation launched; phase 4 times them at granite's T = 12 shapes,
-and phase 7 drives kernels 3 and 5's library entries at T = 12. Then:
+and phase 7 drives kernels 3 and 5's library entries at T = 12. Kernel
+1's row-copy instantiation (box rows that hold each k row from its
+first 16-byte granule on, for shapes the copy engine cannot take whole)
+is held in phase 2 at every shape it serves (T = 12's w1 and w3, bf16
+and odd r at T = 16, the dedicated layout at an odd m_l; 5 masks each,
+integer inputs to the bit) and timed in phase 4
+(kernel_times.ROWCOPY_TIMED). Then:
  10. serve granite-3-8b at T = 12 (launch.serve --coded --tp 12: r = 2
      folded, float32, heads padded to 36/9 with zero weights): 4 requests,
      prompt 16, 16 new tokens, fault-free and with shard 7 killed at step
      4, on graph rounds, eager fused rounds, the reference variant and
      kernel-free: identical streams; 200 / 1 / 81 launches of kernels 1,
-     2 and 6 a fused round; device ms per round by kernel; kernel 4 timed
-     on a whole re-encode;
+     2 and 6 a fused round; device ms per round by kernel (kernel 1's
+     w1 and w3, its row-copy instantiation, in us a launch); kernel 4
+     timed on a whole re-encode against its bound; the graph round's
+     median must be below the reference variant's;
  11. h2o-danube-1.8b at full width (SWA, window 4096): launch.serve's
      scheduler (4 slots, 8 requests, --perf) with the CPU run's counters,
      then one batch with a 4090-token prompt and 16 new tokens, so decode
@@ -182,7 +190,7 @@ and phase 7 drives kernels 3 and 5's library entries at T = 12. Then:
      fused rounds, the reference variant and kernel-free: identical
      streams, every fused round's max logit within 1e-4 of the reference
      round's, 192 / 1 / 65 launches of kernels 1, 2 and 6 a fused round,
-     none of kernel 1's on the ordinary-load producer, and the fused
+     none of kernel 1's on the row-copy instantiation, and the fused
      round's perf bound within 5% of the weights, the 1024-entry window
      and the mamba state; (c) a 2-dead reference round between graph
      replays at dedicated r = 2, which leaves the state's own tensors;
@@ -400,23 +408,23 @@ def check_fused_head(cfg) -> float:
 
 def head_variants(bf16: bool = False) -> tuple:
     """Every (T, instantiation) of kernel 2 in one storage type: rows
-    blocks of 4, 8 and (up to 11 streams) 16, bulk copies or loads."""
+    blocks of 4, 8 and (up to 11 streams) 16, tensor copies or row copies."""
     from repro_torch.kernels.stream_plan import rb_fits
     return tuple((t, f"rb{rb}-{p}" + ("-bf16" if bf16 else ""))
                  for t in (2, 4, 8, 16) for rb in (4, 8, 16)
                  if rb_fits(rb, t + 1)
-                 for p in ("async", "loads"))
+                 for p in ("async", "rowcopy"))
 
 
 def check_head_edges(dtype=torch.float32) -> float:
     """Kernel 2 at the edges of its launch plan, against its plain version
     under every mask with <= 1 dead shard: granite's head at T = 2, 4, 8
-    and 16 (T = 2's m_l = 24578 takes the ordinary loads) and rows 1, 4,
+    and 16 (T = 2's m_l = 24578 takes the row copies) and rows 1, 4,
     5, 8, 9, 12 and 17 (the row blocks 4 | 8 | 16 and their remainders;
     T = 16 has blocks of 4 and 8 rows), vocab 49155 (it cuts the last
     shard's last tile); T = 2 at an aligned m_l = 12292; ragged m_l 1001
-    and 2051 (ordinary loads, each row block) with the vocab cut 7 columns
-    short; k = 4093; the head at a 4-byte offset (ordinary loads at
+    and 2051 (row copies, each row block) with the vocab cut 7 columns
+    short; k = 4093; the head at a 4-byte offset (row copies at
     granite's width); column shards 4 and 8 columns apart (the 2-D map
     at shard offsets off and on a 16-byte boundary) and shards stored one
     after another (the 3-D map). Integer-valued inputs, exact in bf16
@@ -574,8 +582,8 @@ def check_coded_matmul_t16() -> float:
     """Kernel 1 at T = 16 (its (16, 1)-(16, 4) cases), both layouts,
     granite-3-8b's coded GEMM widths divided by 16 (wq 256, wk 64, w1 800:
     folded w1's slices of 50 columns take the copy engine with box rows a
-    vector wider than the tile (`-lead`) at r = 2 and 4, and the ordinary
-    loads at r = 1 and 3, whose parity rows are no whole 16-byte vectors),
+    vector wider than the tile (`-lead`) at r = 2 and 4, and the row
+    copies at r = 1 and 3, whose parity rows are no whole 16-byte vectors),
     4 rows, the all-valid mask and every single dead shard, within 1e-4
     of the plain version; 5 and 9 rows take the 8-row blocks (T = 16 has
     no 16-row instantiation). Both producers must launch at both row
@@ -599,7 +607,7 @@ def check_coded_matmul_t16() -> float:
             n += 1
     seen = dict(cdc_matmul.cdc_coded_matmul.variants)
     want = {f"rb{rb}-{p}" for rb in (4, 8)
-            for p in ("async", "loads", "async-lead")}
+            for p in ("async", "rowcopy", "async-lead")}
     if set(seen) != want:
         raise AssertionError(f"kernel 1 at T = 16 launched {seen}; want "
                              f"every one of {sorted(want)}")
@@ -616,10 +624,10 @@ def check_coded_matmul_bf16() -> float:
     4 rows under every mask, 16 and 64 rows), w1 at (4, 4) and wq
     dedicated; the plan's edges (rows 5, 8, 9; k = 4093; m_l = 1000
     dedicated; a ragged m_l = 100 and w's rows at an odd offset, both on
-    the ordinary loads); T = 8 at r = 4 and T = 16 at r = 2 (w1 800 on the
-    loads, wq 256 on the copy engine); float32 x against bf16 weights
-    (float32 out). Every bf16 instantiation (4/8/16 rows, bulk copies or
-    loads) must launch, and repeats at a split plan are bitwise equal."""
+    the row copies); T = 8 at r = 4 and T = 16 at r = 2 (w1 800 on
+    row copies, wq 256 on the copy engine); float32 x against bf16 weights
+    (float32 out). Every bf16 instantiation (4/8/16 rows, tensor copies or
+    row copies) must launch, and repeats at a split plan are bitwise equal."""
     from repro_torch.kernels import cdc_matmul
     bf = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(27)
@@ -645,7 +653,7 @@ def check_coded_matmul_bf16() -> float:
     spec, x, w, wc = _coded_case(1024, 4, "folded", gen, dtype=bf)
     worst = max(worst, _coded_pair(x.float(), w, wc, spec, (True,) * T,
                                    BF16_TOL, "f32 x, bf16 weights"))
-    # w's rows at a 2-byte offset: the ordinary loads at granite's widths
+    # w's rows at a 2-byte offset: the row copies at granite's widths
     for rows, m_l in ((4, 1024), (9, 3200)):
         spec, x, w, wc = _coded_case(m_l, rows, "folded", gen, dtype=bf)
         wide = torch.zeros((K, T * m_l + 1), device="cuda", dtype=bf)
@@ -705,7 +713,7 @@ def check_fused_head_wide(cfg) -> float:
 
 
 CODED_VARIANTS = tuple(f"rb{rb}-{p}" for rb in (4, 8, 16)
-                       for p in ("async", "loads"))
+                       for p in ("async", "rowcopy"))
 MATMUL_VARIANTS = tuple(f"rows-{v}" for v in CODED_VARIANTS) + (
     "square-async", "square-loads")
 
@@ -715,7 +723,7 @@ def check_stream_edges() -> tuple[float, float]:
     plain versions (1e-4, TF32 off): kernel 1 at rows 5, 8 and 9 (the row
     block boundaries 4 | 8 | 16), m_l = 1000 dedicated (not a multiple of
     the column tile), k = 4093 (not a multiple of the stage depth), w's
-    rows at an odd stride and offset (the ordinary-load instantiation, at
+    rows at an odd stride and offset (the row-copy instantiation, at
     granite's wq and w1 widths), (4, 4) and (8, 4) folded; kernel 7 at
     m = 1, 5, 8, 9, 12, 16 and 17, n = 1000, 2048, 2050 and 70, k = 4093
     and 300, bf16 in. Each instantiation of both kernels must have run, and
@@ -744,7 +752,7 @@ def check_stream_edges() -> tuple[float, float]:
             worst = max(worst, float((got - want).abs().max()))
             n += 1
     # w's rows at an odd stride and a 4-byte offset: no tensor map can take
-    # them, so the same kernel runs with ordinary loads
+    # them, so the same kernel runs with row copies
     for rows, m_l in ((4, 1024), (9, 1024), (9, 3200)):
         spec, x, w, _ = _coded_case(m_l, rows, "folded", gen)
         wide = torch.zeros((K, T * m_l + 1), device="cuda")
@@ -1213,9 +1221,9 @@ def granite_widths(t: int) -> dict:
 
 def _generic_variants(rbs, suffix: str, bf16: bool) -> set:
     """Instantiation names of a generic kernel (``-lead`` dropped): rows a
-    block x bulk copies or ordinary loads."""
+    block x tensor copies or row copies."""
     return {f"rb{rb}-{p}" + ("-bf16" if bf16 else "") + suffix
-            for rb in rbs for p in ("async", "loads")}
+            for rb in rbs for p in ("async", "rowcopy")}
 
 
 def check_coded_matmul_any(dtype=torch.float32) -> float:
@@ -1223,8 +1231,8 @@ def check_coded_matmul_any(dtype=torch.float32) -> float:
     its plain version, within 1e-4 on float32 and 2e-2 on bf16: granite's
     GEMMs at T in {3, 5, 6, 12} (bf16: 3 and 12) as launch.serve builds
     them (wq, wk, w1: at T = 12 m_l 384, 96 and 1068, whose 89-column
-    slices are 4 bytes off a 16-byte boundary and take the ordinary
-    loads), r in {1, 2, 4, T}, folded, 4 rows, under the all-valid mask
+    slices are 4 bytes off a 16-byte boundary and take the row
+    copies), r in {1, 2, 4, T}, folded, 4 rows, under the all-valid mask
     and every single dead shard; the dedicated layout; r = 6 at T = 8 and
     12; (16, 16), 32 streams; and the plan's edges at T = 3, 5, 6, 12 and
     16 (rows 1, 5, 9 and 17, k = 4093, a ragged dedicated m_l, slices wide
@@ -1232,7 +1240,7 @@ def check_coded_matmul_any(dtype=torch.float32) -> float:
     Every generic instantiation of the storage type must launch: one
     stream a consumer warp (``-any``: 4, 8 and 16 rows a block), two
     (``-any2``, 17-24 streams: 4 and 8 rows) and three (``-any3``, 25-32
-    streams: 4 rows), bulk copies and ordinary loads; two launches of a
+    streams: 4 rows), bulk copies and row copies; two launches of a
     split plan give the same bits."""
     from repro_torch.kernels import cdc_matmul
     bf16 = dtype == torch.bfloat16
@@ -1300,6 +1308,108 @@ def check_coded_matmul_any(dtype=torch.float32) -> float:
     return worst
 
 
+# every shape kernel 1's row-copy instantiation serves (the copy engine
+# cannot: a slice, shard or parity row that is no whole number of 16-byte
+# vectors): (what, T, r, m_l, layout, storage type, rows)
+ROWCOPY_SHAPES = (
+    ("T=12 w1/w3 (89-column slices)", 12, 2, 1068, "folded",
+     torch.float32, 4),
+    ("T=12 w1, 8-row blocks", 12, 2, 1068, "folded", torch.float32, 9),
+    ("T=12 w1 bf16 (rows at odd elements)", 12, 2, 1068, "folded",
+     torch.bfloat16, 4),
+    ("T=16 w1 bf16 (100-byte slices)", 16, 2, 800, "folded",
+     torch.bfloat16, 4),
+    ("T=16 w1 r=1", 16, 1, 800, "folded", torch.float32, 4),
+    ("T=16 w1 r=3", 16, 3, 800, "folded", torch.float32, 4),
+    ("T=16 w1 r=5 (2 streams a warp)", 16, 5, 800, "folded",
+     torch.float32, 4),
+    ("T=16 w1 r=9 (3 streams a warp)", 16, 9, 800, "folded",
+     torch.float32, 4),
+    ("dedicated, odd m_l (T=4)", 4, 2, 1001, "dedicated", torch.float32, 4),
+    ("dedicated, odd m_l (T=12)", 12, 2, 1001, "dedicated", torch.float32,
+     5),
+)
+
+
+def _masks2(t: int) -> list:
+    """(valid shards, valid parity slots): fault-free, data shard t // 2
+    + 1 dead, parity slot 3 dead, device t // 2 + 1 dead (its data shard
+    and its parity slot), and data shard t // 2 + 1 with parity slot t //
+    2 + 2 dead (two devices, one erasure of each kind)."""
+    d = t // 2 + 1
+    full = (True,) * t
+    dead = tuple(i != d for i in range(t))
+    return [(full, full), (dead, full),
+            (full, tuple(i != 3 for i in range(t))), (dead, dead),
+            (dead, tuple(i != (d + 1) % t for i in range(t)))]
+
+
+def check_rowcopy(k: int = K, shapes=ROWCOPY_SHAPES) -> tuple[float, float]:
+    """Kernel 1's row-copy instantiation at every shape it serves
+    (``ROWCOPY_SHAPES``: T = 12's w1 and w3, bf16 at T = 16, odd r at T =
+    16, the dedicated layout at an odd m_l; k rows), each plan named
+    ``rowcopy``,
+    against the plain version: within 1e-4 (bf16 2e-2) on Gaussian inputs
+    fault-free, with one data shard dead, one parity slot dead, a device
+    dead (its data shard and its slot) and two devices dead (one data
+    shard, another slot); on integer-valued inputs to the bit fault-free
+    and with a parity slot dead (every sum exact, no decode); two launches
+    on the same inputs bitwise equal. Returns the max abs errors (float32,
+    bf16)."""
+    from repro_torch.core.coded_layer import make_parity_weights
+    from repro_torch.kernels import cdc_matmul, ops
+    gen = torch.Generator(device="cuda").manual_seed(45)
+    fn = cdc_matmul.cdc_coded_matmul
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n = 0
+    for what, t, r, m_l, layout, dtype, rows in shapes:
+        tol = BF16_TOL if dtype == torch.bfloat16 else TOL
+        spec, x, w, wc = _coded_case(m_l, rows, layout, gen, k, r, t, dtype)
+        xi = _int_head((rows, k), gen, -2, 2).to(dtype)
+        wi = _int_head((k, t * m_l), gen).to(dtype)
+        wci = make_parity_weights(wi, spec)
+        fn.variants.clear()
+        for valid, vpar in _masks2(t):
+            esel, coef, g = ops.decode_plan(spec, valid, vpar, m_l, "cuda")
+            call = (layout, t, r, g, esel, coef, valid)
+            got = fn(x, w, wc, *call)
+            again = fn(x, w, wc, *call)
+            want = cdc_matmul.coded_matmul_plain(x, w, wc, *call)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(), **tol,
+                                       msg=lambda m_: (
+                                           f"row copies {what} mask={valid} "
+                                           f"parity={vpar}: {m_}"))
+            if not torch.equal(got, again):
+                raise AssertionError(f"row copies {what}: two launches on the "
+                                     f"same inputs differ")
+            worst[dtype] = max(worst[dtype],
+                               float((got.float() - want.float()).abs()
+                                     .max()))
+            if all(valid):
+                a = fn(xi, wi, wci, *call)
+                b = cdc_matmul.coded_matmul_plain(xi, wi, wci, *call)
+                torch.cuda.synchronize()
+                if not torch.equal(a, b):
+                    raise AssertionError(f"row copies {what} parity={vpar}: "
+                                         f"integer inputs differ from the "
+                                         f"plain version")
+            n += 1
+        variants = set(fn.variants)
+        if not variants or not all("-rowcopy" in v for v in variants):
+            raise AssertionError(f"row copies {what}: launched {variants}")
+        log(f"  {what}: (T, r) = ({t}, {r}) {layout} m_l={m_l} {dtype} "
+            f"rows={rows}: {dict(fn.variants)}")
+        del x, w, wc, xi, wi, wci
+    log(f"kernel cdc_coded_matmul, row-copy instantiation: {n} cases at "
+        f"{len(shapes)} shapes (k = {k}), 5 masks each (fault-free, a data "
+        f"shard, a parity slot, a device, two devices), within 1e-4 "
+        f"(bf16 2e-2) of the plain version, max abs err "
+        f"{worst[torch.float32]:.3e} / bf16 {worst[torch.bfloat16]:.3e}; "
+        f"integer inputs to the bit; repeats bitwise equal")
+    return worst[torch.float32], worst[torch.bfloat16]
+
+
 def check_head_any(cfg, dtype=torch.float32) -> float:
     """Kernel 2's generic instantiation (T a runtime value) against its
     plain version: granite's head at T in {3, 5, 6, 12} (m_l 16386, 9835,
@@ -1310,7 +1420,7 @@ def check_head_any(cfg, dtype=torch.float32) -> float:
     included): rows 1, 4, 5, 9 and 17, an aligned m_l = 2048 and a ragged
     1001 at k = 4093. Every (T, instantiation) must launch: 4, 8 and 16
     rows a block at T = 3, 4 and 8 at T = 12 (13 streams), bulk copies
-    and ordinary loads."""
+    and row copies."""
     from repro_torch.kernels import cdc_decode
     bf16 = dtype == torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(41)
@@ -1463,12 +1573,14 @@ def check_encode_any() -> tuple[float, float]:
     its plain version: granite's w1 and wq at T in {3, 5, 6, 12} (k 4096,
     w1 stacked over 2 layers), r in {1, 2, 4, T}, both layouts, within
     1e-5, each encoded twice to the same bits; on bf16 (N(0, 1) weights)
-    T = 12 at r = 2 and 12 within 2e-2. Returns the max abs errors
-    (float32, bf16)."""
+    T = 12 at r = 2 and 12 within 2e-2; T = 12's w1 (89-column slices)
+    must read 16-byte vectors. Returns the max abs errors (float32,
+    bf16)."""
     from repro_torch.core.coding import generator_matrix
     from repro_torch.kernels import cdc_encode as enc
     gen = torch.Generator(device="cuda").manual_seed(43)
     worst, worst_bf16, n = 0.0, 0.0, 0
+    enc.cdc_encode.variants.clear()
     for t in TS_ANY:
         widths = granite_widths(t)
         for shape in ((2, K, t * widths["w1"]), (K, t * widths["wq"])):
@@ -1491,6 +1603,12 @@ def check_encode_any() -> tuple[float, float]:
                     worst = max(worst, float((got - want).abs().max()))
                     n += 1
             del w, sh
+    # granite's w1 at T = 12 (89-column slices) reads 16-byte vectors and
+    # writes each column to its own slot
+    if "vec4-columns" not in enc.cdc_encode.variants:
+        raise AssertionError(f"encode: T = 12's w1 took "
+                             f"{dict(enc.cdc_encode.variants)}, not the "
+                             f"16-byte reads")
     w = torch.randn((K, 12 * granite_widths(12)["w1"]), generator=gen,
                     device="cuda").to(torch.bfloat16)
     for r in (2, 12):
@@ -2003,6 +2121,7 @@ def profile_rounds(ex, valid, round_ms: float, n: int = 3) -> dict:
     return {"device_ms": device_ms, "round_ms": round_ms,
             "top": [{"kernel": k[:90], "ms": ms, "count": c}
                     for k, ms, c in rows[:10]],
+            "by_kernel": {k: {"ms": ms, "count": c} for k, ms, c in rows},
             "us_per_launch": {n: ms * 1e3 / max(c, 1)
                               for n, (ms, c) in per_launch.items()}}
 
@@ -2306,6 +2425,50 @@ def time_wide_and_bf16(cfg, gen, flush, rows: int = 4) -> list[dict]:
             f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library matmul "
             f"{lib:.4f} ms, bound {bound:.4f} ms ({by}); {variant}")
         del w, w_shards, pw, wcat
+    return out
+
+
+def time_rowcopy(rows: int = 4) -> list[dict]:
+    """Kernel 1's row-copy instantiation at the shapes only it takes
+    (``kernel_times.ROWCOPY_TIMED``: T = 12's w1, bf16 and odd r at T =
+    16; folded, no shard dead), beside its plain version, one torch.matmul
+    of x over the same weights (concatenated, in their storage type) and
+    its bound. T = 12's w1 is also ``time_t12``'s row; it is timed here
+    again beside the other shapes of the same instantiation."""
+    from kernel_times import ROWCOPY_TIMED
+    from repro_torch.core.coded_layer import unfold_parity
+    from repro_torch.kernels import cdc_matmul
+    gen = torch.Generator(device="cuda").manual_seed(46)
+    flush = torch.empty(64 * 2 ** 20, device="cuda").zero_
+    out = []
+    for t, dtype, name, width, r in ROWCOPY_TIMED:
+        m_l = width // t
+        e = 2 if dtype == torch.bfloat16 else 4
+        peak = BF16_FLOPS if e == 2 else F32_FLOPS
+        tag = f"T={t} {str(dtype).split('.')[-1]}"
+        spec, x, w, wc = _coded_case(m_l, rows, "folded", gen, r=r, t=t,
+                                     dtype=dtype)
+        valid = (True,) * t
+        wcat = torch.cat([w, unfold_parity(wc, t, r).permute(1, 0, 2)
+                          .reshape(K, r * m_l)], dim=1)
+        cdc_matmul.cdc_coded_matmul.variants.clear()
+        ms = _time(lambda: _run_coded(x, w, wc, spec, valid), flush)
+        variant, = cdc_matmul.cdc_coded_matmul.variants
+        plain = _time(lambda: _run_coded(x, w, wc, spec, valid, plain=True),
+                      flush)
+        lib = _time(lambda: torch.matmul(x, wcat), flush)
+        bound, by = _bound(e * (rows * K + (t + r) * K * m_l
+                                + rows * t * m_l) + 8.0 * m_l,
+                           2.0 * rows * K * m_l * (t + r), peak)
+        out.append({"gemm": name, "r": r, "rows": rows, "m_l": m_l,
+                    "case": tag, "ms": ms, "plain_ms": plain,
+                    "library_ms": lib, "bound_ms": bound, "bound_by": by,
+                    "variant": variant})
+        log(f"cdc_coded_matmul {name} {tag} [rows={rows}, k={K}, m_l={m_l}, "
+            f"r={r} folded]: kernel {ms:.4f} ms ({ms / bound:.2f}x the "
+            f"bound), plain {plain:.4f} ms, library matmul {lib:.4f} ms, "
+            f"bound {bound:.4f} ms ({by}); {variant}")
+        del x, w, wc, wcat
     return out
 
 
@@ -3140,7 +3303,7 @@ def time_t12(cfg, rows: int = 4) -> list[dict]:
     """The generic instantiations at granite's T = 12 shapes (what
     ``launch.serve --coded --tp 12`` runs; r = 2 folded, 4 rows, no shard
     dead): kernel 1 at wq, wk and w1 (w1's 89-column slices on the
-    ordinary loads), kernel 2 at the head, kernel 3 at w1 with shard 2
+    row copies), kernel 2 at the head, kernel 3 at w1 with shard 2
     dead and kernel 5 at [12, 4, 1068]; beside their plain versions, one
     library call (torch.matmul of x over the same weights, concatenated;
     none for 3 and 5) and their bounds. Kernel 4's T = 12 row, a whole
@@ -3371,6 +3534,31 @@ def serve_t12(cfg) -> dict:
                                  f"{res['k2_variants']}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     meds = {n: float(np.median(r["round_ms"])) for n, r in runs.items()}
+    if not meds["graph"] < meds["reference"]:
+        raise AssertionError(f"T=12: the graph round's median "
+                             f"{meds['graph']:.3f} ms is not below the "
+                             f"reference variant's {meds['reference']:.3f}")
+    # kernel 1's w1 and w3 are the round's only launches of its row-copy
+    # instantiation (coded_stream_kernel<..., false, ...>)
+    copied = {k: v for k, v in out["profile"].get("by_kernel", {}).items()
+              if "coded_stream_kernel" in k and "false" in k}
+    if copied:
+        ms1 = sum(v["ms"] for v in copied.values())
+        n1 = sum(v["count"] for v in copied.values())
+        out["k1_rowcopy_us"] = ms1 * 1e3 / max(n1, 1)
+        log(f"T=12 kernel 1 at w1/w3 (row copies) by the profiler: "
+            f"{out['k1_rowcopy_us']:.3f} us a launch, {n1} a round, "
+            f"{ms1:.3f} ms a round")
+    enc = out["encode"]
+    log(f"T=12 whole re-encode by kernel 4: {enc['whole_ms']:.4f} ms against "
+        f"a {enc['total']['bound_ms']:.4f} ms bound "
+        f"({enc['total']['bound_ms'] / enc['whole_ms']:.1%} of it), library "
+        f"yardstick {enc['total']['library_ms']:.4f} ms")
+    if not enc["whole_ms"] < enc["total"]["library_ms"]:
+        raise AssertionError(f"T=12: a whole re-encode by kernel 4 "
+                             f"({enc['whole_ms']:.4f} ms) is not below the "
+                             f"library yardstick "
+                             f"({enc['total']['library_ms']:.4f} ms)")
     log(f"served granite-3-8b at T = 12 (r = 2 folded, float32, heads "
         f"padded to 36/9; params in {init_s:.1f} s): identical streams on "
         f"graph and eager fused rounds and the reference variant, "
@@ -4229,7 +4417,7 @@ def serve_hymba(cfg=None) -> dict:
     random weights). (a) ``_hymba_scheduler``. (b) ``_serve_one_batch``
     with a 1016-token prompt (the ring of 1024 wraps in decode): 192
     kernel-1 launches a fused round (wq, wk, wv, in_proj, w1, w3 of 32
-    layers), none on the ordinary-load producer, kernel 2 once and kernel
+    layers), none on the row-copy instantiation, kernel 2 once and kernel
     6 65 times, 7 kernel-4 launches an encode; the perf count of a fused
     round over the full window (``_hymba_window_perf``). (c) A 2-dead
     round between replays. (d) Peak memory."""
@@ -4243,10 +4431,11 @@ def serve_hymba(cfg=None) -> dict:
     one = _serve_one_batch("hymba", cfg, model, params, HYMBA_PROMPT,
                            coded_gemms(cfg) // cfg.n_layers + 1,
                            on_engine=_hymba_window_perf)
-    loads = [v for v in one["clean"]["k1_variants"] if "loads" in v]
-    if loads:
-        raise AssertionError(f"hymba: kernel 1 took the ordinary-load "
-                             f"producer: {one['clean']['k1_variants']}")
+    copied = [v for v in one["clean"]["k1_variants"] if "rowcopy" in v]
+    if copied:
+        raise AssertionError(f"hymba: kernel 1 took the row-copy "
+                             f"instantiation: "
+                             f"{one['clean']['k1_variants']}")
     two_dead = _two_dead_between_replays("hymba", cfg, params,
                                          one["prompts"])
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -4309,6 +4498,7 @@ def main() -> int:
                check_coded_matmul_t8(), check_coded_matmul_t16())
     err1_bf16 = check_coded_matmul_bf16()
     edge1, edge7 = check_stream_edges()
+    cp1, cp1_bf16 = check_rowcopy()
     err2 = max(check_fused_head(cfg), check_head_edges())
     err2_bf16 = max(check_fused_head_wide(cfg),
                     check_head_edges(torch.bfloat16))
@@ -4317,6 +4507,7 @@ def main() -> int:
     err6 = max(check_rmsnorm(), check_rmsnorm_edges())
     err7 = max(check_matmul(), edge7)
     err1 = max(err1, edge1)
+    err1_bf16 = max(err1_bf16, cp1_bf16)
     # every other code width: the generic instantiations of kernels 1-5
     any_err = {"cdc_coded_matmul": check_coded_matmul_any(),
                "cdc_fused_head_argmax": check_head_any(cfg)}
@@ -4340,6 +4531,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed = time_kernels(cfg)
     timed12 = time_t12(cfg)
+    timed_cp = time_rowcopy()
     timed_w = time_whisper(wcfg)
     timed_x = time_xlstm(xcfg)
     timed_h = time_hymba(hcfg)
@@ -4417,7 +4609,7 @@ def main() -> int:
     kernels += [
         {**entry_of("cdc_coded_matmul", "coded_matmul.cuh",
                     "src/repro/kernels/cdc_matmul.py:130", t12["k1"],
-                    any_err["cdc_coded_matmul"], rows12["w1"]),
+                    max(any_err["cdc_coded_matmul"], cp1), rows12["w1"]),
          "name": "cdc_coded_matmul (T=12, w1)"},
         {**entry_of("cdc_fused_head_argmax", "fused_head.cuh",
                     "src/repro/kernels/cdc_decode.py:138", t12["k2"],
@@ -4497,6 +4689,9 @@ def main() -> int:
                                 "bf16_max_abs_err": any_bf16,
                                 "t12_shapes": timed12,
                                 "entries_t12": entry12},
+                    "rowcopy": {"max_abs_err": cp1,
+                                "bf16_max_abs_err": cp1_bf16,
+                                "shapes": timed_cp},
                     "build": build_s, "t12": t12, "h2o": h2o,
                     "deepseek": deepseek,
                     "whisper": {**whisper, "shapes": timed_w,

@@ -25,7 +25,17 @@ line is the build: nvcc's wall time for the checkout's sources. Needs only
 the wrappers' public signatures, which both sides share. ``--new`` adds
 what only this tree runs: kernels 1 and 2 on bf16 weights (T = 4) and at
 T = 16 (float32), beside ``torch.matmul`` over the same weights in their
-storage type.
+storage type; kernel 1 at the shapes only its row-copy instantiation takes
+(``ROWCOPY_TIMED``: T = 12's w1, bf16 and odd r at T = 16), with its
+bound; and kernel 4 at T = 12's w1 leaf (``ENCODE_T12``) beside its bound
+and ``torch.matmul`` of the generator over a contiguous copy of the
+shards.
+
+  python3 kernel_times.py --tma-probe
+
+copies one TMA box whose first column is 4, 8 or 12 bytes past a 16-byte
+boundary (``csrc/tma_probe.cu``) and prints, for each start, whether the
+box equals the source columns.
 """
 from __future__ import annotations
 
@@ -50,6 +60,18 @@ WIDE_AND_BF16 = tuple(
     (t, dtype, (("w1", 12800, 2), ("w1", 12800, 4), ("wq", 4096, 2),
                 ("wk", 1024, 2)))
     for t, dtype in ((T, torch.bfloat16), (16, torch.float32)))
+# Kernel 1's row-copy instantiation (shapes the copy engine cannot take) at
+# 4 rows, folded: (T, storage type, gemm, full width, r). T = 12's w1 is
+# granite's d_ff padded to 12816 (89-column slices); at T = 16 w1's
+# 50-column slices are 100 bytes on bf16, and odd r makes float32 parity
+# rows of 200 r bytes. chip_smoke.py's phase 4 times the same shapes.
+ROWCOPY_TIMED = ((12, torch.float32, "w1", 12816, 2),
+                 (16, torch.bfloat16, "w1", 12800, 2),
+                 (16, torch.float32, "w1", 12800, 1),
+                 (16, torch.float32, "w1", 12800, 3))
+# Kernel 4 at granite's w1 leaf at T = 12 (40 layers stacked, k 4096, d_ff
+# padded to 12816), r = 2 folded: the largest leaf of a T = 12 re-encode.
+ENCODE_T12 = (40, 4096, 12816)
 
 
 def _time(fn, flush, n=30) -> float:
@@ -93,12 +115,21 @@ def main(argv=None) -> int:
                                          / "src"))
     ap.add_argument("--tag", default="this")
     ap.add_argument("--new", action="store_true",
-                    help="also kernels 1 and 2 on bf16 and at T = 16")
+                    help="also kernels 1 and 2 on bf16 and at T = 16, "
+                         "kernel 1's row-copy shapes and kernel 4 at T = 12")
+    ap.add_argument("--tma-probe", action="store_true",
+                    help="only the TMA box-start probe")
+    ap.add_argument("--tma-probe-start", type=int, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(args.src).resolve()))
+    if args.tma_probe_start is not None:
+        return tma_probe_start(args.tma_probe_start)
+    if args.tma_probe:
+        return tma_probe(args.src)
     from repro_torch.core.coded_layer import (CodedDenseSpec,
                                               make_parity_weights,
                                               unfold_parity)
@@ -206,6 +237,43 @@ def main(argv=None) -> int:
     return 0
 
 
+def tma_probe(src: str) -> int:
+    """One [4, 16] float32 TMA box of a [8, 64] matrix at first columns 0
+    .. 4, each start in a process of its own (a copy the engine refuses
+    faults the context): the printed line says, for each start, whether
+    the box equals the source columns, or how the process failed."""
+    res = {}
+    for c0 in range(5):
+        p = subprocess.run([sys.executable, __file__, "--src", src,
+                            "--tma-probe-start", str(c0)],
+                           capture_output=True, text=True, timeout=120)
+        last = (p.stdout.strip().splitlines() or [""])[-1]
+        res[f"start {c0 * 4} bytes"] = last if p.returncode == 0 else (
+            f"rc {p.returncode}: "
+            + " | ".join(p.stderr.strip().splitlines()[-3:]))
+    print(json.dumps({"tma_box_start_probe": res,
+                      "card": torch.cuda.get_device_name(0)}), flush=True)
+    return 0
+
+
+def tma_probe_start(c0: int) -> int:
+    import ctypes
+    from repro_torch.kernels import build
+    fn = build.load("tma_probe").cdc_tma_box_probe
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, i, i, i, i, i, p]
+    fn.restype = i
+    src = torch.arange(8 * 64, dtype=torch.float32, device="cuda").view(8, 64)
+    out = torch.full((4, 16), -1.0, device="cuda")
+    err = fn(src.data_ptr(), out.data_ptr(), 8, 64, c0, 16, 4,
+             build.raw_stream(src.device))
+    torch.cuda.synchronize()
+    print(f"error {err}" if err else
+          "equal" if torch.equal(out, src[:4, c0:c0 + 16]) else
+          f"differs (first row {out[0, :6].tolist()})", flush=True)
+    return 0
+
+
 def time_new(emit, gen, flush):
     """Kernels 1 and 2 on bf16 weights at T = 4 and in float32 at T = 16,
     at the decode round's 4 rows, beside torch.matmul over the same
@@ -248,6 +316,54 @@ def time_new(emit, gen, flush):
         emit(kernel="cdc_fused_head_argmax", rows=4, T=t, dtype=str(dtype),
              ms=ms, library_ms=lib)
         del w, w_shards, pw, wcat
+    for t, dtype, name, width, r in ROWCOPY_TIMED:
+        m_l = width // t
+        spec = CodedDenseSpec(CodeSpec(t, r), layout="folded")
+        x = torch.randn((4, K), generator=gen, device="cuda").to(dtype)
+        w = (torch.randn((K, width), generator=gen, device="cuda")
+             / K ** .5).to(dtype)
+        wc = make_parity_weights(w, spec)
+        vh = (True,) * t
+        esel, coef, g = ops.decode_plan(spec, vh, vh, m_l, "cuda")
+        wcat = torch.cat([w, unfold_parity(wc, t, r).permute(1, 0, 2)
+                          .reshape(K, r * m_l)], dim=1)
+        cdc_matmul.cdc_coded_matmul.variants.clear()
+        ms = _time(lambda: cdc_matmul.cdc_coded_matmul(
+            x, w, wc, "folded", t, r, g, esel, coef, vh), flush)
+        lib = _time(lambda: torch.matmul(x, wcat), flush)
+        e = w.element_size()
+        emit(kernel="cdc_coded_matmul", gemm=name, r=r, rows=4, T=t,
+             dtype=str(dtype), ms=ms, library_ms=lib,
+             bound_ms=e * (t + r) * K * m_l / 3.35e12 * 1e3,
+             variant=sorted(cdc_matmul.cdc_coded_matmul.variants))
+        del w, wc, wcat
+    time_encode_t12(emit, gen, flush)
+
+
+def time_encode_t12(emit, gen, flush):
+    """Kernel 4 at granite's w1 leaf at T = 12 (``ENCODE_T12``), r = 2
+    folded, beside its bound (the shards read once, the parity written
+    once) and torch.matmul of the generator over a contiguous copy of the
+    shards."""
+    from repro_torch.core.coding import generator_matrix
+    from repro_torch.kernels import cdc_encode as enc
+    L, k, m = ENCODE_T12
+    t, r = 12, 2
+    w = torch.randn((L, k, m), generator=gen, device="cuda") / k ** .5
+    sh = w.view(L, k, t, m // t).permute(0, 2, 1, 3)
+    g = generator_matrix(t, r)
+    counts = getattr(enc.cdc_encode, "variants", {})   # (a parent's: none)
+    counts.clear()
+    ms = _time(lambda: enc.cdc_encode(sh, g, layout="folded"), flush, 10)
+    variant = sorted(counts)
+    flat = sh.contiguous().reshape(L, t, -1)
+    gt = torch.as_tensor(g.astype(np.float32), device="cuda")
+    lib = _time(lambda: torch.matmul(gt, flat), flush, 10)
+    del flat
+    emit(kernel="cdc_encode", leaf="w1", shape=[L, k, m], T=t, r=r,
+         ms=ms, library_ms=lib,
+         bound_ms=4.0 * sh.numel() * (t + r) / t / 3.35e12 * 1e3,
+         variant=variant)
 
 
 if __name__ == "__main__":

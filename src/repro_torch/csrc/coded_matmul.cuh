@@ -44,8 +44,14 @@
 //    boundary before its tile, and the stream's consumer reads its rows
 //    half a vector in, in 8-byte halves;
 //  * shapes whose segments or strides are not multiples of 8 bytes, or
-//    whose row strides are not multiples of 16, take the same kernel with
-//    the producer copying by ordinary loads;
+//    whose row strides are not multiples of 16 (granite's w1 and w3 at T =
+//    12: 89-column slices, parity rows of 712 bytes), take the same kernel
+//    with box rows that hold each row from its first 16-byte granule on
+//    (stream_tile.cuh: produce, consume_shifted): w's shards still by
+//    one TMA box a stage, started at the granule, and rows no tensor map
+//    can take (the parity's) granule by granule by the consumer warps,
+//    a row a warp, with cp.async arriving on the same mbarrier; the
+//    consumers read each row at its own offset;
 //  * bf16 weights travel as bf16 (bf16 tensor maps, a stage of 32 KB holds
 //    twice the k rows) and widen to float32 in the consumers' registers;
 //  * the generic instantiation reads T and R from its arguments. Up to 16
@@ -84,6 +90,7 @@ struct CodedArgs {
   int x_bf16;
   int lead;           // elements a box row may start before its tile
   int T, R;           // the code (read by the generic instantiation only)
+  int wmap, pmap;     // row copies: w's, the parity's rows by tensor map
 };
 
 // The generic instantiation: a consumer warp owns one stream up to 16
@@ -146,7 +153,8 @@ coded_stream_kernel(const CodedArgs a,
     return s < T ? s * m_l + c0 : folded ? (s - T) * wd + o0 : c0;
   };
 
-  stream::ring_init<G::NSTAGE>(full, empty, NCW);
+  // row copies: each consumer thread's copies arrive on `full` too
+  stream::ring_init<G::NSTAGE>(full, empty, NCW, ASYNC ? 1 : 1 + NC);
   float acc[NSPW][RB][CPL];
 #pragma unroll
   for (int i = 0; i < NSPW; ++i)
@@ -154,13 +162,27 @@ coded_stream_kernel(const CodedArgs a,
     for (int rr = 0; rr < RB; ++rr)
 #pragma unroll
       for (int q = 0; q < CPL; ++q) acc[i][rr][q] = 0.f;
+  // the lambdas capture scalars by value: no local lives in memory
+  const int pld = a.folded ? (S - T) * a.wd : a.m_l;   // the parity's row
+  const int k = a.k;
+  const int64_t ldw = a.ldw;
+  const W* w = static_cast<const W*>(a.w);
+  const W* pw = static_cast<const W*>(a.pw);
+  // stream s's row kk of the tile (the row-copy instantiation's copies)
+  auto src = [=](int s, int kk) -> const W* {
+    if (s < T) return w + (int64_t)kk * ldw + (int64_t)s * m_l + c0;
+    const int j = s - T;
+    if (folded) {
+      const int slot = (slice + j + 1) % T;
+      return pw + ((int64_t)slot * k + kk) * pld + j * wd + o0;
+    }
+    return pw + ((int64_t)j * k + kk) * pld + c0;
+  };
+  // the streams u0 .. u0 + U - 1 no tensor map takes (row copies: w's
+  // shards, the parity's or both) the consumers copy
+  const int u0 = a.wmap ? T : 0;
+  const int U = (a.wmap ? 0 : T) + (a.pmap ? 0 : S - T);
   if (warp == NCW) {
-    // the lambdas capture scalars by value: no local lives in memory
-    const int pld = a.folded ? (S - T) * a.wd : a.m_l;
-    const int k = a.k;
-    const int64_t ldw = a.ldw;
-    const W* w = static_cast<const W*>(a.w);
-    const W* pw = static_cast<const W*>(a.pw);
     const CUtensorMap* mw = &tm_w;
     const CUtensorMap* mp = &tm_p;
     auto issue = [=](int s, int k0, W* dst, uint64_t* bar) {
@@ -174,17 +196,8 @@ coded_stream_kernel(const CodedArgs a,
         stream::tma_3d(dst, mp, c, k0, s - T, bar);
       }
     };
-    auto src = [=](int s, int kk) -> const W* {
-      if (s < T) return w + (int64_t)kk * ldw + (int64_t)s * m_l + c0;
-      const int j = s - T;
-      if (folded) {
-        const int slot = (slice + j + 1) % T;
-        return pw + ((int64_t)slot * k + kk) * pld + j * wd + o0;
-      }
-      return pw + ((int64_t)j * k + kk) * pld + c0;
-    };
-    stream::produce<G::NSTAGE, ASYNC>(S, issue, src, ring, full, empty, kb0,
-                                      kb1, a.ks, width, pitch, sreg);
+    stream::produce<G::NSTAGE>(S, u0, U, issue, ring, full, empty, kb0, kb1,
+                               a.ks, pitch, sreg);
   } else {
     if (a.x_bf16)
       stream::stage_x<RB>(static_cast<const __nv_bfloat16*>(a.x), a.rows,
@@ -192,7 +205,11 @@ coded_stream_kernel(const CodedArgs a,
     else
       stream::stage_x<RB>(static_cast<const float*>(a.x), a.rows, a.k, r0,
                           kb0, kb1, a.gamma, a.eps, xs, inv, NC);
-    if constexpr (TT != 0) {
+    if constexpr (!ASYNC) {
+      stream::consume_shifted<RB, NSPW>(ring, full, empty, xs, warp, NCW, S,
+                                        kb0, kb1, a.ks, pitch, sreg, width,
+                                        u0, U, warp, NCW, src, acc);
+    } else if constexpr (TT != 0) {
       stream::consume<RB>(ring, full, empty, xs, warp, kb0, kb1, a.ks, pitch,
                           sreg, acc[0], lead ? first_col(warp) % V : 0);
     } else {
@@ -208,7 +225,7 @@ coded_stream_kernel(const CodedArgs a,
 #pragma unroll
     for (int i = 0; i < NSPW; ++i)
       if (warp + i * NCW < S)
-        stream::store_acc<RB, W>(tot, warp + i * NCW, acc[i]);
+        stream::store_acc<RB, W, !ASYNC>(tot, warp + i * NCW, acc[i]);
   }
   __syncthreads();
 
@@ -369,10 +386,13 @@ extern "C" int cdc_coded_matmul_occupancy(int T, int R, int w_bf16, int rb,
   return err != 0 ? -err : occ;
 }
 
-// Elements a box row starts before its tile on the copy engine: a vector
-// where a slice or shard width is no whole number of 16-byte vectors.
+// Elements by which a box row is wider than its tile: on the copy engine a
+// vector where a slice or shard width is no whole number of 16-byte
+// vectors (the box starts at the boundary before its tile); on the row
+// copies always a vector (a row's granules start up to 15 bytes before
+// it).
 static int coded_lead(int V, int async, int m_l, int wd) {
-  return async && (m_l % V || wd % V) ? V : 0;
+  return !async || m_l % V || wd % V ? V : 0;
 }
 
 template <typename W>
@@ -423,28 +443,35 @@ extern "C" int cdc_coded_matmul(
                                     ks, w, pw);
   if (!ok) return (int)cudaErrorInvalidValue;
   const int lead = coded_lead(w_bf16 ? 8 : 4, async, m_l, wd);
+  // the row copies take a stream's rows by tensor map where its base and
+  // row stride are whole 16-byte units (granite's w at T = 12), else by
+  // cp.async (its folded parity: rows of 712 bytes)
+  const int e = w_bf16 ? 2 : 4;
+  const int pstride = folded ? R * wd : m_l;
+  const int wmap = async || ((uintptr_t)w % 16 == 0 && ldw * e % 16 == 0);
+  const int pmap = async || ((uintptr_t)pw % 16 == 0 &&
+                             (int64_t)pstride * e % 16 == 0);
   const CodedArgs a{x,   w,         pw,   gen, esel, coef,  gamma,
                     eps, out,       ws,   sem, rows, k,     m_l,
                     ldw, folded,    valid_bits,      bn,    tps,
                     wd,  nrb,       ksplit,          kchunk, ks, x_bf16,
-                    lead, T,        R};
+                    lead, T,        R,   wmap, pmap};
   const long long grid = (long long)n_slices * tps * nrb * ksplit;
   if (grid > 0x7fffffff) return (int)cudaErrorInvalidValue;
   CUtensorMap mw{}, mp{};
-  if (async) {
+  {
     // the box's inner extent is the pitch: whole 16-byte vectors
-    const cuuint64_t e = w_bf16 ? 2 : 4;
     const int pitch = lead + (w_bf16 ? stream::pitch_of<__nv_bfloat16>(bn)
                                      : stream::pitch_of<float>(bn));
     const cuuint32_t box[3] = {(cuuint32_t)pitch, (cuuint32_t)ks, 1};
     const cuuint64_t wdims[2] = {(cuuint64_t)T * m_l, (cuuint64_t)k};
     const cuuint64_t wstr[1] = {(cuuint64_t)ldw * e};
-    const cuuint64_t inner = folded ? (cuuint64_t)R * wd : (cuuint64_t)m_l;
+    const cuuint64_t inner = (cuuint64_t)pstride;
     const cuuint64_t pdims[3] = {inner, (cuuint64_t)k, (cuuint64_t)(folded
                                                                   ? T : R)};
     const cuuint64_t pstr[2] = {inner * e, inner * e * k};
-    if (!stream::encode_map(&mw, w, 2, wdims, wstr, box, w_bf16) ||
-        !stream::encode_map(&mp, pw, 3, pdims, pstr, box, w_bf16))
+    if ((wmap && !stream::encode_map(&mw, w, 2, wdims, wstr, box, w_bf16)) ||
+        (pmap && !stream::encode_map(&mp, pw, 3, pdims, pstr, box, w_bf16)))
       return (int)cudaErrorInvalidValue;
   }
   return dispatch(T, R, w_bf16, rb, async, a, mw, mp, (int)grid,

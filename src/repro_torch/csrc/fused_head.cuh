@@ -37,7 +37,9 @@
 //    tile of a row block reduces those in tile order with the same tie
 //    rule. One launch, deterministic; with one split no workspace;
 //  * shapes whose segments or strides are not multiples of 16 bytes take
-//    the same kernel with the producer copying by ordinary loads;
+//    the same kernel with the consumer warps copying the streams' k rows
+//    granule by granule by cp.async and reading each row at its own offset
+//    (stream_tile.cuh: consume_shifted);
 //  * bf16 weights travel as bf16 and widen to float32 in the consumers'
 //    registers. A copy must start on a 16-byte boundary, so where column
 //    shards start between two (a bf16 head of m_l = 12292) every box row
@@ -112,17 +114,23 @@ head_stream_kernel(const HeadArgs a,
   const int sreg = stream::box_elems<W>(a.ks, pitch);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  stream::ring_init<G::NSTAGE>(full, empty, S);
-  float acc[RB][CPL];
+  // row copies: each consumer thread's copies arrive on `full` too
+  stream::ring_init<G::NSTAGE>(full, empty, S, ASYNC ? 1 : 1 + NC);
+  float acc[1][RB][CPL];
 #pragma unroll
   for (int rr = 0; rr < RB; ++rr)
 #pragma unroll
-    for (int q = 0; q < CPL; ++q) acc[rr][q] = 0.f;
+    for (int q = 0; q < CPL; ++q) acc[0][rr][q] = 0.f;
+  const int64_t ldw = a.ldw, sstr = a.shard_stride, ldp = a.ldp;
+  const W* w = static_cast<const W*>(a.w);
+  const W* pw = static_cast<const W*>(a.pw);
+  // stream s's row kk of the tile (the row-copy instantiation's copies)
+  auto src = [=](int s, int kk) -> const W* {
+    return s < T ? w + (int64_t)s * sstr + (int64_t)kk * ldw + c0
+                 : pw + (int64_t)kk * ldp + c0;
+  };
   if (warp == S) {
     const int rows_outer = a.rows_outer;
-    const int64_t ldw = a.ldw, sstr = a.shard_stride, ldp = a.ldp;
-    const W* w = static_cast<const W*>(a.w);
-    const W* pw = static_cast<const W*>(a.pw);
     const CUtensorMap* mw = &tm_w;
     const CUtensorMap* mp = &tm_p;
     auto issue = [=](int s, int k0, W* dst, uint64_t* bar) {
@@ -133,12 +141,9 @@ head_stream_kernel(const HeadArgs a,
       else
         stream::tma_3d(dst, mw, c0, k0, s, bar);
     };
-    auto src = [=](int s, int kk) -> const W* {
-      return s < T ? w + (int64_t)s * sstr + (int64_t)kk * ldw + c0
-                   : pw + (int64_t)kk * ldp + c0;
-    };
-    stream::produce<G::NSTAGE, ASYNC>(S, issue, src, ring, full, empty, kb0,
-                                      kb1, a.ks, width, pitch, sreg);
+    // row copies: no tensor map, the consumers copy every stream's rows
+    stream::produce<G::NSTAGE>(S, ASYNC ? S : 0, ASYNC ? 0 : S, issue, ring,
+                               full, empty, kb0, kb1, a.ks, pitch, sreg);
   } else {
     if (a.x_bf16)
       stream::stage_x<RB>(static_cast<const __nv_bfloat16*>(a.x), a.b, a.k,
@@ -146,14 +151,20 @@ head_stream_kernel(const HeadArgs a,
     else
       stream::stage_x<RB>(static_cast<const float*>(a.x), a.b, a.k, r0, kb0,
                           kb1, nullptr, 0.f, xs, inv, NC);
-    const int shift =
-        a.lead && warp < T ? (int)((warp * a.shard_stride + c0) % V) : 0;
-    stream::consume<RB>(ring, full, empty, xs, warp, kb0, kb1, a.ks, pitch,
-                        sreg, acc, shift);
+    if constexpr (ASYNC) {
+      const int shift =
+          a.lead && warp < T ? (int)((warp * a.shard_stride + c0) % V) : 0;
+      stream::consume<RB>(ring, full, empty, xs, warp, kb0, kb1, a.ks, pitch,
+                          sreg, acc[0], shift);
+    } else {
+      stream::consume_shifted<RB, 1>(ring, full, empty, xs, warp, 1, S, kb0,
+                                     kb1, a.ks, pitch, sreg, width, 0, S,
+                                     warp, S, src, acc);
+    }
   }
   __syncthreads();        // every stage consumed: reuse ring and staging
   float* tot = smem;      // [S][RB][BNS] <= G::RING + G::XS
-  if (warp < S) stream::store_acc<RB, W>(tot, warp, acc);
+  if (warp < S) stream::store_acc<RB, W, !ASYNC>(tot, warp, acc[0]);
   __syncthreads();
 
   const int rows_here = min(RB, a.b - r0);
@@ -359,7 +370,7 @@ extern "C" int cdc_fused_head_argmax(
   // they start half a vector past a 16-byte boundary; stacked shards the
   // 3-D map [T, k, m_l]
   const int rows_outer = shard_stride <= ldw;
-  const int lead = async && rows_outer && shard_stride % V ? V : 0;
+  const int lead = !async || (rows_outer && shard_stride % V) ? V : 0;
   const int pitch = (bn + V - 1) / V * V + lead;
   const int box = w_bf16 ? stream::box_elems<__nv_bfloat16>(ks, pitch)
                          : stream::box_elems<float>(ks, pitch);

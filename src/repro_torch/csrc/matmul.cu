@@ -24,10 +24,12 @@
 //    of x and four of w feed 64 FMAs.
 //
 // Shapes the copy engine cannot take (a row not a multiple of 16 bytes,
-// bf16 storage) run the same kernels with the producer copying by
-// ordinary loads (bf16 converted to float32 on the way into shared
-// memory, zero past the edges). The sums are float32 on CUDA cores; out
-// is float32 or bf16.
+// bf16 storage) run the same kernels copying otherwise: the few-rows
+// kernel's consumer warp copies each k row of w granule by granule by
+// cp.async (stream_tile.cuh: consume_shifted), the square kernel's
+// producer by ordinary loads (bf16 converted to float32 on the way into
+// shared memory, zero past the edges). The sums are float32 on CUDA cores;
+// out is float32 or bf16.
 #include "coded_tile.cuh"
 #include "stream_tile.cuh"
 
@@ -66,47 +68,55 @@ matmul_rows_kernel(const RowsArgs<TO> a,
   const int c0 = tile * a.bn, width = min(a.bn, a.N - c0);
   const int r0 = rbi * RB;
   const int kb0 = split * a.kchunk, kb1 = min(a.K, kb0 + a.kchunk);
-  const int pitch = stream::pitch_of<float>(a.bn);
+  // a box row: the tile in whole vectors, and on the row copies one more
+  const int pitch = stream::pitch_of<float>(a.bn) + (ASYNC ? 0 : 4);
   const int sreg = stream::box_elems<float>(a.ks, pitch);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  stream::ring_init<G::NSTAGE>(full, empty, 1);
-  float acc[RB][CPL];
+  // row copies: the consumer's copies arrive on `full` too
+  stream::ring_init<G::NSTAGE>(full, empty, 1, ASYNC ? 1 : 33);
+  float acc[1][RB][CPL];
 #pragma unroll
   for (int rr = 0; rr < RB; ++rr)
 #pragma unroll
-    for (int q = 0; q < CPL; ++q) acc[rr][q] = 0.f;
+    for (int q = 0; q < CPL; ++q) acc[0][rr][q] = 0.f;
+  const float* w = a.w;
+  const int n = a.N;
+  // the tile's row kk of w (the row-copy instantiation's copies)
+  auto src = [=](int, int kk) -> const float* {
+    return w + (int64_t)kk * n + c0;
+  };
   if (warp == 1) {
-    // the lambdas capture scalars by value: no local lives in memory
     const CUtensorMap* mw = &tm_w;
-    const float* w = a.w;
-    const int n = a.N;
     auto issue = [=](int, int k0, float* dst, uint64_t* bar) {
       stream::tma_2d(dst, mw, c0, k0, bar);
     };
-    auto src = [=](int, int kk) -> const float* {
-      return w + (int64_t)kk * n + c0;
-    };
-    stream::produce<G::NSTAGE, ASYNC>(1, issue, src, ring, full, empty,
-                                      kb0, kb1, a.ks, width, pitch, sreg);
+    // row copies: no tensor map, the consumer copies w's rows
+    stream::produce<G::NSTAGE>(1, ASYNC ? 1 : 0, ASYNC ? 0 : 1, issue, ring,
+                               full, empty, kb0, kb1, a.ks, pitch, sreg);
   } else {
     stream::stage_x<RB>(a.x, a.M, a.K, r0, kb0, kb1, nullptr, 0.f, xs, inv,
                         32);
-    stream::consume<RB>(ring, full, empty, xs, 0, kb0, kb1, a.ks, pitch,
-                        sreg, acc);
+    if constexpr (ASYNC)
+      stream::consume<RB>(ring, full, empty, xs, 0, kb0, kb1, a.ks, pitch,
+                          sreg, acc[0]);
+    else
+      stream::consume_shifted<RB, 1>(ring, full, empty, xs, 0, 1, 1, kb0,
+                                     kb1, a.ks, pitch, sreg, width, 0, 1, 0,
+                                     1, src, acc);
     // the consumer writes its columns: final (one split) or partial
     const int64_t base = a.ksplit == 1 ? 0 : (int64_t)split * a.M * a.N;
 #pragma unroll
     for (int rr = 0; rr < RB; ++rr) {
 #pragma unroll
       for (int q = 0; q < CPL; ++q) {
-        const int c = lane * 4 + 128 * (q / 4) + q % 4;
+        const int c = stream::acc_col<RB, float, !ASYNC>(lane, q);
         if (r0 + rr < a.M && c < width) {
           const int64_t o = base + (int64_t)(r0 + rr) * a.N + c0 + c;
           if (a.ksplit == 1)
-            st(a.out + o, acc[rr][q]);
+            st(a.out + o, acc[0][rr][q]);
           else
-            a.ws[o] = acc[rr][q];
+            a.ws[o] = acc[0][rr][q];
         }
       }
     }
@@ -114,7 +124,7 @@ matmul_rows_kernel(const RowsArgs<TO> a,
   if (a.ksplit == 1) return;
   int* tile_sem = a.sem + tile * a.nrb + rbi;
   if (!arrive_last(tile_sem, a.ksplit)) return;
-  const int m = a.M, n = a.N;
+  const int m = a.M;
   auto off = [=](int rr) -> int64_t {
     return r0 + rr < m ? (int64_t)(r0 + rr) * n + c0 : -1;
   };
@@ -312,9 +322,11 @@ extern "C" int cdc_matmul_rows(const float* x, const float* w, void* out,
                                int nrb, int ksplit, int kchunk, int ks,
                                void* stream) {
   using namespace cdc;
-  const int pitch = stream::pitch_of<float>(bn), tiles = (N + bn - 1) / bn;
+  const int pitch = stream::pitch_of<float>(bn) + (async ? 0 : 4);
+  const int tiles = (N + bn - 1) / bn;
   const bool ok =
       M >= 1 && N >= 1 && K >= 1 && bn >= 1 && bn <= stream::bn_max(rb) &&
+      pitch <= 256 &&
       ks >= 1 && ks <= 256 &&
       stream::box_elems<float>(ks, pitch) <= stream::STAGE_FLOATS &&
       kchunk >= 1 && kchunk <= stream::kmax(rb) &&

@@ -13,18 +13,34 @@
 // per launch; rows past k arrive as zeros), all S completing on the
 // stage's `full` mbarrier (one arrive.expect_tx per stage carries the byte
 // count), so the copy engine handles kilobytes per request, not one row.
-// In the ordinary-load instantiation (shapes the copy engine cannot take:
-// a row segment or a stride that is not a multiple of 16 bytes) the
-// producer's lanes copy the same boxes with loads and stores and then
-// arrive. Warp s < S consumes stream s: per k row one 16-byte shared load
-// for each 4 of its float32 columns (bf16: one 16-byte load for 8 columns,
-// or 8 bytes for 4, widened to float32 in registers) and RB/4 16-byte
-// loads of the staged activations (RB rows of one k, stored k-major, always
+// Warp s < S consumes stream s: per k row one 16-byte shared load for each
+// 4 of its float32 columns (bf16: one 16-byte load for 8 columns, or 8
+// bytes for 4, widened to float32 in registers) and RB/4 16-byte loads of
+// the staged activations (RB rows of one k, stored k-major, always
 // float32), 4 * RB FMAs per 4 columns; then it releases the stage on its
 // `empty` mbarrier (S arrivals). A stage holds 32 KB whatever W is: a bf16
 // stage holds twice the k rows of a float32 one. Each warp owns the whole
 // k range of its stream, so no sum crosses warps and the order of every
 // sum is fixed.
+//
+// In the row-copy instantiation (shapes the copy engine's boxes cannot
+// take whole: a slice, shard or parity row that is no whole number of
+// 16-byte vectors, such as the 89-column folded slices of granite's w1 at
+// T = 12, whose parity rows are 712 bytes apart) a box row holds its row
+// from the 16-byte granule that holds the row's first element on, so the
+// row's data starts `shift` elements into it (its source address mod 16,
+// which may change from row to row), and box rows are one vector wider
+// than the tile. A stream whose base and row stride are whole 16-byte
+// units still comes as one TMA box a stage from the producer, started at
+// that granule; the other streams' rows the consumer warps copy between
+// them, a row a warp, granule by granule with 16-byte cp.async, three
+// stages ahead, every thread's copies arriving on the stage's `full`
+// barrier (cp.async.mbarrier.arrive.noinc), so no warp waits on its own
+// copies and the copying is spread over every sub-partition. The consumers
+// read each row at its shift with 4- or 2-byte shared loads, a lane on the
+// columns lane, lane + 32, ... (conflict-free), and only the first 128
+// columns of a lane's 256 where the tile is that narrow. The sums are the
+// same FMAs in the same order as on the copy engine's path.
 //
 // What it buys on the H100: 32 KB stages, one to three in flight while
 // one is consumed, 64-96 KB per SM against the ~32 KB that 3.35 TB/s needs
@@ -190,13 +206,14 @@ __device__ __forceinline__ void bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
 }
 
-// Thread 0 initialises the ring's barriers; every thread then syncs.
+// Thread 0 initialises the ring's barriers (`fills` arrivals complete a
+// `full` one, `consumers` an `empty` one); every thread then syncs.
 template <int NS>
 __device__ inline void ring_init(uint64_t* full, uint64_t* empty,
-                                 unsigned consumers) {
+                                 unsigned consumers, unsigned fills = 1) {
   if (threadIdx.x == 0) {
     for (int i = 0; i < NS; ++i) {
-      mbar_init(&full[i], 1);
+      mbar_init(&full[i], fills);
       mbar_init(&empty[i], consumers);
     }
     mbar_fence_init();
@@ -204,43 +221,47 @@ __device__ inline void ring_init(uint64_t* full, uint64_t* empty,
   __syncthreads();
 }
 
-// The producer warp of S <= 32 streams (a constant in the instantiations
-// of one code, a runtime value in the generic one). Stream s's box of the
-// stage at k row k0 lands at ring[stage][s * sreg] (elements of W): on the
-// copy engine, issue(s, k0, dst, bar) copies the whole [ks, pitch] box
-// (lane s issues stream s's copy); with ordinary loads the lanes copy the
-// `width` elements at src(s, kk) for each of the stage's rows into row kk
-// of the box.
-template <int NS, bool ASYNC, typename W, typename Issue, typename Src>
-__device__ inline void produce(int S, const Issue& issue, const Src& src,
+// The producer warp, S <= 32 streams (a constant in the instantiations of
+// one code, a runtime value in the generic one). Stream s's box of the
+// stage at k row k0 lands at ring[stage][s * sreg] (elements of W):
+// issue(s, k0, dst, bar) copies the whole [ks, pitch] box by one TMA
+// tensor copy, lane s issuing stream s's copy, for every stream but u0 ..
+// u0 + U - 1. Those (U = 0 on the copy engine's instantiation) the
+// row-copy instantiation's consumers copy (consume_shifted): no tensor map
+// takes their rows. There issue() starts each box at the 16-byte boundary
+// at or before the tile, the only start the copy engine takes.
+template <int NS, typename W, typename Issue>
+__device__ inline void produce(int S, int u0, int U, const Issue& issue,
                                W* ring, uint64_t* full, uint64_t* empty,
-                               int kb0, int kb1, int ks, int width,
-                               int pitch, int sreg) {
+                               int kb0, int kb1, int ks, int pitch,
+                               int sreg) {
   const int lane = threadIdx.x & 31;
   const int nst = (kb1 - kb0 + ks - 1) / ks;
+  const uint32_t bytes = (uint32_t)((S - U) * ks * pitch * (int)sizeof(W));
   for (int it = 0; it < nst; ++it) {
     const int st = it % NS, round = it / NS;
-    const int k0 = kb0 + it * ks, nrow = min(ks, kb1 - k0);
     if (round > 0) mbar_wait(&empty[st], (round - 1) & 1);
-    W* dst = ring + st * stage_elems<W>();
-    if (ASYNC) {
-      if (lane == 0)
-        mbar_arrive_tx(&full[st],
-                       (uint32_t)(S * ks * pitch * (int)sizeof(W)));
-      __syncwarp();
-      if (lane < S) issue(lane, k0, dst + lane * sreg, &full[st]);
-    } else {
-      const int per = nrow * width;
-      for (int i = lane; i < S * per; i += 32) {
-        const int s = i / per, rem = i - s * per;
-        const int kk = rem / width, c = rem - kk * width;
-        dst[s * sreg + kk * pitch + c] = ldraw(src(s, k0 + kk) + c);
-      }
-      __threadfence_block();
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&full[st]);
-    }
+    if (lane == 0) mbar_arrive_tx(&full[st], bytes);
+    __syncwarp();
+    if (lane < S && (lane < u0 || lane >= u0 + U))
+      issue(lane, kb0 + it * ks, ring + st * stage_elems<W>() + lane * sreg,
+            &full[st]);
   }
+}
+
+// One 16-byte cp.async, global to shared (bypassing L1), and the arrival
+// of this thread's cp.async copies on `bar` once they have landed (noinc:
+// the arrival is one of the barrier's expected count).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   smem_u32(bar))
+               : "memory");
 }
 
 // One k row of a consumer lane's columns, widened to float32: float32
@@ -403,21 +424,166 @@ __device__ inline void consume_multi(const W* ring, uint64_t* full,
   }
 }
 
+// One stored element read from shared memory, widened to float32 (bf16 is
+// the high half of a float32: exact).
+__device__ __forceinline__ float ld_shared(const float* p) { return *p; }
+__device__ __forceinline__ float ld_shared(const __nv_bfloat16* p) {
+  return __uint_as_float(
+      (uint32_t)*reinterpret_cast<const unsigned short*>(p) << 16);
+}
+
+// acc[rr][q] += x[rr, kk] * (row kk of box, at its shift)[lane + 32 q]
+// for q < NQ, kk < nrow: row kk's shift is ((a0 + kk ldb) mod 16) /
+// sizeof(W) elements (a0: row 0's address mod 16, ldb: the row stride in
+// bytes mod 16), one 4- or 2-byte shared load a column.
+template <int RB, int NQ, typename W>
+__device__ __forceinline__ void fma_shifted(const W* box, const float* xr,
+                                            int nrow, int pitch,
+                                            uint32_t a0, uint32_t ldb,
+                                            float (&acc)[RB][Geo<RB>::CPL]) {
+  constexpr int LG = sizeof(W) == 4 ? 2 : 1;
+  const int lane = threadIdx.x & 31;
+#pragma unroll 2
+  for (int kk = 0; kk < nrow; ++kk) {
+    const int shift = (int)(((a0 + (uint32_t)kk * ldb) & 15u) >> LG);
+    const W* p = box + kk * pitch + shift + lane;
+    float wv[NQ];
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) wv[q] = ld_shared(p + 32 * q);
+#pragma unroll
+    for (int g = 0; g < RB / 4; ++g) {
+      const float4 x4 = *reinterpret_cast<const float4*>(xr + kk * RB + 4 * g);
+      const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int q = 0; q < NQ; ++q)
+          acc[4 * g + i][q] = fmaf(xv[i], wv[q], acc[4 * g + i][q]);
+    }
+  }
+}
+
+// The consumers' copies of stage j (j < nst) into its slot, and their
+// arrival on its `full` barrier: the rows of the streams u0 .. u0 + U - 1
+// (no tensor map takes them), row i (stream major) by consumer warp i mod
+// ncw; each row src(s, kk) with the 16-byte granules that hold its `bytes`
+// (granules lie in the rows' own 16-byte units, so no copy leaves the
+// memory the rows live in), lane l the granules l, l + 32, ..., into box
+// row kk - k0 (`pitch` elements apart). Before a slot's second and later
+// stages every consumer has released it (`empty`).
+template <int NS, typename W, typename Src>
+__device__ __forceinline__ void fill_rows(W* ring, uint64_t* full,
+                                          uint64_t* empty, const Src& src,
+                                          int j, int cw, int ncw, int u0,
+                                          int U, int kb0, int kb1, int ks,
+                                          int pitch, int sreg, int bytes) {
+  const int lane = threadIdx.x & 31, st = j % NS;
+  const int k0 = kb0 + j * ks, nrow = min(ks, kb1 - k0);
+  if (j >= NS) mbar_wait(&empty[st], (j / NS - 1) & 1);
+  W* stage = ring + st * stage_elems<W>();
+  for (int i = cw; i < U * nrow; i += ncw) {
+    const int u = i / nrow, kk = i - u * nrow;
+    const uintptr_t a = reinterpret_cast<uintptr_t>(src(u0 + u, k0 + kk));
+    const uintptr_t lo = a & ~(uintptr_t)15;
+    const int n = (int)(((a + bytes + 15) & ~(uintptr_t)15) - lo);
+    const char* g = reinterpret_cast<const char*>(lo);
+    char* d = reinterpret_cast<char*>(stage + (u0 + u) * sreg + kk * pitch);
+    for (int o = lane * 16; o < n; o += 32 * 16) cp_async16(d + o, g + o);
+  }
+  cp_async_arrive(&full[st]);
+}
+
+// The row-copy instantiation's consumer warp cw (of ncw) of the streams
+// s0, s0 + step, ... below S (at most NSPW of them, each with its own
+// accumulators). acc[i][rr][q] += x[rr, kk] * W_s[kk, lane + 32 q]: box
+// row kk of stream s holds row kk from the 16-byte granule of its first
+// element on (src(s, kk): the row's first element), so the row starts at
+// shift = (src(s, kk) mod 16) / sizeof(W) elements, read with one 4- or
+// 2-byte shared load a column (32 lanes on 32 neighbouring columns);
+// columns past 128 are read and summed only where the tile is wider. The
+// streams with a tensor map arrive by the producer's boxes; the rows of
+// the streams u0 .. u0 + U - 1 the consumers copy between them
+// (fill_rows), NS - 1 stages ahead, every thread's copies arriving on the
+// stage's `full` barrier (the producer's arrival and 32 ncw more).
+template <int RB, int NSPW, typename W, typename Src>
+__device__ __forceinline__ void consume_shifted(
+    W* ring, uint64_t* full, uint64_t* empty, const float* xs, int s0,
+    int step, int S, int kb0, int kb1, int ks, int pitch, int sreg,
+    int width, int u0, int U, int cw, int ncw, const Src& src,
+    float (&acc)[NSPW][RB][Geo<RB>::CPL]) {
+  constexpr int NS = Geo<RB>::NSTAGE, CPL = Geo<RB>::CPL;
+  const int lane = threadIdx.x & 31;
+  const int nst = (kb1 - kb0 + ks - 1) / ks;
+  const int bytes = width * (int)sizeof(W);
+  // each own stream's first row and row stride, mod 16 bytes
+  uint32_t a0[NSPW], lb[NSPW];
+#pragma unroll
+  for (int i = 0; i < NSPW; ++i) {
+    const int s = min(s0 + i * step, S - 1);
+    const char* r0 = reinterpret_cast<const char*>(src(s, kb0));
+    a0[i] = (uint32_t)reinterpret_cast<uintptr_t>(r0) & 15u;
+    lb[i] = (uint32_t)(reinterpret_cast<const char*>(src(s, kb0 + 1)) - r0)
+            & 15u;
+  }
+  for (int j = 0; j < NS - 1 && j < nst; ++j)
+    fill_rows<NS>(ring, full, empty, src, j, cw, ncw, u0, U, kb0, kb1, ks,
+                  pitch, sreg, bytes);
+  for (int it = 0; it < nst; ++it) {
+    const int st = it % NS;
+    const int k0 = kb0 + it * ks, nrow = min(ks, kb1 - k0);
+    // stage it + NS - 1 goes into the slot of stage it - 1 once every
+    // consumer has released it
+    if (it + NS - 1 < nst)
+      fill_rows<NS>(ring, full, empty, src, it + NS - 1, cw, ncw, u0, U,
+                    kb0, kb1, ks, pitch, sreg, bytes);
+    mbar_wait(&full[st], (it / NS) & 1);
+    const float* xr = xs + (k0 - kb0) * RB;
+#pragma unroll
+    for (int i = 0; i < NSPW; ++i) {
+      const int s = s0 + i * step;
+      if (s >= S) break;
+      const W* box = ring + st * stage_elems<W>() + s * sreg;
+      const uint32_t a = (a0[i] + (uint32_t)(k0 - kb0) * lb[i]) & 15u;
+      if (CPL > 4 && width > 128)
+        fma_shifted<RB, CPL, W>(box, xr, nrow, pitch, a, lb[i], acc[i]);
+      else
+        fma_shifted<RB, 4, W>(box, xr, nrow, pitch, a, lb[i], acc[i]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+}
+
+// The column of acc[.][q] of a consumer lane: col4's runs on the copy
+// engine's instantiation (ROWS false), lane + 32 q on the row-copy one.
+template <int RB, typename W, bool ROWS>
+__device__ __forceinline__ int acc_col(int lane, int q) {
+  return ROWS ? lane + 32 * q : col4<RB, W>(lane, q / 4) + q % 4;
+}
+
 // The consumers write their accumulators to tot[(s * RB + rr) * BN + col]
-// (float32; BN = Geo<RB>::BN), every column of the lane, in 16-byte stores.
-template <int RB, typename W>
+// (float32; BN = Geo<RB>::BN), every column of the lane: in 16-byte stores
+// of col4's runs, or (ROWS) one store a column.
+template <int RB, typename W, bool ROWS = false>
 __device__ inline void store_acc(float* tot, int s,
                                  const float (&acc)[RB][Geo<RB>::CPL]) {
   constexpr int BNS = Geo<RB>::BN, CPL = Geo<RB>::CPL;
   const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int rr = 0; rr < RB; ++rr)
+  for (int rr = 0; rr < RB; ++rr) {
+    if constexpr (ROWS) {
 #pragma unroll
-    for (int j = 0; j < CPL / 4; ++j)
-      *reinterpret_cast<float4*>(tot + (s * RB + rr) * BNS +
-                                 col4<RB, W>(lane, j)) =
-          make_float4(acc[rr][4 * j], acc[rr][4 * j + 1], acc[rr][4 * j + 2],
-                      acc[rr][4 * j + 3]);
+      for (int q = 0; q < CPL; ++q)
+        tot[(s * RB + rr) * BNS + lane + 32 * q] = acc[rr][q];
+    } else {
+#pragma unroll
+      for (int j = 0; j < CPL / 4; ++j)
+        *reinterpret_cast<float4*>(tot + (s * RB + rr) * BNS +
+                                   col4<RB, W>(lane, j)) =
+            make_float4(acc[rr][4 * j], acc[rr][4 * j + 1],
+                        acc[rr][4 * j + 2], acc[rr][4 * j + 3]);
+    }
+  }
 }
 
 // The consumers (threads [0, n)) stage x[r0 + rr, kb0 + kk] for kk in

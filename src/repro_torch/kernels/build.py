@@ -33,7 +33,7 @@ SOURCES = ("cdc_coded_matmul", "cdc_coded_matmul_bf16", "cdc_coded_matmul_t16",
            "cdc_coded_matmul_any", "cdc_coded_matmul_any_bf16",
            "cdc_fused_head", "cdc_fused_head_bf16", "cdc_fused_head_any",
            "cdc_encode", "cdc_decode_merge", "cdc_decode", "rmsnorm",
-           "matmul")
+           "matmul", "tma_probe")
 # the code widths T the coded kernels (1-5) take (csrc/scalar.cuh: MAX_T)
 KERNEL_T = tuple(range(2, 17))
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

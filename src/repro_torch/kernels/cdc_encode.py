@@ -12,6 +12,7 @@ plain version, ``ref.cdc_encode_ref`` per layer followed by
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import numpy as np
@@ -47,6 +48,18 @@ def host_generator(gen) -> np.ndarray:
     """The host generator as a float32 [r, T] array (the cast the parity
     math uses)."""
     return np.ascontiguousarray(np.asarray(gen, np.float32))
+
+
+def encode_vec(m_l: int, strides, data_ptr: int, elem: int) -> int:
+    """Columns a thread of the kernel reads at once: a 16-byte vector (4
+    float32 or 8 bf16) where every shard read is whole vectors (m_l, the
+    shard, row and layer strides in elements, and the base address), else
+    one. The folded slices need not be whole vectors: the kernel then
+    writes each column of the vector to its own slot (granite's w1 at T =
+    12, 89-column slices)."""
+    ok = data_ptr % 16 == 0 and all(n * elem % 16 == 0
+                                    for n in (m_l, *strides))
+    return 16 // elem if ok else 1
 
 
 def encode_plain(w_shards: torch.Tensor, gen, layout: str) -> torch.Tensor:
@@ -100,23 +113,20 @@ def cdc_encode(w_shards: torch.Tensor, gen, *, layout: str = "dedicated"
         return out
     ld_t, ld_k = w_shards.stride(-3), w_shards.stride(-2)
     ld_l = w_shards.stride(0) if stacked else 0
-    # 16-byte vectors (4 float32 or 8 bf16 columns) where every row, shard
-    # and layer offset, and every folded slice, is whole vectors
-    e = build.elem_bytes(w_shards.dtype)
-    vec = 16 // e
-    aligned = (w_shards.data_ptr() % 16 == 0
-               and all(n * e % 16 == 0 for n in (m_l, ld_t, ld_k, ld_l))
-               and (not folded or (m_l // T) * e % 16 == 0))
+    vec = encode_vec(m_l, (ld_t, ld_k, ld_l), w_shards.data_ptr(),
+                     build.elem_bytes(w_shards.dtype))
     gen_host = (ctypes.c_float * g.size)(*g.ravel().tolist())
     stream = torch.cuda.current_stream(w_shards.device).cuda_stream
     err = _lib()(w_shards.data_ptr(), out.data_ptr(), gen_host, L, k, T, r,
-                 m_l, ld_t, ld_k, ld_l, int(folded), vec if aligned else 1,
-                 bf16, stream)
+                 m_l, ld_t, ld_k, ld_l, int(folded), vec, bf16, stream)
     if err != 0:
         raise RuntimeError(f"cdc_encode kernel launch failed: cudaError "
                            f"{err}")
     cdc_encode.launches += 1
+    cdc_encode.variants[f"vec{vec}" + (
+        "-columns" if folded and (m_l // T) % vec else "")] += 1
     return out
 
 
 cdc_encode.launches = 0
+cdc_encode.variants = collections.Counter()   # launches per read width

@@ -7,8 +7,10 @@ runs the plain version ``ref.matmul_ref`` on a CPU tensor. Any m, k and n
 rows (m <= 16, float32 in) stream w through the mainloop of
 ``csrc/stream_tile.cuh`` with k split across blocks; everything else takes
 64 x 32 output tiles. Shapes the copy engine cannot take run the same
-kernel with ordinary loads. Its caller is the coded-overhead study
-(``launch.coded_overhead.run_kernels``), as in the reference.
+kernels copying otherwise: the few-rows path granule by granule by
+cp.async, the square path by ordinary loads. Its caller is the
+coded-overhead study (``launch.coded_overhead.run_kernels``), as in the
+reference.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ class MatmulPlan:
     m: int
     n: int
     k: int
-    aligned: bool                           # bulk copies, or loads
+    aligned: bool                           # bulk copies, or not
     stream: stream_plan.StreamPlan | None   # the rows path's plan
 
     @property

@@ -1,14 +1,11 @@
 """Launch plans of the weight-streaming kernels (``csrc/stream_tile.cuh``).
 
-A plan cuts the work of one launch into units, one block each: a column
-tile of at most ``BN[rb]`` columns inside one slice of width ``wd`` (a
-folded parity slice, or the whole output width), a row block of ``rb``
-rows and a range of k. The CUDA side decodes ``blockIdx.x`` exactly as ``units``
-does (row block fastest, then tile, then split) and refuses a plan that
-breaks its limits, so the two cannot disagree silently. The constants
-mirror ``stream_tile.cuh``. A stage holds 32 KB of weights whatever their
-storage type: ``elem`` (4 for float32, 2 for bf16) sets how many k rows
-that is, and the 16-byte vectors a box row is cut into.
+A plan is ``aligned`` when the copy engine can take every box (one TMA
+tensor copy a stream and stage: variant ``rb*-async``), else box rows hold
+each k row from the 16-byte granule of its first element on, one 16-byte
+vector wider than the tile (``lead``), filled by TMA boxes where a
+stream's rows allow it and granule by granule by cp.async where not
+(``rb*-rowcopy``), and the consumers read each row at its own offset.
 """
 from __future__ import annotations
 
@@ -95,7 +92,7 @@ class StreamPlan:
     rows: int
     k: int
     rb: int          # rows a block
-    aligned: bool    # bulk copies (True) or the ordinary-load producer
+    aligned: bool    # tensor copies (True), or row copies
     wd: int          # slice width; tiles never straddle a slice
     n_slices: int
     bn: int          # column tile width
@@ -134,8 +131,8 @@ class StreamPlan:
 
     @property
     def variant(self) -> str:
-        return (f"rb{self.rb}-{'async' if self.aligned else 'loads'}"
-                + ("-lead" if self.lead else "")
+        return (f"rb{self.rb}-{'async' if self.aligned else 'rowcopy'}"
+                + ("-lead" if self.lead and self.aligned else "")
                 + ("-bf16" if self.elem == 2 else ""))
 
     def units(self):
@@ -164,7 +161,11 @@ def plan(rows: int, k: int, wd: int, n_slices: int, streams: int,
     kmax(rb) deep and a whole number of stages, each stage as deep as the
     split needs, at most as deep as a stage holds) until the blocks fill
     whole waves of the slots to WAVE_EFFICIENCY, or as near as MAX_SPLITS
-    get."""
+    get. Row copies (not ``aligned``) take box rows a 16-byte vector wider
+    than the tile whatever ``lead`` says: a row's granules start up to 15
+    bytes before it."""
+    if not aligned:
+        lead = 16 // elem
     rb = row_block(rows, wd, n_slices, streams)
     # 256-column tiles only where they still give every slot work within
     # MAX_SPLITS (narrower than 128, row segments get short for DRAM), and

@@ -270,6 +270,36 @@ def test_elementwise_generic_instantiations_match_plain(smoke):
     assert max(err3, err4, err5) <= 1e-5 and err4_bf16 <= 2e-2
 
 
+def test_rowcopy_instantiation_matches_plain_at_t12_w1(smoke):
+    """Kernel 1 at T = 12 w1's 89-column slices (reduced k), fault-free,
+    one data shard dead, one parity slot dead and two dead: within 1e-4 of
+    the plain version, equal to the bit on integer inputs, repeats
+    bitwise equal (chip_smoke.check_rowcopy raises otherwise)."""
+    t12 = [c for c in smoke.ROWCOPY_SHAPES if c[1] == 12
+           and c[5] == torch.float32 and c[4] == "folded"]
+    err, _ = smoke.check_rowcopy(k=1024, shapes=t12)
+    assert err <= 1e-4
+
+
+def test_rowcopy_instantiation_on_bf16_at_t16_matches_plain(smoke):
+    bf = [c for c in smoke.ROWCOPY_SHAPES if c[5] == torch.bfloat16]
+    _, err = smoke.check_rowcopy(k=1024, shapes=bf)
+    assert err <= 2e-2
+
+
+def test_rowcopy_instantiation_at_every_shape_matches_plain(smoke):
+    err, err_bf16 = smoke.check_rowcopy()
+    assert err <= 1e-4 and err_bf16 <= 2e-2
+
+
+def test_encode_at_t12_is_bitwise_repeatable_and_matches_plain(smoke):
+    """Kernel 4's generic instantiation at T = 12 (w1's 89-column slices
+    on 16-byte reads, wq): parity bitwise equal on repeats and within
+    1e-5 of the plain version (chip_smoke.check_encode_any)."""
+    err, err_bf16 = smoke.check_encode_any()
+    assert err <= 1e-5 and err_bf16 <= 2e-2
+
+
 def test_padded_heads_serve_at_t12_on_the_card(smoke):
     """granite at smoke size, T = 12 (heads padded 4 -> 12): fused graph
     rounds, with a shard erased mid-stream, give the reference variant's

@@ -50,6 +50,17 @@ NAME = "whisper-medium"
 GEN = 5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's smoke-size ops: the suite runs
+    in several worker processes at once, and their thread pools would
+    contend for the cores (4x slower here under that load)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def masks():
     """The all-valid mask and every single dead shard."""
     return [np.ones(T, bool)] + [np.arange(T) != d for d in range(T)]

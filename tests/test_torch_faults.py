@@ -39,6 +39,17 @@ SPECS = [dict(mtbf_ms=100, mttr_ms=20, p_permanent=0.1, p_degraded=0.2,
          dict(mtbf_ms=50, mttr_ms=10, p_permanent=1.0)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's smoke-size ops: the suite runs
+    in several worker processes at once, and their thread pools would
+    contend for the cores (4x slower here under that load)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ----------------------------------------------------------- injector ----
 
 @pytest.mark.parametrize("spec", SPECS, ids=["mixed", "weibull", "perm"])

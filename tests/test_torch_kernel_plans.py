@@ -34,6 +34,7 @@ from repro_torch.configs import get_arch
 from repro_torch.core import coded_layer as tcl
 from repro_torch.core import coding as tcoding
 from repro_torch.kernels import cdc_decode as tdec
+from repro_torch.kernels import cdc_encode as tenc
 from repro_torch.kernels import cdc_matmul as tcdc
 from repro_torch.kernels import matmul as tmm
 from repro_torch.kernels import ref as tref
@@ -112,10 +113,11 @@ def test_coded_plan_covers_granite_shapes(T, r, layout, rows):
                                                (7, 9, "dedicated", 999)])
 def test_coded_plan_ragged_shapes_take_ordinary_loads(m_l, rows, layout, k):
     """The ragged check shapes (chip_smoke's phase 2) cannot take the copy
-    engine: their plan is the ordinary-load instantiation of the same
-    kernel, and still covers the output once."""
+    engine: their plan is the row-copy instantiation of the same kernel
+    (box rows that hold each k row from its first 16-byte granule on),
+    and still covers the output once."""
     plan = tcdc.coded_plan(rows, k, m_l, 4, 2, layout, N_SM, OCC)
-    assert not plan.aligned and plan.variant.endswith("-loads")
+    assert not plan.aligned and plan.variant.endswith("-rowcopy")
     wd = m_l // 4 if layout == "folded" else m_l
     check_limits(plan, 6)
     check_cover(plan, rows, k, m_l, wd if layout == "folded" else None)
@@ -159,14 +161,78 @@ def test_coded_plan_covers_granite_shapes_any_t(T, layout, rows):
 
 def test_coded_plan_t12_w1_slices_take_ordinary_loads():
     """At T = 12 granite's w1 (d_ff 12800 padded to 12816, m_l 1068) has
-    folded slices of 89 float32 columns, 4 bytes off a 16-byte boundary:
-    the ordinary-load producer takes them; wq's 32-column and wk's
-    8-column slices take the copy engine."""
+    folded slices of 89 float32 columns, 4 bytes off a 16-byte boundary,
+    and parity rows of 178 columns (712 bytes): the row-copy
+    instantiation (``-rowcopy``: box rows that hold each k row from its
+    first 16-byte granule on) takes them, its tiles the whole 89-column
+    slices in box rows of 92 + 4 columns (a row's granules start up to 3
+    columns before it); wq's 32-column and wk's 8-column slices take the
+    copy engine."""
     wq, wk, w1 = (w // 12 for w in granite_widths_at(12))
     assert (wq, wk, w1) == (384, 96, 1068)
     for m_l, aligned in ((wq, True), (wk, True), (w1, False)):
         plan = tcdc.coded_plan(4, 4096, m_l, 12, 2, "folded", N_SM, OCC)
         assert plan.aligned is aligned and plan.wd == m_l // 12
+        assert plan.variant == f"rb4-{'async' if aligned else 'rowcopy'}"
+    plan = tcdc.coded_plan(4, 4096, w1, 12, 2, "folded", N_SM, 1)
+    assert (plan.bn, plan.tps, plan.pitch, plan.lead) == (89, 1, 96, 4)
+
+
+# every shape the copy engine cannot take, which kernel 1's row-copy
+# instantiation serves: (T, r, m_l, layout, bytes an element, rows)
+ROWCOPY_SHAPES = [
+    (12, 2, 1068, "folded", 4, 4),      # T = 12's w1 and w3
+    (12, 2, 1068, "folded", 4, 9),
+    (12, 2, 1068, "folded", 2, 4),      # bf16: rows at odd elements
+    (16, 2, 800, "folded", 2, 4),       # bf16 at T = 16: 100-byte slices
+    (16, 1, 800, "folded", 4, 4),       # odd r at T = 16: parity rows of
+    (16, 3, 800, "folded", 4, 9),       # 200 r bytes
+    (16, 5, 800, "folded", 4, 4),       # 21 streams: 2 a consumer warp
+    (16, 9, 800, "folded", 4, 4),       # 25 streams: 3 a consumer warp
+    (4, 2, 1001, "dedicated", 4, 4),    # the dedicated layout, odd m_l
+    (12, 2, 1001, "dedicated", 4, 5)]
+
+
+@pytest.mark.parametrize("T,r,m_l,layout,elem,rows", ROWCOPY_SHAPES)
+def test_rowcopy_plans_cover_misaligned_shapes(T, r, m_l, layout, elem,
+                                               rows):
+    """Each shape the copy engine cannot take gets the row-copy
+    instantiation, and its plan covers every output column once, never
+    straddles a slice, and fits what the C side checks (coded_plan_ok):
+    box rows of whole 16-byte vectors, one vector wider than the tile (a
+    row's granules start up to 15 bytes before it), at most 256 elements,
+    a stage that holds one k row of every stream, the row block's
+    epilogue, and at most 3 streams a consumer warp."""
+    rb, aligned = tcdc.coded_variant(rows, m_l, T, r, layout, elem=elem)
+    assert not aligned
+    plan = tcdc.coded_plan(rows, 4096, m_l, T, r, layout, N_SM, OCC,
+                           elem=elem)
+    assert plan.rb == rb and not plan.aligned and plan.lead * elem == 16
+    assert plan.variant == f"rb{rb}-rowcopy" + ("-bf16" if elem == 2
+                                                else "")
+    assert plan.pitch <= 256 and plan.pitch * elem % 16 == 0
+    assert tcdc.streams_per_warp(T + r) <= 3
+    check_limits(plan, T + r)
+    wd = m_l // T if layout == "folded" else m_l
+    check_cover(plan, rows, 4096, m_l, wd if layout == "folded" else None)
+    assert plan.blocks == len(plan.units())
+
+
+def test_encode_reads_16_byte_vectors_at_t12_w1():
+    """Kernel 4 reads 16-byte vectors wherever the shard reads are whole
+    vectors, even where the folded slices are not: granite's w1 leaf at T
+    = 12 ([L, 4096, 12816] viewed as [L, 12, 4096, 1068] shards,
+    89-column slices) reads 4 float32 columns at once. On bf16 a shard
+    row of 1068 columns is 2136 bytes, no whole vectors, so it reads one
+    column, as it does at a misaligned base or stride."""
+    w = torch.empty((2, 16, 12 * 1068))
+    sh = w.view(2, 16, 12, 1068).permute(0, 2, 1, 3)
+    strides = (sh.stride(1), sh.stride(2), sh.stride(0))
+    assert tenc.encode_vec(1068, strides, 0, 4) == 4
+    assert tenc.encode_vec(1068, strides, 0, 2) == 1
+    assert tenc.encode_vec(1072, (1072, 12 * 1072, 0), 0, 2) == 8
+    assert tenc.encode_vec(1068, strides, 4, 4) == 1
+    assert tenc.encode_vec(1067, (1067, 12 * 1067, 0), 0, 4) == 1
 
 
 def test_coded_plan_up_to_32_streams():
@@ -405,12 +471,12 @@ def test_head_plan_covers_granite_head(T, rows):
     k, m_l = 4096, head_width(T)
     rb, aligned = tdec.head_variant(rows, m_l, T * m_l, m_l)
     # T = 4 (the serving default) and 8 give whole 16-byte rows; T = 2's
-    # m_l = 24578 does not, and takes the ordinary loads
+    # m_l = 24578 does not, and takes the row copies
     assert aligned == (T != 2) == (m_l % 4 == 0)
     assert rb == (4 if rows <= 4 else 8 if rows <= 8 else 16)
     plan = tdec.head_plan(rows, k, m_l, T, N_SM, card_occupancy(rb), aligned)
     assert plan.rb == rb and plan.n_slices == 1 and plan.wd == m_l
-    assert plan.variant == f"rb{rb}-{'async' if aligned else 'loads'}"
+    assert plan.variant == f"rb{rb}-{'async' if aligned else 'rowcopy'}"
     check_limits(plan, T + 1)
     check_cover(plan, rows, k, m_l)
     assert plan.counters == plan.tiles * plan.nrb
@@ -508,7 +574,7 @@ def test_head_plan_ragged_shapes_take_ordinary_loads(m_l, ldw, sstr, ptr_ok,
     rb, aligned = tdec.head_variant(rows, m_l, ldw, sstr, ptr_ok)
     assert not aligned
     plan = tdec.head_plan(rows, k, m_l, 4, N_SM, card_occupancy(rb), aligned)
-    assert plan.variant == f"rb{rb}-loads"
+    assert plan.variant == f"rb{rb}-rowcopy"
     check_limits(plan, 5)
     check_cover(plan, rows, k, m_l)
 
@@ -706,7 +772,7 @@ def test_coded_plan_covers_granite_shapes_t16(r, layout, rows):
     256-column stage would hold one k row, and granite's folded w1 (slices
     of 50 columns, half a 16-byte vector off) on the copy engine with box
     rows one vector wider than the tile where the parity's rows (r x 50
-    columns) are whole vectors (r = 2, 4), else on the ordinary loads."""
+    columns) are whole vectors (r = 2, 4), else on the row copies."""
     T, k = 16, 4096
     for width in GRANITE_WIDTHS:
         m_l = width // T
@@ -715,7 +781,7 @@ def test_coded_plan_covers_granite_shapes_t16(r, layout, rows):
         pstride = r * wd if layout == "folded" else m_l
         assert plan.rb == (4 if rows <= 4 else 8)
         assert plan.aligned == (pstride % 4 == 0)
-        assert plan.lead == (4 if plan.aligned and wd % 4 else 0)
+        assert plan.lead == (4 if not plan.aligned or wd % 4 else 0)
         assert plan.bn <= 128 and plan.ks >= 2
         check_limits(plan, T + r)
         check_cover(plan, rows, k, m_l, wd if layout == "folded" else None)
@@ -739,7 +805,7 @@ def test_coded_plan_bf16_counts_bytes(T, r, layout):
         assert bf.elem == 2 and bf.variant.endswith("-bf16")
         assert bf.aligned == (pstride % 8 == 0 and T * m_l % 8 == 0
                               and m_l % 4 == 0 and wd % 4 == 0)
-        assert bf.lead == (8 if bf.aligned and (m_l % 8 or wd % 8) else 0)
+        assert bf.lead == (8 if not bf.aligned or m_l % 8 or wd % 8 else 0)
         if bf.bn == f32.bn and bf.aligned and f32.aligned:
             cap = stream_plan.stage_rows(T + r, bf.pitch, 2)
             assert cap >= 2 * stream_plan.stage_rows(T + r, f32.pitch) - 1
@@ -755,8 +821,8 @@ def test_head_plan_t16_and_bf16(T, elem, rows):
     """Kernel 2 at T = 16 (17 streams: 4- and 8-row blocks) and on bf16
     weights: granite's bf16 head at T = 4 (m_l = 12292, no whole 16-byte
     vectors) takes the copy engine through its 2-D map once its parity
-    lives in rows of whole vectors (``head_parity``), and the ordinary
-    loads with a contiguous parity."""
+    lives in rows of whole vectors (``head_parity``), and the row
+    copies with a contiguous parity."""
     k, m_l = 4096, head_width(T)
     rb, aligned = tdec.head_variant(rows, m_l, T * m_l, m_l, True, T, elem,
                                     -(-m_l // 8) * 8)
@@ -800,7 +866,7 @@ def test_head_shards_apart_or_stacked(elem, gap, aligned, lead):
     assert tdec.head_lead(ldw, sstr, ok, elem) == lead
     plan = tdec.head_plan(4, k, m_l, T, N_SM, card_occupancy(rb), ok, elem,
                           lead)
-    assert plan.variant == f"rb4-{'async' if ok else 'loads'}" + (
+    assert plan.variant == f"rb4-{'async' if ok else 'rowcopy'}" + (
         "-lead" if lead else "") + ("-bf16" if elem == 2 else "")
     check_limits(plan, T + 1)
     check_cover(plan, 4, k, m_l)

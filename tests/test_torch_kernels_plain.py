@@ -359,6 +359,37 @@ def test_encode_layouts_match_reference_parity_weights(T, r, layout):
           jcl.make_parity_weights(jnp.asarray(w3), jspec))
 
 
+def test_encode_folded_write_at_t12_w1_slices_matches_reference():
+    """T = 12, r = 2 at granite's w1 shard width (m_l 1068: folded slices
+    of 89 columns), k = 16: the port's plain folded write
+    (make_parity_weights through ops.cdc_encode) equals the reference's
+    make_parity_weights within 1e-5, and so does the kernel's write from
+    16-byte reads (csrc/cdc_encode.cu), emulated here: each vector of 4
+    columns c .. c + 3, column c + e of parity j to slot (s + j + 1) % T
+    at offset j * wd + o, (s, o) stepping from (c // wd, c % wd) one
+    column at a time."""
+    T, r, m_l, k = 12, 2, 1068, 16
+    jspec, tspec = specs(T, r, "folded")
+    w = np.random.default_rng(12).normal(size=(k, T * m_l)).astype(
+        np.float32)
+    want = np.asarray(jcl.make_parity_weights(jnp.asarray(w), jspec))
+    close(tcl.make_parity_weights(torch.from_numpy(w), tspec), want)
+    parity = tref.cdc_encode_ref(
+        torch.from_numpy(w).reshape(k, T, m_l).permute(1, 0, 2),
+        torch.from_numpy(tspec.code.generator.astype(np.float32))).numpy()
+    wd = m_l // T
+    out = np.full((T, k, r * wd), np.nan, np.float32)
+    for c in range(0, m_l, 4):
+        for j in range(r):
+            s, o = c // wd, c % wd
+            for e in range(4):
+                out[(s + j + 1) % T, :, j * wd + o] = parity[j, :, c + e]
+                o += 1
+                if o == wd:
+                    s, o = s + 1, 0
+    close(torch.from_numpy(out), want)
+
+
 def test_encode_refuses_what_it_cannot_run():
     T, r = 4, 2
     gen = jcoding.generator_matrix(T, r)
