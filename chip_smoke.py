@@ -198,6 +198,31 @@ integer inputs to the bit) and timed in phase 4
      widths (k 1600; wk m_l 112, in_proj 800, w1 1376; the head m_l 8004)
      against their plain versions, and phase 4 times kernels 1 and 2
      there.
+ 16. the MoE family (the routed experts uncoded, as the reference keeps
+     them: routing depends on the input; the shared experts coded): (a)
+     kernels 1, 2 and 4 at both MoE configs' widths against their plain
+     versions as in phase 2 (qwen2-moe's wq k 2048 m_l 512 and shared w1
+     m_l 1408, qwen3-moe's wq k 4096 m_l 2048 and wk m_l 128; both heads'
+     151936 words at m_l 37984 with the planted tie; every parity leaf:
+     6 for qwen2, 4 for qwen3), and kernels 1 and 2 timed there; (b)
+     qwen2-moe-a2.7b at full width (24 layers, d 2048, 16/16 heads, 60
+     routed experts of 1408, top-4, 4 shared as one FFN of 5632, vocab
+     151936; float32, T = 4, r = 2 folded, capacity 0, ~60 GB with the
+     parity): launch.serve's scheduler fault-free with --perf (the bound
+     within 5% of every weight but the embedding, all 60 experts
+     included, the parity and the KV cache) and under chaos, with the
+     CPU run's counters; one batch of 4 with a 64-token prompt and 16 new
+     tokens, shard 2 killed at step 4, on graph rounds, eager fused
+     rounds, the reference variant and kernel-free: identical streams,
+     every fused round's max logit within 1e-4 of the reference round's,
+     120 / 1 / 49 launches of kernels 1, 2 and 6 a fused round; the
+     batch's perf count within 5% of those bytes and the dispatch's
+     buffers; the graph round's device time split into the routed-expert
+     products, the routing ops, kernels 1, 2 and 6 and the rest;
+     admission, peak memory; (c) qwen3-moe-235b-a22b at full width in 4
+     of its 94 layers (d 4096, 64 query heads of 128 over 4 KV heads, 128
+     routed experts of 1536, top-8, no shared expert; ~46 GB): the one
+     batch as in (b), 12 / 1 / 9 launches a fused round.
 Phases 3 and 5 also count the RMSNorm kernel: 2 x 40 + 1 = 81 launches
 per decode round (fused and reference variants) and per prefill.
 Peak device memory is printed per phase. The line before the last is the
@@ -1812,9 +1837,9 @@ def _phase_memory(name: str):
 
 def norms_per_pass(cfg) -> int:
     """RMSNorm launches of one model pass (a decode round or a prefill):
-    two per layer and the final norm. The encoder-decoder's norms are
-    all LayerNorm (none); xLSTM's blocks use LayerNorm (its final norm
-    only)."""
+    two per layer (an MoE layer's too) and the final norm. The
+    encoder-decoder's norms are all LayerNorm (none); xLSTM's blocks use
+    LayerNorm (its final norm only)."""
     if cfg.is_encdec:
         return 0
     return 1 if cfg.ssm_kind == "xlstm" else 2 * cfg.n_layers + 1
@@ -1823,9 +1848,13 @@ def norms_per_pass(cfg) -> int:
 def coded_gemms(cfg) -> int:
     """Coded GEMMs of one decode round, one kernel-1 launch each in a
     fused round: wq, wk, wv, w1 and w3 of every layer (whisper: self wq,
-    wk, wv, cross wq and w1; the hybrid adds the mamba branch's in_proj);
+    wk, wv, cross wq and w1; the hybrid adds the mamba branch's in_proj;
+    an MoE's w1 and w3 are its shared experts', and without shared
+    experts it has wq, wk and wv only: the routed experts are uncoded);
     xLSTM: up, wq, wk and wv of every mLSTM block and wx of every sLSTM
     block."""
+    if cfg.n_experts:
+        return (5 if cfg.n_shared_experts else 3) * cfg.n_layers
     if cfg.ssm_kind == "xlstm":
         from repro_torch.models.transformer import xlstm_block_kinds
         return sum(4 if k == "mlstm" else 1 for k in xlstm_block_kinds(cfg))
@@ -3773,7 +3802,8 @@ def _family_scheduler(tag: str, cfg, model, params, argv: list[str],
     runs_args = {"fault-free": [], "chaos": ["--chaos", CHAOS]}
     obs_args = {"fault-free": ["--perf"], "chaos": []}   # the card's runs
     cfg_cpu = smoke_config(cfg)
-    m_cpu = build(cfg_cpu, TPCtx(tp=T, mode="coded", code_r=R))
+    m_cpu = build(cfg_cpu, TPCtx(tp=T, mode="coded", code_r=R,
+                                 moe_capacity=0))
     p_cpu = m_cpu.init(0, device="cpu")
     want = {name: dict(_scheduler_run(m_cpu, p_cpu, argv + extra,
                                       "cpu")[1].metrics.counters)
@@ -4276,10 +4306,11 @@ def _served_line(tag: str, cfg, one: dict, what: str, init_s: float,
 
 
 def _init_full_width(cfg):
-    """The coded model (T = 4, r = 2 folded) and its seeded float32 params
-    on the card, and the seconds the init took."""
+    """The coded model (T = 4, r = 2 folded; an MoE at capacity 0, as
+    launch.serve builds it) and its seeded float32 params on the card, and
+    the seconds the init took."""
     from repro_torch.models import TPCtx, build
-    model = build(cfg, TPCtx(tp=T, mode="coded", code_r=R))
+    model = build(cfg, TPCtx(tp=T, mode="coded", code_r=R, moe_capacity=0))
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(0),
                         device="cuda")
@@ -4448,6 +4479,268 @@ def serve_hymba(cfg=None) -> dict:
             "window_perf": one["on_engine"], "seconds": secs}
 
 
+# ------------------------------------------------------------ phase 16 ----
+
+QWEN2 = "qwen2-moe-a2.7b"
+QWEN3 = "qwen3-moe-235b-a22b"
+# of 94: a float32 layer holds ~10 GB (128 experts of 3 x 4096 x 1536
+# weights), so 94 would need ~0.9 TB; 4 with the embedding, the head and
+# its parity take ~46 GB
+QWEN3_LAYERS = 4
+MOE_ARGS = ["--arch", QWEN2, "--coded", "--tp", str(T), "--batch", "4",
+            "--requests", "8", "--arrival-gap-ms", "2", "--prompt-len",
+            "16", "--gen-tokens", "16", "--seed", str(CHAOS_SEED)]
+MOE_PROMPT = 64
+# passes of the routed experts' dense dispatch over its buffers: the
+# [E * cap + 1, D] slots written by the zero fill, read by the two first
+# products, and the [E, cap, D] output written by the third (4); the
+# [E, cap, fe] hidden written by the first product, read and written by
+# the SiLU, written by the second, read twice and written by the gate's
+# product, read by the third (8)
+MOE_BUFFER_PASSES, MOE_HIDDEN_PASSES = 4, 8
+
+
+def moe_shapes(cfg, gemms: tuple) -> dict:
+    """Kernel 1's (k, m_l) at the named coded GEMMs of an MoE at T = 4
+    (attention's wq, wk, wv; the shared experts' w1, w3, ``n_shared_experts
+    * d_ff_expert`` wide), kernel 2's head (k, m_l, vocab) and kernel 4's
+    every parity leaf (stacked over the layers; the head): qwen2-moe's wq
+    m_l 512 and w1 1408 at k 2048, qwen3-moe's wq 2048 and wk 128 at k
+    4096, both heads' 151936 words at m_l 37984."""
+    from repro_torch.models.attention import attn_dims
+    from repro_torch.models.common import TPCtx
+    ctx, d, L = TPCtx(tp=T), cfg.d_model, cfg.n_layers
+    hq, hkv, _ = attn_dims(cfg, T)
+    width = {"wq": hq * cfg.hd, "wk": hkv * cfg.hd, "wv": hkv * cfg.hd}
+    if cfg.n_shared_experts:
+        width["w1"] = width["w3"] = cfg.n_shared_experts * cfg.d_ff_expert
+    m_l = {n: ctx.pad_dim(m) // T for n, m in width.items()}
+    head = ctx.pad_dim(cfg.vocab) // T
+    return {"gemms": {n: (d, m_l[n]) for n in gemms},
+            "head": (d, head, cfg.vocab),
+            "encode": [(L, d, T * m) for m in m_l.values()]
+            + [(d, T * head)]}
+
+
+def _moe_cfgs() -> dict:
+    """qwen2-moe at full width and depth, qwen3-moe at full width in
+    ``QWEN3_LAYERS`` of its 94 layers, with the GEMMs phase 16 checks and
+    times at each."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    q3 = dataclasses.replace(get_arch(QWEN3), n_layers=QWEN3_LAYERS)
+    return {"qwen2": (get_arch(QWEN2), ("wq", "w1")),
+            "qwen3": (q3, ("wq", "wk"))}
+
+
+def _moe_least(stepper, state) -> dict:
+    """The parts of what a fused MoE round moves at the least, as the
+    ported ops move them: every layer weight and parity leaf (the router
+    and all E experts' we1, we3 and we2: the dense dispatch's batched
+    products read every expert's), the LM head and its sum parity (a
+    shard's width) and the KV cache read once (the embedding's rows are
+    not counted); and apart, the dispatch's buffers at the round's
+    capacity (cap = n·k at capacity 0) in ``MOE_BUFFER_PASSES`` and
+    ``MOE_HIDDEN_PASSES`` passes."""
+    def nbytes(ts):
+        return float(sum(t.numel() * t.element_size() for t in ts))
+
+    cfg = stepper.model.cfg
+    layers, head = stepper.params["layers"], stepper.params["lm_head"]["w"]
+    we1 = layers["moe"]["we1"]
+    n_rows = state["kv"]["len"].shape[1]
+    e, cap = we1.shape[1], n_rows * cfg.top_k
+    elem = we1.element_size()
+    return {"weights": nbytes(_state_leaves(layers))
+            + nbytes([head]) * (1 + 1 / stepper.n_shards),
+            "experts": nbytes([layers["moe"][n]
+                               for n in ("we1", "we3", "we2")]),
+            "kv": nbytes(_state_leaves(state["kv"])),
+            "dispatch": float(cfg.n_layers * elem * e * cap * (
+                MOE_BUFFER_PASSES * cfg.d_model
+                + MOE_HIDDEN_PASSES * cfg.d_ff_expert))}
+
+
+def _moe_round_bytes(stepper, state) -> float:
+    """Weights (all experts), parity and the KV cache: the bytes the
+    scheduler's perf line is held to (``_moe_least`` without the
+    dispatch's buffers: reckoned from the shapes, ~75 MB a qwen2 layer at
+    4 slots against its 2.35 GB of weights)."""
+    parts = _moe_least(stepper, state)
+    return parts["weights"] + parts["kv"]
+
+
+def _moe_batch_perf(eng) -> dict:
+    """The perf counter's fused round on the batch's slot state: every
+    launch costed, memory-bound, the bound within 5% of ``_moe_least``'s
+    sum (dispatch buffers included) over the HBM rate."""
+    from repro_torch.obs.perf import attribute_round_costs
+    ex = eng.executor(4)
+    fused = attribute_round_costs(ex.vstep, ex.state, ex.last_toks)["fused"]
+    parts = _moe_least(eng.stepper, ex.state)
+    least = parts["weights"] + parts["kv"] + parts["dispatch"]
+    want = least / HBM_BYTES_PER_S * 1e3
+    got = fused.bound_step_s * 1e3
+    cfg = eng.stepper.model.cfg
+    if fused.custom_calls_uncosted or fused.dominant != "memory" or \
+            abs(got / want - 1) > PERF_BOUND_TOL:
+        raise AssertionError(f"{cfg.name} perf of the batch's round: "
+                             f"{fused} (least bytes {least / 1e9:.4f} GB, "
+                             f"{want:.4f} ms)")
+    log(f"{cfg.name} perf of the batch's fused round: bound {got:.4f} ms on "
+        f"{fused.bytes / 1e9:.4f} GB counted ({fused.flops / 1e9:.3f} "
+        f"GFLOP, {fused.useful_flops / 1e9:.3f} useful); least bytes "
+        f"{least / 1e9:.4f} GB ({want:.4f} ms): weights and parity "
+        f"{parts['weights'] / 1e9:.4f} GB (the routed experts "
+        f"{parts['experts'] / 1e9:.4f} GB), KV cache "
+        f"{parts['kv'] / 1e9:.4f} GB, dispatch buffers "
+        f"{parts['dispatch'] / 1e9:.4f} GB")
+    return {"bound_ms": got, "bytes": fused.bytes, "least_bytes": least,
+            "least_ms": want, "flops": fused.flops,
+            "useful_flops": fused.useful_flops, **parts}
+
+
+def _moe_eager_split(ex, valid, n: int = 3) -> dict:
+    """Device ms a fused round spends in the routed experts' batched
+    products (``ffn._expert_ffn``) and in the rest of the routed path (the
+    router, top-k, sorts, dispatch and combine: ``ffn._moe_local`` less
+    the products), by torch.profiler over ``n`` eager fused rounds with
+    the two functions in record_function ranges (a graph replay records
+    no host range; an eager round launches the same kernels)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import ffn
+    originals = {n: getattr(ffn, n) for n in ("_expert_ffn", "_moe_local")}
+
+    def ranged(name, fn):
+        def run(*a, **kw):
+            with record_function(f"moe.{name}"):
+                return fn(*a, **kw)
+        return run
+
+    graphs, ex.vstep.use_graphs = ex.vstep.use_graphs, False
+    try:
+        for name, fn in originals.items():
+            setattr(ffn, name, ranged(name, fn))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                ex.step_round(valid)
+            torch.cuda.synchronize()
+    finally:
+        for name, fn in originals.items():
+            setattr(ffn, name, fn)
+        ex.vstep.use_graphs = graphs
+    ms = {name: sum(e.device_time_total for e in prof.events()
+                    if e.name == f"moe.{name}"
+                    and e.device_type == torch.autograd.DeviceType.CPU)
+          / 1e3 / n for name in originals}
+    if not ms["_expert_ffn"]:
+        log("profiler: no device time under the MoE ranges; the split is "
+            "not measured")
+        return {}
+    return {"expert_products": ms["_expert_ffn"],
+            "routing": ms["_moe_local"] - ms["_expert_ffn"]}
+
+
+def _moe_on_engine(eng) -> dict:
+    """On the graph engine after its runs: the batch's perf count and the
+    eager split of the routed path."""
+    return {"perf": _moe_batch_perf(eng),
+            "split": _moe_eager_split(eng.executor(4), eng.valid)}
+
+
+def _moe_breakdown(tag: str, one: dict) -> dict:
+    """The graph round's device time (``profile_rounds``) split into the
+    routed experts' products and the routing ops (from the eager split),
+    kernel 1, kernel 2 and kernel 6 (by name), and the rest."""
+    prof, split = one["profile"].get("graph"), one["on_engine"]["split"]
+    if not prof or not split:
+        log(f"{tag} breakdown: not measured (no profiler device time)")
+        return {}
+    by = prof["by_kernel"]
+
+    def named(part):
+        return sum(v["ms"] for k, v in by.items() if part in k)
+
+    out = {"device_ms": prof["device_ms"], "round_ms": prof["round_ms"],
+           "expert_products": split["expert_products"],
+           "routing": split["routing"],
+           "kernel_1": named("coded_stream_kernel"),
+           "kernel_2": named("head_stream_kernel"),
+           "kernel_6": named("rmsnorm_kernel")}
+    out["rest"] = out["device_ms"] - sum(
+        out[k] for k in ("expert_products", "routing", "kernel_1",
+                         "kernel_2", "kernel_6"))
+    out["expert_share"] = out["expert_products"] / out["device_ms"]
+    log(f"{tag} graph round {prof['round_ms']:.3f} ms, device busy "
+        f"{prof['device_ms']:.3f} ms: routed-expert products "
+        f"{out['expert_products']:.3f} ms ({out['expert_share']:.3f} of "
+        f"busy), routing {out['routing']:.3f}, kernel 1 "
+        f"{out['kernel_1']:.3f}, kernel 2 {out['kernel_2']:.3f}, kernel 6 "
+        f"{out['kernel_6']:.3f}, the rest {out['rest']:.3f}")
+    return out
+
+
+def _serve_moe_model(tag: str, cfg, scheduler: bool) -> dict:
+    """One MoE at full width (float32, T = 4, r = 2 folded, capacity 0,
+    seeded random weights): with ``scheduler``, launch.serve's scheduler
+    (``_family_scheduler``: 4 slots, 8 requests, fault-free with --perf,
+    the bound within 5% of ``_moe_round_bytes``, and under chaos); one
+    batch of 4 with a ``MOE_PROMPT``-token prompt every way
+    (``_serve_one_batch``: 5·L or 3·L / 1 / 2·L + 1 launches of kernels 1,
+    2 and 6 a fused round, one kernel-4 launch a parity leaf), the batch's
+    perf count, the graph round's breakdown, peak memory."""
+    torch.cuda.reset_peak_memory_stats()
+    model, params, init_s = _init_full_width(cfg)
+    leaves = coded_gemms(cfg) // cfg.n_layers + 1
+    sched = _family_scheduler(tag, cfg, model, params, MOE_ARGS, leaves,
+                              _moe_round_bytes) if scheduler else None
+    torch.cuda.empty_cache()
+    one = _serve_one_batch(tag, cfg, model, params, MOE_PROMPT, leaves,
+                           on_engine=_moe_on_engine)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    breakdown = _moe_breakdown(tag, one)
+    layers = f", {cfg.n_layers} of 94 layers" if cfg.name.startswith(
+        "qwen3") else ""
+    _served_line(tag, cfg, one, f"a {MOE_PROMPT}-token prefill{layers}",
+                 init_s, peak)
+    return {**_summary(one), "peak_gib": peak, "init_s": init_s,
+            "scheduler": sched, "batch_perf": one["on_engine"]["perf"],
+            "breakdown": breakdown}
+
+
+def serve_moe() -> dict:
+    """Phase 16: the MoE family. Kernels 1, 2 and 4 at the two configs'
+    widths against their plain versions (``check_width_kernels``; k 2048
+    and 4096, the heads' m_l 37984) and kernels 1 and 2 timed there
+    (``time_width_kernels``); then qwen2-moe-a2.7b at full width (24
+    layers, d 2048, 16 heads, 60 routed experts of 1408, top-4, 4 shared
+    ones as one coded FFN of 5632, vocab 151936; ~60 GB with the parity)
+    through the scheduler and one batch (120 / 1 / 49 launches a fused
+    round), and qwen3-moe-235b-a22b at full width in 4 of its 94 layers
+    (d 4096, 64 query heads of 128 over 4 KV heads, 128 routed experts of
+    1536, top-8, no shared expert) through one batch (12 / 1 / 9
+    launches)."""
+    t0 = time.perf_counter()
+    cfgs = _moe_cfgs()
+    err, timed = {}, {}
+    for tag, (cfg, gemms) in cfgs.items():
+        shapes = moe_shapes(cfg, gemms)
+        err[tag] = dict(zip(("cdc_coded_matmul", "cdc_fused_head_argmax",
+                             "cdc_encode"), check_width_kernels(tag, shapes)))
+        timed[tag] = time_width_kernels(tag, shapes)
+        torch.cuda.empty_cache()
+    _phase_memory("MoE kernel checks and timings")
+    out = {"qwen2": _serve_moe_model("qwen2", cfgs["qwen2"][0], True)}
+    _phase_memory("serving qwen2-moe-a2.7b")
+    out["qwen3"] = _serve_moe_model("qwen3", cfgs["qwen3"][0], False)
+    secs = time.perf_counter() - t0
+    log(f"phase 16 (qwen2-moe-a2.7b, qwen3-moe-235b-a22b in "
+        f"{QWEN3_LAYERS} layers) took {secs:.1f} s")
+    return {**out, "max_abs_err": err, "shapes": timed, "seconds": secs}
+
+
 # --------------------------------------------------------------- main ----
 
 def main() -> int:
@@ -4559,6 +4852,8 @@ def main() -> int:
     _phase_memory("serving xlstm-125m")
     hymba = serve_hymba()
     _phase_memory("serving hymba-1.5b")
+    moe = serve_moe()
+    _phase_memory("serving qwen3-moe-235b-a22b (4 layers)")
     w1 = timed[0]
     head = next(t for t in timed if t.get("gemm") == "lm_head")
     small = {(t["kernel"], t["shape"]): t for t in timed if "kernel" in t}
@@ -4674,6 +4969,23 @@ def main() -> int:
                     "src/repro/kernels/cdc_decode.py:138", hymba["k2"],
                     h_err["cdc_fused_head_argmax"], rows_h["hymba lm_head"]),
          "name": "cdc_fused_head_argmax (hymba)"}]
+    # kernels 1 and 2 at the MoE's widths: launches from each model's graph
+    # run (phase 16)
+    for tag, gemms in (("qwen2", ("wq", "w1")), ("qwen3", ("wq", "wk"))):
+        rows_m = {t["gemm"]: t for t in moe["shapes"][tag]}
+        kernels += [
+            {**entry_of("cdc_coded_matmul", "coded_matmul.cuh",
+                        "src/repro/kernels/cdc_matmul.py:130",
+                        moe[tag]["k1"],
+                        moe["max_abs_err"][tag]["cdc_coded_matmul"],
+                        rows_m[f"{tag} {g}"]),
+             "name": f"cdc_coded_matmul ({tag}, {g})"} for g in gemms] + [
+            {**entry_of("cdc_fused_head_argmax", "fused_head.cuh",
+                        "src/repro/kernels/cdc_decode.py:138",
+                        moe[tag]["k2"],
+                        moe["max_abs_err"][tag]["cdc_fused_head_argmax"],
+                        rows_m[f"{tag} lm_head"]),
+             "name": f"cdc_fused_head_argmax ({tag})"}]
     log(card)
     runs = {n: {k: v for k, v in r.items() if k != "tokens"}
             for n, r in sched["runs"].items()}
@@ -4699,7 +5011,8 @@ def main() -> int:
                     "xlstm": {**xlstm, "shapes": timed_x,
                               "max_abs_err": x_err},
                     "hymba": {**hymba, "shapes": timed_h,
-                              "max_abs_err": h_err}}, default=str))
+                              "max_abs_err": h_err},
+                    "moe": moe}, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

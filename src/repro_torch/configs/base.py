@@ -2,12 +2,14 @@
 
 A copy of the reference package's ``configs/base.py`` (the dataclass, the
 registry and ``smoke_config``), kept here so that the port imports nothing
-of the reference. Only the architectures the port serves are registered:
+of the reference. Every architecture of the reference is registered:
 the dense decoders (granite-3-8b, h2o-danube-1.8b and -3-4b, deepseek-67b),
 chameleon-34b, which the reference builds as a dense decoder, the
 encoder-decoder whisper-medium, the recurrent xlstm-125m (mLSTM and
-sLSTM blocks) and the hybrid hymba-1.5b (attention and a mamba branch in
-every layer).
+sLSTM blocks), the hybrid hymba-1.5b (attention and a mamba branch in
+every layer) and the mixtures of experts qwen2-moe-a2.7b (60 routed
+experts, top-4, beside 4 shared ones) and qwen3-moe-235b-a22b (128
+routed experts, top-8, no shared one).
 """
 from __future__ import annotations
 
@@ -90,7 +92,8 @@ def load_all() -> None:
     from repro_torch.configs import (chameleon_34b,  # noqa: F401
                                      deepseek_67b, granite_3_8b,
                                      h2o_danube_1_8b, h2o_danube_3_4b,
-                                     hymba_1_5b, whisper_medium,
+                                     hymba_1_5b, qwen2_moe_a2_7b,
+                                     qwen3_moe_235b_a22b, whisper_medium,
                                      xlstm_125m)
 
 

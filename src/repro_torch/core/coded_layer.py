@@ -20,9 +20,9 @@ from repro_torch.core.coding import (CodeSpec, erased_first,
                                      generator_tensor, host_mask)
 
 __all__ = [
-    "CodedDenseSpec", "make_parity_weights", "fold_parity_slots",
-    "unfold_parity", "folded_slot_map", "coded_matmul", "decode_folded",
-    "decode_and_merge", "merge_shards",
+    "CodedDenseSpec", "pad_for_code", "make_parity_weights",
+    "fold_parity_slots", "unfold_parity", "folded_slot_map", "coded_matmul",
+    "decode_folded", "decode_and_merge", "merge_shards",
 ]
 
 
@@ -44,6 +44,13 @@ class CodedDenseSpec:
         if self.layout == "dedicated":
             return self.code.n_parity
         return self.code.n_parity // 2
+
+
+def pad_for_code(m: int, n_shards: int, align: int = 8) -> int:
+    """The output dim rounded up so that m % (T * T * align) == 0: each
+    shard's width splits into T aligned parity slices."""
+    q = n_shards * n_shards * align
+    return ((m + q - 1) // q) * q
 
 
 def _bcast_mask(valid, ndim: int, device) -> torch.Tensor:
@@ -97,7 +104,8 @@ def make_parity_weights(w: torch.Tensor, spec: CodedDenseSpec
     T = code.n_shards
     m = w.shape[-1]
     if m % T:
-        raise ValueError(f"output dim {m} not divisible by T={T}")
+        raise ValueError(f"output dim {m} not divisible by T={T}; pad "
+                         f"with pad_for_code() first")
     # [(L,) k, m] -> [(L,) T, k, m_l] view
     shards = w.reshape(w.shape[:-1] + (T, m // T)).movedim(-2, -3)
     return ops.cdc_encode(shards, code.generator, layout=spec.layout)

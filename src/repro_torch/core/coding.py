@@ -13,12 +13,14 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 
 import numpy as np
 import torch
 
-__all__ = ["CodeSpec", "generator_matrix", "encode_weights",
-           "decode_outputs", "erased_first", "host_mask"]
+__all__ = ["CodeSpec", "generator_matrix", "max_decode_condition",
+           "encode_weights", "encode_outputs", "decode_outputs",
+           "erased_first", "host_mask"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +55,23 @@ def generator_matrix(n_shards: int, n_parity: int) -> np.ndarray:
     return gen / gen.max(axis=1, keepdims=True)
 
 
+def max_decode_condition(spec: CodeSpec) -> float:
+    """Worst condition number over the full-r erasure patterns: each r
+    erased shards' columns of the generator, the system a decode solves.
+    Checked offline, so an ill-conditioned (T, r) is rejected before
+    deployment; exhaustive for small T, the first ~2000 patterns beyond."""
+    if spec.n_parity == 0:
+        return 1.0
+    gen = spec.generator
+    worst = 1.0
+    combos = itertools.combinations(range(spec.n_shards), spec.n_parity)
+    for n, missing in enumerate(combos):
+        worst = max(worst, float(np.linalg.cond(gen[:, list(missing)])))
+        if n > 2000:  # a sampled bound for very large T
+            break
+    return worst
+
+
 def generator_tensor(spec: CodeSpec, device=None) -> torch.Tensor:
     """The generator cast to float32 (the cast the parity math uses)."""
     return torch.as_tensor(spec.generator.astype(np.float32), device=device)
@@ -85,6 +104,16 @@ def encode_weights(w_shards: torch.Tensor, spec: CodeSpec) -> torch.Tensor:
     from repro_torch.kernels import ref
     return ref.cdc_encode_ref(w_shards, generator_tensor(spec,
                                                          w_shards.device))
+
+
+def encode_outputs(y_shards: torch.Tensor, spec: CodeSpec) -> torch.Tensor:
+    """Parity of shard outputs at run time, [T, ...] -> [r, ...] in their
+    dtype: for oracles and tests only. A served round gets its parity
+    outputs from the parity weights, never by gathering every shard's
+    output (that is the point of the code)."""
+    gen = torch.as_tensor(spec.generator, device=y_shards.device) \
+        .to(y_shards.dtype)
+    return torch.tensordot(gen, y_shards, dims=([1], [0]))
 
 
 def decode_outputs(y_shards: torch.Tensor, parity: torch.Tensor, valid,

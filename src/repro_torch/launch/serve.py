@@ -28,16 +28,20 @@ round annotated as ``decode_round``.
 
 ``--arch`` takes every config the port registers: the dense decoders,
 hymba-1.5b (attention + mamba: the conv window and SSM state beside the
-KV cache, slot axis 1), xlstm-125m (recurrent block state, slot axis 0)
-and the encoder-decoder whisper-medium, whose requests each carry their
-own encoder frames (the frontend stub), drawn after the request's
-prompt:
+KV cache, slot axis 1), xlstm-125m (recurrent block state, slot axis 0),
+the mixtures of experts qwen2-moe-a2.7b and qwen3-moe-235b-a22b (routed
+experts uncoded beside coded shared ones, at capacity 0: no token is
+dropped, as the reference's launcher builds them) and the
+encoder-decoder whisper-medium, whose requests each carry their own
+encoder frames (the frontend stub), drawn after the request's prompt:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \
       --smoke --coded --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \
       --smoke --coded --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
+      --smoke --coded --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \
       --smoke --coded --device cpu
 
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --coded \
@@ -319,7 +323,8 @@ def main(argv=None):
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
-    ctx = TPCtx(tp=args.tp, mode="coded" if args.coded else "plain")
+    ctx = TPCtx(tp=args.tp, mode="coded" if args.coded else "plain",
+                moe_capacity=0)
     model = build(cfg, ctx)
     params = model.init(torch.Generator(device=device).manual_seed(0),
                         device=device)

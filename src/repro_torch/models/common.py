@@ -33,6 +33,7 @@ class TPCtx:
     mode: str = "plain"            # plain | coded
     code_r: int = 2
     code_layout: str = "folded"
+    moe_capacity: float = 1.25     # MoE capacity factor (<= 0: no dropping)
     fused_body: bool = False       # route coded GEMMs through the fused
     #                                coded-GEMM kernel; only valid for
     #                                <= 1 erasure (the executor gates it)

@@ -1,5 +1,24 @@
-"""Dense FFN (SwiGLU / GELU). W1/W3 are column-parallel, so coded in coded
-mode; W2 is row-parallel and never coded (paper Table 1)."""
+"""FFN blocks: dense (SwiGLU / GELU) and Mixture-of-Experts.
+
+Dense: W1/W3 are column-parallel, so coded in coded mode; W2 is
+row-parallel and never coded (paper Table 1).
+
+MoE: CDC is NOT applied across the routed experts — routing depends on
+the input, so no shared factor exists between expert outputs (the same
+algebra that rules out input splitting, paper Eq. 13-14). The shared
+experts are an ordinary dense FFN and ARE coded. Dispatch is sort-based
+with a capacity bound, as the reference's: a stable sort of the routed
+(token, expert) pairs by expert, each pair's position in its expert's
+group, a dense [E, cap, D] buffer and three batched products over every
+expert's weights (``torch.bmm``: the reference's einsums, outside any
+TPU kernel). The port runs on one device, so it has the reference's
+local path only (its expert-parallel ``_moe_sharded`` needs a mesh).
+
+Every step runs on the device with static shapes (``cap`` is a Python
+int from static sizes), so a round with an MoE layer can be captured in a
+CUDA graph, and the combine sums each token's k contributions in a fixed
+order (no atomics): graph replays and eager rounds agree to the bit.
+"""
 from __future__ import annotations
 
 import torch
@@ -9,8 +28,10 @@ from repro_torch.models.common import (Params, TPCtx, activation, col_dense,
 
 
 def ffn_init(gen: torch.Generator, cfg, ctx: TPCtx, dtype,
-             layers: tuple[int, ...] = (), device=None) -> Params:
-    d, f = cfg.d_model, cfg.d_ff
+             layers: tuple[int, ...] = (), device=None,
+             d_ff: int | None = None) -> Params:
+    d = cfg.d_model
+    f = d_ff if d_ff is not None else cfg.d_ff
     kw = dict(layers=layers, device=device)
     p = {
         "w1": linear_init(gen, d, f, ctx, dtype, **kw),
@@ -22,10 +43,134 @@ def ffn_init(gen: torch.Generator, cfg, ctx: TPCtx, dtype,
     return p
 
 
-def ffn(ctx: TPCtx, p: Params, cfg, x: torch.Tensor, valid=None
-        ) -> torch.Tensor:
-    f = cfg.d_ff
+def ffn(ctx: TPCtx, p: Params, cfg, x: torch.Tensor, valid=None,
+        d_ff: int | None = None) -> torch.Tensor:
+    f = d_ff if d_ff is not None else cfg.d_ff
     h = activation(cfg.act, col_dense(ctx, p["w1"], x, f, valid))
     if "w3" in p:
         h = h * col_dense(ctx, p["w3"], x, f, valid)
     return row_dense(ctx, p["w2"], h)
+
+
+# ------------------------------------------------------------------ MoE ----
+
+def _pad_experts(n_experts: int, tp: int) -> int:
+    """The expert count rounded up to a multiple of the TP degree, as the
+    reference pads it (qwen2's 60 -> 64 at T = 16; the extra experts are
+    real parameters the router rarely selects)."""
+    return ((n_experts + tp - 1) // tp) * tp
+
+
+def moe_init(gen: torch.Generator, cfg, ctx: TPCtx, dtype,
+             layers: tuple[int, ...] = (), device=None) -> Params:
+    """{"router": {"w": [d, e]}, "we1", "we3": [e, d, fe], "we2": [e, fe,
+    d]} (and "shared", a dense FFN of ``n_shared_experts * d_ff_expert``,
+    coded), with optional leading stacked-layer dims. The router has no
+    parity leaf, so ``encode_tree`` leaves it as it is."""
+    d, fe = cfg.d_model, cfg.d_ff_expert
+    e = _pad_experts(cfg.n_experts, ctx.tp)
+
+    def normal(shape, scale):
+        w = torch.randn(layers + shape, generator=gen, device=device,
+                        dtype=torch.float32)
+        return w.mul_(scale).to(dtype)
+
+    scale = 1.0 / d ** 0.5
+    p: Params = {"router": {"w": normal((d, e), scale)},
+                 "we1": normal((e, d, fe), scale),
+                 "we3": normal((e, d, fe), scale),
+                 "we2": normal((e, fe, d), 1.0 / fe ** 0.5)}
+    if cfg.n_shared_experts:
+        p["shared"] = ffn_init(gen, cfg, ctx, dtype, layers, device,
+                               d_ff=cfg.n_shared_experts * fe)
+    return p
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """``lax.top_k``: the k largest of each row, ties to the lower index
+    (the first k of a stable descending sort; ``torch.topk`` promises no
+    order between equal values)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _route(ctx: TPCtx, router_w, xf, k: int, e: int):
+    """The routing math: top-k gates and the dispatch order sorted by
+    expert. Returns (se, sg, st, pos, keep, cap): for each of the m = n·k
+    routed pairs in sorted order its expert, gate and token, its position
+    in its expert's group, whether it fits the capacity, and the
+    capacity."""
+    n = xf.shape[0]
+    # the product in the weights' dtype, then float32 for the softmax
+    logits = (xf @ router_w).to(torch.float32)                 # [N, E]
+    probs = torch.softmax(logits, dim=-1)
+    gates, eidx = _top_k(probs, k)                             # [N, k]
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    m = n * k
+    flat_e, flat_g = eidx.reshape(m), gates.reshape(m)
+    flat_t = torch.arange(n, device=xf.device)[:, None].expand(n, k) \
+        .reshape(m)
+    order = torch.argsort(flat_e, stable=True)
+    se, sg, st = flat_e[order], flat_g[order], flat_t[order]
+    grp_start = torch.searchsorted(se, se)
+    pos = torch.arange(m, device=xf.device) - grp_start
+    if ctx.moe_capacity and ctx.moe_capacity > 0:
+        cap = int(max(1, ctx.moe_capacity * m / e))
+    else:
+        cap = m  # no dropping (exactness mode; memory O(E * m))
+    return se, sg, st, pos, pos < cap, cap
+
+
+def _expert_ffn(buf, we1, we3, we2):
+    """Every expert's SwiGLU over its slots: [E, cap, D] -> [E, cap, D]."""
+    h = activation("silu", torch.bmm(buf, we1))
+    h = h * torch.bmm(buf, we3)
+    return torch.bmm(h, we2)
+
+
+def moe(ctx: TPCtx, p: Params, cfg, x: torch.Tensor, valid=None
+        ) -> torch.Tensor:
+    """Top-k routed MoE with sort-based capacity dispatch, plus the coded
+    shared experts. x: [B, S, D] -> [B, S, D]."""
+    b, s, d = x.shape
+    y = _moe_local(ctx, p, x.reshape(b * s, d), p["we1"].shape[0],
+                   cfg.top_k).reshape(b, s, d)
+    if "shared" in p:
+        y = y + ffn(ctx, p["shared"], cfg, x, valid,
+                    d_ff=cfg.n_shared_experts * cfg.d_ff_expert)
+    return y
+
+
+def _moe_local(ctx: TPCtx, p: Params, xf, e: int, k: int):
+    """Dispatch, the experts' products, combine. The buffer is [E * cap +
+    1, D]: expert-major slots, then a spare row that takes every pair
+    beyond the capacity (never read; such a pair adds nothing to its
+    token), so the kept pairs' rows are unique and the dispatch is a plain
+    indexed write, and the experts read a contiguous [E, cap, D] view. The
+    combine takes the gated contributions to token-major order (a stable
+    sort by token keeps each token's k pairs in expert order, the order in
+    which the reference's scatter-add sums them), [n, k, D], and sums over
+    k in float32."""
+    se, sg, st, pos, keep, cap = _route(ctx, p["router"]["w"], xf, k, e)
+    n, d = xf.shape
+    slot = se * cap + torch.clamp(pos, max=cap - 1)
+    buf = torch.zeros((e * cap + 1, d), dtype=xf.dtype, device=xf.device)
+    buf[torch.where(keep, slot, e * cap)] = xf[st]
+    out = _expert_ffn(buf[:e * cap].view(e, cap, d), p["we1"], p["we3"],
+                      p["we2"]).view(e * cap, d)
+    contrib = torch.where(keep[:, None],
+                          out[slot].to(torch.float32) * sg[:, None], 0.0)
+    by_token = torch.argsort(st, stable=True)
+    return contrib[by_token].reshape(n, k, d).sum(1).to(xf.dtype)
+
+
+def moe_aux_loss(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
+    """Load-balance auxiliary loss (Switch-style): E * sum_e f_e * p_e."""
+    d = x.shape[-1]
+    logits = (x.reshape(-1, d) @ p["router"]["w"]).to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    e = probs.shape[-1]
+    _, eidx = _top_k(probs, cfg.top_k)
+    frac = torch.nn.functional.one_hot(eidx, e).to(torch.float32) \
+        .mean(dim=(0, 1))
+    return e * torch.sum(frac * probs.mean(0))

@@ -1,5 +1,5 @@
-"""Decoder-only LM (dense body, hybrid attention + mamba, or xLSTM): init,
-forward, decode state, decode step.
+"""Decoder-only LM (dense body, mixture of experts, hybrid attention +
+mamba, or xLSTM): init, forward, decode state, decode step.
 
 Layer weights are stacked on a leading [L, ...] axis as in the reference;
 the reference's layer ``scan`` is a Python loop over that axis here, each
@@ -8,7 +8,10 @@ attention and a mamba branch on the same normed input and averages them,
 ``(a + m) * 0.5``, before the residual; its decode state adds
 ``state["mamba"]`` ({"conv": [L, B, K-1, di], "ssm": [L, B, di, n]}) to
 the KV cache, slots on axis 1 like the cache, and each layer writes its
-slice of both in place. xLSTM is heterogeneous (an mLSTM/sLSTM mix): its
+slice of both in place. An MoE layer (qwen2-moe, qwen3-moe) holds
+``layers["moe"]`` in place of ``layers["ffn"]``, as the reference's tree
+does; it keeps no state of its own, so its decode state is the KV cache
+alone. xLSTM is heterogeneous (an mLSTM/sLSTM mix): its
 params and decode state are lists of per-block dicts (``params["blocks"]``,
 ``state["blocks"]``), and its state leads with the slot axis. The
 validity mask reaches every coded GEMM of every layer or block.
@@ -46,13 +49,15 @@ def init_params(cfg, gen: torch.Generator, ctx: TPCtx,
     """Random parameters drawn from ``gen`` on ``device``, in the
     reference's layout. Dense bodies (family ``dense``, and ``vlm``:
     chameleon-34b, which the reference builds as a dense decoder over a
-    shared token vocabulary), hybrid attention + mamba layers (family
-    ``hybrid``) and xLSTM (``ssm_kind == "xlstm"``)."""
-    if cfg.n_experts or not (_is_xlstm(cfg) or cfg.family in
-                             ("dense", "vlm", "hybrid")):
+    shared token vocabulary), mixtures of experts (``n_experts``: routed
+    experts beside coded shared ones), hybrid attention + mamba layers
+    (family ``hybrid``) and xLSTM (``ssm_kind == "xlstm"``)."""
+    if not (_is_xlstm(cfg) or cfg.family in ("dense", "vlm", "hybrid",
+                                             "moe")):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense bodies, "
-            f"hybrid and xLSTM only)")
+            f"family {cfg.family!r} is not ported as a decoder-only LM "
+            f"(dense, moe, hybrid and xLSTM are; an encoder-decoder is "
+            f"built by models.encdec)")
     d, L = cfg.d_model, (cfg.n_layers,)
     vocab_pad = ctx.pad_dim(cfg.vocab)
     embed = torch.randn((vocab_pad, d), generator=gen, device=device)
@@ -76,8 +81,12 @@ def init_params(cfg, gen: torch.Generator, ctx: TPCtx,
         layers["mamba"] = mamba_mod.mamba_init(gen, cfg, ctx, dtype,
                                                layers=L, device=device)
     layers["ln2"] = {"g": torch.ones(L + (d,), device=device)}
-    layers["ffn"] = ffn_mod.ffn_init(gen, cfg, ctx, dtype, layers=L,
-                                     device=device)
+    if cfg.n_experts:
+        layers["moe"] = ffn_mod.moe_init(gen, cfg, ctx, dtype, layers=L,
+                                         device=device)
+    else:
+        layers["ffn"] = ffn_mod.ffn_init(gen, cfg, ctx, dtype, layers=L,
+                                         device=device)
     params["layers"] = layers
     return params
 
@@ -92,8 +101,10 @@ def _layer_fwd(cfg, ctx: TPCtx, p: Params, x, valid, cache, mamba_state,
         m, _ = mamba_mod.mamba(ctx, p["mamba"], cfg, xn, valid, mamba_state)
         a = (a + m) * 0.5
     x = x + a
-    return x + ffn_mod.ffn(ctx, p["ffn"], cfg,
-                           rmsnorm(p["ln2"], x, cfg.norm_eps), valid)
+    xn = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    if "moe" in p:
+        return x + ffn_mod.moe(ctx, p["moe"], cfg, xn, valid)
+    return x + ffn_mod.ffn(ctx, p["ffn"], cfg, xn, valid)
 
 
 def forward(cfg, params: Params, ctx: TPCtx, tokens: torch.Tensor,

@@ -1,5 +1,7 @@
-"""Uniform model API over the ported families: dense decoders, the hybrid
-(hymba: attention + mamba), the encoder-decoder (whisper) and xLSTM.
+"""Uniform model API over the ported families: dense decoders, the
+mixtures of experts (qwen2-moe, qwen3-moe: their decode state is the KV
+cache alone), the hybrid (hymba: attention + mamba), the encoder-decoder
+(whisper) and xLSTM.
 
 Model(cfg, ctx) exposes init / encode_offline / forward / init_decode /
 decode with the reference's signatures, plus an explicit device.

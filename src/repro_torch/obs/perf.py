@@ -15,13 +15,15 @@ the card could take for the same round:
     every matmul / bmm (einsum and tensordot reach them), bytes of every
     launched op's operands and outputs (a gather or scatter counts the
     rows it moves, not the whole table; an ``out=`` tensor is written, not
-    read; views and allocations launch nothing), and each kernel
-    wrapper's own report (``kernels.accounting``: its ``KERNEL_COSTS``
-    FLOPs and its operand-plus-output bytes; the torch ops inside a
-    wrapper are not counted, so the CPU, where a wrapper runs its plain
-    version, and the card count the same). The same round through the
-    PLAIN model on the raw params gives ``useful_flops``; the difference
-    is the parity work the code adds:
+    read; views and allocations launch nothing; an MoE layer's batched
+    expert products read every expert's weights, as its dense dispatch
+    does, and its routing sorts count their keys and indices), and each
+    kernel wrapper's own report (``kernels.accounting``: its
+    ``KERNEL_COSTS`` FLOPs and its operand-plus-output bytes; the torch
+    ops inside a wrapper are not counted, so the CPU, where a wrapper runs
+    its plain version, and the card count the same). The same round
+    through the PLAIN model on the raw params gives ``useful_flops``; the
+    difference is the parity work the code adds:
 
         coded_overhead_frac = parity_flops / total_flops
                             ≈ r/(T+r) · gemm_share   (falls with T)

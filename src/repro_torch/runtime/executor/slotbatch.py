@@ -2,11 +2,12 @@
 
 Two layouts cover the ported families:
 
-  * dense, hybrid and enc-dec: every decode-state leaf is laid out
+  * dense, MoE, hybrid and enc-dec: every decode-state leaf is laid out
     [L(layers), B(slots), ...], so the batch axis IS the slot axis
     (``SLOT_AXIS == 1``). With the per-row cache each row carries its own
     KV length and positions, so rows decode at independent positions in
-    one round. A hybrid's state also carries the mamba branch's conv
+    one round. An MoE decoder's state is the KV cache alone (routing
+    keeps no state between rounds). A hybrid's state also carries the mamba branch's conv
     window [L, B, K-1, di] and SSM state [L, B, di, n] (``{"kv": ...,
     "mamba": {"conv", "ssm"}}``), overwritten by every round as the cache
     is appended to.
@@ -41,7 +42,7 @@ def slot_axis(model) -> int:
 
 
 def supports_slot_batching(model) -> bool:
-    """Every ported family slot-batches: decoders (dense and hybrid) via
+    """Every ported family slot-batches: decoders (dense, MoE, hybrid) via
     per-row KV positions, enc-dec via the per-slot cross-attention bank,
     xLSTM via its positionless [B, ...] block state. Kept as the API point
     of the scheduler's auto mode (``RuntimeConfig.batched=None``)."""

@@ -1,5 +1,10 @@
 """The port's coding core against the reference, on the same numpy inputs.
 
+Also ``max_decode_condition`` (equal), ``encode_outputs`` and
+``pad_for_code``, and the coded convolution (``core.conv``: ``im2col``,
+``conv2d_gemm``, ``coded_conv2d``) against the reference's functions,
+against ``torch.nn.functional.conv2d``, and under every dead filter shard.
+
 T in {2, 4} x r in {1, 2}, and T = 4 x r in {3, 4} (the geometries the
 adaptive planner reaches), x both parity layouts x every in-budget mask,
 float32, atol = rtol = 1e-5 (both sides accumulate in float32; only the
@@ -16,10 +21,14 @@ import numpy as np
 import pytest
 import torch
 
+import torch.nn.functional as F
+
 from repro.core import coded_layer as jcl
 from repro.core import coding as jcoding
+from repro.core import conv as jconv
 from repro_torch.core import coded_layer as tcl
 from repro_torch.core import coding as tcoding
+from repro_torch.core import conv as tconv
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -139,3 +148,92 @@ def test_coded_matmul_every_mask(T, r, layout):
     # uncoded: no mask is a plain merge of x @ w
     _close(tcl.coded_matmul(torch.from_numpy(x), torch.from_numpy(w), tp,
                             tspec, None), x @ w)
+
+
+# ------------------------------------------ the rest of the coding core ----
+
+@pytest.mark.parametrize("T,r", [(T, r) for T in (1, 2, 4, 8, 12)
+                                 for r in range(0, min(T, 4) + 1)])
+def test_max_decode_condition_equal(T, r):
+    """The worst condition number over the full-r erasure patterns (12
+    choose 4 = 495 patterns at the widest), equal to the reference's."""
+    got = tcoding.max_decode_condition(tcoding.CodeSpec(T, r))
+    assert got == jcoding.max_decode_condition(jcoding.CodeSpec(T, r))
+    assert got >= 1.0
+
+
+@pytest.mark.parametrize("T,r", TR)
+def test_encode_outputs(T, r):
+    y = np.random.default_rng(5).normal(size=(T, 3, 7)).astype(np.float32)
+    got = tcoding.encode_outputs(torch.from_numpy(y), tcoding.CodeSpec(T, r))
+    assert got.dtype == torch.float32 and got.shape == (r, 3, 7)
+    _close(got, jcoding.encode_outputs(jnp.asarray(y),
+                                       jcoding.CodeSpec(T, r)))
+
+
+@pytest.mark.parametrize("m,T,align", [(100, 4, 8), (128, 4, 8),
+                                       (4096, 12, 8), (5, 3, 1),
+                                       (151936, 16, 128), (1, 1, 8)])
+def test_pad_for_code_equal(m, T, align):
+    got = tcl.pad_for_code(m, T, align)
+    assert got == jcl.pad_for_code(m, T, align)
+    assert got >= m and got % (T * T * align) == 0
+
+
+# ------------------------------------------------- coded convolution ----
+
+def _conv_inputs(seed, shape, fshape):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=shape).astype(np.float32),
+            rng.normal(size=fshape).astype(np.float32))
+
+
+@pytest.mark.parametrize("f,stride,padding", [(3, 1, "SAME"), (3, 2, "SAME"),
+                                              (2, 1, "SAME"), (3, 1, "VALID"),
+                                              (3, 2, "VALID")])
+def test_im2col_and_conv2d_gemm_match_reference(f, stride, padding):
+    """The unroll to the bit (it moves values), the GEMM form within 1e-5
+    of the reference's, and (stride 1, or VALID) within 1e-4 of
+    ``F.conv2d`` with the reference's padding split (the low side gets
+    (f - 1) // 2)."""
+    x, filt = _conv_inputs(f, (2, 8, 7, 3), (f, f, 3, 8))
+    np.testing.assert_array_equal(
+        tconv.im2col(torch.from_numpy(x), f, stride, padding).numpy(),
+        np.asarray(jconv.im2col(jnp.asarray(x), f, stride, padding)))
+    got = tconv.conv2d_gemm(torch.from_numpy(x), torch.from_numpy(filt),
+                            stride, padding)
+    want = np.asarray(jconv.conv2d_gemm(jnp.asarray(x), jnp.asarray(filt),
+                                        stride, padding))
+    assert tuple(got.shape) == want.shape
+    _close(got, want)
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2)
+    if padding == "SAME":
+        xt = F.pad(xt, ((f - 1) // 2, f // 2, (f - 1) // 2, f // 2))
+    lib = F.conv2d(xt, torch.from_numpy(filt).permute(3, 2, 0, 1),
+                   stride=stride).permute(0, 2, 3, 1)
+    np.testing.assert_allclose(got.numpy(), lib.numpy(), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("layout", ["folded", "dedicated"])
+def test_coded_conv_recovers_every_dead_filter_shard(layout):
+    """Channel splitting (paper Fig. 8) at T = 4, r = 2: the filters'
+    parity encoded offline from the unrolled weights; under the all-valid
+    mask and every dead filter shard (two at a time on the dedicated
+    layout) the output within 1e-5 of the reference's and within 1e-4 of
+    the uncoded convolution."""
+    T = 4
+    jspec, tspec = _specs(T, 2, layout)
+    x, filt = _conv_inputs(12, (2, 6, 6, 3), (3, 3, 3, T * T * 2))
+    wmat = filt.reshape(-1, filt.shape[-1])
+    jp = jcl.make_parity_weights(jnp.asarray(wmat), jspec)
+    tp = tcl.make_parity_weights(torch.from_numpy(wmat), tspec)
+    want = tconv.conv2d_gemm(torch.from_numpy(x), torch.from_numpy(filt))
+    for mask in inbudget_masks(T, tspec.max_device_failures):
+        got = tconv.coded_conv2d(torch.from_numpy(x), torch.from_numpy(filt),
+                                 tp, tspec, np.array(mask))
+        _close(got, jconv.coded_conv2d(jnp.asarray(x), jnp.asarray(filt), jp,
+                                       jspec, jnp.asarray(mask)),
+               f"{layout} mask={mask}")
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
+                                   atol=1e-4, err_msg=f"mask={mask}")

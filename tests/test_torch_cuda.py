@@ -319,3 +319,55 @@ def test_padded_heads_serve_at_t12_on_the_card(smoke):
     ref = ServingEngine(model, params, scfg, use_fused=False).generate(
         batch, 8, fail_at={3: 5})
     np.testing.assert_array_equal(fused, ref)
+
+
+# ------------------------------------------------------ the MoE family ----
+
+def test_moe_kernels_at_both_configs_widths_match_plain(smoke):
+    """Phase 16's kernel checks: kernels 1, 2 and 4 at qwen2-moe's and
+    qwen3-moe's widths (``moe_shapes``: k 2048 and 4096; the heads' 151936
+    words at m_l 37984 with a planted tie; every parity leaf) against
+    their plain versions (``check_width_kernels`` raises otherwise)."""
+    for tag, (cfg, gemms) in smoke._moe_cfgs().items():
+        err1, err2, err4 = smoke.check_width_kernels(
+            tag, smoke.moe_shapes(cfg, gemms))
+        assert err1 <= 1e-4 and err2 <= 1e-4 and err4 <= 1e-5, tag
+
+
+@pytest.mark.parametrize("name", ["qwen2-moe-a2.7b", "qwen3-moe-235b-a22b"])
+def test_moe_graph_round_equals_eager_round_bitwise(smoke, name):
+    """An MoE at smoke size on the card (capacity 0; qwen3's query 64 wide
+    a head over d = 128): rounds replayed from captured CUDA graphs give
+    the eager fused rounds' tokens, kernel-2 maxima and KV cache to the
+    bit, across a mask change: the routing's sorts, the dispatch and the
+    fixed-order combine run on the device with no host sync and no
+    atomics."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.models import TPCtx, build
+    from repro_torch.runtime.executor import SlotPoolExecutor
+    from repro_torch.serve import ModelStepper
+    cfg = smoke_config(get_arch(name))
+    if cfg.n_kv_heads < cfg.n_heads:
+        cfg = dataclasses.replace(cfg, head_dim=64)
+    model = build(cfg, TPCtx(tp=4, mode="coded", code_r=2, moe_capacity=0))
+    stepper = ModelStepper(model, model.init(0, device="cuda"), max_len=32)
+    graph, eager = (SlotPoolExecutor(stepper, 3, overlap=False,
+                                     use_fused=True, use_graphs=g)
+                    for g in (True, False))
+    full = np.ones(4, bool)
+    dead = np.array([True, False, True, True])
+    rng = np.random.default_rng(0)
+    for slot in range(3):
+        prompt = rng.integers(0, cfg.vocab, 5 + slot)
+        assert graph.admit(slot, prompt, full) == \
+            eager.admit(slot, prompt, full)
+    for valid in [full, full, dead, dead, full]:
+        assert graph.step_round(valid) == eager.step_round(valid)
+        for a, b in zip(graph.vstep.last_head, eager.vstep.last_head):
+            assert torch.equal(a, b)
+    for key, t in graph.state["kv"].items():
+        assert torch.equal(t, eager.state["kv"][key]), key
+    vs = graph.vstep
+    assert (vs.n_captures, vs.n_replays) == (2, 5)

@@ -35,7 +35,7 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 # tests/test_torch_encdec.py, test_torch_xlstm.py and test_torch_hybrid.py)
 NAMES = ("granite-3-8b", "h2o-danube-1.8b", "h2o-danube-3-4b",
          "deepseek-67b", "chameleon-34b", "whisper-medium", "xlstm-125m",
-         "hymba-1.5b")
+         "hymba-1.5b", "qwen2-moe-a2.7b", "qwen3-moe-235b-a22b")
 
 
 def masks(t):
@@ -84,10 +84,11 @@ def test_attn_dims_follow_the_reference():
 
 
 def test_init_refuses_other_families():
-    """Dense bodies, the hybrid and xLSTM only: the port still refuses the
-    MoE and audio families (an audio config without an encoder)."""
+    """Dense bodies, the MoE, the hybrid and xLSTM only: the port refuses
+    a family it builds no decoder for (an audio config without an
+    encoder, an SSM that is not xLSTM)."""
     base = get_arch("granite-3-8b")
-    for kw in ({"family": "moe", "n_experts": 8}, {"family": "audio"}):
+    for kw in ({"family": "audio"}, {"family": "ssm", "ssm_kind": "mamba"}):
         cfg = smoke_config(dataclasses.replace(base, **kw))
         with pytest.raises(NotImplementedError, match="not ported"):
             build(cfg, TPCtx()).init(0, device="cpu")
