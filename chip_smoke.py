@@ -223,6 +223,29 @@ integer inputs to the bit) and timed in phase 4
      of its 94 layers (d 4096, 64 query heads of 128 over 4 KV heads, 128
      routed experts of 1536, top-8, no shared expert; ~46 GB): the one
      batch as in (b), 12 / 1 / 9 launches a fused round.
+ 17. training, the reference's launch.train --coded --tp 4 path: (a)
+     kernel 6's backward (csrc/rmsnorm_bwd.cu) against its plain version
+     at rows 1-8192, d 4096 and 4093, strided rows (dx within 1e-5, dgamma
+     within 1e-4 of its largest entry, repeats bitwise equal, bf16
+     refused), the autograd Function around kernel 6, and the kernels
+     without a backward refusing a requires-grad input; the backward timed
+     at the step's [1024, 4096]; (b) granite-3-8b at full width in 4 of
+     its 40 layers (float32, T = 4, r = 2 folded, remat "full", batch 8 x
+     128 of the synthetic stream, lr 3e-3, warmup 10; ~1.56 B parameters
+     with the parity, ~31 GB with AdamW's state) through the port's
+     Trainer for 6 steps: every loss finite, 17 + 9 launches of kernel 6
+     and its backward a step, none of kernels 1 and 2, kernel 4 at init;
+     the same steps kernel-free (plain norms with autograd, plain encode)
+     give every loss within 1e-4 and grad_norm within 1e-3; median step,
+     tokens/s, peak memory and the profiled step's device time (GEMMs,
+     kernel 6 and its backward, the optimizer, the loss, the rest); (c) a
+     Trainer of 2 steps writes the async checkpoint at step 2 (19.2 GB:
+     the one checkpoint, as a call's disk takes 45 GiB of writes) and
+     another resumes there, re-encoding the parity with kernel 4: steps
+     1-6 within 1e-5 of (b)'s; (d) with shard 2 dead the loss within 1e-3
+     of the fault-free loss and every gradient finite; (e) python -m
+     repro_torch.launch.train --smoke --coded --steps 20 on the card exits
+     0 with its CSV.
 Phases 3 and 5 also count the RMSNorm kernel: 2 x 40 + 1 = 81 launches
 per decode round (fused and reference variants) and per prefill.
 Peak device memory is printed per phase. The line before the last is the
@@ -4741,6 +4764,553 @@ def serve_moe() -> dict:
     return {**out, "max_abs_err": err, "shapes": timed, "seconds": secs}
 
 
+# ------------------------------------------------------------ phase 17 ----
+# training: granite-3-8b at full width in TRAIN_LAYERS of its 40 layers,
+# what launch.train --coded --tp 4 builds (float32, T = 4, r = 2 folded,
+# remat "full"). A layer with its parity holds 264.2 M parameters, and the
+# reference's AdamW keeps 20 bytes a parameter (params, grads, moments,
+# float32 master): 40 layers would need ~221 GB, 4 with the embedding and
+# the coded head ~31 GB
+TRAIN_LAYERS = 4
+TRAIN_STEPS = 6
+TRAIN_BATCH, TRAIN_SEQ = 8, 128
+TRAIN_LR, TRAIN_WARMUP = 3e-3, 10
+# One checkpoint of that state (params, moments, master copy; parity
+# dropped) is 19.2 GB, and a machine with the card takes 45 GiB of disk
+# writes a call: (b) saves none, (c)'s first Trainer one, at step 2
+TRAIN_RESUME_AT = 2
+NO_CKPT = 10 ** 9
+TRAIN_PROFILED = 3             # the step (from 0) run under the profiler
+BWD_TOL = 1e-5                 # kernel 6's backward: dx, rtol = atol
+BWD_DGAMMA_RTOL = 1e-4         # dgamma: max |err| / max |dgamma|; the
+#                                kernel sums the rows in another order
+
+
+def check_rmsnorm_bwd() -> dict:
+    """Kernel 6's backward against ``ref.rmsnorm_bwd_ref`` (eps 1e-5): rows
+    1, 17, 1024 and 8192 at d 4096, d 4093 (the scalar instantiation),
+    rows at a stride of d + 8 (vectors) and d + 1 (scalar); dx within
+    rtol = atol = 1e-5, dgamma within 1e-4 of its largest entry; a second
+    call bitwise equal; every instantiation the plan names launched; a bf16
+    input refused with a ValueError naming the dtype; and the autograd
+    Function (``rmsnorm`` on inputs that require grad) giving the plain
+    gradient at the training step's [1024, 4096]."""
+    from repro_torch.kernels import ref, rmsnorm
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    rmsnorm.rmsnorm_bwd.variants.clear()
+    cases = [(rows, K, 0) for rows in (1, 17, 1024, 8192)]
+    cases += [(64, 4093, 0), (1024, 4093, 0), (1024, K, 8), (1024, K, 1)]
+    want, worst_dx, worst_dg = set(), 0.0, 0.0
+    for rows, d, pad in cases:
+        g = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+        base = 3.0 * torch.randn((rows, d + pad), generator=gen,
+                                 device="cuda")
+        x = base[:, :d]
+        dy = torch.randn((rows, d), generator=gen, device="cuda")
+        dx, dg = rmsnorm.rmsnorm_bwd(x, g, dy, eps=1e-5)
+        dx2, dg2 = rmsnorm.rmsnorm_bwd(x, g, dy, eps=1e-5)
+        pdx, pdg = ref.rmsnorm_bwd_ref(x, g, dy, 1e-5)
+        torch.cuda.synchronize()
+        what = f"rmsnorm_bwd [{rows}, {d}] pad {pad}"
+        torch.testing.assert_close(dx, pdx, rtol=BWD_TOL, atol=BWD_TOL,
+                                   msg=lambda m: f"{what} dx: {m}")
+        rel = float((dg - pdg).abs().max() / pdg.abs().max())
+        if rel > BWD_DGAMMA_RTOL:
+            raise AssertionError(f"{what}: dgamma off by {rel:.3e} of its "
+                                 f"largest entry")
+        if not (torch.equal(dx, dx2) and torch.equal(dg, dg2)):
+            raise AssertionError(f"{what}: two calls differ")
+        worst_dx = max(worst_dx, float((dx - pdx).abs().max()))
+        worst_dg = max(worst_dg, rel)
+        want.add(rmsnorm.variant(rmsnorm.rmsnorm_bwd_plan(
+            d, d + pad if rows > 1 else d)))
+    seen = dict(rmsnorm.rmsnorm_bwd.variants)
+    if set(seen) != want or "scalar" not in seen:
+        raise AssertionError(f"rmsnorm_bwd instantiations launched {seen}; "
+                             f"the plan names {sorted(want)}")
+    xb = torch.randn((4, K), device="cuda").to(torch.bfloat16)
+    try:
+        rmsnorm.rmsnorm_bwd(xb, torch.ones(K, device="cuda"), xb)
+    except ValueError as e:
+        if "bfloat16" not in str(e):
+            raise
+    else:
+        raise AssertionError("rmsnorm_bwd accepted a bf16 input")
+    x = torch.randn((8, 128, K), generator=gen, device="cuda")
+    g = 1.0 + 0.1 * torch.randn(K, generator=gen, device="cuda")
+    dy = torch.randn((8, 128, K), generator=gen, device="cuda")
+    xr, gr = x.clone().requires_grad_(True), g.clone().requires_grad_(True)
+    fwd0 = rmsnorm.rmsnorm.launches
+    y = rmsnorm.rmsnorm(xr, gr, eps=1e-5)
+    y.backward(dy)
+    pdx, pdg = ref.rmsnorm_bwd_ref(x, g, dy, 1e-5)
+    torch.testing.assert_close(y.detach(), ref.rmsnorm_ref(x, g, 1e-5),
+                               rtol=BWD_TOL, atol=BWD_TOL)
+    torch.testing.assert_close(xr.grad, pdx, rtol=BWD_TOL, atol=BWD_TOL)
+    rel = float((gr.grad - pdg).abs().max() / pdg.abs().max())
+    if rel > BWD_DGAMMA_RTOL or rmsnorm.rmsnorm.launches != fwd0 + 1:
+        raise AssertionError(f"the autograd Function: dgamma {rel:.3e}, "
+                             f"{rmsnorm.rmsnorm.launches - fwd0} forward "
+                             f"launches")
+    log(f"kernel rmsnorm_bwd: {len(cases)} cases (rows 1-8192, d 4096 and "
+        f"4093, strided rows) within rtol=atol={BWD_TOL} (dx, max abs err "
+        f"{worst_dx:.3e}) and {BWD_DGAMMA_RTOL} of dgamma's largest entry "
+        f"({worst_dg:.3e}); repeats bitwise equal; bf16 refused; launches "
+        f"per instantiation {seen}; the autograd Function at [8, 128, "
+        f"{K}] matches the plain gradient")
+    return {"dx": worst_dx, "dgamma_rel": worst_dg}
+
+
+def check_grad_refusals() -> list[str]:
+    """Every kernel without a backward (1-5 and 7) raises a RuntimeError on
+    a CUDA input that requires grad (its output would carry no history),
+    before it builds or launches anything."""
+    from repro_torch.kernels import cdc_decode, cdc_encode, cdc_matmul, matmul
+    x = torch.ones((4, 8), device="cuda", requires_grad=True)
+    w = torch.ones((8, 16), device="cuda")
+    ok = (True,) * T
+    calls = {
+        "cdc_coded_matmul": lambda: cdc_matmul.cdc_coded_matmul(
+            x, w, w, "folded", T, R, w, w, w, ok),
+        "cdc_fused_head_argmax": lambda: cdc_decode.cdc_fused_head_argmax(
+            x, w[None], w, ok, vocab=16),
+        "cdc_encode": lambda: cdc_encode.cdc_encode(
+            x.reshape(T, 2, 4), np.ones((R, T)), layout="dedicated"),
+        "cdc_decode_merge": lambda: cdc_matmul.cdc_decode_merge(
+            x[None], w, "folded", T, R, w, w, w, ok),
+        "cdc_decode": lambda: cdc_decode.cdc_decode(
+            x[None].expand(T, 4, 8), x[0], ok),
+        "matmul": lambda: matmul.matmul(x, w)}
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{name} took an input that requires grad")
+    log(f"kernels without a backward refuse a requires-grad input: "
+        f"{sorted(calls)}")
+    return sorted(calls)
+
+
+def time_rmsnorm_bwd(rows: int = TRAIN_BATCH * TRAIN_SEQ) -> dict:
+    """Kernel 6's backward at the training step's [rows, 4096], by CUDA
+    events (inputs cold), beside its plain version and its bound: x and dy
+    read once, dx written once, gamma read and dgamma written once (the
+    per-block partials are scratch); ~10 flops an element. The library
+    call is ``aten._fused_rms_norm_backward`` (dx and dgamma in one call),
+    given the rstd its forward ``aten._fused_rms_norm`` returns, taken once
+    outside the timing; it is checked against the plain gradient first."""
+    from repro_torch.kernels import ref, rmsnorm
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    scratch = torch.empty(64 * 2 ** 20, device="cuda")   # 256 MB > L2
+    g = 1.0 + 0.1 * torch.randn(K, generator=gen, device="cuda")
+    x = torch.randn((rows, K), generator=gen, device="cuda")
+    dy = torch.randn((rows, K), generator=gen, device="cuda")
+    ms = _time(lambda: rmsnorm.rmsnorm_bwd(x, g, dy, eps=1e-5),
+               scratch.zero_)
+    plain = _time(lambda: ref.rmsnorm_bwd_ref(x, g, dy, 1e-5), scratch.zero_)
+    aten = torch.ops.aten
+    _, rstd = aten._fused_rms_norm(x, [K], g, 1e-5)
+
+    def library():
+        return aten._fused_rms_norm_backward(dy, x, [K], rstd, g,
+                                             [True, True])
+    ldx, ldg = library()
+    pdx, pdg = ref.rmsnorm_bwd_ref(x, g, dy, 1e-5)
+    torch.testing.assert_close(ldx, pdx, rtol=BWD_TOL, atol=BWD_TOL)
+    torch.testing.assert_close(ldg, pdg, rtol=BWD_DGAMMA_RTOL,
+                               atol=BWD_DGAMMA_RTOL * float(pdg.abs().max()))
+    lib = _time(library, scratch.zero_)
+    out: list[dict] = []
+    _row(out, "rmsnorm_bwd", f"[{rows}, {K}]", ms, plain, lib,
+         4.0 * (3 * rows * K + 2 * K), 10.0 * rows * K)
+    us = _profile_us(lambda: rmsnorm.rmsnorm_bwd(x, g, dy, eps=1e-5),
+                     "rmsnorm_bwd")
+    out[-1].update(profiler_us=us,
+                   rows_ptxas=_usage("rmsnorm_bwd_rowsILi4EE"),
+                   cols_ptxas=_usage("rmsnorm_bwd_cols"))
+    log(f"  rmsnorm_bwd: {us:.3f} us a call by the profiler (both passes; "
+        f"bound {out[-1]['bound_ms'] * 1e3:.3f} us); rows pass "
+        f"{out[-1]['rows_ptxas']}")
+    return out[-1]
+
+
+def _train_cfg():
+    import dataclasses
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch("granite-3-8b"),
+                               n_layers=TRAIN_LAYERS)
+
+
+def _trainer(cfg, ckpt_dir: str, ckpt_every: int, device: str = "cuda",
+             steps: int = TRAIN_STEPS):
+    """A Trainer as launch.train builds it for --coded --tp 4 (remat
+    "full"; the schedule over TRAIN_STEPS), logging every step."""
+    from repro_torch.data import DataConfig
+    from repro_torch.models import TPCtx, build
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig, TrainConfig
+    model = build(cfg, TPCtx(tp=T, mode="coded", code_r=R))
+    return Trainer(
+        model, TrainerConfig(steps=steps, ckpt_dir=ckpt_dir,
+                             ckpt_every=ckpt_every, log_every=1,
+                             device=device),
+        AdamWConfig(lr=TRAIN_LR, total_steps=TRAIN_STEPS,
+                    warmup_steps=TRAIN_WARMUP),
+        TrainConfig(remat="full"),
+        DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                   global_batch=TRAIN_BATCH))
+
+
+def _zero_counts():
+    from repro_torch.kernels import accounting
+    for fn in accounting.WRAPPERS.values():
+        fn.launches = 0
+        if hasattr(fn, "variants"):
+            fn.variants.clear()
+
+
+def _counts() -> dict:
+    from repro_torch.kernels import accounting
+    return {name: fn.launches for name, fn in accounting.WRAPPERS.items()}
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+class _StepRecorder:
+    """Wraps a Trainer's ``step_fn``: per step the wall time to a
+    synchronised end, the loss and global norm, and the launches of each
+    kernel; step ``profiled`` runs under torch.profiler."""
+
+    def __init__(self, step_fn, device, profiled: int | None = None):
+        self.step_fn, self.device, self.profiled = step_fn, device, profiled
+        self.steps: list[dict] = []
+        self.prof = None
+
+    def __call__(self, params, opt_state, batch):
+        from torch.profiler import ProfilerActivity, profile
+        before = _counts()
+        _sync(self.device)
+        t0 = time.perf_counter()
+        if len(self.steps) == self.profiled:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                out = self.step_fn(params, opt_state, batch)
+                _sync(self.device)
+            self.prof = prof
+        else:
+            out = self.step_fn(params, opt_state, batch)
+            _sync(self.device)
+        secs = time.perf_counter() - t0
+        m = out[2]
+        after = _counts()
+        self.steps.append({
+            "s": secs, "loss": float(m["loss"]),
+            "grad_norm": float(m["grad_norm"]), "lr": float(m["lr"]),
+            "launches": {k: after[k] - before.get(k, 0) for k in after
+                         if after[k] != before.get(k, 0)}})
+        return out
+
+
+def _train_split(prof) -> dict:
+    """The profiled step's device time: the GEMMs (cuBLAS/CUTLASS kernels
+    by name), kernel 6 forward and backward (by name), the optimizer and
+    the loss (their record_function ranges in the train step; the loss's
+    forward only, its backward runs on autograd's thread), and the rest."""
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == cuda and e.self_device_time_total > 0
+            and not e.key.startswith("train.")]   # the ranges' own spans
+    total = sum(ms for _, ms, _ in rows)
+    if not total:
+        log("profiler: no device time recorded; the step's split is not "
+            "measured")
+        return {}
+
+    def named(*parts):
+        return sum(ms for k, ms, _ in rows
+                   if any(p in k.lower() for p in parts))
+
+    def ranged(name):
+        return sum(e.device_time_total for e in prof.events()
+                   if e.name == name
+                   and e.device_type == torch.autograd.DeviceType.CPU) / 1e3
+
+    out = {"device_ms": total, "gemm": named("gemm", "gemv"),
+           "kernel_6": named("rmsnorm_kernel"),
+           "kernel_6_bwd": named("rmsnorm_bwd"),
+           "optimizer": ranged("train.optimizer"),
+           "loss": ranged("train.loss")}
+    out["rest"] = total - sum(out[k] for k in ("gemm", "kernel_6",
+                                               "kernel_6_bwd", "optimizer",
+                                               "loss"))
+    rows.sort(key=lambda r: -r[1])
+    out["top"] = [{"kernel": k[:90], "ms": ms, "count": c}
+                  for k, ms, c in rows[:12]]
+    log(f"profiler, the training step: device busy {total:.3f} ms: GEMMs "
+        f"{out['gemm']:.3f}, kernel 6 {out['kernel_6']:.3f} (backward "
+        f"{out['kernel_6_bwd']:.3f}), optimizer {out['optimizer']:.3f}, "
+        f"loss {out['loss']:.3f}, the rest {out['rest']:.3f}; by kernel:")
+    for k, ms, c in rows[:12]:
+        log(f"  {ms:8.3f} ms  x{c:<4d} {k[:90]}")
+    return out
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _expect(name: str, got: int, want: int):
+    if got != want:
+        raise AssertionError(f"{name}: {got} launches, expected {want}")
+
+
+def _train_kernel_free(cfg, ckpt_dir: str, device) -> list[dict]:
+    """A second Trainer of the same settings run with no kernel: the norms
+    on their plain version with autograd (``transformer.rmsnorm`` patched,
+    as phase 3 does for serving) and the parity encoded by kernel 4's plain
+    version; the same seed, loop and data stream. Its steps' records."""
+    from repro_torch.kernels import cdc_encode, ops, ref
+    from repro_torch.models import transformer
+    encode, norm = ops.cdc_encode, transformer.rmsnorm
+    ops.cdc_encode = cdc_encode.encode_plain
+    transformer.rmsnorm = lambda p, x, eps: ref.rmsnorm_ref(x, p["g"], eps)
+    try:
+        tr = _trainer(cfg, ckpt_dir, NO_CKPT, device)
+        rec = _StepRecorder(tr.step_fn, device)
+        tr.step_fn = rec
+        before = _counts()
+        tr.run(resume=False)
+        launched = {k: n - before[k] for k, n in _counts().items()
+                    if n != before[k]}
+    finally:
+        ops.cdc_encode, transformer.rmsnorm = encode, norm
+    if launched:
+        raise AssertionError(f"the kernel-free run launched {launched}")
+    return rec.steps
+
+
+def _through_a_failure(trainer, params) -> dict:
+    """(d): with shard 2 dead, the loss within 1e-3 of the fault-free loss
+    on the next batch, every gradient finite (the reference's
+    test_train_through_failure, at full width). The trained params' parity
+    is re-encoded first: AdamW moves each parity leaf on its own (zero
+    gradient with no mask, weight decay), as the reference's does, so after
+    a step it no longer encodes its weights until the offline encode runs
+    again."""
+    from repro_torch.data import make_stream
+    from repro_torch.train import train_step
+    from repro_torch.tree import named_leaves
+    with torch.no_grad():
+        params = trainer.model.encode_offline(params)
+    loss_fn = train_step.make_loss_fn(trainer.model, trainer.scfg)
+    batch = {k: torch.as_tensor(v, device=trainer.device) for k, v in
+             next(make_stream(trainer.dcfg, TRAIN_STEPS)).items()}
+    with torch.no_grad():
+        ok = float(loss_fn(params, batch))
+    dead = tuple(i != 2 for i in range(T))
+    loss, grads = train_step.value_and_grad(loss_fn, params, batch, dead)
+    bad = [n for n, g in named_leaves(grads)
+           if g is not None and not bool(torch.isfinite(g).all())]
+    if abs(ok - float(loss)) >= 1e-3 or bad:
+        raise AssertionError(f"training through shard 2 dead: loss "
+                             f"{float(loss)} vs {ok} fault-free; non-finite "
+                             f"gradients {bad}")
+    log(f"(d) through a failure: loss {float(loss):.6f} with shard 2 dead, "
+        f"{ok:.6f} fault-free (|diff| {abs(ok - float(loss)):.3e}); every "
+        f"gradient finite, the parity leaves' included")
+    return {"loss_dead": float(loss), "loss_ok": ok}
+
+
+def _launch_train(ckpt_dir: str, device) -> dict:
+    """(e): the entry point in a subprocess (on the card unless ``device``
+    is the CPU)."""
+    import os
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "granite-3-8b", "--smoke", "--coded", "--steps", "20",
+           "--no-resume", "--ckpt-dir", ckpt_dir]
+    cmd += ["--device", "cpu"] if torch.device(device).type == "cpu" else []
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                         cwd=ROOT, env={**os.environ,
+                                        "PYTHONPATH": str(ROOT / "src")})
+    secs = time.perf_counter() - t0
+    lines = out.stdout.splitlines()
+    rows = [ln.split(",") for ln in lines[lines.index("step,loss") + 1:]
+            if "," in ln and not ln.startswith("#")] \
+        if "step,loss" in lines else []
+    if out.returncode != 0 or [int(s) for s, _ in rows] != [5, 10, 15, 20] \
+            or not all(np.isfinite(float(v)) for _, v in rows) \
+            or not any(ln.startswith("# wall:") for ln in lines):
+        raise AssertionError(f"launch.train: rc {out.returncode}\n"
+                             f"{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
+    log(f"(e) python -m repro_torch.launch.train --smoke --coded --steps 20 "
+        f"on {device}: rc 0 in {secs:.1f} s; " + " ".join(lines[-6:]))
+    return {"seconds": secs, "losses": [(int(s), float(v)) for s, v in rows]}
+
+
+def train_model(cfg, device="cuda") -> dict:
+    """(b)-(e) of phase 17 on ``cfg`` (launch counts checked on the card).
+    (b) 6 steps through the port's Trainer (lr 3e-3, warmup 10, batch 8 x
+    128 of the synthetic stream, no checkpoint; ``n_params`` counts the
+    parity): losses finite; per step 4L + 1 launches of kernel 6 (the 2L +
+    1 norms of the forward, and the 2L of the layers the backward
+    recomputes under remat "full") and 2L + 1 of its backward, none of
+    kernels 1, 2 and 4; the parity encoded at init by kernel 4 twice (in
+    Model.init's linear_init and by the offline encode, as the reference's
+    init and Trainer do); the same steps kernel-free (run first, from the
+    same seed, a second Trainer): every loss and grad_norm within 1e-4
+    relative; step times, tokens/s, peak memory and the profiled step's
+    split. (c) a Trainer of 2 steps with ckpt_every 2 (its async
+    checkpoint at step 2), then one of 6 steps that resumes there (the
+    parity re-encoded by kernel 4): steps 1-2 and 3-6 give (b)'s losses
+    within 1e-5. (d) a loss and gradient with shard 2 dead. (e)
+    launch.train in a subprocess."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.tree import leaves
+    card = torch.device(device).type == "cuda"
+    L = cfg.n_layers
+    coded = coded_gemms(cfg) // L + 1      # parity leaves: one launch each
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        t_free = time.perf_counter()
+        free = _train_kernel_free(cfg, os.path.join(root, "free"), device)
+        log(f"(b) {cfg.name} in {L} layers, kernel-free: {TRAIN_STEPS} "
+            f"steps in {time.perf_counter() - t_free:.1f} s with the init, "
+            f"losses {[round(f['loss'], 5) for f in free]}")
+        tr = _trainer(cfg, os.path.join(root, "b"), NO_CKPT, device)
+        rec = _StepRecorder(tr.step_fn, device, TRAIN_PROFILED if card
+                            else None)
+        tr.step_fn = rec
+        if card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t_run = time.perf_counter()
+        run = tr.run(resume=False)
+        run_s = time.perf_counter() - t_run
+        counts = _counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30 if card else 0.0
+        n_params = sum(t.numel() for t in leaves(run["params"]))
+        del run
+        steps = rec.steps
+        losses = [s["loss"] for s in steps]
+        if not all(np.isfinite(losses)) or len(steps) != TRAIN_STEPS:
+            raise AssertionError(f"training losses {losses}")
+        for i, s in enumerate(steps if card else ()):
+            n = s["launches"]
+            _expect(f"step {i + 1} kernel 6", n.get("rmsnorm", 0), 4 * L + 1)
+            _expect(f"step {i + 1} kernel 6 backward",
+                    n.get("rmsnorm_bwd", 0), 2 * L + 1)
+            for k in ("cdc_coded_matmul", "cdc_fused_head_argmax",
+                      "cdc_encode"):
+                _expect(f"step {i + 1} {k}", n.get(k, 0), 0)
+        if card:
+            _expect("kernel 4 at init", counts["cdc_encode"], 2 * coded)
+        timed = [s["s"] for i, s in enumerate(steps)
+                 if i not in (0, TRAIN_PROFILED)]
+        step_s = float(np.median(timed))
+        split = _train_split(rec.prof) if rec.prof is not None else {}
+        log(f"(b) {TRAIN_STEPS} steps through the Trainer in {run_s:.1f} s "
+            f"(its init included): losses {[round(v, 5) for v in losses]}, "
+            f"grad_norm {[round(s['grad_norm'], 5) for s in steps]}; "
+            f"median step {step_s * 1e3:.1f} ms (steps 2-6 but the profiled "
+            f"one; the first {steps[0]['s'] * 1e3:.1f} ms), "
+            f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.0f} tokens/s; peak "
+            f"{peak:.2f} GiB; launches a step {steps[-1]['launches']}, "
+            f"kernel 4 {counts['cdc_encode']} at init")
+        for i, (s, f) in enumerate(zip(steps, free)):
+            if _rel(s["loss"], f["loss"]) > 1e-4 or \
+                    _rel(s["grad_norm"], f["grad_norm"]) > 1e-4:
+                raise AssertionError(
+                    f"step {i + 1}: loss {s['loss']} / grad_norm "
+                    f"{s['grad_norm']} vs kernel-free {f['loss']} / "
+                    f"{f['grad_norm']}")
+        worst = (max(_rel(s["loss"], f["loss"]) for s, f in zip(steps, free)),
+                 max(_rel(s["grad_norm"], f["grad_norm"])
+                     for s, f in zip(steps, free)))
+        log(f"(b) against the kernel-free run: every step's loss within "
+            f"{worst[0]:.3e} and grad_norm within {worst[1]:.3e} (relative)")
+        if card:
+            torch.cuda.empty_cache()
+
+        dir_c = os.path.join(root, "c")
+        first = _trainer(cfg, dir_c, TRAIN_RESUME_AT, device,
+                         steps=TRAIN_RESUME_AT)
+        t_ck = time.perf_counter()
+        head = [loss for _, loss in first.run(resume=False)["losses"]]
+        ck_s = time.perf_counter() - t_ck
+        tr2 = _trainer(cfg, dir_c, NO_CKPT, device)
+        rec2 = _StepRecorder(tr2.step_fn, device)
+        tr2.step_fn = rec2
+        resume, at_resume = tr2.maybe_resume, {}
+
+        def counted_resume(*a):
+            n0 = _counts()["cdc_encode"]
+            got = resume(*a)
+            at_resume["cdc_encode"] = _counts()["cdc_encode"] - n0
+            at_resume["step"] = got[2]
+            return got
+        tr2.maybe_resume = counted_resume
+        t_res = time.perf_counter()
+        run2 = tr2.run(resume=True)
+        res_s = time.perf_counter() - t_res
+        if card:
+            _expect("kernel 4 at resume", at_resume["cdc_encode"], coded)
+        resumed = head + [s["loss"] for s in rec2.steps]
+        if at_resume["step"] != TRAIN_RESUME_AT or \
+                len(resumed) != TRAIN_STEPS or \
+                any(_rel(a, b) > 1e-5 for a, b in zip(resumed, losses)):
+            raise AssertionError(f"resumed losses {resumed} (from step "
+                                 f"{at_resume['step']}) vs {losses}")
+        log(f"(c) {TRAIN_RESUME_AT} steps and the async checkpoint in "
+            f"{ck_s:.1f} s; resumed from step {TRAIN_RESUME_AT} in "
+            f"{res_s:.1f} s (init, restore, re-encode: "
+            f"{at_resume['cdc_encode']} kernel-4 launches, then 4 steps): "
+            f"losses {[round(v, 6) for v in resumed]}, within "
+            f"{max(_rel(a, b) for a, b in zip(resumed, losses)):.3e} of "
+            f"(b)'s")
+        failure = _through_a_failure(tr2, run2["params"])
+        del run2
+        if card:
+            torch.cuda.empty_cache()
+        entry = _launch_train(os.path.join(root, "e"), device)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"steps": steps, "kernel_free": free, "step_ms": step_s * 1e3,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+            "peak_gib": peak, "split": split, "run_s": run_s,
+            "n_params": n_params, "k4_init": counts["cdc_encode"],
+            "k4_resume": at_resume["cdc_encode"],
+            "k6": counts["rmsnorm"], "k6_bwd": counts["rmsnorm_bwd"],
+            "resumed": resumed, "checkpoint_s": ck_s, "resume_s": res_s,
+            "failure": failure, "launch_train": entry}
+
+
+def train_granite() -> dict:
+    """Phase 17: training. (a) kernel 6's backward against its plain
+    version, timed; the kernels without a backward refuse a requires-grad
+    input. Then (b)-(e) (``train_model``) on granite-3-8b at full width in
+    TRAIN_LAYERS of its 40 layers."""
+    t0 = time.perf_counter()
+    out = {"max_abs_err": check_rmsnorm_bwd(),
+           "refused": check_grad_refusals(), "timed": time_rmsnorm_bwd()}
+    _phase_memory("rmsnorm_bwd checks and timing")
+    out.update(train_model(_train_cfg()))
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 17 (training granite-3-8b, {TRAIN_LAYERS} of 40 layers) "
+        f"took {out['seconds']:.1f} s")
+    return out
+
+
 # --------------------------------------------------------------- main ----
 
 def main() -> int:
@@ -4854,6 +5424,8 @@ def main() -> int:
     _phase_memory("serving hymba-1.5b")
     moe = serve_moe()
     _phase_memory("serving qwen3-moe-235b-a22b (4 layers)")
+    training = train_granite()
+    _phase_memory("training granite-3-8b (4 layers)")
     w1 = timed[0]
     head = next(t for t in timed if t.get("gemm") == "lm_head")
     small = {(t["kernel"], t["shape"]): t for t in timed if "kernel" in t}
@@ -4986,6 +5558,11 @@ def main() -> int:
                         moe["max_abs_err"][tag]["cdc_fused_head_argmax"],
                         rows_m[f"{tag} lm_head"]),
              "name": f"cdc_fused_head_argmax ({tag})"}]
+    # kernel 6's backward: launches from the Trainer's run (phase 17)
+    kernels.append(entry_of(
+        "rmsnorm_bwd", "rmsnorm_bwd.cu", "src/repro/models/common.py:155",
+        training["k6_bwd"], training["max_abs_err"]["dx"],
+        training["timed"]))
     log(card)
     runs = {n: {k: v for k, v in r.items() if k != "tokens"}
             for n, r in sched["runs"].items()}
@@ -5012,7 +5589,7 @@ def main() -> int:
                               "max_abs_err": x_err},
                     "hymba": {**hymba, "shapes": timed_h,
                               "max_abs_err": h_err},
-                    "moe": moe}, default=str))
+                    "moe": moe, "training": training}, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,7 +33,7 @@ SOURCES = ("cdc_coded_matmul", "cdc_coded_matmul_bf16", "cdc_coded_matmul_t16",
            "cdc_coded_matmul_any", "cdc_coded_matmul_any_bf16",
            "cdc_fused_head", "cdc_fused_head_bf16", "cdc_fused_head_any",
            "cdc_encode", "cdc_decode_merge", "cdc_decode", "rmsnorm",
-           "matmul", "tma_probe")
+           "rmsnorm_bwd", "matmul", "tma_probe")
 # the code widths T the coded kernels (1-5) take (csrc/scalar.cuh: MAX_T)
 KERNEL_T = tuple(range(2, 17))
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -97,6 +97,16 @@ def bf16_flag(dtype: torch.dtype, who: str) -> int:
         raise ValueError(f"{who}: dtype {dtype} is neither float32 nor "
                          f"bfloat16")
     return int(dtype == torch.bfloat16)
+
+
+def refuse_grad(who: str, *tensors) -> None:
+    """A kernel with no backward refuses an input that autograd would
+    differentiate: its output, written by the kernel into a fresh tensor,
+    has no history, and returning it would cut the gradient silently."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{who}: an input requires grad, and the kernel "
+                           f"has no backward; call it under torch.no_grad()")
 
 
 def check_t(who: str, T: int) -> None:

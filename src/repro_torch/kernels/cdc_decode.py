@@ -59,6 +59,7 @@ def cdc_decode(y_shards: torch.Tensor, parity: torch.Tensor, valid
     who = "cdc_decode"
     if y_shards.device.type != "cuda":
         raise ValueError(f"{who}: unsupported device {y_shards.device}")
+    build.refuse_grad(who, y_shards, parity)
     bf16 = build.bf16_flag(y_shards.dtype, who)
     T = y_shards.shape[0]
     check_decode(T)
@@ -199,6 +200,7 @@ def cdc_fused_head_argmax(x: torch.Tensor, w_shards: torch.Tensor,
         return ref.fused_head_argmax_ref(
             x, w_shards, parity_w, torch.as_tensor(host_mask(valid)), vocab)
     _check(x.device.type == "cuda", f"unsupported device {x.device}")
+    build.refuse_grad("cdc_fused_head_argmax", x, w_shards, parity_w)
     b, k = x.shape
     T, k2, m_l = w_shards.shape
     check_head(T)

@@ -91,6 +91,7 @@ def cdc_encode(w_shards: torch.Tensor, gen, *, layout: str = "dedicated"
         return encode_plain(w_shards, gen, layout)
     _check(w_shards.device.type == "cuda",
            f"unsupported device {w_shards.device}")
+    build.refuse_grad("cdc_encode", w_shards)
     bf16 = build.bf16_flag(w_shards.dtype, "cdc_encode")
     _check(w_shards.ndim in (3, 4), "w_shards must be [T, k, m_l] or "
            "[L, T, k, m_l]")

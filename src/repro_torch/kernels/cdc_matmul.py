@@ -217,6 +217,7 @@ def cdc_coded_matmul(x: torch.Tensor, w: torch.Tensor, w_cdc: torch.Tensor,
         return coded_matmul_plain(x, w, w_cdc, layout, T, r, gen, esel,
                                   coef, valid, gamma, eps)
     _check(x.device.type == "cuda", f"unsupported device {x.device}")
+    build.refuse_grad("cdc_coded_matmul", x, w, w_cdc, gamma)
     check_code(T, r)
     rows, k = x.shape
     m_l = w.shape[1] // T
@@ -317,6 +318,7 @@ def cdc_decode_merge(ys: torch.Tensor, parity: torch.Tensor, layout: str,
     who = "cdc_decode_merge"
     if ys.device.type != "cuda":
         raise ValueError(f"{who}: unsupported device {ys.device}")
+    build.refuse_grad(who, ys, parity)
     check_merge(T)
     folded = layout == "folded"
     _, rows, m_l = ys.shape

@@ -119,6 +119,7 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *, out_dtype=None
     dev = x.device
     if dev.type == "cpu":
         return ref.matmul_ref(x, w, out_dtype)
+    build.refuse_grad("matmul", x, w)
     out_dtype = out_dtype or x.dtype
     xp, wp = x.data_ptr(), w.data_ptr()
     ptr_ok = (xp | wp) % 16 == 0

@@ -15,9 +15,14 @@ here, before anything is launched:
   * ``cdc_encode`` (re-exported from ``kernels.cdc_encode``): no ladder;
     the offline parity encode of every coded weight
     (``core.coded_layer.make_parity_weights``) goes through it;
-  * ``rmsnorm`` and ``matmul`` (re-exported from ``kernels.rmsnorm`` and
-    ``kernels.matmul``): no ladder (the serving round's norms, and the
-    coded-overhead study's GEMM).
+  * ``rmsnorm``, ``rmsnorm_bwd`` and ``matmul`` (re-exported from
+    ``kernels.rmsnorm`` and ``kernels.matmul``): no ladder (the model's
+    norms, their gradient in training, and the coded-overhead study's
+    GEMM).
+
+The kernels without a backward (1-5 and 7) raise on a CUDA input that
+requires grad while grad mode is on (``build.refuse_grad``); ``rmsnorm``
+then runs as its autograd Function.
 """
 from __future__ import annotations
 
@@ -35,7 +40,7 @@ from repro_torch.kernels.cdc_encode import cdc_encode  # noqa: F401
 from repro_torch.kernels.cdc_matmul import (cdc_coded_matmul,
                                             cdc_decode_merge, eq12_plan)
 from repro_torch.kernels.matmul import matmul  # noqa: F401
-from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: F401
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd  # noqa: F401
 
 
 # ------------------------------------------------------- kernel cost model --
@@ -101,6 +106,7 @@ KERNEL_COSTS: dict = {
     "cdc_decode_merge": _zero_cost,
     "cdc_decode": _zero_cost,
     "rmsnorm": _zero_cost,
+    "rmsnorm_bwd": _zero_cost,
 }
 
 

@@ -118,3 +118,17 @@ def rmsnorm_ref(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6
     var = (xf * xf).mean(-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)
             * gamma.to(torch.float32)).to(x.dtype)
+
+
+def rmsnorm_bwd_ref(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor,
+                    eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of ``rmsnorm_ref`` at (x, gamma) for the output gradient
+    dy, in float32: dx = rstd * (dy * gamma) - x * rstd^3 * mean(dy *
+    gamma * x), dgamma = the sum over rows of dy * x * rstd. Returns (dx
+    in x's dtype, dgamma [d] float32)."""
+    xf, dyf = x.to(torch.float32), dy.to(torch.float32)
+    rstd = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    dyg = dyf * gamma.to(torch.float32)
+    dx = rstd * dyg - xf * rstd ** 3 * (dyg * xf).mean(-1, keepdim=True)
+    dgamma = (dyf * xf * rstd).reshape(-1, x.shape[-1]).sum(0)
+    return dx.to(x.dtype), dgamma

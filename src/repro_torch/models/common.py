@@ -122,6 +122,50 @@ def encode_tree(params: Params, ctx: TPCtx) -> Params:
     return walk(params)
 
 
+REMAT = ("none", "dots", "full")
+
+
+def _keep_dots():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    aten = torch.ops.aten
+    return create_selective_checkpoint_contexts(
+        [aten.mm.default, aten.bmm.default, aten.addmm.default])
+
+
+def remat_layer(f, policy: str = "full"):
+    """The reference's ``_remat``: a layer ``f`` whose activations the
+    backward recomputes instead of keeping (``torch.utils.checkpoint``,
+    non-reentrant). "none": f as it is; "dots": keep the matmul outputs
+    (aten mm, bmm, addmm: ``checkpoint_dots``) and recompute the rest;
+    "full": keep only the layer's inputs. Outside grad mode f runs as it
+    is, so inference is unchanged."""
+    if policy not in REMAT:
+        raise ValueError(f"remat {policy!r} is not one of {REMAT}")
+    if policy == "none":
+        return f
+    from torch.utils.checkpoint import checkpoint
+    extra = {"context_fn": _keep_dots} if policy == "dots" else {}
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return f(*args)
+        return checkpoint(f, *args, use_reentrant=False,
+                          preserve_rng_state=False, **extra)
+    return run
+
+
+def tree_unstack(node, n: int) -> list:
+    """The ``n`` layers of a stacked [L, ...] tree as a list of trees of
+    views, one ``unbind`` a leaf. Under autograd the layers' gradients of
+    a leaf come back as one stack, where slicing each layer out
+    (``tree_index``) would give each its own zero-filled full-size
+    gradient to add up."""
+    if isinstance(node, dict):
+        per = {k: tree_unstack(v, n) for k, v in node.items()}
+        return [{k: per[k][i] for k in node} for i in range(n)]
+    return list(node.unbind(0))
+
+
 def tree_index(node, i: int):
     """Slice layer ``i`` out of a stacked [L, ...] tree (views, no copy)."""
     if isinstance(node, dict):

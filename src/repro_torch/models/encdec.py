@@ -27,8 +27,9 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models.common import (Params, TPCtx, col_dense,
                                        layernorm, layernorm_init,
-                                       linear_init, sinusoidal_pos,
-                                       tree_index)
+                                       linear_init, remat_layer,
+                                       sinusoidal_pos, tree_index,
+                                       tree_unstack)
 
 # decode positions index a table of at least this many rows and wrap
 # beyond it, as the reference does
@@ -66,18 +67,24 @@ def init_params(cfg, gen: torch.Generator, ctx: TPCtx, dtype=torch.float32,
 
 
 def encode(cfg, params: Params, ctx: TPCtx, frames: torch.Tensor,
-           valid=None) -> torch.Tensor:
-    """frames [B, Se, D] (precomputed embeddings) -> encoder output."""
+           valid=None, *, remat: str = "full") -> torch.Tensor:
+    """frames [B, Se, D] (precomputed embeddings) -> encoder output. Under
+    grad mode each layer is checkpointed unless ``remat`` is "none" (the
+    reference checkpoints its enc-dec layers whole)."""
     eps = cfg.norm_eps
     x = frames + sinusoidal_pos(frames.shape[1], cfg.d_model, frames.dtype,
                                 frames.device)[None]
-    for i in range(cfg.encoder_layers):
-        p = tree_index(params["enc_layers"], i)
+
+    def body(x, p):
         x = x + attn_mod.attention(ctx, p["attn"], cfg,
                                    layernorm(p["ln1"], x, eps), valid=valid,
                                    kind="bidir")
-        x = x + ffn_mod.ffn(ctx, p["ffn"], cfg, layernorm(p["ln2"], x, eps),
-                            valid)
+        return x + ffn_mod.ffn(ctx, p["ffn"], cfg,
+                               layernorm(p["ln2"], x, eps), valid)
+
+    body = remat_layer(body, "none" if remat == "none" else "full")
+    for p in tree_unstack(params["enc_layers"], cfg.encoder_layers):
+        x = body(x, p)
     return layernorm(params["enc_ln_f"], x, eps)
 
 
@@ -95,19 +102,23 @@ def _dec_layer(cfg, ctx, p, x, valid, cache, xkv, pos, q_chunk, kv_chunk):
 
 
 def forward(cfg, params: Params, ctx: TPCtx, tokens: torch.Tensor,
-            frames: torch.Tensor, valid=None, *, q_chunk: int = 512,
-            kv_chunk: int = 1024) -> torch.Tensor:
+            frames: torch.Tensor, valid=None, *, remat: str = "full",
+            q_chunk: int = 512, kv_chunk: int = 1024) -> torch.Tensor:
     """Teacher-forced logits [B, S, vocab] (float32). tokens: [B, S];
-    frames: [B, Se, D]."""
-    enc = encode(cfg, params, ctx, frames, valid)
+    frames: [B, Se, D]. ``remat`` as in ``encode``."""
+    enc = encode(cfg, params, ctx, frames, valid, remat=remat)
     x = params["embed"][tokens.long()]
     x = x + sinusoidal_pos(tokens.shape[1], cfg.d_model, x.dtype,
                            x.device)[None]
-    for i in range(cfg.n_layers):
-        p = tree_index(params["dec_layers"], i)
+
+    def body(x, p):
         xkv = attn_mod.cross_kv(ctx, p["cross"], cfg, enc, valid)
-        x = _dec_layer(cfg, ctx, p, x, valid, None, xkv, 0, q_chunk,
-                       kv_chunk)
+        return _dec_layer(cfg, ctx, p, x, valid, None, xkv, 0, q_chunk,
+                          kv_chunk)
+
+    body = remat_layer(body, "none" if remat == "none" else "full")
+    for p in tree_unstack(params["dec_layers"], cfg.n_layers):
+        x = body(x, p)
     x = layernorm(params["dec_ln_f"], x, cfg.norm_eps)
     logits = col_dense(ctx, params["lm_head"], x, cfg.vocab, valid)
     return logits.to(torch.float32)

@@ -25,7 +25,8 @@ from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import (Params, TPCtx, col_dense,
-                                       linear_init, rmsnorm, tree_index)
+                                       linear_init, remat_layer, rmsnorm,
+                                       tree_index, tree_unstack)
 
 
 def xlstm_block_kinds(cfg) -> list[str]:
@@ -108,19 +109,26 @@ def _layer_fwd(cfg, ctx: TPCtx, p: Params, x, valid, cache, mamba_state,
 
 
 def forward(cfg, params: Params, ctx: TPCtx, tokens: torch.Tensor,
-            valid=None, *, q_chunk: int = 512, kv_chunk: int = 1024
-            ) -> torch.Tensor:
+            valid=None, *, remat: str = "full", q_chunk: int = 512,
+            kv_chunk: int = 1024) -> torch.Tensor:
     """tokens: [B, S] -> logits [B, S, vocab] (float32), teacher-forced:
     every position attends the tokens before it (or its window), no
-    cache."""
+    cache. Under grad mode each layer (each xLSTM block) is checkpointed
+    by ``remat`` ("none", "dots" or "full"), as the reference wraps its
+    scan body."""
     x = params["embed"][tokens.long()]
     if _is_xlstm(cfg):
         for kind, p in zip(xlstm_block_kinds(cfg), params["blocks"]):
-            x, _ = xlstm_mod.BLOCKS[kind].apply(ctx, p, cfg, x, valid)
+            block = remat_layer(
+                lambda x, p, fn=xlstm_mod.BLOCKS[kind].apply:
+                fn(ctx, p, cfg, x, valid)[0], remat)
+            x = block(x, p)
     else:
-        for i in range(cfg.n_layers):
-            x = _layer_fwd(cfg, ctx, tree_index(params["layers"], i), x,
-                           valid, None, None, 0, q_chunk, kv_chunk)
+        layer = remat_layer(
+            lambda x, p: _layer_fwd(cfg, ctx, p, x, valid, None, None, 0,
+                                    q_chunk, kv_chunk), remat)
+        for p in tree_unstack(params["layers"], cfg.n_layers):
+            x = layer(x, p)
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
     logits = col_dense(ctx, params["lm_head"], x, cfg.vocab, valid)
     return logits.to(torch.float32)

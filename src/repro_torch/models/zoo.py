@@ -56,16 +56,20 @@ class Model:
                                device=params["embed"].device)
 
     def forward(self, params: Params, batch: dict, valid=None, *,
-                q_chunk: int = 512, kv_chunk: int = 1024) -> torch.Tensor:
-        """batch -> logits [B, S, vocab] (float32), teacher-forced."""
+                remat: str = "full", q_chunk: int = 512,
+                kv_chunk: int = 1024) -> torch.Tensor:
+        """batch -> logits [B, S, vocab] (float32), teacher-forced; under
+        grad mode each layer is checkpointed by ``remat``."""
         tokens = torch.as_tensor(batch["tokens"],
                                  device=params["embed"].device)
         if self.cfg.is_encdec:
             return encdec.forward(self.cfg, params, self.ctx, tokens,
                                   self._frames(params, batch), valid,
-                                  q_chunk=q_chunk, kv_chunk=kv_chunk)
+                                  remat=remat, q_chunk=q_chunk,
+                                  kv_chunk=kv_chunk)
         return transformer.forward(self.cfg, params, self.ctx, tokens, valid,
-                                   q_chunk=q_chunk, kv_chunk=kv_chunk)
+                                   remat=remat, q_chunk=q_chunk,
+                                   kv_chunk=kv_chunk)
 
     def init_decode(self, params: Params, batch: dict, b: int, max_len: int,
                     dtype=torch.float32, valid=None) -> Params:

@@ -371,3 +371,66 @@ def test_moe_graph_round_equals_eager_round_bitwise(smoke, name):
         assert torch.equal(t, eager.state["kv"][key]), key
     vs = graph.vstep
     assert (vs.n_captures, vs.n_replays) == (2, 5)
+
+
+def test_rmsnorm_bwd_kernel_matches_plain(smoke):
+    """Kernel 6's backward against its plain version (dx within 1e-5,
+    dgamma within 1e-4 of its largest entry, repeats bitwise equal, every
+    instantiation launched, bf16 refused) and the autograd Function."""
+    err = smoke.check_rmsnorm_bwd()
+    assert err["dx"] <= 1e-5 and err["dgamma_rel"] <= 1e-4
+
+
+def test_kernels_without_a_backward_refuse_requires_grad(smoke):
+    assert smoke.check_grad_refusals() == sorted(
+        ["cdc_coded_matmul", "cdc_fused_head_argmax", "cdc_encode",
+         "cdc_decode_merge", "cdc_decode", "matmul"])
+
+
+def test_granite_smoke_train_step_on_card_matches_cpu(smoke):
+    """One train step of coded smoke granite (T = 4, r = 2 folded, remat
+    "full") on the card, with kernel 6 and its backward on every norm,
+    against the same step on the CPU (plain versions): every gradient leaf
+    of ``value_and_grad`` within 1e-4 (AdamW's first update is close to
+    lr * sign(g), so the params alone would not show a gradient wrong by a
+    scale), the loss and global norm within 1e-5, every param within 1e-4
+    after the step (where a gradient is near eps the two devices' rounding
+    shows in the update)."""
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.data import DataConfig, make_stream
+    from repro_torch.kernels import rmsnorm
+    from repro_torch.models import TPCtx, build
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.train import TrainConfig, make_train_step, train_step
+    from repro_torch.tree import named_leaves, tree_map
+    cfg = smoke_config(get_arch("granite-3-8b"))
+    model = build(cfg, TPCtx(tp=4, mode="coded", code_r=2))
+    with torch.no_grad():
+        cpu = model.encode_offline(model.init(0, device="cpu"))
+    card = tree_map(lambda t: t.to("cuda"), cpu)
+    batch = next(make_stream(DataConfig(cfg.vocab, 32, 4)))
+    tcfg = TrainConfig(remat="full")
+    loss_fn = train_step.make_loss_fn(model, tcfg)
+    _, g_card = train_step.value_and_grad(loss_fn, card, batch)
+    _, g_cpu = train_step.value_and_grad(loss_fn, cpu, batch)
+    want = dict(named_leaves(g_cpu))
+    for name, g in named_leaves(g_card):
+        if g is None or want[name] is None:
+            assert g is None and want[name] is None, name
+            continue
+        torch.testing.assert_close(g.cpu(), want[name], rtol=1e-4,
+                                   atol=1e-4, msg=lambda m: f"{name}: {m}")
+    step = make_train_step(model, AdamWConfig(lr=3e-3, warmup_steps=2),
+                           tcfg)
+    n6, n6b = rmsnorm.rmsnorm.launches, rmsnorm.rmsnorm_bwd.launches
+    card, _, mc = step(card, init_state(card), batch)
+    cpu, _, mp = step(cpu, init_state(cpu), batch)
+    L = cfg.n_layers
+    assert rmsnorm.rmsnorm.launches - n6 == 4 * L + 1
+    assert rmsnorm.rmsnorm_bwd.launches - n6b == 2 * L + 1
+    for k in ("loss", "grad_norm"):
+        assert float(mc[k]) == pytest.approx(float(mp[k]), rel=1e-5), k
+    want = dict(named_leaves(cpu))
+    for name, t in named_leaves(card):
+        torch.testing.assert_close(t.cpu(), want[name], rtol=1e-4,
+                                   atol=1e-4, msg=lambda m: f"{name}: {m}")

@@ -53,7 +53,10 @@ def test_guard_covers_the_encoder_decoder():
             "src/repro_torch/models/xlstm.py",
             "src/repro_torch/configs/xlstm_125m.py",
             "src/repro_torch/models/mamba.py",
-            "src/repro_torch/configs/hymba_1_5b.py"} <= names
+            "src/repro_torch/configs/hymba_1_5b.py",
+            "src/repro_torch/train/trainer.py",
+            "src/repro_torch/ckpt/checkpoint.py",
+            "src/repro_torch/launch/train.py"} <= names
 
 
 def test_guard_catches_forbidden_imports(tmp_path):
@@ -70,6 +73,27 @@ def test_serve_without_device_flag_refuses_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--smoke", "--coded"])
+
+
+def test_train_without_device_flag_refuses_cpu(monkeypatch, tmp_path):
+    """The training entry point and the Trainer run on the card unless
+    told otherwise, as the serving entry point does."""
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.data import DataConfig
+    from repro_torch.launch import train
+    from repro_torch.models import TPCtx, build
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig, TrainConfig
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--smoke", "--coded", "--steps", "2", "--no-resume",
+                    "--ckpt-dir", str(tmp_path)])
+    cfg = smoke_config(get_arch("granite-3-8b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(build(cfg, TPCtx(tp=4, mode="coded")),
+                TrainerConfig(ckpt_dir=str(tmp_path)), AdamWConfig(),
+                TrainConfig(), DataConfig(cfg.vocab, 8, 2))
+    assert not list(tmp_path.iterdir())
 
 
 def test_model_init_defaults_to_cuda(monkeypatch):
@@ -136,7 +160,8 @@ def test_loading_every_port_module_loads_neither_jax_nor_reference():
     "repro_torch.models", "repro_torch.models.encdec",
     "repro_torch.configs.whisper_medium", "repro_torch.models.xlstm",
     "repro_torch.configs.xlstm_125m", "repro_torch.models.mamba",
-    "repro_torch.configs.hymba_1_5b"])
+    "repro_torch.configs.hymba_1_5b", "repro_torch.train",
+    "repro_torch.launch.train"])
 def test_package_imports_first_in_a_fresh_interpreter(module):
     """No import cycle bites whichever package a program imports first
     (``obs`` and ``runtime`` import each other's leaf modules)."""
