@@ -246,6 +246,28 @@ integer inputs to the bit) and timed in phase 4
      of the fault-free loss and every gradient finite; (e) python -m
      repro_torch.launch.train --smoke --coded --steps 20 on the card exits
      0 with its CSV.
+ 18. distribution across real processes, one process a rank, every rank on
+     the one card (``dist.spawn_world``; gloo, since NCCL refuses two ranks
+     of one communicator on one GPU: every message is staged through pinned
+     host buffers, so its times are no yardstick for a collective): (a) a
+     4-rank world (model 4) runs dist.coded_matmul_shardmap on granite's
+     wq, wk and w1 (T = 4, r = 2; 4 and 64 rows; both layouts; the
+     all-valid mask, every single dead rank, ranks 1 and 2 dead on the
+     dedicated layout): each rank's block within 1e-4 of the single-process
+     coded GEMM (kernel 1) and 2e-3 of x @ w, finite although the dead rank
+     sent NaN, kernel 3 launched once a call under <= 1 dead on every rank;
+     ms a call and bytes a rank printed; (c) the same world runs one
+     qwen2-moe layer at full width expert-parallel (15 of 60 experts a
+     rank, capacity 1.25, tokens replicated, one all-reduce) on 4 decode
+     tokens and a 4 x 128 prefill, within 1e-5 of the single-process
+     _moe_local; (d) GPipe over 4 stages of granite's full-width layer (2
+     of 8 a stage, plain, kernel 6 in every stage), batch 8 x 128 in 4
+     microbatches, within 1e-4 of the 8 layers in order in one process;
+     (e) (c)'s layer saved from the 4 ranks restores onto a 2-rank world
+     (each rank its own block) and onto this process, every leaf equal to
+     the bit; (b) a 12-rank world (the paper's 12 devices) runs wq and w1
+     at granite's padded T = 12 widths, folded, every single dead rank,
+     with (a)'s checks. Peak device memory printed per rank.
 Phases 3 and 5 also count the RMSNorm kernel: 2 x 40 + 1 = 81 launches
 per decode round (fused and reference variants) and per prefill.
 Peak device memory is printed per phase. The line before the last is the
@@ -5311,6 +5333,418 @@ def train_granite() -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 18 ----
+# distribution across real processes: a world of ranks, one process a rank,
+# all on the one card. NCCL refuses two ranks of one communicator on one
+# GPU, so the ranks talk over gloo, which stages every CUDA tensor through
+# pinned host buffers (dist.comm): the times below are host-staged gloo on
+# one card, no yardstick for a collective. The GEMMs and decodes run on the
+# card.
+DIST_ROWS = (4, 64)
+DIST_REPS = 3                  # timed calls a (case, mask) after the check
+DIST_WORLD_S = 300.0           # a world's deadline
+DIST_T12_GEMMS = ("wq", "w1")
+DIST_SEED = 31
+MOE_SEED = 33
+PIPE_LAYERS, PIPE_STAGES, PIPE_MB = 8, 4, 4
+PIPE_BATCH, PIPE_SEQ = 8, 128
+ELASTIC_DIR = ROOT / "build" / "smoke" / "elastic_ckpt"
+
+
+def _dist_masks(t: int, layout: str) -> list[tuple]:
+    """The all-valid mask, every single dead rank, and (dedicated, r = 2)
+    ranks 1 and 2 dead together."""
+    masks = list(_masks(t))
+    if layout == "dedicated":
+        masks.append(tuple(i not in (1, 2) for i in range(t)))
+    return masks
+
+
+def _rank_peak() -> float:
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def dist_gemm_cases(rank: int, mesh, t: int, gemms, layouts,
+                    rows_list=DIST_ROWS, reps: int = DIST_REPS) -> dict:
+    """(a) / (b) on one rank: ``coded_matmul_shardmap`` at granite's widths
+    for code width t (r = 2) under every mask of ``_dist_masks``. Every
+    rank generates the same x, w and parity (one seeded generator on the
+    card; the parity by kernel 4) and reads only its own blocks. Each call
+    must be within 1e-4 of the single-process ``core.coded_matmul`` on the
+    card (kernel 1) and 2e-3 of x @ w, finite (the dead rank sent NaN), and
+    launch kernel 3 once under <= 1 dead (none beyond). Then ``reps``
+    calls are timed to a synchronised end (ms a call, wall clock)."""
+    import torch.distributed as dist
+    from repro_torch.core.coded_layer import coded_matmul
+    from repro_torch.dist import coded_matmul_shardmap, comm
+    from repro_torch.kernels import cdc_matmul
+    gen = torch.Generator(device="cuda").manual_seed(DIST_SEED + t)
+    widths = granite_widths(t)
+    k3 = cdc_matmul.cdc_decode_merge.launches
+    out, worst, worst_exact, calls, calls_le1 = [], 0.0, 0.0, 0, 0
+    for g in gemms:
+        for layout in layouts:
+            for rows in rows_list:
+                spec, x, w, wc = _coded_case(widths[g], rows, layout, gen,
+                                             t=t)
+                exact = x @ w
+                ms, moved = [], None
+                for valid in _dist_masks(t, layout):
+                    v = np.array(valid)
+                    n_dead = int((~v).sum())
+                    want = coded_matmul(x, w, wc, spec, v, use_fused=True)
+                    before = cdc_matmul.cdc_decode_merge.launches
+                    comm.reset()
+                    got = coded_matmul_shardmap(x, w, wc, spec, v,
+                                                mesh=mesh)
+                    torch.cuda.synchronize()
+                    moved = moved or dict(comm.COUNTS)
+                    launched = cdc_matmul.cdc_decode_merge.launches - before
+                    if launched != (1 if n_dead <= 1 else 0):
+                        raise AssertionError(
+                            f"rank {rank} {g} {layout} rows {rows} mask "
+                            f"{valid}: kernel 3 launched {launched} times")
+                    if not torch.isfinite(got).all():
+                        raise AssertionError(
+                            f"rank {rank} {g} {layout} mask {valid}: a dead "
+                            f"rank's NaN reached the output")
+                    torch.testing.assert_close(got, want, rtol=1e-4,
+                                               atol=1e-4)
+                    torch.testing.assert_close(got, exact, rtol=2e-3,
+                                               atol=2e-3)
+                    worst = max(worst, float((got - want).abs().max()))
+                    worst_exact = max(worst_exact,
+                                      float((got - exact).abs().max()))
+                    calls += 1
+                    if n_dead <= 1:
+                        calls_le1 += 1 + reps
+                        dist.barrier()
+                        for _ in range(reps):
+                            t0 = time.perf_counter()
+                            coded_matmul_shardmap(x, w, wc, spec, v,
+                                                  mesh=mesh)
+                            torch.cuda.synchronize()
+                            ms.append((time.perf_counter() - t0) * 1e3)
+                        calls += reps
+                out.append({"gemm": g, "layout": layout, "rows": rows,
+                            "m_l": widths[g], "ms": float(np.median(ms)),
+                            "bytes_a_call": moved["sent"] + moved["received"],
+                            "staged_a_call": moved["staged"]})
+                del x, w, wc, exact, want, got
+    k3 = cdc_matmul.cdc_decode_merge.launches - k3
+    if k3 != calls_le1:
+        raise AssertionError(f"rank {rank}: kernel 3 launched {k3} times in "
+                             f"{calls_le1} calls with <= 1 dead")
+    return {"cases": out, "max_abs_err": worst,
+            "max_abs_err_exact": worst_exact, "k3": k3, "calls": calls}
+
+
+def _moe_layer(cfg, device="cuda"):
+    """One qwen2-moe layer at full width from MOE_SEED: the router, the
+    routed experts and the coded shared experts (T = 4, parity by kernel
+    4), float32."""
+    from repro_torch.models import TPCtx, ffn
+    gen = torch.Generator(device=device).manual_seed(MOE_SEED)
+    return ffn.moe_init(gen, cfg, TPCtx(tp=T, mode="coded", code_r=R),
+                        torch.float32, device=device)
+
+
+def dist_moe(rank: int, mesh) -> dict:
+    """(c) on one rank: qwen2-moe's MoE layer expert-parallel over (model
+    4), 15 of the 60 experts on this rank, tokens replicated, capacity
+    1.25: ``ffn.moe`` (branching to ``_moe_sharded``: one all-reduce) on
+    4 decode tokens and a 4 x 128 prefill, within 1e-5 of the
+    single-process ``_moe_local`` on the card. Returns the rank's layer
+    blocks too (for (e))."""
+    from repro_torch.configs import get_arch
+    from repro_torch.dist import comm, param_specs, shard_params
+    from repro_torch.models import TPCtx, ffn
+    from repro_torch.tree import tree_map
+    cfg = get_arch("qwen2-moe-a2.7b")
+    full = _moe_layer(cfg)
+    e = full["router"]["w"].shape[-1]
+    specs = param_specs(full, mesh, fsdp=None)
+    blocks = tree_map(torch.clone, shard_params(full, mesh, rank,
+                                                specs=specs))
+    routed = {k: blocks[k] for k in ("router", "we1", "we2", "we3")}
+    ctx = TPCtx(tp=T, moe_capacity=1.25, mesh=mesh)
+    ctx0 = TPCtx(tp=T, moe_capacity=1.25)
+    gen = torch.Generator(device="cuda").manual_seed(MOE_SEED + 1)
+    out = {"expert_bytes": sum(routed[k].numel() * routed[k].element_size()
+                               for k in ("we1", "we2", "we3")),
+           "experts": int(routed["we1"].shape[0])}
+    worst = 0.0
+    for tag, s in (("decode", 1), ("prefill", 128)):
+        x = torch.randn((4, s, cfg.d_model), generator=gen, device="cuda")
+        want = ffn._moe_local(ctx0, full, x.reshape(-1, cfg.d_model), e,
+                              cfg.top_k).reshape(x.shape)
+        comm.reset()
+        got = ffn.moe(ctx, routed, cfg, x)
+        torch.cuda.synchronize()
+        moved = dict(comm.COUNTS)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        worst = max(worst, float((got - want).abs().max()))
+        ms = []
+        for _ in range(DIST_REPS):
+            t0 = time.perf_counter()
+            ffn.moe(ctx, routed, cfg, x)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[tag] = {"tokens": int(x.shape[0] * s), "ms": float(np.median(ms)),
+                    "bytes_a_call": moved["sent"] + moved["received"],
+                    "all_reduces": moved["calls"]}
+    out["max_abs_err"] = worst
+    del full
+    torch.cuda.empty_cache()
+    return out, blocks, specs
+
+
+def _pipe_cfg():
+    import dataclasses
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch("granite-3-8b"),
+                               n_layers=PIPE_LAYERS)
+
+
+def dist_pipeline(rank: int) -> dict:
+    """(d) on one rank: ``pipeline_apply`` over (pod 4): granite-3-8b's
+    full-width layer (``transformer._layer_fwd``, plain, its norms on
+    kernel 6), 2 of the 8 layers a stage, batch 8 x 128 in 4
+    microbatches, timed on its second call. Rank 0 also runs the 8 layers
+    in order on the whole batch (one process) and holds the pipeline's
+    result within 1e-4."""
+    from repro_torch.dist import Mesh, comm, pipeline_apply
+    from repro_torch.kernels import rmsnorm
+    from repro_torch.models import TPCtx, transformer
+    from repro_torch.tree import tree_map
+    cfg = _pipe_cfg()
+    ctx = TPCtx(tp=T)
+    gen = torch.Generator(device="cuda").manual_seed(DIST_SEED)
+    layers = transformer.init_params(cfg, gen, ctx, torch.float32,
+                                     "cuda")["layers"]
+    torch.cuda.empty_cache()
+    x = torch.randn((PIPE_BATCH, PIPE_SEQ, cfg.d_model), generator=gen,
+                    device="cuda")
+
+    def layer(p, h):
+        return transformer._layer_fwd(cfg, ctx, p, h, None, None, None, 0,
+                                      512, 1024)
+
+    mesh = Mesh((PIPE_STAGES,), ("pod",))
+    pipeline_apply(layer, layers, x, mesh=mesh, n_microbatches=PIPE_MB)
+    torch.cuda.synchronize()           # warm: groups, cuBLAS, buffers
+    before = rmsnorm.rmsnorm.launches
+    comm.reset()
+    t0 = time.perf_counter()
+    y = pipeline_apply(layer, layers, x, mesh=mesh,
+                       n_microbatches=PIPE_MB)
+    torch.cuda.synchronize()
+    out = {"ms": (time.perf_counter() - t0) * 1e3,
+           "k6": rmsnorm.rmsnorm.launches - before,
+           "bytes": comm.COUNTS["sent"] + comm.COUNTS["received"]}
+    if out["k6"] != 2 * (PIPE_LAYERS // PIPE_STAGES) * PIPE_MB:
+        raise AssertionError(f"rank {rank}: kernel 6 launched {out['k6']} "
+                             f"times in its stage")
+    if not torch.isfinite(y).all():
+        raise AssertionError("the pipeline's output is not finite")
+    if rank == 0:
+        h = x
+        t0 = time.perf_counter()
+        for i in range(PIPE_LAYERS):
+            h = layer(tree_map(lambda a: a[i], layers), h)
+        torch.cuda.synchronize()
+        out["sequential_ms"] = (time.perf_counter() - t0) * 1e3
+        torch.testing.assert_close(y, h, rtol=1e-4, atol=1e-4)
+        out["max_abs_err"] = float((y - h).abs().max())
+    del layers
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_world4(rank: int, n: int) -> dict:
+    """World A of phase 18 (4 ranks on the card): (a), (c), (d), and (e)'s
+    save of (c)'s layer from the world."""
+    from repro_torch.ckpt import save
+    from repro_torch.device import set_true_f32
+    from repro_torch.dist import Mesh
+    set_true_f32()
+    mesh = Mesh((n,), ("model",))
+    out = {"a": dist_gemm_cases(rank, mesh, n, ("wq", "wk", "w1"),
+                                ("folded", "dedicated"))}
+    out["a"]["peak_gib"] = _rank_peak()
+    torch.cuda.reset_peak_memory_stats()
+    out["c"], blocks, specs = dist_moe(rank, mesh)
+    out["c"]["peak_gib"] = _rank_peak()
+    t0 = time.perf_counter()
+    save(blocks, str(ELASTIC_DIR), 1, mesh=mesh, specs=specs)
+    out["e_save_s"] = time.perf_counter() - t0
+    del blocks
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out["d"] = dist_pipeline(rank)
+    out["d"]["peak_gib"] = _rank_peak()
+    out["launches"] = _counts()
+    return out
+
+
+def dist_world12(rank: int, n: int) -> dict:
+    """World B of phase 18 (12 ranks on the card): (b), the paper's 12
+    devices, folded r = 2."""
+    from repro_torch.device import set_true_f32
+    from repro_torch.dist import Mesh
+    set_true_f32()
+    out = dist_gemm_cases(rank, Mesh((n,), ("model",)), n, DIST_T12_GEMMS,
+                          ("folded",))
+    out["peak_gib"] = _rank_peak()
+    out["launches"] = _counts()
+    return out
+
+
+def _layer_equal(got, want, where: str) -> int:
+    from repro_torch.tree import named_leaves
+    n = 0
+    for (name, a), (_, b) in zip(named_leaves(got), named_leaves(want)):
+        if a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"{where}: leaf {name} differs after the "
+                                 f"elastic restore")
+        n += 1
+    return n
+
+
+def dist_restore2(rank: int, n: int) -> dict:
+    """(e) on a rank of a 2-rank world: restore the checkpoint saved from
+    the 4-rank world onto (model 2), each rank reading its own block (30
+    experts), the shared experts' parity re-encoded by kernel 4; every
+    leaf equal to the bit to this rank's block of the layer regenerated
+    from its seed."""
+    from repro_torch.ckpt import restore
+    from repro_torch.configs import get_arch
+    from repro_torch.dist import Mesh, local_shard, param_specs
+    from repro_torch.models import TPCtx
+    from repro_torch.tree import tree_map
+    mesh = Mesh((n,), ("model",))
+    full = _moe_layer(get_arch("qwen2-moe-a2.7b"))
+    specs = param_specs(full, mesh, fsdp=None)
+    t0 = time.perf_counter()
+    got = restore(full, str(ELASTIC_DIR), 1, device="cuda", mesh=mesh,
+                  shardings=specs,
+                  encode_ctx=TPCtx(tp=T, mode="coded", code_r=R))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    want = tree_map(lambda a, s: local_shard(a, s, mesh, rank), full, specs)
+    return {"leaves": _layer_equal(got, want, f"rank {rank} of 2"),
+            "restore_s": secs, "launches": _counts(),
+            "experts": int(got["we1"].shape[0]), "peak_gib": _rank_peak()}
+
+
+def serve_distributed() -> dict:
+    """Phase 18: the distribution layer across real processes on the one
+    card (worlds over gloo; kernels built by phase 1, loaded by the
+    ranks). (a) the coded GEMM at T = 4 (wq, wk, w1; 4 and 64 rows; both
+    layouts; every single dead rank and a 2-dead dedicated mask), (c) the
+    expert-parallel MoE, (d) GPipe over 4 stages, (e) the save of (c)'s
+    layer from 4 ranks and its restore onto 2 ranks and onto one process;
+    (b) the coded GEMM at T = 12 over 12 ranks."""
+    import shutil
+    from repro_torch.ckpt import restore
+    from repro_torch.configs import get_arch
+    from repro_torch.dist import spawn_world
+    from repro_torch.models import TPCtx
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    card = card_line()
+    world_s = {}
+    for name, fn, n in (("world4", dist_world4, T),
+                        ("world12", dist_world12, T12),
+                        ("world2", dist_restore2, 2)):
+        t1 = time.perf_counter()
+        world_s[name] = (spawn_world(fn, n, timeout_s=DIST_WORLD_S),
+                         time.perf_counter() - t1)
+        log(f"  {name}: {world_s[name][1]:.1f} s from spawn to results")
+    (w4, _), (w12, _), (w2, _) = world_s.values()
+    # (e) onto one process: this one
+    full = _moe_layer(get_arch("qwen2-moe-a2.7b"))
+    t1 = time.perf_counter()
+    got = restore(full, str(ELASTIC_DIR), 1, device="cuda",
+                  encode_ctx=TPCtx(tp=T, mode="coded", code_r=R))
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t1
+    n_one = _layer_equal(got, full, "one process")
+    del full, got
+    ck_bytes = sum(p.stat().st_size for p in ELASTIC_DIR.rglob("*.npy"))
+    shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    out = {"card": card, "backend": "gloo (host-staged, one card)",
+           "world_s": {k: v[1] for k, v in world_s.items()}}
+    for tag, world, t in (("a", [r["a"] for r in w4], T), ("b", w12, T12)):
+        masks_le1 = [r["k3"] for r in world]
+        out[tag] = {"ranks": t, "k3_per_rank": masks_le1,
+                    "calls_per_rank": world[0]["calls"],
+                    "max_abs_err": max(r["max_abs_err"] for r in world),
+                    "max_abs_err_exact": max(r["max_abs_err_exact"]
+                                             for r in world),
+                    "peak_gib_per_rank": [r["peak_gib"] for r in world],
+                    "cases": world[0]["cases"],
+                    "ms_per_rank": [[c["ms"] for c in r["cases"]]
+                                    for r in world]}
+        for i, c in enumerate(world[0]["cases"]):
+            ms = [r["cases"][i]["ms"] for r in world]
+            log(f"  ({tag}) T = {t} {c['gemm']} (m_l {c['m_l']}) "
+                f"{c['layout']} rows {c['rows']}: {c['ms']:.3f} ms a call on "
+                f"rank 0 (ranks {min(ms):.3f}-{max(ms):.3f}), "
+                f"{c['bytes_a_call']} bytes a rank a call, "
+                f"{c['staged_a_call']} staged; gloo on {card}")
+        log(f"  ({tag}) kernel 3 launches per rank {masks_le1} over "
+            f"{world[0]['calls']} calls each (one a call with <= 1 dead), "
+            f"max abs err {out[tag]['max_abs_err']:.3e} vs the "
+            f"single-process coded GEMM (kernel 1), "
+            f"{out[tag]['max_abs_err_exact']:.3e} vs x @ w; peak GiB per "
+            f"rank {[round(g, 2) for g in out[tag]['peak_gib_per_rank']]}")
+    out["c"] = [r["c"] for r in w4]
+    for rank, c in enumerate(out["c"]):
+        log(f"  (c) rank {rank}: {c['experts']} experts, {c['expert_bytes']} "
+            f"expert bytes; decode {c['decode']['ms']:.3f} ms, prefill "
+            f"{c['prefill']['ms']:.3f} ms a call, "
+            f"{c['prefill']['bytes_a_call']} bytes a prefill call "
+            f"({c['prefill']['all_reduces']} all-reduce); max abs err "
+            f"{c['max_abs_err']:.3e} vs _moe_local; peak "
+            f"{c['peak_gib']:.2f} GiB")
+    out["d"] = [r["d"] for r in w4]
+    d0 = out["d"][0]
+    log(f"  (d) pipeline over {PIPE_STAGES} stages x "
+        f"{PIPE_LAYERS // PIPE_STAGES} granite layers, batch {PIPE_BATCH} x "
+        f"{PIPE_SEQ} in {PIPE_MB} microbatches: "
+        f"{[round(d['ms'], 1) for d in out['d']]} ms per rank "
+        f"(the 8 layers in order in one process {d0['sequential_ms']:.1f} "
+        f"ms), max abs err {d0['max_abs_err']:.3e}; kernel 6 "
+        f"{[d['k6'] for d in out['d']]} launches per stage; bytes per rank "
+        f"{[d['bytes'] for d in out['d']]}; peak GiB per rank "
+        f"{[round(d['peak_gib'], 2) for d in out['d']]}")
+    out["e"] = {"save_s": [r["e_save_s"] for r in w4],
+                "checkpoint_bytes": ck_bytes,
+                "restore2": w2, "one_process_leaves": n_one,
+                "one_process_restore_s": one_s}
+    log(f"  (e) saved from 4 ranks ({ck_bytes} bytes, "
+        f"{out['e']['save_s'][0]:.2f} s), restored onto 2 ranks "
+        f"({[r['experts'] for r in w2]} experts, {w2[0]['leaves']} leaves "
+        f"bitwise, {[round(r['restore_s'], 2) for r in w2]} s) and onto one "
+        f"process ({n_one} leaves bitwise, {one_s:.2f} s)")
+    out["launches"] = {"world4": [r["launches"] for r in w4],
+                       "world12": [r["launches"] for r in w12],
+                       "world2": [r["launches"] for r in w2]}
+    for name, per_rank in out["launches"].items():
+        log(f"  launches per rank of {name} (every call of the rank, the "
+            f"oracles' too): " + ", ".join(
+                f"{k} {[c[k] for c in per_rank]}" for k in per_rank[0]
+                if any(c[k] for c in per_rank)))
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 18 (distribution: worlds of 4, 12 and 2 ranks on one card) "
+        f"took {out['seconds']:.1f} s")
+    return out
+
+
 # --------------------------------------------------------------- main ----
 
 def main() -> int:
@@ -5426,6 +5860,8 @@ def main() -> int:
     _phase_memory("serving qwen3-moe-235b-a22b (4 layers)")
     training = train_granite()
     _phase_memory("training granite-3-8b (4 layers)")
+    distributed = serve_distributed()
+    _phase_memory("distribution (the parent's restore)")
     w1 = timed[0]
     head = next(t for t in timed if t.get("gemm") == "lm_head")
     small = {(t["kernel"], t["shape"]): t for t in timed if "kernel" in t}
@@ -5563,6 +5999,19 @@ def main() -> int:
         "rmsnorm_bwd", "rmsnorm_bwd.cu", "src/repro/models/common.py:155",
         training["k6_bwd"], training["max_abs_err"]["dx"],
         training["timed"]))
+    # kernel 3 on the distributed path: rank 0's launches in worlds A (T =
+    # 4) and B (T = 12), its error against the single-process coded GEMM;
+    # the times of the shapes those calls give it (phase 4)
+    kernels += [
+        {**entry_of("cdc_decode_merge", "cdc_decode_merge.cu",
+                    "src/repro/kernels/cdc_matmul.py:208",
+                    distributed[tag]["k3_per_rank"][0],
+                    distributed[tag]["max_abs_err"], row),
+         "name": f"cdc_decode_merge (distributed, T={t}, rank 0)"}
+        for tag, t, row in (
+            ("a", T, small[("cdc_decode_merge",
+                            f"[{T}, 4, {GEMMS['w1']}] r={R} folded")]),
+            ("b", T12, rows12["cdc_decode_merge"]))]
     log(card)
     runs = {n: {k: v for k, v in r.items() if k != "tokens"}
             for n, r in sched["runs"].items()}
@@ -5589,7 +6038,8 @@ def main() -> int:
                               "max_abs_err": x_err},
                     "hymba": {**hymba, "shapes": timed_h,
                               "max_abs_err": h_err},
-                    "moe": moe, "training": training}, default=str))
+                    "moe": moe, "training": training,
+                    "distributed": distributed}, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

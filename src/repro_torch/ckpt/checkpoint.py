@@ -18,8 +18,15 @@ Properties:
     save and taken from the template on restore; ``encode_ctx`` re-encodes
     the parity after the load, the paper's offline preparation
   * on restore each leaf goes to ``device`` (the template leaf's device by
-    default). The reference's mesh and sharding placement has no
-    counterpart yet: the port trains on one device.
+    default)
+  * elastic: ``save(..., mesh=, specs=)`` from a world of ranks (each
+    holding its blocks, ``dist.shard_params``) gathers every leaf to rank
+    0, which writes the global arrays; ``restore(..., mesh=, shardings=)``
+    gives each rank only its own block of every leaf, read from a memory
+    map, under any mesh's specs: a checkpoint saved from one mesh restores
+    onto another, or onto one process (the paper's degraded
+    redistribution, §6). Parity is re-encoded from the whole weight and
+    then cut to the rank's block.
 """
 from __future__ import annotations
 
@@ -51,9 +58,16 @@ def _host(leaf) -> tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
-def save(tree: Any, directory: str, step: int) -> str:
+def save(tree: Any, directory: str, step: int, *, mesh=None,
+         specs: Any = None) -> str:
     """Synchronous atomic save of a tree of tensors (or numpy arrays);
-    parity leaves (path ending in ``/cdc``) are not written."""
+    parity leaves (path ending in ``/cdc``) are not written. With ``mesh``
+    (and ``specs``, the spec tree ``tree``'s blocks were cut by), every rank
+    of the world calls it with its own blocks: rank 0 gathers and writes
+    the whole leaves, the others send theirs and wait until the checkpoint
+    is in place."""
+    if mesh is not None:
+        return _save_from_world(tree, directory, step, mesh, specs)
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
@@ -83,6 +97,30 @@ def save(tree: Any, directory: str, step: int) -> str:
     return final
 
 
+def _save_from_world(tree, directory: str, step: int, mesh, specs) -> str:
+    import torch.distributed as dist
+    from repro_torch.dist import comm
+    from repro_torch.dist.sharding import assemble, paired_leaves
+    world = comm.world_line()
+    me = dist.get_rank()
+    whole = []
+    for (name, _), (blk, spec) in zip(named_leaves(tree),
+                                      paired_leaves(tree, specs)):
+        if name.endswith("/cdc"):
+            whole.append(None)
+            continue
+        if all(a is None for a in spec):      # replicated: rank 0's own
+            whole.append(blk if me == 0 else None)
+            continue
+        blocks = comm.gather(torch.as_tensor(blk), 0, world)
+        whole.append(assemble(blocks, spec, mesh) if me == 0 else None)
+    path = os.path.join(directory, f"step_{step:08d}")
+    if me == 0:
+        path = save(unflatten(tree, whole), directory, step)
+    comm.barrier(world)
+    return path
+
+
 def latest_step(directory: str) -> int | None:
     if not os.path.isdir(directory):
         return None
@@ -92,7 +130,10 @@ def latest_step(directory: str) -> int | None:
 
 
 def _load(path: str, entry: dict) -> torch.Tensor:
-    arr = np.load(os.path.join(path, entry["file"]))
+    return _to_tensor(np.load(os.path.join(path, entry["file"])), entry)
+
+
+def _to_tensor(arr: np.ndarray, entry: dict) -> torch.Tensor:
     if entry["dtype"] == "bfloat16":
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     if str(arr.dtype) != entry["dtype"]:
@@ -102,38 +143,80 @@ def _load(path: str, entry: dict) -> torch.Tensor:
 
 def restore(template: Any, directory: str, step: int | None = None, *,
             device: str | torch.device | None = None,
-            encode_ctx=None) -> Any:
+            encode_ctx=None, mesh=None, shardings: Any = None) -> Any:
     """Restore into the structure of ``template`` (values replaced).
 
     A leaf the checkpoint lacks, or a parity leaf, keeps the template's
     tensor. device: where the loaded leaves go (each template leaf's
     device when None). encode_ctx: a TPCtx — recompute every parity leaf
     from its base weight after the load (under no_grad: the encode is an
-    offline step, never differentiated).
+    offline step, never differentiated). mesh, shardings: the elastic
+    path (a rank of a world over ``mesh``): each leaf is this rank's block
+    under its spec in ``shardings`` (a spec tree, ``dist.param_specs``),
+    read from a memory map; the template's leaves only name the tree.
     """
-    step = step if step is not None else latest_step(directory)
-    if step is None:
-        raise FileNotFoundError(f"no checkpoint under {directory}")
-    path = os.path.join(directory, f"step_{step:08d}")
-    with open(os.path.join(path, "manifest.json")) as f:
-        manifest = json.load(f)
-    by_name = {e["name"]: e for e in manifest["leaves"]}
-
+    path, by_name = _manifest(directory, step)
+    if mesh is not None:
+        return _restore_blocks(template, path, by_name, device, encode_ctx,
+                               mesh, shardings)
     out = []
     for name, tmpl in named_leaves(template):
         entry = by_name.get(name)
         if entry is None or entry["kind"] == "parity":
             out.append(tmpl)  # parity re-encoded below / missing kept
             continue
-        dev = device if device is not None else (
-            tmpl.device if isinstance(tmpl, torch.Tensor) else "cpu")
-        out.append(_load(path, entry).to(dev))
+        out.append(_load(path, entry).to(_device(tmpl, device)))
     tree = unflatten(template, out)
     if encode_ctx is not None and encode_ctx.coded:
         from repro_torch.models.common import encode_tree
         with torch.no_grad():
             tree = encode_tree(tree, encode_ctx)
     return tree
+
+
+def _manifest(directory: str, step: int | None) -> tuple[str, dict]:
+    """The checkpoint directory of ``step`` (the latest when None) and its
+    manifest's leaves by name."""
+    step = step if step is not None else latest_step(directory)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint under {directory}")
+    path = os.path.join(directory, f"step_{step:08d}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        return path, {e["name"]: e for e in json.load(f)["leaves"]}
+
+
+def _device(tmpl, device):
+    """Where a restored leaf goes: ``device``, else the template leaf's."""
+    if device is not None:
+        return device
+    return tmpl.device if isinstance(tmpl, torch.Tensor) else "cpu"
+
+
+def _restore_blocks(template, path: str, by_name: dict, device, encode_ctx,
+                    mesh, shardings):
+    import torch.distributed as dist
+    from repro_torch.core.coded_layer import make_parity_weights
+    from repro_torch.dist.sharding import local_shard, paired_leaves
+    rank = dist.get_rank()
+    recode = encode_ctx is not None and encode_ctx.coded
+    out = []
+    for (name, tmpl), (_, spec) in zip(named_leaves(template),
+                                       paired_leaves(template, shardings)):
+        entry = by_name.get(name)
+        if name.endswith("/cdc") and recode:
+            # the parity of the whole weight, then this rank's block
+            w_name = name[:-len("cdc")] + "w"
+            w = _load(path, by_name[w_name]).to(_device(tmpl, device))
+            with torch.no_grad():
+                cdc = make_parity_weights(w, encode_ctx.spec)
+            out.append(local_shard(cdc, spec, mesh, rank).contiguous())
+        elif entry is None or entry["kind"] == "parity":
+            out.append(tmpl)
+        else:   # this rank's block of the memory map, read and copied
+            arr = np.load(os.path.join(path, entry["file"]), mmap_mode="r")
+            blk = np.array(local_shard(arr, spec, mesh, rank))
+            out.append(_to_tensor(blk, entry).to(_device(tmpl, device)))
+    return unflatten(template, out)
 
 
 class AsyncCheckpointer:

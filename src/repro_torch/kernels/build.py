@@ -41,6 +41,7 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _occ: dict[tuple, int] = {}       # resident blocks per SM per instantiation
+_may_build = True                 # False in a rank of a world: load only
 
 
 def nvcc() -> str:
@@ -156,10 +157,25 @@ def occupancy(name: str, query: str, *args: int) -> int:
     return occ
 
 
+def forbid_builds() -> None:
+    """Load only what is built: in a process that calls this (a rank of a
+    ``dist.spawn_world`` world), ``load`` of a library that is not under
+    ``build/`` raises instead of compiling it, so the ranks of a world
+    never race to build one. Build first (``build_all``) in the process
+    that starts the world."""
+    global _may_build
+    _may_build = False
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu``, built first if needed
+    (unless ``forbid_builds``)."""
     lib = _loaded.get(name)
     if lib is None:
+        if not _may_build and not lib_path(name).exists():
+            raise RuntimeError(f"{lib_path(name).name} is not built, and "
+                               f"this process only loads: build_all() "
+                               f"before the world starts")
         build_all([name])
         lib = _loaded[name] = ctypes.CDLL(str(lib_path(name)))
     return lib

@@ -4,9 +4,12 @@ Models are plain functions over parameter dicts of tensors, laid out as
 the reference lays them out (stacked [L, ...] layer weights). The CDC
 behaviour is threaded through ``TPCtx``: in coded mode every
 column-parallel GEMM runs through ``core.coded_matmul``; row-parallel
-GEMMs (attention Wo, FFN W2) are never coded (paper Table 1). The port
-runs on one device, so the reference's mesh and sharding hints have no
-counterpart here.
+GEMMs (attention Wo, FFN W2) are never coded (paper Table 1). ``TPCtx``
+carries the reference's mesh fields: under GSPMD its ``shard`` /
+``shard_act`` are placement constraints that change no value, and the
+port's return x as it is (every rank holds the whole activation). The mesh
+itself is read by the MoE's expert-parallel path (``ffn._moe_sharded``);
+the explicit per-rank coded GEMM is ``dist.coded_matmul_shardmap``.
 """
 from __future__ import annotations
 
@@ -33,6 +36,10 @@ class TPCtx:
     mode: str = "plain"            # plain | coded
     code_r: int = 2
     code_layout: str = "folded"
+    mesh: Any = None               # dist.sharding.Mesh over the world (opt.)
+    axis: str = "model"            # TP axis name
+    fsdp: str | None = "data"      # FSDP axis name (weights)
+    seq_axis: str | None = None    # SP: shard sequence dim of activations
     moe_capacity: float = 1.25     # MoE capacity factor (<= 0: no dropping)
     fused_body: bool = False       # route coded GEMMs through the fused
     #                                coded-GEMM kernel; only valid for
@@ -54,6 +61,16 @@ class TPCtx:
         pads the same so parameter shapes match across modes."""
         q = self.tp * self.tp
         return ((m + q - 1) // q) * q
+
+    def shard(self, x: torch.Tensor, *spec) -> torch.Tensor:
+        """The reference's placement constraint: no value changes, so x as
+        it is."""
+        return x
+
+    def shard_act(self, x: torch.Tensor, col: bool = False) -> torch.Tensor:
+        """The reference's activation constraint (batch over fsdp + pod,
+        optionally the last dim over the TP axis): x as it is."""
+        return x
 
 
 # ---------------------------------------------------------------- dense ----

@@ -11,8 +11,11 @@ with a capacity bound, as the reference's: a stable sort of the routed
 (token, expert) pairs by expert, each pair's position in its expert's
 group, a dense [E, cap, D] buffer and three batched products over every
 expert's weights (``torch.bmm``: the reference's einsums, outside any
-TPU kernel). The port runs on one device, so it has the reference's
-local path only (its expert-parallel ``_moe_sharded`` needs a mesh).
+TPU kernel). With a mesh in ``ctx`` whose TP axis (size tp > 1) divides
+the expert count, ``moe`` takes the reference's expert-parallel path
+(``_moe_sharded``): each rank of the TP line holds e / tp experts, routes
+its tokens, runs its own experts only, and one all-reduce over the line
+combines.
 
 Every step runs on the device with static shapes (``cap`` is a Python
 int from static sizes), so a round with an MoE layer can be captured in a
@@ -133,8 +136,21 @@ def moe(ctx: TPCtx, p: Params, cfg, x: torch.Tensor, valid=None
     """Top-k routed MoE with sort-based capacity dispatch, plus the coded
     shared experts. x: [B, S, D] -> [B, S, D]."""
     b, s, d = x.shape
-    y = _moe_local(ctx, p, x.reshape(b * s, d), p["we1"].shape[0],
-                   cfg.top_k).reshape(b, s, d)
+    k = cfg.top_k
+    e = p["router"]["w"].shape[-1]
+    mesh = ctx.mesh
+    tp = mesh.shape[ctx.axis] \
+        if mesh is not None and ctx.axis in mesh.axis_names else 1
+    if tp > 1 and e % tp == 0:
+        y, split = _moe_sharded(ctx, p, cfg, x.reshape(b * s, d), e, k, tp)
+        if split:
+            # every rank holds the whole activation: gather the batch
+            # blocks back (GSPMD keeps them placed, the values are these)
+            from repro_torch.dist import comm
+            y = comm.all_gather(y, mesh.group(split)).reshape(b * s, d)
+        y = y.reshape(b, s, d)
+    else:
+        y = _moe_local(ctx, p, x.reshape(b * s, d), e, k).reshape(b, s, d)
     if "shared" in p:
         y = y + ffn(ctx, p["shared"], cfg, x, valid,
                     d_ff=cfg.n_shared_experts * cfg.d_ff_expert)
@@ -142,26 +158,70 @@ def moe(ctx: TPCtx, p: Params, cfg, x: torch.Tensor, valid=None
 
 
 def _moe_local(ctx: TPCtx, p: Params, xf, e: int, k: int):
-    """Dispatch, the experts' products, combine. The buffer is [E * cap +
-    1, D]: expert-major slots, then a spare row that takes every pair
-    beyond the capacity (never read; such a pair adds nothing to its
-    token), so the kept pairs' rows are unique and the dispatch is a plain
-    indexed write, and the experts read a contiguous [E, cap, D] view. The
+    """Route every token over all e experts, dispatch, the experts'
+    products, combine (``_dispatch_combine``)."""
+    se, sg, st, pos, keep, cap = _route(ctx, p["router"]["w"], xf, k, e)
+    return _dispatch_combine(xf, se, sg, st, pos, keep, cap, e, p["we1"],
+                             p["we3"], p["we2"])
+
+
+def _dispatch_combine(xf, le, sg, st, pos, mine, cap: int, n_e: int,
+                      we1, we3, we2):
+    """Dispatch the routed pairs marked ``mine`` to the n_e experts held
+    here (``le``: each pair's expert among them), run the experts, and
+    combine. The buffer is [n_e * cap + 1, D]: expert-major slots, then a
+    spare row that takes every other pair (beyond the capacity, or another
+    rank's expert: never read; such a pair adds nothing to its token), so
+    the dispatched rows are unique and the dispatch is a plain indexed
+    write, and the experts read a contiguous [n_e, cap, D] view. The
     combine takes the gated contributions to token-major order (a stable
     sort by token keeps each token's k pairs in expert order, the order in
     which the reference's scatter-add sums them), [n, k, D], and sums over
     k in float32."""
-    se, sg, st, pos, keep, cap = _route(ctx, p["router"]["w"], xf, k, e)
     n, d = xf.shape
-    slot = se * cap + torch.clamp(pos, max=cap - 1)
-    buf = torch.zeros((e * cap + 1, d), dtype=xf.dtype, device=xf.device)
-    buf[torch.where(keep, slot, e * cap)] = xf[st]
-    out = _expert_ffn(buf[:e * cap].view(e, cap, d), p["we1"], p["we3"],
-                      p["we2"]).view(e * cap, d)
-    contrib = torch.where(keep[:, None],
+    k = le.shape[0] // n
+    slot = le * cap + torch.clamp(pos, max=cap - 1)
+    spare = n_e * cap
+    buf = torch.zeros((spare + 1, d), dtype=xf.dtype, device=xf.device)
+    buf[torch.where(mine, slot, spare)] = xf[st]
+    out = _expert_ffn(buf[:spare].view(n_e, cap, d), we1, we3,
+                      we2).view(spare, d)
+    contrib = torch.where(mine[:, None],
                           out[slot].to(torch.float32) * sg[:, None], 0.0)
     by_token = torch.argsort(st, stable=True)
     return contrib[by_token].reshape(n, k, d).sum(1).to(xf.dtype)
+
+
+def _moe_sharded(ctx: TPCtx, p: Params, cfg, xf, e: int, k: int, tp: int):
+    """The expert-parallel path on this rank (the reference's full-manual
+    shard_map): tokens stay on their batch block, experts on their EP
+    rank; routing is local (the rank's tokens), the dispatch is local,
+    and the combine is ONE all-reduce over the TP line, the only message.
+
+    xf: [n, D] tokens (the same on every rank); p's expert slabs either
+    whole ([e, ...]: the rank reads its own e / tp) or the rank's own block
+    ([e / tp, ...], as ``dist.shard_params`` gives them); the router whole.
+    Tokens split over the batch axes (pod and ``ctx.fsdp``) where their
+    product divides n, and are replicated otherwise. Returns (this rank's
+    [n_local, D] output, the batch axes split over: () when replicated)."""
+    import torch.distributed as dist
+    from repro_torch.dist import comm
+    from repro_torch.dist.collectives import batch_block
+
+    e_local = e // tp
+    mesh = ctx.mesh
+    rank = dist.get_rank()
+    axes = tuple(a for a in ("pod", ctx.fsdp)
+                 if a and a in mesh.axis_names)
+    xl, split = batch_block(xf, mesh, axes, rank)
+    e0 = mesh.coords(rank)[ctx.axis] * e_local
+    we = [p[name] if p[name].shape[0] == e_local
+          else p[name][e0:e0 + e_local] for name in ("we1", "we3", "we2")]
+    se, sg, st, pos, keep, cap = _route(ctx, p["router"]["w"], xl, k, e)
+    mine = (se >= e0) & (se < e0 + e_local) & keep
+    y = _dispatch_combine(xl, torch.clamp(se - e0, 0, e_local - 1), sg, st,
+                          pos, mine, cap, e_local, *we)
+    return comm.all_reduce(y, mesh.group(ctx.axis)), split
 
 
 def moe_aux_loss(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:

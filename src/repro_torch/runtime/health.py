@@ -18,8 +18,9 @@ max_device_failures``) and is only granted when the model's split method
 is CDC-suitable per ``core.policy`` Table 1 — input-split layers cannot be
 protected offline, so their runtime budget is zero regardless of r.
 
-A copy of the reference package's controller without its mesh-placement
-helpers: the port runs on one device, so no mesh maps shards to devices.
+A copy of the reference package's controller, with its mesh-placement
+helpers on the port's ``dist.sharding.Mesh``: coded shard i is model-rank
+i, so an erasure names the ranks (one per data replica) that hold it.
 """
 from __future__ import annotations
 
@@ -176,3 +177,44 @@ class ShardHealthController:
     @property
     def n_dead(self) -> int:
         return int((~self.valid).sum())
+
+    # ------------------------------------------------- mesh placement ----
+    # Under dist.sharding, coded shard i IS model-rank i: weight columns
+    # [i*m_l, (i+1)*m_l) and folded parity slot i live on the ranks at
+    # index i of the mesh's `model` axis (one rank per (pod, data)
+    # replica). These helpers translate the controller's logical mask into
+    # that placement, so erasure events can name real ranks and the
+    # runtime can report which processes a CONTINUE is absorbing.
+
+    def _model_axis(self, mesh, axis: str):
+        if axis not in mesh.axis_names:
+            raise ValueError(f"mesh has no {axis!r} axis: "
+                             f"{tuple(mesh.axis_names)}")
+        if mesh.shape[axis] != self.n_shards:
+            raise ValueError(
+                f"mesh {axis!r} size {mesh.shape[axis]} != "
+                f"n_shards {self.n_shards}: shard<->device map undefined")
+        return list(mesh.axis_names).index(axis)
+
+    def shard_devices(self, mesh, axis: str = "model") -> dict[int, tuple]:
+        """shard i -> the mesh devices holding it (one per data replica)."""
+        ax = self._model_axis(mesh, axis)
+        devs = np.moveaxis(np.asarray(mesh.devices), ax, 0)
+        return {i: tuple(devs[i].ravel()) for i in range(self.n_shards)}
+
+    def device_mask(self, mesh, axis: str = "model") -> np.ndarray:
+        """Validity broadcast onto mesh.devices' shape (True = healthy)."""
+        ax = self._model_axis(mesh, axis)
+        shape = [1] * np.asarray(mesh.devices).ndim
+        shape[ax] = self.n_shards
+        return np.broadcast_to(
+            self.valid.reshape(shape), np.asarray(mesh.devices).shape
+        ).copy()
+
+    def dead_devices(self, mesh, axis: str = "model") -> tuple:
+        """Flat tuple of mesh devices currently erased, placement order."""
+        by_shard = self.shard_devices(mesh, axis)
+        out = []
+        for i in np.flatnonzero(~self.valid):
+            out.extend(by_shard[int(i)])
+        return tuple(out)

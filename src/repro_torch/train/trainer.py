@@ -8,7 +8,10 @@ every resume. A SIGTERM (preemption notice) triggers a final synchronous
 save and stops, the fleet analogue of the paper's "the system never loses
 a request". The step runs eagerly on ``TrainerConfig.device`` (the CUDA
 card by default) and updates the params and optimizer state in place.
-The reference's mesh path waits for the port's distribution.
+The trainer holds whole params on one device: the reference's mesh path
+(``Trainer(mesh=...)``, FSDP-sharded params and optimizer state) is not
+ported; ``repro_torch.dist`` has the layout rules and the elastic
+checkpoint it would use.
 """
 from __future__ import annotations
 

@@ -434,3 +434,30 @@ def test_granite_smoke_train_step_on_card_matches_cpu(smoke):
     for name, t in named_leaves(card):
         torch.testing.assert_close(t.cpu(), want[name], rtol=1e-4,
                                    atol=1e-4, msg=lambda m: f"{name}: {m}")
+
+
+def _dist_w1_rank(rank, n):
+    """A rank of the 4-rank world below: chip_smoke's phase 18 (a) at
+    granite's w1 only (4 and 64 rows, both layouts, every mask)."""
+    import chip_smoke
+    from repro_torch.device import set_true_f32
+    from repro_torch.dist import Mesh
+    set_true_f32()
+    return chip_smoke.dist_gemm_cases(rank, Mesh((n,), ("model",)), n,
+                                      ("w1",), ("folded", "dedicated"))
+
+
+def test_coded_gemm_across_four_ranks_on_the_card(smoke):
+    """Phase 18 (a)'s T = 4 w1 case in a 4-rank world on the card (gloo,
+    host-staged): every rank's block within 1e-4 of the single-process
+    coded GEMM (kernel 1) and 2e-3 of x @ w, finite although the dead rank
+    sent NaN, and kernel 3 launched once a call under <= 1 dead (the rank
+    program raises otherwise)."""
+    if torch.cuda.get_device_capability() != (9, 0):
+        pytest.skip("the kernels are built for sm_90a")
+    from repro_torch.dist import spawn_world
+    from repro_torch.kernels import build
+    build.build_all()
+    out = spawn_world(_dist_w1_rank, 4, timeout_s=300)
+    assert all(r["max_abs_err"] <= 1e-4 for r in out)
+    assert all(r["k3"] > 0 for r in out)
