@@ -66,12 +66,13 @@ Phases, each of which raises on failure (exit code non-zero):
      parity leaf, and a re-encode of unchanged weights is bitwise equal;
      the re-encode is timed per leaf and whole. Fused rounds replay CUDA
      graphs (one replay per fused round, at most T + 1 graphs per encode,
-     dropped at every re-encode and r change). The fault-free run prints
-     the --perf line (every launch costed; the fused round's bytes bound
-     within 5% of its weights' bytes over the HBM rate), the chaos run
-     writes a --trace validated with every injected erasure linked and 0
-     dropped events and prints the --slo-report, and the adapt-r run
-     writes a --profile trace;
+     dropped at every re-encode and r change). The fault-free and adapt-r
+     runs print the --perf line (every launch costed; the fused round's
+     bytes bound within 5% of its weights' bytes over the HBM rate), the
+     fault-free run writes a --profile trace (the adapt-r run's was 835
+     MB and 79 s on a slow host), the chaos run writes a --trace
+     validated with every injected erasure linked and 0 dropped events
+     and prints the --slo-report;
   6. run the paper's coded-cost study through its port
      (launch.coded_overhead: run() and run_kernels() at the reference's
      defaults, T in {4, 8, 16} x r in {1, 2}), print its rows, require the
@@ -133,8 +134,9 @@ integer inputs to the bit) and timed in phase 4
      same streams; 60 / 1 / 25 launches a fused round (kernels 1 and 2 at
      k = 8192). chameleon-34b has the same layer widths and runs at smoke
      size on the CPU only (tests/test_torch_dense_zoo.py);
- 13. whisper-medium at full width (24 + 24 layers, d 1024, 16/16 heads,
-     d_ff 4096, vocab 51865, 1500 frames; float32, T = 4, r = 2 folded,
+ 13. whisper-medium at full width in 12 + 12 of its 24 + 24 layers (d
+     1024, 16/16 heads, d_ff 4096, vocab 51865, 1500 frames; float32, T
+     = 4, r = 2 folded,
      seeded random weights and frames): (a) launch.serve's scheduler (4
      slots, 8 requests with fresh frames, prompt 16, 16 new tokens)
      fault-free with --perf and under --chaos "exp:mtbf=800,mttr=120":
@@ -145,8 +147,8 @@ integer inputs to the bit) and timed in phase 4
      (b) one batch of 4 through ServingEngine.generate with frames,
      fault-free and with shard 2 killed at step 4, on graph rounds, eager
      fused rounds, the reference variant and kernel-free (parity encoded
-     by kernel 4's plain version): identical streams; 120 / 1 / 0
-     launches of kernels 1, 2 and 6 a fused round, one capture per
+     by kernel 4's plain version): identical streams; 60 / 1 / 0 (5
+     a layer) launches of kernels 1, 2 and 6 a fused round, one capture per
      (encode generation, mask) and one replay per fused round; (c) device
      ms per round by kernel, the idle share, graph and eager round
      medians, the admission time (encoder and cross K/V of one request)
@@ -177,11 +179,12 @@ integer inputs to the bit) and timed in phase 4
      2 and 4 at xLSTM's widths (up: k 768, m_l 768; wq: k 1536, m_l 384;
      the head: k 768, m_l 12576) against their plain versions, and phase 4
      times kernels 1 and 2 there.
- 15. hymba-1.5b at full width (32 layers of SWA attention, window 1024,
-     beside a mamba branch; d 1600, 25/5 heads of 64 run as 28/7 at T =
-     4, d_ff 5504, vocab 32001, SSM state 16; float32, T = 4, r = 2
-     folded, seeded random weights): (a) launch.serve's scheduler as in
-     phase 14, 7 kernel-4 launches per encode, kernel 6 65 times a round
+ 15. hymba-1.5b at full width in 16 of its 32 layers of SWA attention
+     (window 1024) beside a mamba branch; d 1600, 25/5 heads of 64 run
+     as 28/7 at T = 4, d_ff 5504, vocab 32001, SSM state 16; float32, T =
+     4, r = 2 folded, seeded random weights): (a) launch.serve's
+     scheduler as in phase 14, 7 kernel-4 launches per encode, kernel 6
+     33 times a round
      and a prefill, the perf line's fused-round bound within 5% of the
      weights, the KV cache and the mamba state as the plain step moves it;
      (b) one batch of 4 with a 1016-token prompt and 16 new tokens (the
@@ -189,7 +192,7 @@ integer inputs to the bit) and timed in phase 4
      fault-free and with shard 2 killed at step 4, on graph rounds, eager
      fused rounds, the reference variant and kernel-free: identical
      streams, every fused round's max logit within 1e-4 of the reference
-     round's, 192 / 1 / 65 launches of kernels 1, 2 and 6 a fused round,
+     round's, 96 / 1 / 33 launches of kernels 1, 2 and 6 a fused round,
      none of kernel 1's on the row-copy instantiation, and the fused
      round's perf bound within 5% of the weights, the 1024-entry window
      and the mamba state; (c) a 2-dead reference round between graph
@@ -205,17 +208,17 @@ integer inputs to the bit) and timed in phase 4
      m_l 1408, qwen3-moe's wq k 4096 m_l 2048 and wk m_l 128; both heads'
      151936 words at m_l 37984 with the planted tie; every parity leaf:
      6 for qwen2, 4 for qwen3), and kernels 1 and 2 timed there; (b)
-     qwen2-moe-a2.7b at full width (24 layers, d 2048, 16/16 heads, 60
-     routed experts of 1408, top-4, 4 shared as one FFN of 5632, vocab
-     151936; float32, T = 4, r = 2 folded, capacity 0, ~60 GB with the
-     parity): launch.serve's scheduler fault-free with --perf (the bound
-     within 5% of every weight but the embedding, all 60 experts
+     qwen2-moe-a2.7b at full width in 12 of its 24 layers (d 2048, 16/16
+     heads, 60 routed experts of 1408, top-4, 4 shared as one FFN of
+     5632, vocab 151936; float32, T = 4, r = 2 folded, capacity 0, ~34 GB
+     with the parity): launch.serve's scheduler fault-free with --perf
+     (the bound within 5% of every weight but the embedding, all 60 experts
      included, the parity and the KV cache) and under chaos, with the
      CPU run's counters; one batch of 4 with a 64-token prompt and 16 new
      tokens, shard 2 killed at step 4, on graph rounds, eager fused
      rounds, the reference variant and kernel-free: identical streams,
      every fused round's max logit within 1e-4 of the reference round's,
-     120 / 1 / 49 launches of kernels 1, 2 and 6 a fused round; the
+     60 / 1 / 25 launches of kernels 1, 2 and 6 a fused round; the
      batch's perf count within 5% of those bytes and the dispatch's
      buffers; the graph round's device time split into the routed-expert
      products, the routing ops, kernels 1, 2 and 6 and the rest;
@@ -268,6 +271,31 @@ integer inputs to the bit) and timed in phase 4
      the bit; (b) a 12-rank world (the paper's 12 devices) runs wq and w1
      at granite's padded T = 12 widths, folded, every single dead rank,
      with (a)'s checks. Peak device memory printed per rank.
+ 19. training the other families, and on a mesh (float32, T = 4, r = 2
+     folded, remat "full", the train step the Trainer runs): (a)
+     qwen2-moe-a2.7b at full width in 2 of its 24 layers (capacity 1.25;
+     ~1.95 B parameters with the parity, ~39 GB of AdamW state), batch 8
+     x 128 of the synthetic stream; (b) hymba-1.5b in 4 of 32 layers;
+     (c) xlstm-125m, all 12 blocks; (d) whisper-medium in 4 + 4 of its 24
+     + 24 layers through make_train_step, batch 4 x 128 with frames [4,
+     1500, 1024]. Each: the first step's loss and grad_norm within 1e-4
+     of a kernel-free step from the same seed (plain norms with autograd,
+     plain encode, as phase 17's); then 3 timed steps and one profiled
+     (ms a step, tokens/s, peak GiB, device ms by the train.* ranges);
+     kernel 6 2n - 1 times a step and its backward n (n the norms of a
+     pass; the layers' ones run again under remat), none of kernels 1, 2
+     and 4 in a step, kernel 4 twice for each parity leaf at init; (a)
+     also the loss with shard 2 dead within 1e-3 of the fault-free loss.
+     (e) Trainer(mesh=) on (data 2, model 2): a world of 4 ranks on the
+     one card (gloo) trains granite-3-8b in 1 of its 40 layers (767.5 M
+     parameters with the parity) for 3 steps: every rank's losses and
+     grad norms within 1e-4 of the single-process Trainer's on the card
+     (run first, then freed), kernel 6 5 + 3 times a step a rank, and
+     each step's comm.COUNTS on every rank (bytes sent, received and
+     staged, calls) exactly as reckoned from the leaves' sizes; ms a
+     step and peak GiB a rank logged (host-staged gloo on one card is no
+     yardstick).
+Phases 2-19 each log the seconds they took.
 Phases 3 and 5 also count the RMSNorm kernel: 2 x 40 + 1 = 81 launches
 per decode round (fused and reference variants) and per prefill.
 Peak device memory is printed per phase. The line before the last is the
@@ -277,6 +305,7 @@ Exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -299,6 +328,14 @@ GEMMS = {"wq": 1024, "wk": 256, "wv": 256, "w1": 3200, "w3": 3200}
 
 def log(*a):
     print(*a, flush=True)
+
+
+@contextlib.contextmanager
+def _phase(n: int, what: str):
+    """Log the seconds the block took as phase ``n``."""
+    t0 = time.perf_counter()
+    yield
+    log(f"phase {n} ({what}) took {time.perf_counter() - t0:.1f} s")
 
 
 def card_line() -> str:
@@ -1699,6 +1736,7 @@ def check_encode_any() -> tuple[float, float]:
 # ------------------------------------------------ phase 2, whisper widths --
 
 WHISPER = "whisper-medium"
+WHISPER_LAYERS = 12        # phase 13 serves 12 + 12 of its 24 + 24 layers
 XLSTM = "xlstm-125m"
 HYMBA = "hymba-1.5b"
 
@@ -3036,12 +3074,15 @@ RUNS = {"fault-free": [], "chaos": ["--chaos", CHAOS],
         "chaos+adapt-r": ["--chaos", CHAOS, "--adapt-r"]}
 # the observability flags of each run on the card (the CPU runs that
 # give the expected counters take none): the perf line, the validated
-# trace and the SLO report, a torch.profiler trace
+# trace and the SLO report
 SMOKE_OUT = ROOT / "build" / "smoke"
-OBS = {"fault-free": ["--perf"],
+# (the profiler's trace of the adapt-r run, with its re-encodes, captures
+# and reference rounds, was 835 MB and 79 s of the phase on a slow host:
+# the fault-free run's is a fraction of it)
+OBS = {"fault-free": ["--perf", "--profile", str(SMOKE_OUT / "profile")],
        "chaos": ["--trace", str(SMOKE_OUT / "chaos.trace.json"),
                  "--slo-report"],
-       "chaos+adapt-r": ["--profile", str(SMOKE_OUT / "profile")]}
+       "chaos+adapt-r": ["--perf"]}
 
 
 def _kernel_wrappers():
@@ -3148,7 +3189,8 @@ def serve_scheduler(cfg, device: str = "cuda") -> dict:
                "reencode_wall_ms": stepper.last_reencode_wall_ms,
                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
                "graphs": _check_scheduler_graphs(name, sched, stepper, T)}
-        res.update(_check_observability(name, sched, stepper, obs))
+        res.update(_check_observability(name, sched, stepper, obs,
+                                        OBS[name]))
         runs[name] = res
         want = expect[name]
         if len(done) != 8 or any(len(q.tokens) != 16 for q in done):
@@ -3249,17 +3291,17 @@ def _round_weight_bytes(stepper) -> float:
 
 
 def _check_observability(name: str, sched, stepper, obs: dict,
+                         flags: list[str],
                          least_bytes: float | None = None) -> dict:
-    """What each run's observability flag must give: the perf line's
-    attribution (every launch costed; its bytes bound within 5% of the
-    round's least bytes over the card's HBM rate: the weights', unless
-    ``least_bytes`` gives them), the chaos trace (validated with every
-    injected erasure linked, 0 dropped events) with the SLO report, the
-    profiler trace file."""
+    """What each observability flag of the run (``flags``) must give: the
+    perf line's attribution (every launch costed; its bytes bound within
+    5% of the round's least bytes over the card's HBM rate: the weights',
+    unless ``least_bytes`` gives them), the chaos trace (validated with
+    every injected erasure linked, 0 dropped events) with the SLO report,
+    the profiler trace file."""
     from repro_torch.obs.export import validate_chrome_trace
     out = {}
-    if "--perf" in OBS[name] or "--profile" in OBS[name] \
-            or "--trace" in OBS[name]:
+    if "--perf" in flags or "--profile" in flags or "--trace" in flags:
         perf = obs.get("perf")
         if not perf or any(c.get("custom_calls_uncosted") != 0
                            for c in perf["variants"].values()) \
@@ -3285,8 +3327,8 @@ def _check_observability(name: str, sched, stepper, obs: dict,
             f" GFLOP ({fused['useful_flops'] / 1e9:.3f} useful, "
             f"{fused['bytes'] / 1e9:.3f} GB), "
             f"{sched.executor.perf.n_attributions} attribution(s)")
-    if "--trace" in OBS[name]:
-        path = OBS[name][OBS[name].index("--trace") + 1]
+    if "--trace" in flags:
+        path = flags[flags.index("--trace") + 1]
         with open(path) as f:
             stats = validate_chrome_trace(json.load(f),
                                           require_fault_links=True,
@@ -3299,9 +3341,8 @@ def _check_observability(name: str, sched, stepper, obs: dict,
             f"({stats['n_linked']} of {stats['n_injected_erasures']} "
             f"injected erasures, {stats['dropped_events']} dropped events, "
             f"{stats['n_span_trees']} span trees)")
-    if "--profile" in OBS[name]:
-        path = Path(OBS[name][OBS[name].index("--profile") + 1]) / \
-            "trace.json"
+    if "--profile" in flags:
+        path = Path(flags[flags.index("--profile") + 1]) / "trace.json"
         size = path.stat().st_size if path.exists() else 0
         if size == 0:
             raise AssertionError(f"{name}: no profiler trace at {path}")
@@ -3702,7 +3743,8 @@ def serve_h2o(device: str = "cuda") -> dict:
     if launches["rmsnorm"] != norms_per_pass(cfg) * passes or not \
             launches["cdc_coded_matmul"]:
         raise AssertionError(f"h2o scheduler launches {launches}")
-    perf = _check_observability("fault-free", sched, stepper, obs)
+    perf = _check_observability("fault-free", sched, stepper, obs,
+                                ["--perf"])
     sched_out = {"counters": c, "seconds": secs, "launches": launches,
                  "round_ms": float(np.median(sched.executor.round_ms)),
                  "graphs": _check_scheduler_graphs("h2o fault-free", sched,
@@ -3876,7 +3918,8 @@ def _family_scheduler(tag: str, cfg, model, params, argv: list[str],
         if "--perf" in obs_args[name]:
             least = least_bytes(stepper, sched.executor.state)
             res.update(_check_observability("fault-free", sched, stepper,
-                                            obs, least_bytes=least))
+                                            obs, obs_args[name],
+                                            least_bytes=least))
             res["least_bytes"] = least
         if len(done) != 8 or any(len(q.tokens) != 16 for q in done) or \
                 c != want[name]:
@@ -3946,15 +3989,16 @@ def _admission_ms(eng, batch, n: int = 3) -> dict:
 
 
 def serve_whisper() -> dict:
-    """whisper-medium at full width (24 + 24 layers, d 1024, 16/16 heads,
+    """whisper-medium at full width in ``WHISPER_LAYERS`` + ``WHISPER_LAYERS``
+    of its 24 + 24 layers (d 1024, 16/16 heads,
     d_ff 4096, vocab 51865, 1500 frames; float32, T = 4, r = 2 folded,
     seeded random weights and frames). (a) ``_whisper_scheduler``. (b) One
     batch of 4 through ServingEngine.generate with frames, fault-free and
     with shard 2 killed at step 4, on graph rounds, eager fused rounds,
     the reference variant and kernel-free (the reference variant on parity
     encoded by kernel 4's plain version: no kernel at all): identical
-    streams; each fused round launches kernel 1 120 times (self wq, wk,
-    wv, cross wq, w1 of 24 layers), kernel 2 once and kernel 6 never, one
+    streams; each fused round launches kernel 1 5 times a layer (self wq, wk,
+    wv, cross wq, w1 a layer), kernel 2 once and kernel 6 never, one
     graph is captured per (encode generation, mask) and replayed per fused
     round; the engine's encode launches kernel 4 12 times; every fused
     round's max logit (kernel 2's) within 1e-4 of the reference round's.
@@ -3966,7 +4010,8 @@ def serve_whisper() -> dict:
     from repro_torch.kernels import cdc_encode, ops
     from repro_torch.models import TPCtx, build
     from repro_torch.serve import ServeConfig, ServingEngine
-    cfg = get_arch(WHISPER)
+    cfg = dataclasses.replace(get_arch(WHISPER), n_layers=WHISPER_LAYERS,
+                              encoder_layers=WHISPER_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     model = build(cfg, TPCtx(tp=T, mode="coded", code_r=R))
     t0 = time.perf_counter()
@@ -4044,7 +4089,7 @@ def serve_whisper() -> dict:
                              f"{free_launches}")
     # every fused round's max logit (kernel 2's own) against the reference
     # round's. At random init the reference's embeddings (0.02) are 35x
-    # below the sinusoidal positions, and at 24 layers every stream settles
+    # below the sinusoidal positions, and at this depth every stream settles
     # on one token whatever its prompt: the logits still carry every layer
     fused_max = torch.stack([m for _, m in recs["graph"]["fused"]])
     ref_max = torch.stack([lg.max(-1).values
@@ -4416,6 +4461,7 @@ HYMBA_ARGS = ["--arch", HYMBA, "--coded", "--tp", str(T), "--batch", "4",
 # the batch's prompt: with 16 new tokens max_len passes the 1024-token
 # window, so the ring holds 1024 entries and decode wraps it
 HYMBA_PROMPT = 1016
+HYMBA_LAYERS = 16          # of 32 (full width); see QWEN2_LAYERS
 
 
 def _hymba_least(stepper, state) -> dict:
@@ -4487,18 +4533,18 @@ def _hymba_window_perf(eng) -> dict:
 
 
 def serve_hymba(cfg=None) -> dict:
-    """hymba-1.5b at full width (32 layers of SWA attention, window 1024,
-    beside a mamba branch; d 1600, 25/5 heads of 64 run as 28/7, d_ff
-    5504, vocab 32001, SSM state 16; float32, T = 4, r = 2 folded, seeded
-    random weights). (a) ``_hymba_scheduler``. (b) ``_serve_one_batch``
-    with a 1016-token prompt (the ring of 1024 wraps in decode): 192
-    kernel-1 launches a fused round (wq, wk, wv, in_proj, w1, w3 of 32
-    layers), none on the row-copy instantiation, kernel 2 once and kernel
-    6 65 times, 7 kernel-4 launches an encode; the perf count of a fused
-    round over the full window (``_hymba_window_perf``). (c) A 2-dead
-    round between replays. (d) Peak memory."""
+    """hymba-1.5b at full width in ``HYMBA_LAYERS`` of its 32 layers (SWA
+    attention, window 1024, beside a mamba branch; d 1600, 25/5 heads of
+    64 run as 28/7, d_ff 5504, vocab 32001, SSM state 16; float32, T = 4,
+    r = 2 folded, seeded random weights). (a) ``_hymba_scheduler``. (b)
+    ``_serve_one_batch`` with a 1016-token prompt (the ring of 1024 wraps
+    in decode): 6 kernel-1 launches a layer a fused round (wq, wk, wv,
+    in_proj, w1, w3), none on the row-copy instantiation, kernel 2 once
+    and kernel 6 2L + 1 times, 7 kernel-4 launches an encode; the perf
+    count of a fused round over the full window (``_hymba_window_perf``).
+    (c) A 2-dead round between replays. (d) Peak memory."""
     from repro_torch.configs import get_arch
-    cfg = cfg or get_arch(HYMBA)
+    cfg = cfg or dataclasses.replace(get_arch(HYMBA), n_layers=HYMBA_LAYERS)
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     model, params, init_s = _init_full_width(cfg)
@@ -4532,6 +4578,9 @@ QWEN3 = "qwen3-moe-235b-a22b"
 # weights), so 94 would need ~0.9 TB; 4 with the embedding, the head and
 # its parity take ~46 GB
 QWEN3_LAYERS = 4
+# qwen2-moe in 12 of its 24 layers, hymba in 16 of 32, whisper in 12 + 12
+# of 24 + 24 (full width): the whole smoke must fit its time on a slow host
+QWEN2_LAYERS = 12
 MOE_ARGS = ["--arch", QWEN2, "--coded", "--tp", str(T), "--batch", "4",
             "--requests", "8", "--arrival-gap-ms", "2", "--prompt-len",
             "16", "--gen-tokens", "16", "--seed", str(CHAOS_SEED)]
@@ -4568,13 +4617,14 @@ def moe_shapes(cfg, gemms: tuple) -> dict:
 
 
 def _moe_cfgs() -> dict:
-    """qwen2-moe at full width and depth, qwen3-moe at full width in
-    ``QWEN3_LAYERS`` of its 94 layers, with the GEMMs phase 16 checks and
-    times at each."""
+    """qwen2-moe at full width in ``QWEN2_LAYERS`` of its 24 layers,
+    qwen3-moe at full width in ``QWEN3_LAYERS`` of its 94, with the GEMMs
+    phase 16 checks and times at each."""
     import dataclasses
     from repro_torch.configs import get_arch
     q3 = dataclasses.replace(get_arch(QWEN3), n_layers=QWEN3_LAYERS)
-    return {"qwen2": (get_arch(QWEN2), ("wq", "w1")),
+    q2 = dataclasses.replace(get_arch(QWEN2), n_layers=QWEN2_LAYERS)
+    return {"qwen2": (q2, ("wq", "w1")),
             "qwen3": (q3, ("wq", "wk"))}
 
 
@@ -4759,14 +4809,14 @@ def serve_moe() -> dict:
     """Phase 16: the MoE family. Kernels 1, 2 and 4 at the two configs'
     widths against their plain versions (``check_width_kernels``; k 2048
     and 4096, the heads' m_l 37984) and kernels 1 and 2 timed there
-    (``time_width_kernels``); then qwen2-moe-a2.7b at full width (24
-    layers, d 2048, 16 heads, 60 routed experts of 1408, top-4, 4 shared
-    ones as one coded FFN of 5632, vocab 151936; ~60 GB with the parity)
-    through the scheduler and one batch (120 / 1 / 49 launches a fused
-    round), and qwen3-moe-235b-a22b at full width in 4 of its 94 layers
-    (d 4096, 64 query heads of 128 over 4 KV heads, 128 routed experts of
-    1536, top-8, no shared expert) through one batch (12 / 1 / 9
-    launches)."""
+    (``time_width_kernels``); then qwen2-moe-a2.7b at full width in
+    ``QWEN2_LAYERS`` of its 24 layers (d 2048, 16 heads, 60 routed experts
+    of 1408, top-4, 4 shared ones as one coded FFN of 5632, vocab 151936)
+    through the scheduler and one batch (kernel 1 5 times a layer, kernel
+    2 once, kernel 6 2L + 1 times a fused round), and qwen3-moe-235b-a22b
+    at full width in 4 of its 94 layers (d 4096, 64 query heads of 128
+    over 4 KV heads, 128 routed experts of 1536, top-8, no shared expert)
+    through one batch (12 / 1 / 9 launches)."""
     t0 = time.perf_counter()
     cfgs = _moe_cfgs()
     err, timed = {}, {}
@@ -5043,7 +5093,9 @@ def _train_split(prof) -> dict:
     """The profiled step's device time: the GEMMs (cuBLAS/CUTLASS kernels
     by name), kernel 6 forward and backward (by name), the optimizer and
     the loss (their record_function ranges in the train step; the loss's
-    forward only, its backward runs on autograd's thread), and the rest."""
+    forward only, its backward runs on autograd's thread), and the rest;
+    and by the step's ranges: the forward, the optimizer, and the
+    backward as what is left."""
     cuda = torch.autograd.DeviceType.CUDA
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
@@ -5068,10 +5120,12 @@ def _train_split(prof) -> dict:
            "kernel_6": named("rmsnorm_kernel"),
            "kernel_6_bwd": named("rmsnorm_bwd"),
            "optimizer": ranged("train.optimizer"),
-           "loss": ranged("train.loss")}
+           "loss": ranged("train.loss"), "forward": ranged("train.forward")}
     out["rest"] = total - sum(out[k] for k in ("gemm", "kernel_6",
                                                "kernel_6_bwd", "optimizer",
                                                "loss"))
+    # the backward runs on autograd's thread, outside its range: the rest
+    out["backward"] = total - out["forward"] - out["optimizer"]
     rows.sort(key=lambda r: -r[1])
     out["top"] = [{"kernel": k[:90], "ms": ms, "count": c}
                   for k, ms, c in rows[:12]]
@@ -5093,28 +5147,37 @@ def _expect(name: str, got: int, want: int):
         raise AssertionError(f"{name}: {got} launches, expected {want}")
 
 
-def _train_kernel_free(cfg, ckpt_dir: str, device) -> list[dict]:
-    """A second Trainer of the same settings run with no kernel: the norms
-    on their plain version with autograd (``transformer.rmsnorm`` patched,
-    as phase 3 does for serving) and the parity encoded by kernel 4's plain
-    version; the same seed, loop and data stream. Its steps' records."""
+@contextlib.contextmanager
+def _kernel_free(what: str):
+    """No kernel inside the block: the norms on their plain version with
+    autograd (``transformer.rmsnorm`` patched, as phase 3 does for
+    serving) and the parity encoded by kernel 4's plain version; raises
+    if anything launched."""
     from repro_torch.kernels import cdc_encode, ops, ref
     from repro_torch.models import transformer
     encode, norm = ops.cdc_encode, transformer.rmsnorm
     ops.cdc_encode = cdc_encode.encode_plain
     transformer.rmsnorm = lambda p, x, eps: ref.rmsnorm_ref(x, p["g"], eps)
+    before = _counts()
     try:
+        yield
+    finally:
+        ops.cdc_encode, transformer.rmsnorm = encode, norm
+    launched = {k: n - before[k] for k, n in _counts().items()
+                if n != before[k]}
+    if launched:
+        raise AssertionError(f"{what} launched {launched}")
+
+
+def _train_kernel_free(cfg, ckpt_dir: str, device) -> list[dict]:
+    """A second Trainer of the same settings run with no kernel
+    (``_kernel_free``): the same seed, loop and data stream. Its steps'
+    records."""
+    with _kernel_free("the kernel-free run"):
         tr = _trainer(cfg, ckpt_dir, NO_CKPT, device)
         rec = _StepRecorder(tr.step_fn, device)
         tr.step_fn = rec
-        before = _counts()
         tr.run(resume=False)
-        launched = {k: n - before[k] for k, n in _counts().items()
-                    if n != before[k]}
-    finally:
-        ops.cdc_encode, transformer.rmsnorm = encode, norm
-    if launched:
-        raise AssertionError(f"the kernel-free run launched {launched}")
     return rec.steps
 
 
@@ -5745,6 +5808,351 @@ def serve_distributed() -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 19 ----
+# training the other families, and on a mesh. (a)-(d) run the train step
+# (make_train_step: what the Trainer runs) at full width, float32, coded at
+# T = 4, r = 2 folded, remat "full"; depth cut so that the AdamW state (20
+# bytes a parameter) fits one card: qwen2-moe 2 of 24 layers (~1.95 B
+# parameters with the parity, ~39 GB), hymba 4 of 32 (~0.35 B), xlstm all
+# 12 blocks (~0.27 B), whisper 4 + 4 of 24 + 24 (~0.29 B). (e) trains
+# granite-3-8b in 1 of its 40 layers (767.5 M parameters with the parity)
+# through Trainer(mesh=) over a world of 4 ranks on the one card
+FAMILY_RUNS = {            # tag: (arch, config fields replaced, batch, seq)
+    "a": ("qwen2-moe-a2.7b", {"n_layers": 2}, 8, 128),
+    "b": ("hymba-1.5b", {"n_layers": 4}, 8, 128),
+    "c": ("xlstm-125m", {}, 8, 128),
+    "d": ("whisper-medium", {"n_layers": 4, "encoder_layers": 4}, 4, 128),
+}
+FAMILY_STEPS = 3           # timed steps after the first, checked one
+FAMILY_FREE_TOL = 1e-4     # step 1 against the kernel-free step (relative)
+FAMILY_DEAD_TOL = 1e-3     # (a): the loss with shard 2 dead
+MESH_SHAPE = (2, 2)        # (data, model)
+MESH_LAYERS, MESH_STEPS = 1, 3
+MESH_WORLD_S = 300.0
+
+
+def _family_cfg(tag: str):
+    from repro_torch.configs import get_arch
+    name, over, _, _ = FAMILY_RUNS[tag]
+    return dataclasses.replace(get_arch(name), **over)
+
+
+def _family_batches(cfg, tag: str, n: int) -> list[dict]:
+    """n steps of the synthetic token stream on the card (the Trainer's
+    batches); whisper adds float32 numpy frames [batch, 1500, 1024] drawn
+    from a seed, which ``Model._frames`` takes to the card."""
+    from repro_torch.data import DataConfig, make_stream
+    _, _, b, s = FAMILY_RUNS[tag]
+    stream = make_stream(DataConfig(vocab=cfg.vocab, seq_len=s,
+                                    global_batch=b))
+    rng = np.random.default_rng(41)
+    out = []
+    for _ in range(n):
+        batch = {"tokens": torch.as_tensor(next(stream)["tokens"],
+                                           device="cuda")}
+        if cfg.is_encdec:
+            batch["frames"] = rng.normal(
+                size=(b, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+        out.append(batch)
+    return out
+
+
+def _family_state(model):
+    """Seeded params on the card, their parity encoded offline (kernel 4,
+    or its plain version when patched), and a fresh AdamW state."""
+    from repro_torch.optim import init_state
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    with torch.no_grad():
+        params = model.encode_offline(params)
+    return params, init_state(params)
+
+
+def _family_step(model):
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, make_train_step
+    return make_train_step(model, AdamWConfig(
+        lr=TRAIN_LR, total_steps=1 + FAMILY_STEPS + 1,
+        warmup_steps=TRAIN_WARMUP), TrainConfig(remat="full"))
+
+
+def _family_kernel_free(model, batch) -> dict:
+    """The first step with no kernel (``_kernel_free``, as phase 17's
+    kernel-free Trainer), from the same seed."""
+    with _kernel_free("the kernel-free step"):
+        params, state = _family_state(model)
+        rec = _StepRecorder(_family_step(model), "cuda")
+        rec(params, state, batch)
+    return rec.steps[0]
+
+
+def _dead_loss(model, params, batch) -> dict:
+    """(a): the loss on the init params with shard 2 dead against the
+    fault-free loss (no gradient), and the largest logit difference (the
+    recovery really ran: the two losses, means over 1024 tokens, can
+    round alike)."""
+    from repro_torch.train import lm_loss
+    dead = tuple(i != 2 for i in range(T))
+    with torch.no_grad():
+        ok = model.forward(params, batch)
+        lost = model.forward(params, batch, dead)
+        out = {"loss_ok": float(lm_loss(ok, batch["tokens"],
+                                        model.cfg.vocab)),
+               "loss_dead": float(lm_loss(lost, batch["tokens"],
+                                          model.cfg.vocab)),
+               "max_logit_diff": float((ok - lost).abs().max())}
+    out["diff"] = abs(out["loss_ok"] - out["loss_dead"])
+    if out["diff"] >= FAMILY_DEAD_TOL or not np.isfinite(out["loss_dead"]):
+        raise AssertionError(f"shard 2 dead: {out}")
+    return out
+
+
+def train_family(tag: str) -> dict:
+    """One of (a)-(d): the kernel-free first step; then from the same seed
+    the first step (loss and grad_norm within 1e-4 of it), FAMILY_STEPS
+    timed steps and one profiled step; per step 2 * n - 1 launches of
+    kernel 6 (n = norms a pass, the layers' ones again under remat) and n
+    of its backward, none of kernels 1, 2 and 4; kernel 4 once for each
+    parity leaf in Model.init and once more in the offline encode."""
+    from repro_torch.models import TPCtx, build
+    from repro_torch.tree import leaves, named_leaves
+    cfg = _family_cfg(tag)
+    model = build(cfg, TPCtx(tp=T, mode="coded", code_r=R))
+    _, _, b, s = FAMILY_RUNS[tag]
+    n_steps = 1 + FAMILY_STEPS + 1
+    batches = _family_batches(cfg, tag, n_steps)
+    t0 = time.perf_counter()
+    free = _family_kernel_free(model, batches[0])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    params, state = _family_state(model)
+    k4_init = _counts()["cdc_encode"]
+    n_cdc = sum(1 for n, _ in named_leaves(params) if n.endswith("/cdc"))
+    n_params = sum(t.numel() for t in leaves(params))
+    _expect(f"({tag}) kernel 4 at init", k4_init, 2 * n_cdc)
+    dead = _dead_loss(model, params, batches[0]) if tag == "a" else None
+    rec = _StepRecorder(_family_step(model), "cuda", profiled=n_steps - 1)
+    for batch in batches:
+        params, state, _ = rec(params, state, batch)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del params, state
+    torch.cuda.empty_cache()
+    first = rec.steps[0]
+    err = {k: _rel(first[k], free[k]) for k in ("loss", "grad_norm")}
+    if max(err.values()) > FAMILY_FREE_TOL or \
+            not all(np.isfinite(st["loss"]) for st in rec.steps):
+        raise AssertionError(f"({tag}) step 1 {first} vs kernel-free {free}")
+    npp = norms_per_pass(cfg)
+    fwd6 = 2 * npp - 1 if npp else 0
+    for i, st in enumerate(rec.steps):
+        n = st["launches"]
+        _expect(f"({tag}) step {i + 1} kernel 6", n.get("rmsnorm", 0), fwd6)
+        _expect(f"({tag}) step {i + 1} kernel 6 backward",
+                n.get("rmsnorm_bwd", 0), npp)
+        for k in ("cdc_coded_matmul", "cdc_fused_head_argmax", "cdc_encode"):
+            _expect(f"({tag}) step {i + 1} {k}", n.get(k, 0), 0)
+    step_s = float(np.median([st["s"] for st in rec.steps[1:-1]]))
+    split = _train_split(rec.prof)
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "batch": b, "seq": s,
+           "n_params": n_params, "kernel_free": free, "steps": rec.steps,
+           "max_rel_err": err, "step_ms": step_s * 1e3,
+           "tokens_per_s": b * s / step_s, "peak_gib": peak,
+           "k4_init": k4_init, "k6": fwd6, "k6_bwd": npp, "split": split,
+           "dead": dead, "seconds": time.perf_counter() - t0}
+    log(f"({tag}) {cfg.name} ({cfg.n_layers} layers"
+        + (f" + {cfg.encoder_layers} encoder" if cfg.is_encdec else "")
+        + f", {n_params / 1e9:.3f} B parameters with the parity), batch "
+        f"{b} x {s}: step 1 loss {first['loss']:.6f}, grad_norm "
+        f"{first['grad_norm']:.5f}, within {err['loss']:.3e} / "
+        f"{err['grad_norm']:.3e} of the kernel-free step; losses "
+        f"{[round(st['loss'], 5) for st in rec.steps]}; median step "
+        f"{step_s * 1e3:.1f} ms ({FAMILY_STEPS} timed), "
+        f"{b * s / step_s:.0f} tokens/s, peak {peak:.2f} GiB; kernel 6 "
+        f"{fwd6} + {npp} (backward) a step, kernel 4 {k4_init} at init"
+        + (f"; shard 2 dead: loss {dead['loss_dead']:.6f} vs "
+           f"{dead['loss_ok']:.6f} (|diff| {dead['diff']:.3e}, logits "
+           f"within {dead['max_logit_diff']:.3e})"
+           if dead else "")
+        + (f"; device ms: forward {split['forward']:.3f}, backward "
+           f"{split['backward']:.3f}, optimizer {split['optimizer']:.3f} "
+           f"of {split['device_ms']:.3f}" if split else "")
+        + f"; {out['seconds']:.1f} s")
+    return out
+
+
+def _mesh_cfg():
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch("granite-3-8b"),
+                               n_layers=MESH_LAYERS)
+
+
+def _mesh_trainer(ckpt_dir: str, mesh=None):
+    """(e)'s Trainer: granite in MESH_LAYERS layers as launch.train builds
+    it for --coded --tp 4 (phase 17's settings), MESH_STEPS steps, no
+    checkpoint."""
+    from repro_torch.data import DataConfig
+    from repro_torch.models import TPCtx, build
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig, TrainConfig
+    cfg = _mesh_cfg()
+    return Trainer(
+        build(cfg, TPCtx(tp=T, mode="coded", code_r=R)),
+        TrainerConfig(steps=MESH_STEPS, ckpt_dir=ckpt_dir,
+                      ckpt_every=NO_CKPT, log_every=1, device="cuda"),
+        AdamWConfig(lr=TRAIN_LR, total_steps=MESH_STEPS,
+                    warmup_steps=TRAIN_WARMUP),
+        TrainConfig(remat="full"),
+        DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                   global_batch=TRAIN_BATCH), mesh=mesh)
+
+
+class _MeshStepRecorder(_StepRecorder):
+    """A rank's step recorder: also the step's ``comm`` counts."""
+
+    def __call__(self, params, opt_state, batch):
+        from repro_torch.dist import comm
+        comm.reset()
+        out = super().__call__(params, opt_state, batch)
+        self.steps[-1]["comm"] = dict(comm.COUNTS)
+        return out
+
+
+def mesh_train_rank(rank: int, n: int, ckpt_dir: str) -> dict:
+    """A rank of (e)'s world: Trainer(mesh=) on (data 2, model 2)."""
+    from repro_torch.device import set_true_f32
+    from repro_torch.dist import Mesh
+    set_true_f32()
+    tr = _mesh_trainer(ckpt_dir, Mesh(MESH_SHAPE, ("data", "model")))
+    rec = _MeshStepRecorder(tr.step_fn, "cuda")
+    tr.step_fn = rec
+    t0 = time.perf_counter()
+    tr.run(resume=False)
+    return {"steps": rec.steps, "run_s": time.perf_counter() - t0,
+            "peak_gib": _rank_peak()}
+
+
+def _mesh_step_bytes() -> dict:
+    """One fault-free step's ``comm.COUNTS`` on a rank, reckoned from the
+    leaves' sizes: an all-gather over the 4 ranks for each sharded leaf
+    (the rank's block out, the 3 others in; block and result staged), an
+    all-reduce over the data line for each gradient the loss reads (not
+    the parity leaves) and one for the loss (each staged out and back)."""
+    from repro_torch.dist import Mesh, param_specs
+    from repro_torch.dist.sharding import block_index, paired_leaves
+    from repro_torch.models import TPCtx, build
+    from repro_torch.tree import named_leaves
+    mesh = Mesh(MESH_SHAPE, ("data", "model"))
+    params = build(_mesh_cfg(), TPCtx(tp=T, mode="coded", code_r=R)).init(
+        0, device="meta")
+    specs = [s for _, s in paired_leaves(params, param_specs(params, mesh))]
+    want = {"calls": 1, "sent": 4, "received": 4, "staged": 8}   # the loss
+    for (name, leaf), spec in zip(named_leaves(params), specs):
+        nb = leaf.numel() * leaf.element_size()
+        if any(a is not None for a in spec):
+            blk = nb // int(np.prod([p for _, p in
+                                     block_index(spec, mesh, 0)]))
+            want["calls"] += 1
+            want["sent"] += blk
+            want["received"] += (mesh.size - 1) * blk
+            want["staged"] += blk + mesh.size * blk
+        if not name.endswith("/cdc"):
+            want["calls"] += 1
+            want["sent"] += nb
+            want["received"] += nb
+            want["staged"] += 2 * nb
+    return want
+
+
+def train_mesh() -> dict:
+    """(e): the single-process Trainer on the card first (then freed), then
+    Trainer(mesh=) in a world of 4 ranks on (data 2, model 2), gloo: every
+    rank's losses and grad norms within 1e-4 of the single process's;
+    kernel 6 4L + 1 and its backward 2L + 1 times a step on every rank;
+    every step's message bytes on every rank as reckoned. Host-staged
+    gloo on one card is no yardstick for the messages' times."""
+    import tempfile
+    import shutil
+    from repro_torch.dist import spawn_world
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        tr = _mesh_trainer(root)
+        rec = _StepRecorder(tr.step_fn, "cuda")
+        tr.step_fn = rec
+        tr.run(resume=False)
+        single = rec.steps
+        del tr, rec
+        torch.cuda.empty_cache()
+        single_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        ranks = spawn_world(mesh_train_rank, int(np.prod(MESH_SHAPE)),
+                            timeout_s=MESH_WORLD_S, args=(root,))
+        world_s = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    want = _mesh_step_bytes()
+    L = MESH_LAYERS
+    worst = 0.0
+    for r, got in enumerate(ranks):
+        if len(got["steps"]) != MESH_STEPS:
+            raise AssertionError(f"(e) rank {r}: {len(got['steps'])} steps")
+        for i, (st, one) in enumerate(zip(got["steps"], single)):
+            err = max(_rel(st[k], one[k]) for k in ("loss", "grad_norm"))
+            worst = max(worst, err)
+            if err > TOL["rtol"]:
+                raise AssertionError(f"(e) rank {r} step {i + 1}: {st} vs "
+                                     f"one process {one}")
+            n = st["launches"]
+            _expect(f"(e) rank {r} step {i + 1} kernel 6",
+                    n.get("rmsnorm", 0), 4 * L + 1)
+            _expect(f"(e) rank {r} step {i + 1} kernel 6 backward",
+                    n.get("rmsnorm_bwd", 0), 2 * L + 1)
+            if st["comm"] != want:
+                raise AssertionError(f"(e) rank {r} step {i + 1}: comm "
+                                     f"{st['comm']}, reckoned {want}")
+    step_ms = [[round(st["s"] * 1e3, 1) for st in got["steps"]]
+               for got in ranks]
+    out = {"single": single, "ranks": ranks, "bytes_a_step": want,
+           "max_rel_err": worst, "single_s": single_s, "world_s": world_s,
+           "step_ms_per_rank": step_ms,
+           "peak_gib_per_rank": [g["peak_gib"] for g in ranks]}
+    log(f"(e) Trainer(mesh=) on (data {MESH_SHAPE[0]}, model "
+        f"{MESH_SHAPE[1]}), granite-3-8b in {L} layer, {MESH_STEPS} steps "
+        f"over gloo on one card: losses "
+        f"{[round(st['loss'], 6) for st in ranks[0]['steps']]} and grad "
+        f"norms within {worst:.3e} of the single process's "
+        f"{[round(st['loss'], 6) for st in single]} on every rank; "
+        f"kernel 6 {4 * L + 1} + {2 * L + 1} a step a rank; bytes a rank a "
+        f"step as reckoned: {want}; ms a step per rank {step_ms}; peak GiB "
+        f"per rank {[round(g, 2) for g in out['peak_gib_per_rank']]}; the "
+        f"single process {single_s:.1f} s (ms a step "
+        f"{[round(st['s'] * 1e3, 1) for st in single]}), the world "
+        f"{world_s:.1f} s from spawn to results")
+    return out
+
+
+def train_families() -> dict:
+    """Phase 19: (a)-(d) the train step of the other families, (e)
+    Trainer(mesh=) over a world of ranks."""
+    t0 = time.perf_counter()
+    out = {}
+    for tag in FAMILY_RUNS:
+        out[tag] = train_family(tag)
+        _phase_memory(f"training {out[tag]['arch']}")
+    out["e"] = train_mesh()
+    out["launches"] = {"rmsnorm": sum(
+        out[t]["k6"] * len(out[t]["steps"]) for t in FAMILY_RUNS),
+        "rmsnorm_bwd": sum(out[t]["k6_bwd"] * len(out[t]["steps"])
+                           for t in FAMILY_RUNS),
+        "cdc_encode": sum(out[t]["k4_init"] for t in FAMILY_RUNS)}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 19 (training qwen2-moe, hymba, xlstm, whisper; "
+        f"Trainer(mesh=) over 4 ranks) took {out['seconds']:.1f} s")
+    return out
+
+
 # --------------------------------------------------------------- main ----
 
 def main() -> int:
@@ -5789,70 +6197,85 @@ def main() -> int:
 
     cfg = get_arch("granite-3-8b")
     torch.cuda.reset_peak_memory_stats()
-    err4 = check_encode(cfg)
-    err4_bf16, _ = check_encode_bf16(cfg)
-    err1 = max(check_coded_matmul(), check_coded_matmul_r34(),
-               check_coded_matmul_t8(), check_coded_matmul_t16())
-    err1_bf16 = check_coded_matmul_bf16()
-    edge1, edge7 = check_stream_edges()
-    cp1, cp1_bf16 = check_rowcopy()
-    err2 = max(check_fused_head(cfg), check_head_edges())
-    err2_bf16 = max(check_fused_head_wide(cfg),
-                    check_head_edges(torch.bfloat16))
-    err3 = check_decode_merge()
-    err5 = check_decode()
-    err6 = max(check_rmsnorm(), check_rmsnorm_edges())
-    err7 = max(check_matmul(), edge7)
-    err1 = max(err1, edge1)
-    err1_bf16 = max(err1_bf16, cp1_bf16)
-    # every other code width: the generic instantiations of kernels 1-5
-    any_err = {"cdc_coded_matmul": check_coded_matmul_any(),
-               "cdc_fused_head_argmax": check_head_any(cfg)}
-    any_err["cdc_decode_merge"], any_err["cdc_decode"] = \
-        check_elementwise_any()
-    any_err["cdc_encode"], err4_any_bf16 = check_encode_any()
-    any_bf16 = {"cdc_coded_matmul": check_coded_matmul_any(torch.bfloat16),
-                "cdc_fused_head_argmax": check_head_any(cfg, torch.bfloat16),
-                "cdc_encode": err4_any_bf16}
-    wcfg = get_arch(WHISPER)
-    w_err = dict(zip(("cdc_coded_matmul", "cdc_fused_head_argmax",
-                      "cdc_encode"), check_whisper_kernels(wcfg)))
-    xcfg = get_arch(XLSTM)
-    x_err = dict(zip(("cdc_coded_matmul", "cdc_fused_head_argmax",
-                      "cdc_encode"), check_xlstm_kernels(xcfg)))
-    hcfg = get_arch(HYMBA)
-    h_err = dict(zip(("cdc_coded_matmul", "cdc_fused_head_argmax",
-                      "cdc_encode"), check_hymba_kernels(hcfg)))
+    with _phase(2, "kernel checks"):
+        err4 = check_encode(cfg)
+        err4_bf16, _ = check_encode_bf16(cfg)
+        err1 = max(check_coded_matmul(), check_coded_matmul_r34(),
+                   check_coded_matmul_t8(), check_coded_matmul_t16())
+        err1_bf16 = check_coded_matmul_bf16()
+        edge1, edge7 = check_stream_edges()
+        cp1, cp1_bf16 = check_rowcopy()
+        err2 = max(check_fused_head(cfg), check_head_edges())
+        err2_bf16 = max(check_fused_head_wide(cfg),
+                        check_head_edges(torch.bfloat16))
+        err3 = check_decode_merge()
+        err5 = check_decode()
+        err6 = max(check_rmsnorm(), check_rmsnorm_edges())
+        err7 = max(check_matmul(), edge7)
+        err1 = max(err1, edge1)
+        err1_bf16 = max(err1_bf16, cp1_bf16)
+        # every other code width: the generic instantiations of kernels 1-5
+        any_err = {"cdc_coded_matmul": check_coded_matmul_any(),
+                   "cdc_fused_head_argmax": check_head_any(cfg)}
+        any_err["cdc_decode_merge"], any_err["cdc_decode"] = \
+            check_elementwise_any()
+        any_err["cdc_encode"], err4_any_bf16 = check_encode_any()
+        any_bf16 = {"cdc_coded_matmul":
+                    check_coded_matmul_any(torch.bfloat16),
+                    "cdc_fused_head_argmax":
+                    check_head_any(cfg, torch.bfloat16),
+                    "cdc_encode": err4_any_bf16}
+        wcfg = get_arch(WHISPER)
+        w_err = dict(zip(("cdc_coded_matmul", "cdc_fused_head_argmax",
+                          "cdc_encode"), check_whisper_kernels(wcfg)))
+        xcfg = get_arch(XLSTM)
+        x_err = dict(zip(("cdc_coded_matmul", "cdc_fused_head_argmax",
+                          "cdc_encode"), check_xlstm_kernels(xcfg)))
+        hcfg = get_arch(HYMBA)
+        h_err = dict(zip(("cdc_coded_matmul", "cdc_fused_head_argmax",
+                          "cdc_encode"), check_hymba_kernels(hcfg)))
     _phase_memory("kernel checks")
-    served = serve_full_width(cfg)
+    with _phase(3, "granite-3-8b served"):
+        served = serve_full_width(cfg)
     torch.cuda.empty_cache()
-    timed = time_kernels(cfg)
-    timed12 = time_t12(cfg)
-    timed_cp = time_rowcopy()
-    timed_w = time_whisper(wcfg)
-    timed_x = time_xlstm(xcfg)
-    timed_h = time_hymba(hcfg)
+    with _phase(4, "kernel timings"):
+        timed = time_kernels(cfg)
+        timed12 = time_t12(cfg)
+        timed_cp = time_rowcopy()
+        timed_w = time_whisper(wcfg)
+        timed_x = time_xlstm(xcfg)
+        timed_h = time_hymba(hcfg)
     torch.cuda.empty_cache()
-    sched = serve_scheduler(cfg)
+    with _phase(5, "the scheduler"):
+        sched = serve_scheduler(cfg)
     torch.cuda.empty_cache()
-    study = run_study()
-    entry = decode_merge_entry()
-    entry12 = {"cdc_decode_merge": decode_merge_entry(T12),
-               "cdc_decode": decode_entry(T12)}
+    with _phase(6, "the coded-cost study"):
+        study = run_study()
+    with _phase(7, "decode_and_merge's library entry"):
+        entry = decode_merge_entry()
+        entry12 = {"cdc_decode_merge": decode_merge_entry(T12),
+                   "cdc_decode": decode_entry(T12)}
     _phase_memory("study and library entry")
-    t16 = serve_t16(cfg)
+    with _phase(8, "granite-3-8b at T = 16"):
+        t16 = serve_t16(cfg)
     _phase_memory("serving at T = 16")
-    bf16 = serve_bf16(cfg)
+    with _phase(9, "granite-3-8b on bf16 weights"):
+        bf16 = serve_bf16(cfg)
     _phase_memory("serving on bf16 weights")
-    t12 = serve_t12(cfg)
+    with _phase(10, "granite-3-8b at T = 12"):
+        t12 = serve_t12(cfg)
     _phase_memory("serving at T = 12")
-    h2o = serve_h2o()
+    with _phase(11, "h2o-danube-1.8b"):
+        h2o = serve_h2o()
     _phase_memory("serving h2o-danube-1.8b")
-    deepseek = serve_deepseek()
+    with _phase(12, "deepseek-67b, 12 layers"):
+        deepseek = serve_deepseek()
     _phase_memory("serving deepseek-67b (12 layers)")
-    whisper = serve_whisper()
+    with _phase(13, "whisper-medium"):
+        whisper = serve_whisper()
     _phase_memory("serving whisper-medium")
-    xlstm = serve_xlstm()
+    with _phase(14, "xlstm-125m"):
+        xlstm = serve_xlstm()
     _phase_memory("serving xlstm-125m")
     hymba = serve_hymba()
     _phase_memory("serving hymba-1.5b")
@@ -5862,6 +6285,8 @@ def main() -> int:
     _phase_memory("training granite-3-8b (4 layers)")
     distributed = serve_distributed()
     _phase_memory("distribution (the parent's restore)")
+    families = train_families()
+    _phase_memory("training the other families and on a mesh")
     w1 = timed[0]
     head = next(t for t in timed if t.get("gemm") == "lm_head")
     small = {(t["kernel"], t["shape"]): t for t in timed if "kernel" in t}
@@ -5999,6 +6424,25 @@ def main() -> int:
         "rmsnorm_bwd", "rmsnorm_bwd.cu", "src/repro/models/common.py:155",
         training["k6_bwd"], training["max_abs_err"]["dx"],
         training["timed"]))
+    # phase 19: kernel 6 and its backward in the family steps (a)-(d) and
+    # kernel 4 at their inits; the times of phase 4's kernel-6 row and
+    # phase 17's backward row
+    kernels += [
+        {**entry_of("rmsnorm", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:25",
+                    families["launches"]["rmsnorm"], err6,
+                    small[("rmsnorm", f"[4, {K}]")]),
+         "name": "rmsnorm (training qwen2-moe, hymba, xlstm)"},
+        {**entry_of("rmsnorm_bwd", "rmsnorm_bwd.cu",
+                    "src/repro/models/common.py:155",
+                    families["launches"]["rmsnorm_bwd"],
+                    training["max_abs_err"]["dx"], training["timed"]),
+         "name": "rmsnorm_bwd (training qwen2-moe, hymba, xlstm)"},
+        {**entry_of("cdc_encode", "cdc_encode.cu",
+                    "src/repro/kernels/cdc_encode.py:30",
+                    families["launches"]["cdc_encode"], err4,
+                    {**enc, "bound_by": "bytes"}),
+         "name": "cdc_encode (the training families' inits)"},
+    ]
     # kernel 3 on the distributed path: rank 0's launches in worlds A (T =
     # 4) and B (T = 12), its error against the single-process coded GEMM;
     # the times of the shapes those calls give it (phase 4)
@@ -6039,7 +6483,8 @@ def main() -> int:
                     "hymba": {**hymba, "shapes": timed_h,
                               "max_abs_err": h_err},
                     "moe": moe, "training": training,
-                    "distributed": distributed}, default=str))
+                    "distributed": distributed, "families": families},
+                   default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

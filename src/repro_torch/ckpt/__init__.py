@@ -1,4 +1,5 @@
-from repro_torch.ckpt.checkpoint import (AsyncCheckpointer, latest_step,
-                                         restore, save)
+from repro_torch.ckpt.checkpoint import (AsyncCheckpointer, gather_tree,
+                                         latest_step, restore, save)
 
-__all__ = ["AsyncCheckpointer", "latest_step", "restore", "save"]
+__all__ = ["AsyncCheckpointer", "gather_tree", "latest_step", "restore",
+           "save"]

@@ -97,7 +97,13 @@ def save(tree: Any, directory: str, step: int, *, mesh=None,
     return final
 
 
-def _save_from_world(tree, directory: str, step: int, mesh, specs) -> str:
+def gather_tree(tree, mesh, specs) -> Any:
+    """The whole leaves of a world's blocks on rank 0: ``tree`` holds this
+    rank's blocks (cut under ``specs``); every rank calls it at the same
+    point. Rank 0 gets ``tree``'s structure with each sharded leaf
+    assembled on the host and each replicated leaf as its own tensor;
+    parity leaves (``/cdc``, never written) are None, and so is every leaf
+    on the other ranks. One gather a sharded leaf (``dist.comm``)."""
     import torch.distributed as dist
     from repro_torch.dist import comm
     from repro_torch.dist.sharding import assemble, paired_leaves
@@ -114,10 +120,17 @@ def _save_from_world(tree, directory: str, step: int, mesh, specs) -> str:
             continue
         blocks = comm.gather(torch.as_tensor(blk), 0, world)
         whole.append(assemble(blocks, spec, mesh) if me == 0 else None)
+    return unflatten(tree, whole)
+
+
+def _save_from_world(tree, directory: str, step: int, mesh, specs) -> str:
+    import torch.distributed as dist
+    from repro_torch.dist import comm
+    whole = gather_tree(tree, mesh, specs)
     path = os.path.join(directory, f"step_{step:08d}")
-    if me == 0:
-        path = save(unflatten(tree, whole), directory, step)
-    comm.barrier(world)
+    if dist.get_rank() == 0:
+        path = save(whole, directory, step)
+    comm.barrier(comm.world_line())
     return path
 
 

@@ -1,4 +1,6 @@
-from repro_torch.configs.base import (ArchConfig, all_archs, get_arch,
+from repro_torch.configs.base import (SHAPES, ArchConfig, ShapeSpec,
+                                      all_archs, get_arch, runnable,
                                       smoke_config)
 
-__all__ = ["ArchConfig", "all_archs", "get_arch", "smoke_config"]
+__all__ = ["ArchConfig", "SHAPES", "ShapeSpec", "all_archs", "get_arch",
+           "runnable", "smoke_config"]

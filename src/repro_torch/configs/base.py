@@ -1,7 +1,8 @@
 """Architecture registry of the PyTorch port.
 
 A copy of the reference package's ``configs/base.py`` (the dataclass, the
-registry and ``smoke_config``), kept here so that the port imports nothing
+registry, ``smoke_config``, the parameter counts, the shape registry and
+``runnable``), kept here so that the port imports nothing
 of the reference. Every architecture of the reference is registered:
 the dense decoders (granite-3-8b, h2o-danube-1.8b and -3-4b, deepseek-67b),
 chameleon-34b, which the reference builds as a dense decoder, the
@@ -66,6 +67,58 @@ class ArchConfig:
         state.)"""
         return self.attn_kind == "swa" or bool(self.ssm_kind)
 
+    @property
+    def param_count(self) -> int:
+        """Approximate parameter count, the reference's formula (for a
+        model-FLOPs estimate)."""
+        d, hd = self.d_model, self.hd
+        attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd \
+            + self.n_heads * hd * d
+        if self.ssm_kind == "xlstm":
+            per_layer = 2 * d * 2 * d + 3 * (2 * d) * (2 * d) // 4  # rough
+        else:
+            ffn = 3 * d * self.d_ff if self.act == "silu" \
+                else 2 * d * self.d_ff
+            if self.n_experts:
+                ffe = 3 * d * self.d_ff_expert
+                ffn = self.n_experts * ffe + self.n_shared_experts * ffe \
+                    + d * self.n_experts
+            per_layer = attn + ffn
+            if self.ssm_kind == "mamba":
+                per_layer += 2 * d * 2 * d + 2 * d * self.ssm_state * 2
+        total = self.n_layers * per_layer
+        if self.is_encdec:
+            total += self.encoder_layers * per_layer + \
+                self.n_layers * attn  # cross-attention
+        total += self.vocab * d * (1 if self.tie_embeddings else 2)
+        return total
+
+    @property
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only the routed top_k and the
+        shared experts)."""
+        if not self.n_experts:
+            return self.param_count
+        ffe = 3 * self.d_model * self.d_ff_expert
+        inactive = (self.n_experts - self.top_k) * ffe * self.n_layers
+        return self.param_count - inactive
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
 
 _REGISTRY: dict[str, ArchConfig] = {}
 
@@ -95,6 +148,14 @@ def load_all() -> None:
                                      hymba_1_5b, qwen2_moe_a2_7b,
                                      qwen3_moe_235b_a22b, whisper_medium,
                                      xlstm_125m)
+
+
+def runnable(cfg: ArchConfig, shape: ShapeSpec) -> tuple[bool, str]:
+    """Is (arch x shape) a real cell or a structured skip?"""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("pure full-attention arch: no sub-quadratic path for "
+                       "524k decode (DESIGN.md §6)")
+    return True, ""
 
 
 def smoke_config(cfg: ArchConfig) -> ArchConfig:

@@ -37,6 +37,10 @@ class CodeSpec:
             raise ValueError(
                 f"n_parity must be in [0, n_shards], got {self.n_parity}")
 
+    @property
+    def total_shards(self) -> int:
+        return self.n_shards + self.n_parity
+
     @functools.cached_property
     def generator(self) -> np.ndarray:
         return generator_matrix(self.n_shards, self.n_parity)

@@ -36,6 +36,9 @@ SOURCES = ("cdc_coded_matmul", "cdc_coded_matmul_bf16", "cdc_coded_matmul_t16",
            "rmsnorm_bwd", "matmul", "tma_probe")
 # the code widths T the coded kernels (1-5) take (csrc/scalar.cuh: MAX_T)
 KERNEL_T = tuple(range(2, 17))
+# devices whose tensors take a kernel's plain version: the CPU, and the meta
+# device (shapes only: no launch, no host sync; the dry run's tensors)
+PLAIN_DEVICES = ("cpu", "meta")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 

@@ -54,7 +54,7 @@ def cdc_decode(y_shards: torch.Tensor, parity: torch.Tensor, valid
     """y [T, m, n] (any trailing shape), parity [m, n] of y's dtype, valid
     [T] host mask with at most one False -> [T, m, n] in y's dtype."""
     vh = host_mask(valid)
-    if y_shards.device.type == "cpu":
+    if y_shards.device.type in build.PLAIN_DEVICES:
         return ref.cdc_decode_ref(y_shards, parity, torch.as_tensor(vh))
     who = "cdc_decode"
     if y_shards.device.type != "cuda":
@@ -196,7 +196,7 @@ def cdc_fused_head_argmax(x: torch.Tensor, w_shards: torch.Tensor,
     can read) of one storage type, float32 or bf16; valid [T] host mask
     with at most one False. Returns (token int32 [b], max logit f32 [b]);
     ties go to the smallest id."""
-    if x.device.type == "cpu":
+    if x.device.type in build.PLAIN_DEVICES:
         return ref.fused_head_argmax_ref(
             x, w_shards, parity_w, torch.as_tensor(host_mask(valid)), vocab)
     _check(x.device.type == "cuda", f"unsupported device {x.device}")

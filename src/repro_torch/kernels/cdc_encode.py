@@ -87,7 +87,7 @@ def cdc_encode(w_shards: torch.Tensor, gen, *, layout: str = "dedicated"
     under the host generator ``gen`` [r, T]: dedicated [(L,) r, k, m_l] or
     folded [(L,) T, k, r·m_l/T], in the shards' dtype (float32 math)."""
     _check(layout in ("folded", "dedicated"), f"unknown layout {layout!r}")
-    if w_shards.device.type == "cpu":
+    if w_shards.device.type in build.PLAIN_DEVICES:
         return encode_plain(w_shards, gen, layout)
     _check(w_shards.device.type == "cuda",
            f"unsupported device {w_shards.device}")

@@ -213,7 +213,7 @@ def cdc_coded_matmul(x: torch.Tensor, w: torch.Tensor, w_cdc: torch.Tensor,
     esel/coef from ``eq12_plan``; valid [T] host mask with at most one
     False. Returns merged [rows, T, m_l] in x's dtype (float32 math).
     """
-    if x.device.type == "cpu":
+    if x.device.type in build.PLAIN_DEVICES:
         return coded_matmul_plain(x, w, w_cdc, layout, T, r, gen, esel,
                                   coef, valid, gamma, eps)
     _check(x.device.type == "cuda", f"unsupported device {x.device}")
@@ -312,7 +312,7 @@ def cdc_decode_merge(ys: torch.Tensor, parity: torch.Tensor, layout: str,
     folded [T, rows, r*m_l/T], read in place); gen [r, T]; esel/coef from
     ``eq12_plan``; valid [T] host mask with at most one False. Returns
     merged [rows, T, m_l] in ys' dtype."""
-    if ys.device.type == "cpu":
+    if ys.device.type in build.PLAIN_DEVICES:
         return decode_merge_plain(ys, parity, layout, T, r, gen, esel, coef,
                                   valid)
     who = "cdc_decode_merge"

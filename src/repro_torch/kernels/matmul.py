@@ -117,7 +117,7 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *, out_dtype=None
            ) -> torch.Tensor:
     """x [m, k] @ w [k, n] -> [m, n] in ``out_dtype``."""
     dev = x.device
-    if dev.type == "cpu":
+    if dev.type in build.PLAIN_DEVICES:
         return ref.matmul_ref(x, w, out_dtype)
     build.refuse_grad("matmul", x, w)
     out_dtype = out_dtype or x.dtype

@@ -2,7 +2,8 @@
 
 The device policy replaces the reference's interpret switch: a CPU tensor
 takes the kernel's plain version, a CUDA tensor launches the kernel or
-raises. Masks are host-side, so the <= 1-erasure gate is always decided
+raises, and a meta tensor (the dry run's) takes the plain version too:
+shapes only, nothing launched or synchronised (``build.PLAIN_DEVICES``). Masks are host-side, so the <= 1-erasure gate is always decided
 here, before anything is launched:
 
   * ``fused_coded_matmul``: no parity, no mask, or 2+ dead shards -> the

@@ -77,7 +77,7 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, *, eps: float = 1e-6
     """x [..., d] (float32 or bf16), gamma [d] -> x's shape and dtype."""
     if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad):
         return RMSNormGrad.apply(x, gamma, eps)
-    if x.device.type == "cpu":
+    if x.device.type in build.PLAIN_DEVICES:
         return ref.rmsnorm_ref(x, gamma, eps)
     who = "rmsnorm"
     if x.device.type != "cuda":
@@ -140,7 +140,7 @@ def rmsnorm_bwd(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor, *,
     """The gradient of ``rmsnorm`` at (x, gamma) for the output gradient dy:
     x [..., d] and dy float32 of one shape, gamma [d] float32 -> (dx in x's
     shape, dgamma [d])."""
-    if x.device.type == "cpu":
+    if x.device.type in build.PLAIN_DEVICES:
         return ref.rmsnorm_bwd_ref(x, gamma, dy, eps)
     who = "rmsnorm_bwd"
     if x.device.type != "cuda":

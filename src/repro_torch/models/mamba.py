@@ -84,10 +84,27 @@ def _scan(decay, drive, c, h):
     the same carries and outputs. decay, drive: [B, S, di, n]; c: [B, S,
     n]; h: [B, di, n] float32, advanced in place. Returns y [B, S, di].
 
-    Each step's h lands in its row of ``hs`` [S, B, di, n] (one launch a
-    step), and one product reads them all out; with one step, ``hs`` is a
-    view of ``h`` itself, so a decode step moves no copy."""
+    Serving: each step's h lands in its row of ``hs`` [S, B, di, n] (one
+    launch a step), and one product reads them all out; with one step,
+    ``hs`` is a view of ``h`` itself, so a decode step moves no copy.
+    Under autograd (grad mode, an input that requires grad) the steps are
+    new tensors stacked once, since autograd refuses ``out=``; the layer's
+    checkpoint (``common.remat_layer``) bounds what the backward keeps, as
+    the reference's chunking does, and ``h`` takes the last carry outside
+    the graph (no caller differentiates through the state)."""
     s = decay.shape[1]
+    if torch.is_grad_enabled() and (decay.requires_grad
+                                    or drive.requires_grad):
+        steps, prev = [], h.clone()     # h itself is written below
+        # one unbind a tensor: its backward stacks the steps' gradients
+        # once, where slicing each step out would give each a zero-filled
+        # gradient of the whole [B, S, di, n] to add up
+        for dr, de in zip(drive.unbind(1), decay.unbind(1)):
+            prev = torch.addcmul(dr, de, prev)
+            steps.append(prev)
+        with torch.no_grad():
+            h.copy_(prev)
+        return torch.einsum("sbdn,bsn->bsd", torch.stack(steps), c)
     hs = h[None] if s == 1 else decay.new_empty((s,) + h.shape)
     prev = h
     for t in range(s):

@@ -98,8 +98,15 @@ def _mlstm_chunkwise(q, k, v, i_raw, f_log, c0, n0, m0, chunk: int = 128):
         g = ii - cum_f
         big_m = torch.maximum(torch.cummax(g, dim=1).values, m[:, None])
         scores = torch.einsum("bthd,bchd->bhtc", qi, ki)
-        decay = torch.exp(g.movedim(1, 2)[:, :, None, :]
-                          - big_m.movedim(1, 2)[:, :, :, None])
+        # the exponent is <= 0 on and below the diagonal; above it (tau >
+        # t, never read) it can pass float32's range, and the reference's
+        # exp there is inf, whose product with the masked zero gradient
+        # makes its backward NaN. Masked first, those entries are exp(-inf)
+        # = 0: the same values, and a gradient equal to the reference's
+        # wherever the reference's is finite
+        decay = torch.exp(torch.where(
+            causal, g.movedim(1, 2)[:, :, None, :]
+            - big_m.movedim(1, 2)[:, :, :, None], float("-inf")))
         a = torch.where(causal, scores * decay, 0.0)
         inter = torch.exp(m[:, None] - big_m)               # [B,w,nh]
         num = torch.einsum("bhij,bthj->bthi", c, qi) * inter[..., None] \
@@ -203,7 +210,8 @@ def slstm(ctx: TPCtx, p: Params, cfg, x: torch.Tensor, valid=None,
           state: Params | None = None):
     """Strictly recurrent scalar LSTM with exponential gating; a plain
     loop over time (the reference's ``chunked_time_scan`` checkpoints for
-    the backward pass, which serving does not run)."""
+    the backward pass; here the block's checkpoint, ``remat_layer``, does
+    that in training)."""
     b, s, d = x.shape
     nh = cfg.n_heads
     dh = d // nh
@@ -218,9 +226,11 @@ def slstm(ctx: TPCtx, p: Params, cfg, x: torch.Tensor, valid=None,
     # regroup wx so each head's 4 gates are contiguous: [B, S, nh, 4dh]
     wxs = wx.reshape(b, s, 4, nh, dh).movedim(2, 3).reshape(b, s, nh, 4 * dh)
     hs = []
-    for t in range(s):
+    # one unbind (not a slice a step): under autograd its backward stacks
+    # the steps' gradients once
+    for wxt in wxs.unbind(1):
         rec = torch.einsum("bhi,hij->bhj", h, r)   # [B, nh, 4dh]
-        pre = wxs[:, t].to(torch.float32) + rec + bias
+        pre = wxt.to(torch.float32) + rec + bias
         zt, it, ft, ot = pre.split(dh, dim=-1)
         zt = torch.tanh(zt)
         ot = torch.sigmoid(ot)

@@ -37,9 +37,12 @@ class Model:
     def init(self, gen: torch.Generator | int = 0, dtype=torch.float32,
              device: str | torch.device = "cuda") -> Params:
         """Random parameters; ``gen`` is a torch.Generator on ``device`` or
-        an integer seed for one."""
+        an integer seed for one. On the meta device (shapes and dtypes, no
+        storage: the dry run's) no generator is used."""
         dev = resolve_device(device)
-        if not isinstance(gen, torch.Generator):
+        if dev.type == "meta":
+            gen = None
+        elif not isinstance(gen, torch.Generator):
             gen = torch.Generator(device=dev).manual_seed(int(gen))
         family = encdec if self.cfg.is_encdec else transformer
         return family.init_params(self.cfg, gen, self.ctx, dtype, dev)
@@ -50,10 +53,14 @@ class Model:
 
     @staticmethod
     def _frames(params: Params, batch: dict) -> torch.Tensor:
-        """The batch's frames on the params' device, in float32 (the
-        reference's default precision)."""
+        """The batch's frames on the params' device: numpy frames in
+        float32 (the reference's default precision), a tensor (the dry
+        run's meta stand-in) in the params' dtype."""
+        emb = params["embed"]
+        if isinstance(batch["frames"], torch.Tensor):
+            return batch["frames"].to(device=emb.device, dtype=emb.dtype)
         return torch.as_tensor(np.asarray(batch["frames"], np.float32),
-                               device=params["embed"].device)
+                               device=emb.device)
 
     def forward(self, params: Params, batch: dict, valid=None, *,
                 remat: str = "full", q_chunk: int = 512,
@@ -102,6 +109,20 @@ class Model:
                                   valid, kv_chunk=kv_chunk,
                                   last_only=last_only,
                                   return_hidden=return_hidden)
+
+    def input_spec(self, batch: int, seq: int, dtype=torch.bfloat16
+                   ) -> dict:
+        """Stand-ins for a batch, as the reference's ``input_spec`` gives
+        them: meta tensors (shapes and dtypes, no storage) of int32 tokens
+        [batch, seq] and, for the enc-dec, frames [batch, enc_seq, D] in
+        ``dtype``."""
+        spec = {"tokens": torch.empty((batch, seq), dtype=torch.int32,
+                                      device="meta")}
+        if self.cfg.is_encdec:
+            spec["frames"] = torch.empty(
+                (batch, self.cfg.enc_seq, self.cfg.d_model), dtype=dtype,
+                device="meta")
+        return spec
 
     def dummy_batch(self, rng: np.random.Generator, batch: int, seq: int
                     ) -> dict:

@@ -78,15 +78,19 @@ def _decay_mask(params: Any) -> Any:
 
 
 @torch.no_grad()
-def apply_updates(cfg: AdamWConfig, params: Any, grads: Any, state: dict
+def apply_updates(cfg: AdamWConfig, params: Any, grads: Any, state: dict,
+                  gnorm: torch.Tensor | None = None
                   ) -> tuple[Any, dict, dict]:
     """One AdamW step. ``grads`` has the params' structure; a None leaf is a
     zero gradient (the reference differentiates every leaf, and a leaf the
     loss never reads gets zeros: its moments still decay, and its master
-    copy still takes weight decay). Returns (params, new_state, metrics),
-    every tensor updated in place."""
+    copy still takes weight decay). ``gnorm``: the norm to clip by, in
+    place of ``global_norm(grads)`` (a rank that updates its blocks of the
+    params clips by the whole gradient's norm). Returns (params,
+    new_state, metrics), every tensor updated in place."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     if cfg.grad_clip:
         scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                             max=1.0)

@@ -29,8 +29,15 @@ from repro_torch.tree import leaves, tree_map
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
+    """The train step's settings, the reference's fields. ``aux_loss_weight``
+    is taken and read nowhere, as in the reference."""
+
     microbatches: int = 1          # grad-accum steps per train step
     remat: str = "full"
+    # the reference's MoE load-balance weight. Its loss adds nothing for it
+    # (the aux loss is plumbed nowhere, src/repro/train/train_step.py), so
+    # neither does this one: a real aux term would part the two losses
+    aux_loss_weight: float = 0.01
     q_chunk: int = 512
     kv_chunk: int = 1024
 

@@ -436,6 +436,49 @@ def test_granite_smoke_train_step_on_card_matches_cpu(smoke):
                                    atol=1e-4, msg=lambda m: f"{name}: {m}")
 
 
+@pytest.mark.parametrize("name", ["qwen2-moe-a2.7b", "hymba-1.5b"])
+def test_family_smoke_train_step_on_card_matches_cpu(smoke, name):
+    """``value_and_grad`` of coded smoke qwen2-moe (capacity 1.25: pairs
+    dropped) and hymba (the mamba scan under autograd), remat "full", on
+    the card (kernel 6 and its backward on every norm) against the CPU
+    (plain versions): the loss within 1e-5, every gradient leaf within
+    1e-4; then one train step's loss and grad norm within 1e-5."""
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.data import DataConfig, make_stream
+    from repro_torch.kernels import rmsnorm
+    from repro_torch.models import TPCtx, build
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.train import TrainConfig, make_train_step, train_step
+    from repro_torch.tree import named_leaves, tree_map
+    cfg = smoke_config(get_arch(name))
+    model = build(cfg, TPCtx(tp=4, mode="coded", code_r=2,
+                             moe_capacity=1.25))
+    with torch.no_grad():
+        cpu = model.encode_offline(model.init(0, device="cpu"))
+    card = tree_map(lambda t: t.to("cuda"), cpu)
+    batch = next(make_stream(DataConfig(cfg.vocab, 32, 4)))
+    tcfg = TrainConfig(remat="full")
+    loss_fn = train_step.make_loss_fn(model, tcfg)
+    n6b = rmsnorm.rmsnorm_bwd.launches
+    l_card, g_card = train_step.value_and_grad(loss_fn, card, batch)
+    assert rmsnorm.rmsnorm_bwd.launches - n6b == 2 * cfg.n_layers + 1
+    l_cpu, g_cpu = train_step.value_and_grad(loss_fn, cpu, batch)
+    assert float(l_card) == pytest.approx(float(l_cpu), rel=1e-5)
+    want = dict(named_leaves(g_cpu))
+    for leaf, g in named_leaves(g_card):
+        if g is None or want[leaf] is None:
+            assert g is None and want[leaf] is None, leaf
+            continue
+        torch.testing.assert_close(g.cpu(), want[leaf], rtol=1e-4,
+                                   atol=1e-4, msg=lambda m: f"{leaf}: {m}")
+    step = make_train_step(model, AdamWConfig(lr=3e-3, warmup_steps=2),
+                           tcfg)
+    _, _, mc = step(card, init_state(card), batch)
+    _, _, mp = step(cpu, init_state(cpu), batch)
+    for k in ("loss", "grad_norm"):
+        assert float(mc[k]) == pytest.approx(float(mp[k]), rel=1e-5), k
+
+
 def _dist_w1_rank(rank, n):
     """A rank of the 4-rank world below: chip_smoke's phase 18 (a) at
     granite's w1 only (4 and 64 rows, both layouts, every mask)."""

@@ -18,7 +18,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_dist.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_dist.py",
+       ROOT / "tests" / "_torch_train_mesh.py"]
 
 
 def _imports(path: Path) -> list[str]:
@@ -45,9 +46,9 @@ def test_port_imports_neither_jax_nor_reference(path):
 
 
 def test_guard_covers_the_encoder_decoder():
-    """The encoder-decoder's, xLSTM's, the hybrid's, training's and the
-    distribution layer's modules (and the rank programs that spawned ranks
-    import) are among the files the guard reads."""
+    """The encoder-decoder's, xLSTM's, the hybrid's, training's, the
+    distribution layer's and the dry run's modules (and the rank programs
+    that spawned ranks import) are among the files the guard reads."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"src/repro_torch/models/encdec.py",
             "src/repro_torch/configs/whisper_medium.py",
@@ -65,7 +66,9 @@ def test_guard_covers_the_encoder_decoder():
             "src/repro_torch/dist/pipeline.py",
             "src/repro_torch/dist/world.py",
             "src/repro_torch/launch/mesh.py",
-            "tests/_torch_dist.py"} <= names
+            "src/repro_torch/launch/dryrun.py",
+            "tests/_torch_dist.py",
+            "tests/_torch_train_mesh.py"} <= names
 
 
 def test_guard_catches_forbidden_imports(tmp_path):
@@ -151,7 +154,8 @@ def test_loading_every_port_module_loads_neither_jax_nor_reference():
         ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
         .removesuffix(".__init__")
         for p in (ROOT / "src" / "repro_torch").rglob("*.py"))
-    mods.append("_torch_dist")      # what a spawned rank of the tests loads
+    # what a spawned rank of the tests loads
+    mods += ["_torch_dist", "_torch_train_mesh"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -173,7 +177,7 @@ def test_loading_every_port_module_loads_neither_jax_nor_reference():
     "repro_torch.configs.xlstm_125m", "repro_torch.models.mamba",
     "repro_torch.configs.hymba_1_5b", "repro_torch.train",
     "repro_torch.launch.train", "repro_torch.dist", "repro_torch.launch.mesh",
-    "repro_torch.dist.world"])
+    "repro_torch.dist.world", "repro_torch.launch.dryrun"])
 def test_package_imports_first_in_a_fresh_interpreter(module):
     """No import cycle bites whichever package a program imports first
     (``obs`` and ``runtime`` import each other's leaf modules)."""

@@ -251,18 +251,21 @@ def test_dispatch_ladder():
                                jnp.asarray(ws.sum(0).numpy()),
                                jnp.asarray(two_dead), vocab=8,
                                use_pallas=False)
-    # a tensor that is neither on the CPU nor on a CUDA device is refused,
-    # never computed some other way
-    meta = xt.to("meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        tcdc.cdc_coded_matmul(meta, wt.to("meta"), tp.to("meta"),
-                              "dedicated", T, r, torch.ones(r, T),
-                              torch.zeros(7, dtype=torch.int32),
-                              torch.ones(7), (True,) * T)
-    with pytest.raises(ValueError, match="unsupported device"):
-        cdc_decode.cdc_fused_head_argmax(meta, ws.to("meta"),
-                                         ws.sum(0).to("meta"), (True,) * T,
-                                         vocab=8)
+    # a meta tensor (the dry run's: shapes, no storage) takes the plain
+    # version, as a CPU tensor does: a meta result of the CPU result's
+    # shape and dtype, nothing computed or launched
+    one_dead = np.array([True, False, True, True])
+    for got, want in (
+            (tops.fused_coded_matmul(xt.to("meta"), wt.to("meta"),
+                                     tp.to("meta"), tspec, one_dead),
+             tops.fused_coded_matmul(xt, wt, tp, tspec, one_dead)),
+            *zip(tops.fused_head_argmax(xt.to("meta"), ws.to("meta"),
+                                        ws.sum(0).to("meta"), one_dead,
+                                        vocab=8),
+                 tops.fused_head_argmax(xt, ws, ws.sum(0), one_dead,
+                                        vocab=8))):
+        assert got.is_meta and got.shape == want.shape
+        assert got.dtype == want.dtype
 
 
 def test_dead_shard_nan_does_not_spread():
@@ -394,8 +397,9 @@ def test_encode_refuses_what_it_cannot_run():
     T, r = 4, 2
     gen = jcoding.generator_matrix(T, r)
     w = torch.zeros((T, 8, 8))
-    with pytest.raises(ValueError, match="unsupported device"):
-        tops.cdc_encode(w.to("meta"), gen)
+    # a meta tensor takes the plain version (the dry run's encode)
+    meta = tops.cdc_encode(w.to("meta"), gen)
+    assert meta.is_meta and meta.shape == tops.cdc_encode(w, gen).shape
     with pytest.raises(ValueError, match="unknown layout"):
         tops.cdc_encode(w, gen, layout="striped")
     with pytest.raises(ValueError, match="not divisible"):
