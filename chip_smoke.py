@@ -295,7 +295,30 @@ integer inputs to the bit) and timed in phase 4
      staged, calls) exactly as reckoned from the leaves' sizes; ms a
      step and peak GiB a rank logged (host-staged gloo on one card is no
      yardstick).
-Phases 2-19 each log the seconds they took.
+ 20. the examples and the history gate (``repro_torch.examples``, each
+     through its ``main`` on the card, the kernel counts set to 0 before
+     each and read after), each held against the same work on the CPU:
+     quickstart (the coded GEMM [8, 256] @ [256, 512] at T = 4, r = 2
+     folded with shard 2 dead, within 1e-5 of the fault-free product and
+     of the CPU's; smoke granite-3-8b's logits under the dead shard within
+     1e-4 of the fault-free ones, and both within 1e-4 of the CPU's on the
+     same params), multi_failure (T = 8, r = 1..4 dedicated, up to 20 dead
+     subsets each: the decode condition equal to the CPU sweep's, every
+     recovered output within ``multi_failure.AGREEMENT[r]`` of the CPU
+     sweep's), serve_cdc (smoke h2o-danube-1.8b, 6 arrivals through 2
+     slots, shard 1 dead at 5 ms: 6/6 completed, tokens identical to the
+     fault-free stream and to the CPU's fault-free stream on the same
+     params; kernels 1, 2, 4 and 6 launched, and each, on every input
+     signature the stream gave it outside a graph capture, within its
+     phase-2 tolerance of its plain version, timed at the largest beside
+     its plain version, the library call and its bound), train_lm
+     (xlstm-125m at full config, 3 steps at its default 4 x 256: finite
+     losses, ms a step, the first apart). Every example's launches by
+     kernel and its seconds are logged beside the card's name and power
+     limit; serve_cdc's and train_lm's tokens a second go into a
+     temporary BENCH history, and ``python -m repro_torch.obs.history
+     check`` must exit 0 on it, and 1 with ``--inject-slowdown 0.30``.
+Phases 2-20 each log the seconds they took.
 Phases 3 and 5 also count the RMSNorm kernel: 2 x 40 + 1 = 81 launches
 per decode round (fused and reference variants) and per prefill.
 Peak device memory is printed per phase. The line before the last is the
@@ -307,8 +330,10 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -6033,35 +6058,20 @@ def mesh_train_rank(rank: int, n: int, ckpt_dir: str) -> dict:
 
 
 def _mesh_step_bytes() -> dict:
-    """One fault-free step's ``comm.COUNTS`` on a rank, reckoned from the
-    leaves' sizes: an all-gather over the 4 ranks for each sharded leaf
-    (the rank's block out, the 3 others in; block and result staged), an
-    all-reduce over the data line for each gradient the loss reads (not
-    the parity leaves) and one for the loss (each staged out and back)."""
-    from repro_torch.dist import Mesh, param_specs
-    from repro_torch.dist.sharding import block_index, paired_leaves
+    """One fault-free step's ``comm.COUNTS`` on a rank, as the library
+    reckons it from the leaves' sizes (``trainer.mesh_step_messages``): an
+    all-gather over the 4 ranks for each sharded leaf (the rank's block
+    out, the 3 others in; block and result staged), an all-reduce over the
+    data line for each gradient the loss reads (not the parity leaves) and
+    one for the loss (each staged out and back)."""
+    from repro_torch.dist import Mesh, comm
     from repro_torch.models import TPCtx, build
-    from repro_torch.tree import named_leaves
+    from repro_torch.train.trainer import mesh_step_messages
     mesh = Mesh(MESH_SHAPE, ("data", "model"))
     params = build(_mesh_cfg(), TPCtx(tp=T, mode="coded", code_r=R)).init(
         0, device="meta")
-    specs = [s for _, s in paired_leaves(params, param_specs(params, mesh))]
-    want = {"calls": 1, "sent": 4, "received": 4, "staged": 8}   # the loss
-    for (name, leaf), spec in zip(named_leaves(params), specs):
-        nb = leaf.numel() * leaf.element_size()
-        if any(a is not None for a in spec):
-            blk = nb // int(np.prod([p for _, p in
-                                     block_index(spec, mesh, 0)]))
-            want["calls"] += 1
-            want["sent"] += blk
-            want["received"] += (mesh.size - 1) * blk
-            want["staged"] += blk + mesh.size * blk
-        if not name.endswith("/cdc"):
-            want["calls"] += 1
-            want["sent"] += nb
-            want["received"] += nb
-            want["staged"] += 2 * nb
-    return want
+    return comm.counts_of(mesh_step_messages(
+        params, mesh, read=lambda n: not n.endswith("/cdc")), staged=True)
 
 
 def train_mesh() -> dict:
@@ -6151,6 +6161,348 @@ def train_families() -> dict:
     log(f"phase 19 (training qwen2-moe, hymba, xlstm, whisper; "
         f"Trainer(mesh=) over 4 ranks) took {out['seconds']:.1f} s")
     return out
+
+
+# ------------------------------------------------------------ phase 20 ----
+
+EXAMPLE_GEMM_TOL = 1e-5        # quickstart's recovered GEMM (CPU test's)
+EXAMPLE_MODEL_TOL = 1e-4       # quickstart's logits under the dead shard
+TRAIN_LM_STEPS = 3
+SERVE_CDC_KERNELS = ("cdc_coded_matmul", "cdc_fused_head_argmax",
+                     "cdc_encode", "rmsnorm")
+
+
+def _to_cpu(tree):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.cpu() if isinstance(t, torch.Tensor) else t,
+                    tree)
+
+
+def _signature(arguments: dict) -> tuple:
+    """A kernel call's signature: each tensor's shape, dtype and strides,
+    the host mask's bits, every other argument's repr."""
+    def one(k, v):
+        if k == "valid":
+            v = v.cpu() if isinstance(v, torch.Tensor) else v
+            return tuple(bool(b) for b in np.asarray(v).reshape(-1))
+        if isinstance(v, torch.Tensor):
+            return (tuple(v.shape), str(v.dtype), v.stride())
+        if isinstance(v, np.ndarray):
+            return (v.shape, v.tobytes())
+        return repr(v)
+    return tuple((k, one(k, v)) for k, v in arguments.items())
+
+
+class _CallRecorder:
+    """A cost sink (``accounting.counting``) that keeps a copy of the
+    arguments of the first call of each kernel in ``names`` at each
+    signature, outside graph captures (a capture runs nothing; the eager
+    warm-up on clones before it is seen), so that the kernel and its
+    plain version can be run again on the inputs the path gave it."""
+
+    def __init__(self, names):
+        self.names = set(names)
+        self.calls: dict = {}          # (name, signature) -> arguments
+
+    def inside_kernel(self):
+        return contextlib.nullcontext()
+
+    def kernel(self, name, arguments, result):
+        capturing = torch.cuda.is_available() and \
+            torch.cuda.is_current_stream_capturing()
+        if name not in self.names or capturing:
+            return
+        key = (name, _signature(arguments))
+        if key not in self.calls:
+            self.calls[key] = {k: v.clone() if isinstance(v, torch.Tensor)
+                               else v for k, v in arguments.items()}
+
+
+def _plain_call(name: str, a: dict):
+    """The plain version of kernel ``name`` on a recorded call's arguments."""
+    from repro_torch.core.coding import host_mask
+    from repro_torch.kernels import cdc_encode, cdc_matmul, ref
+    if name == "cdc_coded_matmul":
+        return cdc_matmul.coded_matmul_plain(**a)
+    if name == "cdc_fused_head_argmax":
+        return ref.fused_head_argmax_ref(
+            a["x"], a["w_shards"], a["parity_w"],
+            torch.as_tensor(host_mask(a["valid"])), a["vocab"])
+    if name == "cdc_encode":
+        return cdc_encode.encode_plain(a["w_shards"], a["gen"], a["layout"])
+    return ref.rmsnorm_ref(a["x"], a["gamma"], a["eps"])
+
+
+def _library_call(name: str, a: dict):
+    """One torch call over the same inputs as kernel ``name``'s recorded
+    call (the yardstick of its row): the GEMM over the shards and parity
+    concatenated (kernels 1, 2; no decode, no norm, no argmax), the
+    generator times the shards (4), ``F.rms_norm`` (6)."""
+    import torch.nn.functional as F
+    from repro_torch.core.coded_layer import unfold_parity
+    from repro_torch.kernels.cdc_encode import host_generator
+    if name == "cdc_coded_matmul":
+        w, wc, t, r = a["w"], a["w_cdc"], a["T"], a["r"]
+        k, m = w.shape
+        par = unfold_parity(wc, t, r) if a["layout"] == "folded" else wc
+        wcat = torch.cat([w, par.permute(1, 0, 2).reshape(k, r * (m // t))],
+                         dim=1)
+        return lambda: torch.matmul(a["x"], wcat)
+    if name == "cdc_fused_head_argmax":
+        ws = a["w_shards"]
+        t, k, m_l = ws.shape
+        wcat = torch.cat([ws.permute(1, 0, 2).reshape(k, t * m_l),
+                          a["parity_w"]], dim=1)
+        return lambda: torch.matmul(a["x"], wcat)
+    if name == "cdc_encode":
+        sh = a["w_shards"]
+        gt = torch.as_tensor(host_generator(a["gen"]), device=sh.device,
+                             dtype=sh.dtype)
+        flat = sh.contiguous().reshape(sh.shape[:-2] + (-1,))
+        return lambda: torch.matmul(gt, flat)
+    x = a["x"]
+    return lambda: F.rms_norm(x, (x.shape[-1],), a["gamma"], a["eps"])
+
+
+def _pair_err(name: str, got, want) -> float:
+    """Max abs error of a kernel's result against its plain version's,
+    raising beyond the tolerance of its phase-2 check (kernel 2: equal
+    tokens, the max logit within 1e-4; kernel 4 within 1e-5)."""
+    if name == "cdc_fused_head_argmax":
+        if not torch.equal(got[0].long(), want[0].long()):
+            raise AssertionError(f"{name}: tokens {got[0].tolist()} != "
+                                 f"plain {want[0].tolist()}")
+        got, want = got[1], want[1]
+    tol = dict(rtol=1e-5, atol=1e-5) if name == "cdc_encode" else TOL
+    torch.testing.assert_close(got, want, **tol)
+    return float((got - want).abs().max())
+
+
+def _shape_of(a: dict) -> str:
+    return " ".join(f"{k}{list(v.shape)}" for k, v in a.items()
+                    if isinstance(v, torch.Tensor) and v.dim() >= 2)
+
+
+def example_kernel_rows(rec: _CallRecorder, card: str) -> dict:
+    """Each kernel of ``rec`` against its plain version on every input
+    signature the example gave it (within the phase-2 tolerances), and
+    at the largest of them (by the bytes ``ops.kernel_cost`` counts) its
+    time, its plain version's, the library call's and its bound: {name:
+    row}."""
+    from repro_torch.kernels import accounting, ops
+    scratch = torch.empty(64 * 2 ** 20, device="cuda")   # 256 MB > L2
+    flush = scratch.zero_
+    rows = {}
+    for name in sorted(rec.names):
+        calls = [a for (n, _), a in rec.calls.items() if n == name]
+        if not calls:
+            raise AssertionError(f"the example gave {name} no input outside "
+                                 f"a graph capture")
+        fn = accounting.WRAPPERS[name]
+        worst, costs = 0.0, []
+        with torch.no_grad():
+            for a in calls:
+                got = fn(**a)
+                want = _plain_call(name, a)
+                torch.cuda.synchronize()
+                worst = max(worst, _pair_err(name, got, want))
+                costs.append(ops.kernel_cost(name, a, got))
+            i = max(range(len(calls)), key=lambda j: costs[j][1])
+            a, (flops, nbytes) = calls[i], costs[i]
+            ms = _time(lambda: fn(**a), flush)
+            plain = _time(lambda: _plain_call(name, a), flush)
+            lib = _time(_library_call(name, a), flush)
+        dtype = next(v.dtype for v in a.values()
+                     if isinstance(v, torch.Tensor) and v.is_floating_point())
+        bound, by = _bound(nbytes, flops, BF16_FLOPS
+                           if dtype == torch.bfloat16 else F32_FLOPS)
+        rows[name] = {"shape": _shape_of(a), "signatures": len(calls),
+                      "max_abs_err": worst, "ms": ms, "plain_ms": plain,
+                      "library_ms": lib, "bound_ms": bound, "bound_by": by}
+        log(f"{name} in serve_cdc: {len(calls)} input signatures within "
+            f"tolerance of the plain version (max abs err {worst:.3e}); at "
+            f"{rows[name]['shape']}: kernel {ms:.4f} ms, plain {plain:.4f} "
+            f"ms, library {lib:.4f} ms, bound {bound:.4f} ms ({by}); {card}")
+    return rows
+
+
+def _run_example(name: str, mod, argv: list[str], device: str,
+                 card: str) -> dict:
+    """``mod.main(argv)`` with the kernel counts set to 0 just before and
+    read just after: {"out", "seconds", "launches"}."""
+    _zero_counts()
+    _sync(device)
+    t0 = time.perf_counter()
+    out = mod.main(argv + ["--device", device])
+    _sync(device)
+    secs = time.perf_counter() - t0
+    launches = {k: n for k, n in _counts().items() if n}
+    log(f"example {name}: {secs:.2f} s, launches {launches} ({card})")
+    return {"out": out, "seconds": secs, "launches": launches}
+
+
+@contextlib.contextmanager
+def _recorded_trainer(mod, device, recs: list):
+    """``mod.Trainer`` for the block: each one built records its steps
+    (``_StepRecorder``, its ``step_fn``) and is kept in ``recs``."""
+    base = mod.Trainer
+
+    class Recorded(base):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.step_fn = _StepRecorder(self.step_fn, device)
+            recs.append(self)
+
+    mod.Trainer = Recorded
+    try:
+        yield
+    finally:
+        mod.Trainer = base
+
+
+def _history_gate(metrics: dict, card: str) -> dict:
+    """Each example's metrics of the gate's table into a temporary
+    history, then ``python -m repro_torch.obs.history check`` plain (exit
+    0) and with ``--inject-slowdown 0.30`` (exit 1)."""
+    from repro_torch.obs.history import append_snapshot
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "BENCH_history.jsonl")
+        for name, m in metrics.items():
+            append_snapshot(path, "examples", name, m, extra={"card": card})
+        codes = {}
+        for tag, extra in (("plain", []),
+                           ("slowdown", ["--inject-slowdown", "0.30"])):
+            res = subprocess.run(
+                [sys.executable, "-m", "repro_torch.obs.history", "check",
+                 "--path", path, *extra], capture_output=True, text=True,
+                env=env, timeout=300)
+            log(f"history check ({tag}): exit {res.returncode}\n"
+                + res.stdout.rstrip())
+            codes[tag] = res.returncode
+    if codes != {"plain": 0, "slowdown": 1}:
+        raise AssertionError(f"history gate exit codes {codes}, want plain "
+                             f"0 and slowdown 1")
+    return codes
+
+
+def examples_and_history(device: str = "cuda") -> dict:
+    """Phase 20: the four examples on the card, each held against the same
+    work on the CPU (quickstart's GEMM and logits, multi_failure's
+    recovered outputs, serve_cdc's tokens), kernels 1, 2, 4 and 6 against
+    their plain versions on the inputs serve_cdc gave them, train_lm's
+    steps, and the history gate over their throughputs."""
+    from repro_torch.examples import (multi_failure, quickstart, serve_cdc,
+                                      train_lm)
+    from repro_torch.kernels import accounting
+    t0 = time.perf_counter()
+    card = card_line() if device == "cuda" else "cpu"
+    runs = {}
+    runs["quickstart"] = q = _run_example("quickstart", quickstart, [],
+                                          device, card)
+    a = _to_cpu(quickstart.inputs(device))
+    valid = quickstart.dead_mask()
+    y, _ = quickstart.coded_gemm(a["x"], a["w"], valid)
+    ok, dead = quickstart.model_under_failure(a["model"], a["params"],
+                                              {"tokens": a["tokens"]}, valid)
+    o = q["out"]
+    qs_gap = {"gemm": float((o["y"].cpu() - y).abs().max()),
+              "logits_ok": float((o["logits_ok"].cpu() - ok).abs().max()),
+              "logits_dead": float((o["logits_dead"].cpu() - dead)
+                                   .abs().max())}
+    if not (o["gemm_err"] <= EXAMPLE_GEMM_TOL
+            and o["model_dev"] <= EXAMPLE_MODEL_TOL
+            and qs_gap["gemm"] <= EXAMPLE_GEMM_TOL
+            and max(qs_gap["logits_ok"], qs_gap["logits_dead"])
+            <= EXAMPLE_MODEL_TOL):
+        raise AssertionError(f"quickstart: errors {o['gemm_err']}, "
+                             f"{o['model_dev']}; card against the CPU "
+                             f"{qs_gap}")
+    log(f"quickstart, card against the CPU on the same inputs: {qs_gap}")
+
+    runs["multi_failure"] = m = _run_example("multi_failure", multi_failure,
+                                             [], device, card)
+    x, w = _to_cpu(multi_failure.inputs(device))
+    mf_gap = {}
+    for row in m["out"]:
+        cpu = multi_failure.sweep_r(x, w, row["r"])
+        gap = float((row["outputs"].cpu() - cpu["outputs"]).abs().max())
+        mf_gap[row["r"]] = gap
+        if abs(row["cond"] - cpu["cond"]) > 1e-6 * cpu["cond"] or \
+                gap > multi_failure.AGREEMENT[row["r"]]:
+            raise AssertionError(
+                f"multi_failure r={row['r']}: cond {row['cond']} (CPU "
+                f"{cpu['cond']}), outputs {gap} from the CPU's (limit "
+                f"{multi_failure.AGREEMENT[row['r']]})")
+    log(f"multi_failure: recovered outputs, card against the CPU, max abs "
+        f"by r: {mf_gap} (limits {multi_failure.AGREEMENT})")
+
+    rec = _CallRecorder(SERVE_CDC_KERNELS)
+    with accounting.counting(rec):
+        runs["serve_cdc"] = sc = _run_example("serve_cdc", serve_cdc, [],
+                                              device, card)
+    o = sc["out"]
+    model = serve_cdc.make_model()
+    work = serve_cdc.arrivals(model.cfg.vocab)
+    _, cpu_tok = serve_cdc.serve(
+        model, _to_cpu(serve_cdc.init_params(model, device)), work, [])
+    if not (o["completed"] == o["requests"] == 6
+            and o["tokens_ok"] == o["tokens_fail"] == cpu_tok):
+        raise AssertionError(
+            f"serve_cdc: {o['completed']}/{o['requests']} completed; "
+            f"fault-free = with-failure {o['tokens_ok'] == o['tokens_fail']}"
+            f", = the CPU's {o['tokens_ok'] == cpu_tok}")
+    log("serve_cdc: 6/6 completed; the tokens fault-free, with shard 1 "
+        "dead and of the CPU's fault-free run on the same params identical")
+    kernel_rows = {}
+    if device == "cuda":
+        missing = [k for k in SERVE_CDC_KERNELS if not sc["launches"].get(k)]
+        if missing:
+            raise AssertionError(f"serve_cdc launched none of {missing}")
+        kernel_rows = example_kernel_rows(rec, card)
+    del rec
+
+    recs = []
+    with tempfile.TemporaryDirectory() as d, \
+            _recorded_trainer(train_lm, device, recs):
+        runs["train_lm"] = t = _run_example(
+            "train_lm", train_lm,
+            ["--steps", str(TRAIN_LM_STEPS), "--ckpt", os.path.join(d, "ck")],
+            device, card)
+    steps, dcfg = recs[0].step_fn.steps, recs[0].dcfg
+    rows_x_seq = dcfg.global_batch * dcfg.seq_len
+    if not (t["out"]["finite"] and len(steps) == TRAIN_LM_STEPS
+            and [s for s, _ in t["out"]["losses"]] == [TRAIN_LM_STEPS]):
+        raise AssertionError(f"train_lm: losses {t['out']['losses']}, "
+                             f"{len(steps)} steps recorded")
+    step_ms = [1e3 * st["s"] for st in steps]
+    steady_ms = float(np.median(step_ms[1:]))
+    log(f"train_lm: ms a step at {dcfg.global_batch} x {dcfg.seq_len} "
+        f"{[round(s, 1) for s in step_ms]} "
+        f"(the first with its warm-up), {steady_ms:.1f} after the first "
+        f"({card})")
+
+    n_tok = sum(len(v) for v in o["tokens_ok"].values()) + \
+        sum(len(v) for v in o["tokens_fail"].values())
+    gated = {"serve_cdc": {"tokens_per_s": n_tok / sc["seconds"]},
+             "train_lm": {"tokens_per_s": rows_x_seq / (steady_ms / 1e3)}}
+    codes = _history_gate(gated, card)
+    secs = time.perf_counter() - t0
+    log(f"phase 20 (the examples and the history gate) took {secs:.1f} s "
+        f"({card})")
+    return {"seconds": {k: r["seconds"] for k, r in runs.items()},
+            "launches": {k: r["launches"] for k, r in runs.items()},
+            "quickstart": {k: q["out"][k] for k in ("gemm_err", "model_dev")},
+            "quickstart_card_vs_cpu": qs_gap,
+            "multi_failure": [{k: v for k, v in row.items()
+                               if k != "outputs"} for row in m["out"]],
+            "multi_failure_card_vs_cpu": mf_gap,
+            "serve_cdc": {k: v for k, v in o.items()
+                          if k not in ("tokens_ok", "tokens_fail")},
+            "kernel_rows": kernel_rows,
+            "train_lm": {"losses": t["out"]["losses"], "step_ms": step_ms,
+                         "steady_ms": steady_ms},
+            "gated": gated, "history_exit": codes, "total_s": secs}
 
 
 # --------------------------------------------------------------- main ----
@@ -6287,6 +6639,8 @@ def main() -> int:
     _phase_memory("distribution (the parent's restore)")
     families = train_families()
     _phase_memory("training the other families and on a mesh")
+    examples = examples_and_history()
+    _phase_memory("the examples")
     w1 = timed[0]
     head = next(t for t in timed if t.get("gemm") == "lm_head")
     small = {(t["kernel"], t["shape"]): t for t in timed if "kernel" in t}
@@ -6456,6 +6810,24 @@ def main() -> int:
             ("a", T, small[("cdc_decode_merge",
                             f"[{T}, 4, {GEMMS['w1']}] r={R} folded")]),
             ("b", T12, rows12["cdc_decode_merge"]))]
+    # phase 20: kernels 1, 2, 4 and 6 in the serve_cdc example (smoke
+    # h2o-danube-1.8b through the scheduler, fault-free and with shard 1
+    # dead): its launches; the error over every input signature it gave
+    # the kernel, the times and bound at the largest of them
+    ex = examples["launches"]["serve_cdc"]
+    ex_rows = examples["kernel_rows"]
+    kernels += [
+        {**entry_of(name, src, replaces, ex[name],
+                    ex_rows[name]["max_abs_err"], ex_rows[name]),
+         "name": f"{name} (serve_cdc example, {ex_rows[name]['shape']})"}
+        for name, src, replaces in (
+            ("cdc_coded_matmul", "coded_matmul.cuh",
+             "src/repro/kernels/cdc_matmul.py:130"),
+            ("cdc_fused_head_argmax", "fused_head.cuh",
+             "src/repro/kernels/cdc_decode.py:138"),
+            ("cdc_encode", "cdc_encode.cu",
+             "src/repro/kernels/cdc_encode.py:30"),
+            ("rmsnorm", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:25"))]
     log(card)
     runs = {n: {k: v for k, v in r.items() if k != "tokens"}
             for n, r in sched["runs"].items()}
@@ -6483,7 +6855,8 @@ def main() -> int:
                     "hymba": {**hymba, "shapes": timed_h,
                               "max_abs_err": h_err},
                     "moe": moe, "training": training,
-                    "distributed": distributed, "families": families},
+                    "distributed": distributed, "families": families,
+                    "examples": examples},
                    default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -27,8 +27,8 @@ import torch.distributed as dist
 
 from repro_torch.dist.sharding import Line
 
-__all__ = ["COUNTS", "reset", "world_line", "all_gather", "all_reduce",
-           "broadcast", "ring_shift", "gather", "barrier"]
+__all__ = ["COUNTS", "reset", "counts_of", "world_line", "all_gather",
+           "all_reduce", "broadcast", "ring_shift", "gather", "barrier"]
 
 COUNTS = {"calls": 0, "sent": 0, "received": 0, "staged": 0}
 _PINNED: dict[tuple, torch.Tensor] = {}
@@ -37,6 +37,28 @@ _PINNED: dict[tuple, torch.Tensor] = {}
 def reset() -> None:
     for k in COUNTS:
         COUNTS[k] = 0
+
+
+def counts_of(messages, staged: bool = False) -> dict:
+    """What ``COUNTS`` gains on a rank for ``messages`` of (kind, bytes of
+    the result, group size): an all-gather sends its 1/n of the result and
+    receives the rest, an all-reduce sends and receives its tensor.
+    ``staged``: the tensors are on a card and the transport is gloo, so
+    each message's input and result are copied through host buffers."""
+    out = dict.fromkeys(COUNTS, 0)
+    for kind, nbytes, n in messages:
+        if kind == "all-gather":
+            sent, received = nbytes // n, nbytes - nbytes // n
+        elif kind == "all-reduce":
+            sent = received = nbytes
+        else:
+            raise ValueError(f"no COUNTS reckoning for {kind!r}")
+        out["calls"] += 1
+        out["sent"] += sent
+        out["received"] += received
+        if staged:
+            out["staged"] += sent + nbytes
+    return out
 
 
 def world_line() -> Line:

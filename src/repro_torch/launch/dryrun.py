@@ -1,5 +1,5 @@
 """Dry run: build every (arch x shape x mesh) cell on the meta device and
-run one rank's step on it.
+run one rank's step on it, counting its cost.
 
 The reference's dry run lowers and compiles each cell's jitted step with
 XLA on a fake 512-device mesh; that is its proof that the distribution
@@ -8,7 +8,8 @@ for XLA's lower and compile: a cell's params are built on it (shapes and
 dtypes, nothing allocated), and the step runs on meta tensors at the
 per-rank batch, so every shape of the path must cohere:
 
-  train    one microbatch's loss and its backward (remat "full")
+  train    one microbatch's loss and its backward (remat "full"), then
+           one AdamW update on rank 0's blocks of the params
   prefill  ``init_decode`` plus ``decode(last_only=True)``
   decode   one token against a ``seq_len`` cache
 
@@ -16,14 +17,54 @@ The meshes are ``dist.Mesh`` metadata with no world: the production
 (data 16, model 16) and (pod 2, data 16, model 16), and with ``--smoke``
 (2, 4) and (2, 2, 2). The step runs as one process of the world would run
 it with whole activations (the MoE's local path: its expert-parallel path
-needs a world). The record of a cell holds the reference's parameter
-census (``count_params``: no parity, no embedding, the MoE's routed
-experts by top_k / E_pad), rank 0's bytes of params, optimizer state and
-decode state from its blocks under ``param_specs`` and ``state_specs``,
-the microbatch count and the model FLOPs a chip, as the reference counts
-them. It has no HLO cost, no collective bytes and no roofline: those come
-from parsing compiled HLO (the reference's ``roofline/hlo_cost.py``),
-which has no counterpart here.
+needs a world).
+
+The record of a cell holds, under the reference's field names:
+
+  * ``params``: the reference's census (``count_params``: no parity, no
+    embedding, the MoE's routed experts by top_k / E_pad); ``model_flops``
+    a chip, as the reference counts them (6 or 2 x active x tokens /
+    chips);
+  * ``bytes_rank0``: rank 0's bytes of params, optimizer state and decode
+    state from its blocks under ``param_specs`` and ``state_specs``;
+    ``microbatches``;
+  * ``cost`` {flops, bytes, custom_calls_uncosted}: the step counted on
+    the meta tensors by ``obs.perf.CostCounter`` (dot FLOPs of every
+    matmul, bytes of every launched op's operands and outputs, each
+    kernel wrapper's own cost model: its plain version runs on meta).
+    A train cell's is the step the reference compiles (a coded cell's
+    under the all-true mask, the recovery math included): the counted
+    microbatch's forward and backward (under grad mode, so the
+    rematerialised forward counts) times ``microbatches``, plus the
+    update (the global norm over the whole gradient and AdamW over rank
+    0's blocks). The float32 sum of the microbatches' gradients and the
+    averaging after the all-reduce are not counted; neither are the
+    FLOPs of convolutions (the dot table has none: whisper's front end
+    counts its bytes only). ``custom_calls_uncosted`` counts kernel
+    launches with no cost model (0);
+  * ``collectives`` (ring-model wire bytes by kind, and their total) and
+    ``collective_counts``: for a train cell the messages ``Trainer(mesh=)``
+    sends a rank a step (``train.trainer.mesh_step_messages``: an
+    all-gather over the world a sharded leaf, an all-reduce over the
+    batch line for each gradient the loss reads, one for the loss),
+    through ``roofline.analysis.wire_bytes``. The trainer's step runs
+    with no mask, so the gradients read are those of an unmasked step on
+    the meta tensors: a coded cell's parity leaves get none and are not
+    all-reduced (``cost`` counts the masked step, as above). Prefill and
+    decode cells say null: the port runs a model line's serving work in
+    one process and sends no message on that path, so there is nothing
+    to reckon (its distributed coded GEMM, ``dist.collectives``, is a
+    library entry, not the served round);
+  * ``roofline`` {compute_s, memory_s, collective_s, dominant,
+    useful_ratio, roofline_fraction, model_flops}: ``roofline_terms`` and
+    ``roofline_report`` at one H100's bf16 rates (the params' dtype:
+    989 TFLOP/s, 3.35 TB/s, NVLink 450 GB/s; the data sheet's, at 700
+    W). ``useful_ratio`` is model FLOPs over counted FLOPs: a train
+    cell's rank computes the whole model on its batch block, so the
+    ratio is at most about 1 / (model axis).
+
+There is no compiled memory analysis and no lower or compile time; the
+step's wall time is ``step_s``.
 
 Results cache into a JSON file keyed by cell; finished cells are skipped.
 Exits 1 if any cell of the run is an error.
@@ -46,13 +87,19 @@ import torch
 
 from repro_torch.configs import (SHAPES, ShapeSpec, all_archs, get_arch,
                                  runnable, smoke_config)
-from repro_torch.dist.sharding import (block_index, paired_leaves,
-                                       param_specs, state_specs)
+from repro_torch.dist.sharding import (block_index, local_shard,
+                                       paired_leaves, param_specs,
+                                       state_specs)
 from repro_torch.launch.mesh import make_production_mesh, make_test_mesh
 from repro_torch.models import TPCtx, build
+from repro_torch.obs.perf import CostCounter, counted
+from repro_torch.optim import AdamWConfig, adamw, init_state
+from repro_torch.roofline.analysis import (hw_for, roofline_report,
+                                           roofline_terms, wire_bytes)
 from repro_torch.train.train_step import (TrainConfig, _split,
                                           make_loss_fn, value_and_grad)
-from repro_torch.tree import named_leaves
+from repro_torch.train.trainer import mesh_step_messages
+from repro_torch.tree import named_leaves, tree_map
 
 DEFAULT_OUT = os.path.join(tempfile.gettempdir(), "repro_dryrun.json")
 
@@ -127,6 +174,21 @@ def _block(x, n: int):
     return x[: b // n] if b % n == 0 else x
 
 
+def _update_cost(params, grads, specs, mesh) -> CostCounter:
+    """The update of a rank's step on the mesh: the global norm over the
+    whole gradient, then AdamW over rank 0's blocks of the params, their
+    gradients and a fresh optimizer state."""
+    def block(x, spec):
+        return None if x is None else local_shard(x, spec, mesh, 0)
+    mine = tree_map(block, params, specs)
+    gmine = tree_map(block, grads, specs)
+    state = init_state(mine)
+    with counted() as c:
+        gnorm = adamw.global_norm(grads)
+        adamw.apply_updates(AdamWConfig(), mine, gmine, state, gnorm=gnorm)
+    return c
+
+
 def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
                coded: bool = False, code_r: int = 2, smoke: bool = False,
                verbose: bool = True) -> dict:
@@ -160,11 +222,26 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
     mb = microbatches_for(cfg, shape, n_batch_devs)
     p_spec = param_specs(params, mesh)
     s_bytes = 0
+    coll = None
     if shape.kind == "train":
         loss_fn = make_loss_fn(model, TrainConfig(microbatches=mb,
                                                   remat="full"))
-        mbatch = _split(batch, mb)[0] if b % mb == 0 else batch
-        value_and_grad(loss_fn, params, mbatch, valid)
+        split = b % mb == 0
+        mbatch = _split(batch, mb)[0] if split else batch
+        with counted() as step:
+            _, grads = value_and_grad(loss_fn, params, mbatch, valid)
+        upd = _update_cost(params, grads, p_spec, mesh)
+        trips = mb if split else 1
+        flops = step.flops * trips + upd.flops
+        nbytes = step.bytes * trips + upd.bytes
+        uncosted = step.custom_calls_uncosted + upd.custom_calls_uncosted
+        # the messages are those of Trainer(mesh=), whose step runs with
+        # no mask: a coded model's loss then reads no parity leaf
+        if valid is not None:
+            _, grads = value_and_grad(loss_fn, params, mbatch, None)
+        read = {n for n, g in named_leaves(grads) if g is not None}
+        coll = wire_bytes(mesh_step_messages(params, mesh, p_spec,
+                                             read=read.__contains__))
         # float32 mu, nu and master blocks of every leaf, the int32 step
         opt = 3 * _rank0_bytes(params, p_spec, mesh, itemsize=4) + 4
     else:
@@ -174,15 +251,27 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
             p_spec = param_specs(params, mesh, fsdp=None)
         with torch.no_grad():
             if shape.kind == "prefill":
-                state = model.init_decode(params, batch, b, shape.seq_len,
-                                          DTYPE, valid=valid)
-                model.decode(params, state, batch["tokens"], valid,
-                             last_only=True)
+                def serve_step():
+                    state = model.init_decode(params, batch, b,
+                                              shape.seq_len, DTYPE,
+                                              valid=valid)
+                    model.decode(params, state, batch["tokens"], valid,
+                                 last_only=True)
             else:
                 full = model.input_spec(b, shape.seq_len)
                 state = model.init_decode(params, full, b, shape.seq_len,
                                           DTYPE)
-                model.decode(params, state, batch["tokens"], valid)
+
+                def serve_step():
+                    model.decode(params, state, batch["tokens"], valid)
+            # once uncounted first: a table the step builds once per
+            # process and caches (the enc-dec's position table) is no
+            # part of a step
+            serve_step()
+            with counted() as step:
+                serve_step()
+        flops, nbytes = step.flops, step.bytes
+        uncosted = step.custom_calls_uncosted
         # the state of the global batch, cut under state_specs (an empty
         # one: the enc-dec's runs no encoder)
         glob = model.empty_decode(shape.global_batch, shape.seq_len, DTYPE,
@@ -200,6 +289,10 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
         tokens = shape.global_batch * shape.seq_len
         factor = 6 if shape.kind == "train" else 2
         model_flops = factor * n_active * tokens / chips
+    hw = hw_for(DTYPE)
+    terms = roofline_terms({"flops": flops, "bytes accessed": nbytes},
+                           coll, hw)
+    report = roofline_report(terms, model_flops, hw)
 
     mesh_label = "x".join(str(s) for s in mesh.devices.shape)
     rec = {
@@ -214,6 +307,14 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
             "opt_state": opt, "decode_state": s_bytes},
         "microbatches": mb,
         "model_flops": model_flops,
+        "cost": {"flops": flops, "bytes": nbytes,
+                 "custom_calls_uncosted": uncosted},
+        "collectives": None if coll is None else
+        {k: v for k, v in coll.items() if k != "counts"},
+        "collective_counts": None if coll is None else coll["counts"],
+        "roofline": {k: report[k] for k in
+                     ("compute_s", "memory_s", "collective_s", "dominant",
+                      "useful_ratio", "roofline_fraction", "model_flops")},
     }
     if verbose:
         print(json.dumps(rec, indent=1, default=str))

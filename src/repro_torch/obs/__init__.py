@@ -7,16 +7,20 @@
   * ``perf`` — per-round cost attribution (counted on torch, with the
     kernels' ``KERNEL_COSTS``) against one H100's roofline, and the
     achieved-vs-roofline utilization of the measured rounds;
+  * ``history`` — schema-versioned benchmark-trajectory snapshots
+    (``BENCH_history.jsonl``, the reference's schema: either package reads
+    the other's file) with a direction-aware regression gate and the
+    ``python -m repro_torch.obs.history {append,check}`` CLI;
   * ``spans`` — per-request span trees;
   * ``slo`` — TTFT/TPOT decompositions, deadline-miss attribution and the
     ``python -m repro_torch.obs.slo report`` CLI.
-
-Not ported yet: the reference's ``history`` (benchmark snapshots), which
-waits for the port's benchmarks.
 """
 from repro_torch.obs.export import (MetricsServer, chrome_trace,
                                     prometheus_text, validate_chrome_trace,
                                     write_chrome_trace)
+from repro_torch.obs.history import (DEFAULT_TOLERANCES, append_snapshot,
+                                     check_history, compare, load_history,
+                                     make_snapshot)
 from repro_torch.obs.perf import (PerfMonitor, RoundCost,
                                   attribute_round_costs)
 from repro_torch.obs.shardlog import ShardTimeline
@@ -31,6 +35,8 @@ __all__ = [
     "MetricsServer", "chrome_trace", "prometheus_text",
     "validate_chrome_trace", "write_chrome_trace",
     "PerfMonitor", "RoundCost", "attribute_round_costs",
+    "DEFAULT_TOLERANCES", "append_snapshot", "check_history", "compare",
+    "load_history", "make_snapshot",
     "SPAN_NAMES", "Span", "RequestTree", "SpanTracker",
     "CAUSES", "attribute", "decompose", "summarize",
 ]

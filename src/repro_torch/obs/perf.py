@@ -149,12 +149,19 @@ class CostCounter(TorchDispatchMode):
             self.bytes += _nbytes(_tensors((args, ins))) + _nbytes(outs)
 
 
-def count_round(fn) -> CostCounter:
-    """Run ``fn()`` once under a fresh ``CostCounter``; its kernel
-    launches stay out of the wrappers' counts."""
+@contextlib.contextmanager
+def counted():
+    """A fresh ``CostCounter`` over the block, the kernel wrappers
+    reporting to it; their launches stay out of the wrappers' counts. The
+    caller's grad mode holds (under grad mode a backward counts too)."""
     counter = CostCounter()
-    with accounting.uncounted(), accounting.counting(counter), counter, \
-            torch.no_grad():
+    with accounting.uncounted(), accounting.counting(counter), counter:
+        yield counter
+
+
+def count_round(fn) -> CostCounter:
+    """Run ``fn()`` once under ``counted()``, without grad."""
+    with counted() as counter, torch.no_grad():
         fn()
     return counter
 

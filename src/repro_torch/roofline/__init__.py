@@ -1,3 +1,5 @@
-from repro_torch.roofline.analysis import HW, hw_for, roofline_terms
+from repro_torch.roofline.analysis import (HW, hw_for, roofline_report,
+                                           roofline_terms, wire_bytes)
 
-__all__ = ["HW", "hw_for", "roofline_terms"]
+__all__ = ["HW", "hw_for", "roofline_report", "roofline_terms",
+           "wire_bytes"]

@@ -23,11 +23,14 @@ what the ranks keep, not the compute: every rank of a model line runs the
 same forward. So the numbers are the reference's, whose mesh step is
 ``jax.jit`` of the same function over sharded arrays: the same loss and
 update, up to the order of the float sums. A tensor-parallel training
-forward is not ported. Every message goes through ``dist.comm``.
+forward is not ported. Every message goes through ``dist.comm``;
+``mesh_step_messages`` reckons a step's messages from the leaves' sizes
+(the dry run's collective record, and the bytes ``comm.COUNTS`` gains).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import signal
 import tempfile
@@ -45,13 +48,45 @@ from repro_torch.data import DataConfig, make_stream
 from repro_torch.device import resolve_device
 from repro_torch.dist import comm
 from repro_torch.dist.collectives import batch_block
-from repro_torch.dist.sharding import (batch_axes, gather_params,
-                                       local_shard, param_specs)
+from repro_torch.dist.sharding import (batch_axes, block_index,
+                                       gather_params, local_shard,
+                                       paired_leaves, param_specs)
 from repro_torch.models.zoo import Model
 from repro_torch.optim import AdamWConfig, adamw, init_state
 from repro_torch.train.train_step import (TrainConfig, make_grad_fn,
                                           make_train_step)
-from repro_torch.tree import tree_map
+from repro_torch.tree import named_leaves, tree_map
+
+
+LOSS_BYTES = 4                   # the loss: a 0-d float32 (``lm_loss``)
+
+
+def mesh_step_messages(params, mesh, specs=None, read=None
+                       ) -> list[tuple[str, int, int]]:
+    """The messages one rank sends in a step of ``Trainer(mesh=)``, as
+    (kind, bytes of the result, group size): one all-gather over the whole
+    world for each sharded leaf (``gather_params``: [world, *block]), one
+    all-reduce over the batch line for each leaf whose gradient the loss
+    reads (``read(name)``; every leaf when None), and one for the float32
+    loss. ``params`` are the whole leaves (meta tensors will do); ``specs``
+    default to ``param_specs(params, mesh)``. A line of one rank sends
+    nothing (``dist.comm``). Outside the step, ``run`` adds one 4-byte
+    all-reduce over the world a step (the ranks agreeing on SIGTERM)."""
+    specs = param_specs(params, mesh) if specs is None else specs
+    world = mesh.size
+    line = math.prod(mesh.shape[a] for a in batch_axes(mesh))
+    gathers, reduces = [], []
+    for (name, leaf), (_, spec) in zip(named_leaves(params),
+                                       paired_leaves(params, specs)):
+        nb = leaf.numel() * leaf.element_size()
+        if world > 1 and any(a is not None for a in spec):
+            parts = math.prod(p for _, p in block_index(spec, mesh, 0))
+            gathers.append(("all-gather", world * (nb // parts), world))
+        if line > 1 and (read is None or read(name)):
+            reduces.append(("all-reduce", nb, line))
+    if line > 1:
+        reduces.append(("all-reduce", LOSS_BYTES, line))
+    return gathers + reduces
 
 
 @dataclasses.dataclass(frozen=True)

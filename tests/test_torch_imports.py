@@ -71,6 +71,20 @@ def test_guard_covers_the_encoder_decoder():
             "tests/_torch_train_mesh.py"} <= names
 
 
+def test_guard_covers_the_history_examples_and_roofline():
+    """The benchmark history, the four examples and the dry run's cost and
+    roofline modules are among the files the guard reads."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"src/repro_torch/obs/history.py",
+            "src/repro_torch/examples/__init__.py",
+            "src/repro_torch/examples/quickstart.py",
+            "src/repro_torch/examples/serve_cdc.py",
+            "src/repro_torch/examples/multi_failure.py",
+            "src/repro_torch/examples/train_lm.py",
+            "src/repro_torch/roofline/analysis.py",
+            "src/repro_torch/launch/dryrun.py"} <= names
+
+
 def test_guard_catches_forbidden_imports(tmp_path):
     probe = tmp_path / "probe.py"
     probe.write_text("import jax.numpy as jnp\n"
@@ -177,7 +191,10 @@ def test_loading_every_port_module_loads_neither_jax_nor_reference():
     "repro_torch.configs.xlstm_125m", "repro_torch.models.mamba",
     "repro_torch.configs.hymba_1_5b", "repro_torch.train",
     "repro_torch.launch.train", "repro_torch.dist", "repro_torch.launch.mesh",
-    "repro_torch.dist.world", "repro_torch.launch.dryrun"])
+    "repro_torch.dist.world", "repro_torch.launch.dryrun",
+    "repro_torch.obs.history", "repro_torch.examples.quickstart",
+    "repro_torch.examples.serve_cdc", "repro_torch.examples.multi_failure",
+    "repro_torch.examples.train_lm"])
 def test_package_imports_first_in_a_fresh_interpreter(module):
     """No import cycle bites whichever package a program imports first
     (``obs`` and ``runtime`` import each other's leaf modules)."""

@@ -33,9 +33,10 @@ from repro.optim import adamw as jadamw
 from repro.train import train_step as jtrain
 from repro_torch.ckpt import latest_step
 from repro_torch.data import DataConfig, make_stream
-from repro_torch.dist import Mesh, param_specs, spawn_world
+from repro_torch.dist import Mesh, comm, param_specs, spawn_world
 from repro_torch.dist.sharding import (block_index, local_shard,
                                        paired_leaves)
+from repro_torch.train.trainer import mesh_step_messages
 from repro_torch.tree import named_leaves
 
 DEAD2 = np.arange(worker.T) != 2
@@ -209,13 +210,19 @@ def _spec_leaves(params, specs) -> list:
 
 
 def test_message_bytes_of_a_step_are_reckoned_exactly(world):
-    """A fault-free step's ``comm.COUNTS`` on every rank: one all-gather
-    over the 4 ranks for each sharded leaf (the rank's block out, the 3
-    others in), one all-reduce over the data line for each gradient leaf
-    the loss read (the parity leaves are not read fault-free) and one for
-    the loss: sent and received bytes and calls exactly."""
+    """A fault-free step's ``comm.COUNTS`` on every rank, as the library's
+    reckoning (``trainer.mesh_step_messages``, the dry run's collective
+    record) gives it: one all-gather over the 4 ranks for each sharded
+    leaf (the rank's block out, the 3 others in), one all-reduce over the
+    data line for each gradient leaf the loss read (the parity leaves are
+    not read fault-free) and one for the loss: sent and received bytes and
+    calls exactly."""
     _, out = world
     params = _init_params()
+    messages = mesh_step_messages(params, MESH,
+                                  read=lambda n: not n.endswith("/cdc"))
+    want = comm.counts_of(messages)
+    # the reckoning spelled out from the leaves' sizes
     specs = _spec_leaves(params, param_specs(params, MESH))
     calls = sent = received = 0
     for (name, leaf), spec in zip(named_leaves(params), specs):
@@ -226,8 +233,8 @@ def test_message_bytes_of_a_step_are_reckoned_exactly(world):
         if not name.endswith("/cdc"):
             calls, sent, received = calls + 1, sent + nb, received + nb
     calls, sent, received = calls + 1, sent + 4, received + 4    # the loss
-    want = {"calls": calls, "sent": sent, "received": received,
-            "staged": 0}
+    assert want == {"calls": calls, "sent": sent, "received": received,
+                    "staged": 0}
     for rank in range(4):
         for counts in out[rank]["base"]["counts"]:
             assert counts == want
