@@ -1988,15 +1988,22 @@ def _serve_run(eng, batch, fail_at=None, n_tok: int = N_TOK) -> dict:
     for fn in counted:
         fn.launches = 0
         fn.variants.clear()
-    vs = eng.executor(4).vstep
+    from repro_torch.obs.tracer import NULL_RECORDER, FlightRecorder
+    ex = eng.executor(4)
+    vs = ex.vstep
     before = {k: getattr(vs, k) for k in VSTEP_COUNTERS}
+    # each harvest's round period (dispatch to tokens on the host)
+    rec = ex.tracer = FlightRecorder()
     torch.cuda.synchronize()
     t = time.perf_counter()
-    toks = eng.generate(batch, n_tok, fail_at=fail_at)
-    torch.cuda.synchronize()
-    ex = eng.executor(4)
+    try:
+        toks = eng.generate(batch, n_tok, fail_at=fail_at)
+        torch.cuda.synchronize()
+    finally:
+        ex.tracer = NULL_RECORDER
     out = {"tokens": toks, "seconds": time.perf_counter() - t,
-           "round_ms": list(ex.round_ms[-(n_tok - 1):]),
+           "round_ms": [e.wall_dur_ms for e in
+                        rec.by_kind("round.harvest")][-(n_tok - 1):],
            "variants": ex.vstep.last_variant, "graphs": vs.use_graphs,
            "vstep": {k: getattr(vs, k) - before[k]
                      for k in VSTEP_COUNTERS}}
@@ -3136,6 +3143,7 @@ def _scheduler_run(model, params, argv: list[str], device: str,
     sched = serve.build_scheduler(args, stepper, model.ctx.code_layout)
     done = serve.serve_requests(args, sched)
     out = serve.report(args, sched, done) if report else {}
+    sched.tracer.detach()      # --profile's model ranges go off
     return stepper, sched, done, out
 
 
@@ -3210,7 +3218,7 @@ def serve_scheduler(cfg, device: str = "cuda") -> dict:
         res = {"tokens": {q.rid: list(q.tokens) for q in done},
                "counters": c, "r_series": rs, "seconds": secs,
                "launches": launches,
-               "round_ms": float(np.median(sched.executor.round_ms)),
+               "round_ms": sched.metrics.round_ms.percentile(50),
                "reencode_wall_ms": stepper.last_reencode_wall_ms,
                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
                "graphs": _check_scheduler_graphs(name, sched, stepper, T)}
@@ -3220,7 +3228,9 @@ def serve_scheduler(cfg, device: str = "cuda") -> dict:
         want = expect[name]
         if len(done) != 8 or any(len(q.tokens) != 16 for q in done):
             raise AssertionError(f"{name}: {len(done)}/8 requests completed")
-        if c != want["counters"] or rs != want["r_series"]:
+        # --profile's timing recorder adds counters the CPU run lacks
+        if {k: c[k] for k in want["counters"]} != want["counters"] \
+                or rs != want["r_series"]:
             raise AssertionError(
                 f"{name}: counters {c} / r series {rs} differ from the "
                 f"CPU run's {want['counters']} / {want['r_series']}")
@@ -3771,7 +3781,7 @@ def serve_h2o(device: str = "cuda") -> dict:
     perf = _check_observability("fault-free", sched, stepper, obs,
                                 ["--perf"])
     sched_out = {"counters": c, "seconds": secs, "launches": launches,
-                 "round_ms": float(np.median(sched.executor.round_ms)),
+                 "round_ms": sched.metrics.round_ms.percentile(50),
                  "graphs": _check_scheduler_graphs("h2o fault-free", sched,
                                                    stepper, T), **perf}
     log(f"h2o-danube-1.8b scheduler: 8/8 completed, {c['decode_rounds']} "
@@ -3937,7 +3947,7 @@ def _family_scheduler(tag: str, cfg, model, params, argv: list[str],
         passes = sched.executor.vstep.n_dispatches + c["requests_admitted"]
         res = {"tokens": {q.rid: list(q.tokens) for q in done},
                "counters": c, "seconds": secs, "launches": launches,
-               "round_ms": float(np.median(sched.executor.round_ms)),
+               "round_ms": sched.metrics.round_ms.percentile(50),
                "graphs": _check_scheduler_graphs(f"{tag} {name}", sched,
                                                  stepper, T)}
         if "--perf" in obs_args[name]:

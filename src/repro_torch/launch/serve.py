@@ -23,8 +23,19 @@ writes the flight recorder as a Perfetto/Chrome trace and validates it,
 trace (``/trace``), ``--slo-report`` prints the per-request TTFT/TPOT
 breakdown, ``--perf`` prints the roofline attribution of the round (on
 by itself with ``--trace``, ``--metrics-port`` or ``--profile``), and
-``--profile DIR`` writes a ``torch.profiler`` trace of the run with each
-round annotated as ``decode_round``.
+``--profile DIR`` writes a ``torch.profiler`` trace of the run: it
+attaches a timing flight recorder (``FlightRecorder(timing=True)``), so
+the trace holds the host spans (``host.health``, ``host.admit_prefill``,
+``host.admit``, ``host.prefill`` with ``host.prefill.state`` and
+``host.prefill.forward``, ``host.first_token``, ``host.write_slot``,
+``host.round_dispatch``, ``host.harvest_wait``, ``host.reencode``) and,
+in each eager forward, ``host.layer.attn``, ``host.layer.ffn`` (or
+``host.layer.moe``) and ``host.head``. With ``--trace`` as well, on a
+card, the flight-recorder trace has a ``device`` track: each round's and
+each prefill's device time from CUDA events, placed by one anchor taken
+when the recorder attached, so the gaps between them are the device's
+idle time (they keep real time between them; the other tracks are on the
+run's simulated clock).
 
 ``--arch`` takes every config the port registers: the dense decoders,
 hymba-1.5b (attention + mamba: the conv window and SSM state beside the
@@ -162,8 +173,9 @@ def parser() -> argparse.ArgumentParser:
                          "--profile)")
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace of the run into DIR "
-                         "(rounds annotated as decode_round; open with "
-                         "Perfetto)")
+                         "with the host.* ranges of a timing flight "
+                         "recorder (open with Perfetto); with --trace, its "
+                         "device track on a card")
     return ap
 
 
@@ -182,14 +194,14 @@ def build_scheduler(args, stepper: ModelStepper, layout: str):
                          overlap=not args.no_overlap,
                          use_fused=True if args.fused else "auto",
                          max_queue_depth=args.max_queue_depth,
-                         seed=args.seed, perf=perf,
-                         profile=args.profile is not None)
+                         seed=args.seed, perf=perf)
     injector = latency = None
     if args.chaos:
         injector = parse_chaos(args.chaos, stepper.n_shards, seed=args.seed)
         latency = InjectedLatency(LatencySpec(), injector, seed=args.seed)
-    tracer = FlightRecorder() \
-        if args.trace or args.metrics_port is not None else None
+    tracer = FlightRecorder(timing=args.profile is not None) \
+        if args.trace or args.metrics_port is not None or args.profile \
+        else None
     sched = ContinuousBatchingScheduler(stepper, rcfg, health=health,
                                         latency=latency, tracer=tracer)
     if injector is not None:
@@ -312,7 +324,9 @@ def report(args, sched, completed) -> dict:
               f"{stats['n_tracks']} tracks; "
               f"{stats['n_injected_erasures']} injected erasures, all "
               f"linked to a resolution; {stats['n_span_trees']} request "
-              f"span trees closed and gap-accounted)")
+              f"span trees closed and gap-accounted"
+              + (f"; {stats['n_device_spans']} device spans)"
+                 if stats["n_device_spans"] else ")"))
     return out
 
 
@@ -347,6 +361,7 @@ def main(argv=None):
     finally:
         if server is not None:
             server.stop()
+        sched.tracer.detach()      # the model's profiler ranges go off
     print(sched.metrics.to_json())
     if args.coded:
         print("straggler model (first-T-of-T+r):",

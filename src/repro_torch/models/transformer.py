@@ -27,6 +27,7 @@ from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import (Params, TPCtx, col_dense,
                                        linear_init, remat_layer, rmsnorm,
                                        tree_index, tree_unstack)
+from repro_torch.obs.tracer import model_range
 
 
 def xlstm_block_kinds(cfg) -> list[str]:
@@ -94,18 +95,24 @@ def init_params(cfg, gen: torch.Generator, ctx: TPCtx,
 
 def _layer_fwd(cfg, ctx: TPCtx, p: Params, x, valid, cache, mamba_state,
                pos_offset, q_chunk, kv_chunk):
-    xn = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    a = attn_mod.attention(ctx, p["attn"], cfg, xn, valid=valid,
-                           cache=cache, pos_offset=pos_offset,
-                           q_chunk=q_chunk, kv_chunk=kv_chunk)
-    if "mamba" in p:
-        m, _ = mamba_mod.mamba(ctx, p["mamba"], cfg, xn, valid, mamba_state)
-        a = (a + m) * 0.5
-    x = x + a
-    xn = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    # profiler ranges while a timing recorder is attached (obs.tracer)
+    with model_range("host.layer.attn"):
+        xn = rmsnorm(p["ln1"], x, cfg.norm_eps)
+        a = attn_mod.attention(ctx, p["attn"], cfg, xn, valid=valid,
+                               cache=cache, pos_offset=pos_offset,
+                               q_chunk=q_chunk, kv_chunk=kv_chunk)
+        if "mamba" in p:
+            m, _ = mamba_mod.mamba(ctx, p["mamba"], cfg, xn, valid,
+                                   mamba_state)
+            a = (a + m) * 0.5
+        x = x + a
     if "moe" in p:
-        return x + ffn_mod.moe(ctx, p["moe"], cfg, xn, valid)
-    return x + ffn_mod.ffn(ctx, p["ffn"], cfg, xn, valid)
+        with model_range("host.layer.moe"):
+            xn = rmsnorm(p["ln2"], x, cfg.norm_eps)
+            return x + ffn_mod.moe(ctx, p["moe"], cfg, xn, valid)
+    with model_range("host.layer.ffn"):
+        xn = rmsnorm(p["ln2"], x, cfg.norm_eps)
+        return x + ffn_mod.ffn(ctx, p["ffn"], cfg, xn, valid)
 
 
 def forward(cfg, params: Params, ctx: TPCtx, tokens: torch.Tensor,
@@ -184,5 +191,6 @@ def decode_step(cfg, params: Params, ctx: TPCtx, state: Params,
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
     if return_hidden:
         return x, state
-    logits = col_dense(ctx, params["lm_head"], x, cfg.vocab, valid)
-    return logits.to(torch.float32), state
+    with model_range("host.head"):
+        logits = col_dense(ctx, params["lm_head"], x, cfg.vocab, valid)
+        return logits.to(torch.float32), state

@@ -1,6 +1,8 @@
 """Observability of the port's runtime, as the reference package has it:
 
-  * ``tracer`` — the flight recorder's ring buffer and emission API;
+  * ``tracer`` — the flight recorder's ring buffer and emission API, and
+    with ``timing=True`` its host spans (on the profiler's clock too) and
+    device-timed round and prefill spans;
   * ``shardlog`` — the per-shard health timeline;
   * ``export`` — Perfetto/Chrome trace export and validation, Prometheus
     text, the live ``/metrics`` server;

@@ -10,7 +10,12 @@ runtime's SIMULATED clock in microseconds (deterministic, so a replayed
 chaos run exports a byte-identical trace modulo wall fields); the wall
 stamps ride along in each event's ``args`` under ``wall_*`` keys.
 ``ShardTimeline`` down-intervals render as red-able "down" slices on the
-shard tracks, so per-shard unavailability is visible at a glance.
+shard tracks, so per-shard unavailability is visible at a glance. A
+timing recorder's host spans render on a ``host`` track, and the device
+times it read (``wall_args["device_ms"]`` of a ``round.harvest`` or a
+``host.admit``, placed by its ``device_t_ms``) as ``device.round`` and
+``device.prefill`` slices on a ``device`` track: the gaps between them are
+the device's idle time.
 
 ``validate_chrome_trace`` is the schema + causality checker CI runs on
 every traced chaos artifact: structural validity (required keys, known
@@ -36,6 +41,9 @@ from typing import Any
 from repro_torch.obs.tracer import FlightRecorder
 
 _PROCESS = "repro_torch.runtime"
+#: events whose device time a timing recorder read, by the slice drawn
+_DEVICE_SPANS = {"round.harvest": "device.round",
+                 "host.admit": "device.prefill"}
 _KNOWN_PHASES = {"X", "i", "I", "M", "b", "e", "n", "s", "t", "f", "C"}
 
 
@@ -43,12 +51,12 @@ _KNOWN_PHASES = {"X", "i", "I", "M", "b", "e", "n", "s", "t", "f", "C"}
 
 def _track_order(tracks: list[str]) -> list[str]:
     """Stable display order: requests, spans, rounds, planner, perf,
-    slots, shards."""
+    host, device, slots, shards."""
     def key(t: str):
         head, _, idx = t.partition(":")
         fixed = {"requests": 0, "spans": 1, "rounds": 2, "planner": 3,
-                 "perf": 4, "slot": 5, "shard": 6}
-        return (fixed.get(head, 7), int(idx) if idx.isdigit() else 0, t)
+                 "perf": 4, "host": 5, "device": 6, "slot": 7, "shard": 8}
+        return (fixed.get(head, 9), int(idx) if idx.isdigit() else 0, t)
     return sorted(set(tracks), key=key)
 
 
@@ -65,6 +73,10 @@ def chrome_trace(recorder: FlightRecorder, shardlog=None,
     the trace file is a self-contained SLO report."""
     events = recorder.events()
     tracks = [e.track for e in events]
+    device = [(_DEVICE_SPANS[e.kind], e.wall_args) for e in events
+              if e.kind in _DEVICE_SPANS and "device_ms" in e.wall_args]
+    if device:
+        tracks.append("device")
     if shardlog is not None:
         tracks += [f"shard:{i}" for i in range(shardlog.n_shards)]
     if spans is not None and len(spans.done):
@@ -109,6 +121,12 @@ def chrome_trace(recorder: FlightRecorder, shardlog=None,
         else:
             rec["ph"], rec["s"] = "i", "t"
         out.append(rec)
+
+    for name, wa in device:
+        out.append({"name": name, "cat": "device", "ph": "X", "pid": 1,
+                    "tid": tid["device"], "ts": wa["device_t_ms"] * 1e3,
+                    "dur": wa["device_ms"] * 1e3,
+                    "args": {"device_ms": wa["device_ms"]}})
 
     if shardlog is not None:
         for shard, t0, t1, cause in shardlog.all_intervals(now_ms):
@@ -303,6 +321,8 @@ def validate_chrome_trace(trace: Any, require_fault_links: bool = False,
         "n_linked": linked,
         "n_counters": n_counters,
         "n_perf_counters": perf_counters,
+        "n_device_spans": sum(1 for e in events if e.get("cat") == "device"
+                              and names.get(e["tid"]) == "device"),
         "dropped_events": trace.get("otherData", {}).get("dropped_events",
                                                          0),
         **span_stats,

@@ -2,8 +2,8 @@
 
 The port's copy of the reference package's ``obs/perf.py``, with the cost
 counted on torch instead of compiled HLO. ``PerfMonitor`` connects the
-measured round latency (``SlotPoolExecutor.round_ms``) with the least time
-the card could take for the same round:
+measured round latency with the least time the card could take for the
+same round:
 
   * **Attribution** (once per code geometry): one eager round of each
     variant the executor owns — ``reference`` (full-logits coded decode)
@@ -35,9 +35,13 @@ the card could take for the same round:
     never run inside a CUDA-graph capture (attribution happens at a
     harvest).
   * **Utilization** (every harvest): the static per-round cost with the
-    MEASURED round wall time gives ``achieved_flops_per_s``, ``hbm_gbs``
+    MEASURED round time gives ``achieved_flops_per_s``, ``hbm_gbs``
     and ``roofline_utilization`` (= bound time / measured time; 1.0 is a
-    round at the card's bound). Published through ``RuntimeMetrics.perf``,
+    round at the card's bound). The round's time is its device ms where a
+    timing recorder gives them (``obs.tracer``: CUDA events around
+    ``VStep.round``), else the host period from dispatch to harvest;
+    ``round_ms_source`` ("device" or "host") says which. Published
+    through ``RuntimeMetrics.perf``,
     ``perf.counter`` events on the flight recorder's ``perf`` track
     (static cost in args, wall-derived values in ``wall_args``) and
     ``summary()``.
@@ -274,6 +278,7 @@ class PerfMonitor:
         self.n_attributions = 0
         self.last_variant: str | None = None
         self.last_round_ms: float | None = None
+        self.round_ms_source: str | None = None
         self._geom: tuple[int, int] | None = None
 
     # ------------------------------------------------------- attribution ----
@@ -309,20 +314,26 @@ class PerfMonitor:
             self.attribute(executor)
 
     # -------------------------------------------------------- observation ----
-    def observe_round(self, executor, wall_ms: float, variant: str):
+    def observe_round(self, executor, wall_ms: float, variant: str,
+                      device_ms: float | None = None):
         """One harvested round: measured period ``wall_ms`` for the round
-        ``variant`` that was dispatched."""
+        ``variant`` that was dispatched, and its device ms where a timing
+        recorder read them (then the rates are taken from those)."""
         self._maybe_attribute(executor)
         cost = self.costs.get(variant) or self.costs.get("reference")
-        if cost is None or wall_ms <= 0:
+        source = "host" if device_ms is None else "device"
+        ms = wall_ms if device_ms is None else device_ms
+        if cost is None or ms <= 0:
             return
         self.n_observed += 1
         self.last_variant = variant
-        self.last_round_ms = float(wall_ms)
-        derived = self.derived(cost, wall_ms)
+        self.last_round_ms = float(ms)
+        self.round_ms_source = source
+        derived = self.derived(cost, ms)
         if self.metrics is not None:
             self.metrics.set_perf({"variant": variant,
                                    "n_rounds_observed": self.n_observed,
+                                   "round_ms_source": source,
                                    **derived})
         if self.tracer.enabled:
             self.tracer.emit(
@@ -332,7 +343,7 @@ class PerfMonitor:
                 coded_overhead_frac=cost.coded_overhead_frac,
                 parity_device_equiv=cost.parity_device_equiv,
                 wall_args={
-                    "round_ms": wall_ms,
+                    "round_ms": ms,
                     "achieved_gflops_per_s":
                         derived["achieved_flops_per_s"] / 1e9,
                     "hbm_gbs": derived["hbm_gbs"],
@@ -384,6 +395,7 @@ class PerfMonitor:
         out = self._static_summary()
         out["variant"] = cost.variant
         out["n_rounds_observed"] = self.n_observed
+        out["round_ms_source"] = self.round_ms_source
         ms = round_ms if round_ms else self.last_round_ms
         if ms:
             out.update(self.derived(cost, ms))

@@ -263,13 +263,15 @@ class SpanTracker:
         tree.state = "shed"
         self._finish(tree)
 
-    def on_admit(self, req, t_ms: float, prefill_wall_ms: float = 0.0):
+    def on_admit(self, req, t_ms: float, prefill_wall_ms: float = 0.0,
+                 t1_ms: float | None = None):
         """Close the open wait span (initial queue_wait, or the requeue
         child of a fault_recovery span), stamp the prefill, and open a
-        decode episode. The prefill is a sim-instant (admission-time
-        prefill does not advance the simulated clock) whose real cost is
-        quarantined in ``wall_args`` — it becomes a true span when
-        chunked prefill lands."""
+        decode episode. The prefill spans ``t_ms`` to ``t1_ms``, the
+        first token on the host (default ``t_ms``): on a simulated clock
+        an instant (admission-time prefill does not advance it) whose
+        real cost is quarantined in ``wall_args``, on a wall clock the
+        admission's time."""
         tree = self.open.get(req.rid)
         if tree is None:
             return
@@ -283,12 +285,13 @@ class SpanTracker:
             else:
                 tree._wait.close(t_ms, wall)
             tree._wait = None
+        t1 = t_ms if t1_ms is None else t1_ms
         tree.root.add(Span(SPAN_PREFILL, t_ms, wall,
                            args={"n_requeues": req.n_requeues,
                                  "first_token": True},
                            wall_args={"prefill_ms": prefill_wall_ms})
-                      ).close(t_ms, wall)
-        tree._decode = tree.root.add(Span(SPAN_DECODE, t_ms, wall))
+                      ).close(t1, wall)
+        tree._decode = tree.root.add(Span(SPAN_DECODE, t1, wall))
 
     def on_round(self, rid: int, t0_ms: float, dt_ms: float,
                  round_idx: int, stall_ms: float = 0.0):

@@ -31,20 +31,60 @@ Event taxonomy (``kind``, dot-namespaced):
      (once per code geometry) and the per-harvest achieved-vs-roofline
      counter samples (``obs.perf``; rendered as Perfetto counter tracks)
 
+  host.*                                        — host spans of a
+     timing recorder (``HOST_SPANS``; below)
+
 ``track`` names the Perfetto track the event renders on: ``requests``,
-``rounds``, ``planner``, ``perf``, ``slot:<i>``, ``shard:<i>``.
+``rounds``, ``planner``, ``perf``, ``host``, ``slot:<i>``, ``shard:<i>``.
 
 Disabled cost is one branch: call sites guard on ``tracer.enabled``
 before building kwargs, and ``NULL_RECORDER`` (the default everywhere)
 is a permanently-disabled singleton whose ``emit`` returns immediately —
 a scheduler constructed without a tracer records zero events.
+
+**Timing** (``FlightRecorder(timing=True)``; off by default, and off the
+event stream is exactly the untimed one). ``span(name)`` opens
+``torch.profiler.record_function(name)``, so a running profiler holds
+the span on the device trace's own clock, and on exit emits a ``host.*``
+event on the ``host`` track stamped at entry from the bound clock (under
+a ``WallClock`` the base of a live deployment), its wall duration in
+``wall_dur_ms``. Off, ``span`` returns a shared no-op context: one call
+and one attribute test. While a timing recorder is attached to a
+scheduler (``attach``), ``model_range`` labels each layer's attention
+and FFN or MoE and the LM head with profiler ranges (``host.layer.*``,
+``host.head``); otherwise it costs one branch, and inside a CUDA-graph
+replay nothing (a replay runs no Python). On a CUDA device ``attach``
+records one anchor event with a single synchronise; ``device_events``
+gives a CUDA event pair whose ``device_read`` (once its end event has
+completed) is the pair's device ms and its start on the bound clock
+(``device_ms``, ``device_t_ms``, kept in ``wall_args``): the executor
+times each round with one, the stepper each prefill, and neither adds a
+synchronise. ``obs.export.chrome_trace`` draws them on a ``device``
+track: the gaps between them are the device's idle time, and under a
+``WallClock`` they line up with the host spans.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import deque
 from typing import Any
+
+import torch
+
+#: the host spans a timing recorder emits, each where its work happens:
+#: the scheduler's health poll, its admissions (and each one's, from its
+#: pop to its first token on the host with its row written), the
+#: prefill (its state and its forward), the first token's read, the
+#: row's write into the pool, the round's dispatch, the harvest's wait
+#: and the parity re-encode
+HOST_SPANS = frozenset({
+    "host.health", "host.admit_prefill", "host.admit",
+    "host.prefill", "host.prefill.state", "host.prefill.forward",
+    "host.first_token", "host.write_slot",
+    "host.round_dispatch", "host.harvest_wait", "host.reencode",
+})
 
 #: the full event taxonomy; ``emit`` rejects unknown kinds so a typo
 #: cannot create a phantom event stream (mirrors the counter registry).
@@ -56,7 +96,33 @@ EVENT_KINDS = frozenset({
     "shard.heal", "shard.heal_all", "code.reencode", "code.resize",
     "planner.plan",
     "perf.attribution", "perf.counter",
-})
+}) | HOST_SPANS
+
+_NO_SPAN = contextlib.nullcontext()
+#: timing recorders attached in this process (``model_range`` is on while
+#: any is)
+_attached = 0
+
+
+def model_range(name: str):
+    """``record_function(name)`` while a timing recorder is attached,
+    else a shared no-op context."""
+    if _attached:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def alloc_counts(device) -> dict[str, int]:
+    """The caching allocator's retries and device mallocs so far on a
+    CUDA ``device`` (the latter where the installed torch reports it);
+    empty elsewhere."""
+    if torch.device(device).type != "cuda":
+        return {}
+    stats = torch.cuda.memory_stats(device)
+    out = {"cuda_alloc_retries": int(stats.get("num_alloc_retries", 0))}
+    if "num_device_alloc" in stats:
+        out["cuda_device_mallocs"] = int(stats["num_device_alloc"])
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,7 +158,8 @@ class FlightRecorder:
 
     enabled: bool = True
 
-    def __init__(self, capacity: int = 65536, clock: Any = None):
+    def __init__(self, capacity: int = 65536, clock: Any = None,
+                 timing: bool = False):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         self.capacity = int(capacity)
@@ -100,6 +167,10 @@ class FlightRecorder:
         self.clock = clock
         self.n_emitted = 0
         self._epoch = time.perf_counter()
+        self.timing = bool(timing)
+        self._holds = 0
+        # (CUDA event, its time on the bound clock): places device spans
+        self._anchor: tuple[Any, float] | None = None
 
     # ----------------------------------------------------------- clocks ----
     def bind_clock(self, clock: Any):
@@ -109,6 +180,60 @@ class FlightRecorder:
 
     def wall_now_ms(self) -> float:
         return (time.perf_counter() - self._epoch) * 1e3
+
+    def now_ms(self) -> float:
+        return self.clock.now() if self.clock is not None else 0.0
+
+    # ----------------------------------------------------------- timing ----
+    def attach(self, device=None):
+        """A scheduler took this recorder: while timing, hold the model's
+        profiler ranges on and, on a CUDA device, record the anchor (once,
+        with one synchronise)."""
+        global _attached
+        if not self.timing:
+            return
+        self._holds += 1
+        _attached += 1
+        if self._anchor is None and device is not None \
+                and torch.device(device).type == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            ev.synchronize()
+            self._anchor = (ev, self.now_ms())
+
+    def detach(self):
+        """A scheduler let go of this recorder."""
+        global _attached
+        if self._holds:
+            self._holds -= 1
+            _attached -= 1
+
+    def span(self, name: str, **args):
+        """A host span (``HOST_SPANS``) around a ``with`` block; yields
+        the span (whose ``wall_args`` the block may add to) while timing,
+        else None."""
+        if not self.timing:
+            return _NO_SPAN
+        return _Span(self, name, args)
+
+    def device_events(self):
+        """A CUDA event pair whose start is recorded now, or None (timing
+        off, or no anchor: not on a card). The caller records the end."""
+        if self._anchor is None:
+            return None
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        return start, torch.cuda.Event(enable_timing=True)
+
+    def device_read(self, pair) -> dict:
+        """``device_ms`` and ``device_t_ms`` (the start on the bound
+        clock) of a pair whose end event has completed; {} for None."""
+        if pair is None:
+            return {}
+        start, end = pair
+        anchor, t_ms = self._anchor
+        return {"device_ms": start.elapsed_time(end),
+                "device_t_ms": t_ms + anchor.elapsed_time(start)}
 
     # ------------------------------------------------------------ write ----
     def emit(self, kind: str, track: str = "runtime",
@@ -162,6 +287,33 @@ class FlightRecorder:
 
     def __len__(self) -> int:
         return len(self.buf)
+
+
+class _Span:
+    """One open host span of a timing recorder."""
+
+    __slots__ = ("rec", "name", "args", "wall_args", "t_ms", "t0", "rf")
+
+    def __init__(self, rec: FlightRecorder, name: str, args: dict):
+        self.rec, self.name, self.args = rec, name, args
+        self.wall_args: dict = {}
+
+    def __enter__(self):
+        self.t_ms = self.rec.now_ms()
+        self.t0 = time.perf_counter()
+        self.rf = torch.profiler.record_function(self.name)
+        self.rf.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.rf.__exit__(*exc)
+        if exc[0] is None:
+            wall = (time.perf_counter() - self.t0) * 1e3
+            self.rec.emit(self.name, track="host", t_ms=self.t_ms,
+                          dur_ms=max(self.rec.now_ms() - self.t_ms, 0.0),
+                          wall_dur_ms=wall, wall_args=self.wall_args,
+                          **self.args)
+        return False
 
 
 class _NullRecorder(FlightRecorder):

@@ -9,11 +9,10 @@ work runs while the device computes. Each round's tokens are copied at
 dispatch into pinned host memory with ``non_blocking=True`` and an event
 is recorded behind the copy; harvest waits on that event alone, never on
 the kernels queued after it. ``overlap=False`` harvests the round it just
-dispatched. Each harvest appends to ``round_ms`` the wall time from the
-start of the round's dispatch to its tokens on the host; with overlap
-that includes the next round's dispatch, so it is a token latency and
-not the pipelined period; the same time goes to ``metrics.round_ms``
-when the pool is given a ``RuntimeMetrics``.
+dispatched. Each harvest gives ``metrics.round_ms`` (when the pool is
+given a ``RuntimeMetrics``) the wall time from the start of the round's
+dispatch to its tokens on the host; with overlap that includes the next
+round's dispatch, so it is a token latency and not the pipelined period.
 
 ``round_hooks`` are called as ``hook(executor, valid)`` on the host right
 before each dispatch (the chaos harness replays modelled stalls into the
@@ -30,12 +29,17 @@ The reference executor's observability hooks: ``perf`` (an
 after a geometry change, achieved rates every harvest), ``spans`` (an
 ``obs.spans.SpanTracker``: each harvest stamps the measured round period
 and the unhidden block time onto the decode slices of the round, matched
-by ``RoundHandle.round_idx``) and ``profile`` (each dispatch inside
-``torch.profiler.record_function("decode_round")``).
+by ``RoundHandle.round_idx``) and ``tracer`` (the flight recorder). A
+timing recorder (``obs.tracer``) adds host spans around each admission's
+first-token read and row write, each dispatch and each harvest's wait,
+and on a card a CUDA event pair around ``VStep.round``: the ``ready``
+event the harvest waits on is recorded after the pair's end, so the
+harvest reads the round's device ms (``round.harvest``'s
+``wall_args["device_ms"]``, and ``perf`` takes it in place of the host
+period) without another synchronise.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import time
 from typing import Any
@@ -63,6 +67,7 @@ class RoundHandle:
     t0: float
     variant: str = "reference"
     round_idx: int = 0
+    device: tuple | None = None       # the round's CUDA event pair
 
 
 class SlotPoolExecutor:
@@ -71,7 +76,7 @@ class SlotPoolExecutor:
     def __init__(self, stepper, n_slots: int, *, overlap: bool = True,
                  use_fused: bool | str = "auto",
                  use_graphs: bool | str = "auto", metrics=None,
-                 tracer=None, perf=None, profile: bool = False, spans=None):
+                 tracer=None, perf=None, spans=None):
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
         self.stepper = stepper
@@ -80,7 +85,6 @@ class SlotPoolExecutor:
         self.overlap = bool(overlap)
         self.perf = perf
         self.spans = spans
-        self.profile = bool(profile)
         self.vstep = VStep(stepper, use_fused=use_fused,
                            use_graphs=use_graphs)
         self.state = blank_state(stepper, self.n_slots)
@@ -88,7 +92,6 @@ class SlotPoolExecutor:
                                      device=stepper.device)
         self.active = np.zeros(self.n_slots, bool)
         self.tags: list[Any] = [None] * self.n_slots
-        self.round_ms: list[float] = []
         self.metrics = metrics
         self.tracer = tracer if tracer is not None else NULL_RECORDER
         self._pending: RoundHandle | None = None
@@ -106,12 +109,16 @@ class SlotPoolExecutor:
         cross K/V land in the slot's row of the bank."""
         logits, row = self.stepper.prefill(request_batch(prompt, extras),
                                            valid)
-        tok = self.stepper.greedy(logits)                     # [1, 1]
-        self.state = write_slot(self.state, slot, row, axis=self.slot_axis)
-        self.last_toks[slot] = tok[0]
+        with self.tracer.span("host.first_token"):
+            tok = self.stepper.greedy(logits)                 # [1, 1]
+            first = int(tok[0, 0])     # the admission's one wait
+        with self.tracer.span("host.write_slot"):
+            self.state = write_slot(self.state, slot, row,
+                                    axis=self.slot_axis)
+            self.last_toks[slot] = tok[0]
         self.active[slot] = True
         self.tags[slot] = tag
-        return int(tok[0, 0])
+        return first
 
     def evict(self, slot: int):
         self.active[slot] = False
@@ -126,58 +133,62 @@ class SlotPoolExecutor:
         self._pending = None
 
     def _dispatch(self, valid) -> RoundHandle | None:
-        if not self.active.any():
-            return None
-        t_host = time.perf_counter()
-        for hook in self.round_hooks:
-            hook(self, valid)
-        t0 = time.perf_counter()
-        annotate = torch.profiler.record_function("decode_round") \
-            if self.profile else contextlib.nullcontext()
-        with annotate:
-            new_state, toks, _ = self.vstep.round(self.state,
-                                                  self.last_toks, valid)
-        self.state = new_state
-        if toks is not self.last_toks:
-            self.last_toks.copy_(toks)
-        toks = self.last_toks
-        if toks.device.type == "cuda":
-            host = torch.empty(toks.shape, dtype=toks.dtype,
-                               pin_memory=True)
-            host.copy_(toks, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record()
-        else:
-            host, ready = toks.clone(), None
-        occupants = tuple((int(i), self.tags[int(i)])
-                          for i in np.flatnonzero(self.active))
-        if self.tracer.enabled:
-            self.tracer.emit(
-                "round.dispatch", track="rounds",
-                round=self.vstep.n_dispatches, n_active=len(occupants),
-                dead=[int(i) for i in np.flatnonzero(
-                    ~np.asarray(valid, bool))],
-                wall_args={"dispatch_host_ms":
-                           (time.perf_counter() - t_host) * 1e3})
-        return RoundHandle(host, ready, occupants, t0,
-                           self.vstep.last_variant,
-                           round_idx=self.vstep.n_dispatches)
+        with self.tracer.span("host.round_dispatch"):
+            if not self.active.any():
+                return None
+            t_host = time.perf_counter()
+            for hook in self.round_hooks:
+                hook(self, valid)
+            t0 = time.perf_counter()
+            device = self.tracer.device_events()
+            new_state, toks, _ = self.vstep.round(self.state, self.last_toks,
+                                                  valid)
+            if device is not None:
+                device[1].record()
+            self.state = new_state
+            if toks is not self.last_toks:
+                self.last_toks.copy_(toks)
+            toks = self.last_toks
+            if toks.device.type == "cuda":
+                host = torch.empty(toks.shape, dtype=toks.dtype,
+                                   pin_memory=True)
+                host.copy_(toks, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record()
+            else:
+                host, ready = toks.clone(), None
+            occupants = tuple((int(i), self.tags[int(i)])
+                              for i in np.flatnonzero(self.active))
+            if self.tracer.enabled:
+                self.tracer.emit(
+                    "round.dispatch", track="rounds",
+                    round=self.vstep.n_dispatches, n_active=len(occupants),
+                    dead=[int(i) for i in np.flatnonzero(
+                        ~np.asarray(valid, bool))],
+                    wall_args={"dispatch_host_ms":
+                               (time.perf_counter() - t_host) * 1e3})
+            return RoundHandle(host, ready, occupants, t0,
+                               self.vstep.last_variant,
+                               round_idx=self.vstep.n_dispatches,
+                               device=device)
 
     def _harvest(self, handle: RoundHandle | None
                  ) -> list[tuple[int, Any, int]]:
         if handle is None:
             return []
-        t_block = time.perf_counter()
-        if handle.ready is not None:
-            handle.ready.synchronize()
-        t_ready = time.perf_counter()
+        with self.tracer.span("host.harvest_wait"):
+            t_block = time.perf_counter()
+            if handle.ready is not None:
+                handle.ready.synchronize()
+            t_ready = time.perf_counter()
         period = (t_ready - handle.t0) * 1e3
         block = (t_ready - t_block) * 1e3
-        self.round_ms.append(period)
+        device = self.tracer.device_read(handle.device)
         if self.metrics is not None:
             self.metrics.observe_round_ms(period)
         if self.perf is not None:
-            self.perf.observe_round(self, period, handle.variant)
+            self.perf.observe_round(self, period, handle.variant,
+                                    device_ms=device.get("device_ms"))
         if self.spans is not None:
             self.spans.on_round_wall(handle.round_idx, period, block)
         if self.tracer.enabled:
@@ -185,7 +196,7 @@ class SlotPoolExecutor:
                 "round.harvest", track="rounds", overlap=self.overlap,
                 n_harvested=len(handle.slots), wall_dur_ms=period,
                 wall_args={"block_ms": block,
-                           "host_overlapped_ms": period - block})
+                           "host_overlapped_ms": period - block, **device})
         arr = handle.toks.numpy()
         return [(s, tag, int(arr[s, 0])) for s, tag in handle.slots]
 

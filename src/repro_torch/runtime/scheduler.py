@@ -28,10 +28,17 @@ stepping over batch-1 states as the differential-test oracle. Every
 slot's tokens are host ints.
 
 Observability as in the reference: per-request span trees (``spans``,
-on by default), roofline perf accounting (``perf``) and per-round
-profiler annotations (``profile``). A request's ``extras`` (enc-dec
-``frames``) reach its prefill on both paths; the batched one writes the
-encoder's cross K/V into the slot's row of the executor's bank.
+on by default), roofline perf accounting (``perf``) and the flight
+recorder (``tracer``; ``attach_tracer`` binds one to the scheduler, its
+executor and its stepper, also after construction). A timing recorder
+(``FlightRecorder(timing=True)``) adds host spans around the health poll,
+the step's admissions and each admission, device times of each round and
+prefill, and counters of graph captures, replays and drops and of the
+caching allocator's retries and device mallocs. A request's first token
+is stamped once it is on the host (under a ``WallClock`` after its
+prefill). A request's ``extras`` (enc-dec ``frames``) reach its prefill
+on both paths; the batched one writes the encoder's cross K/V into the
+slot's row of the executor's bank.
 """
 from __future__ import annotations
 
@@ -45,7 +52,7 @@ import numpy as np
 from repro_torch.core.failure import StragglerModel, request_latency
 from repro_torch.core.seeds import stream_rng
 from repro_torch.obs.shardlog import ShardTimeline
-from repro_torch.obs.tracer import NULL_RECORDER, FlightRecorder
+from repro_torch.obs.tracer import NULL_RECORDER, FlightRecorder, alloc_counts
 from repro_torch.runtime.clock import Clock, SimClock
 from repro_torch.runtime.executor import (SlotPoolExecutor, request_batch,
                                           supports_slot_batching)
@@ -70,7 +77,6 @@ class RuntimeConfig:
     use_fused: bool | str = "auto"   # fused coded-GEMM + fused-head round
     max_queue_depth: int | None = None   # shed beyond this depth
     perf: bool = False               # roofline attribution + achieved rates
-    profile: bool = False            # torch.profiler annotations per round
     spans: bool = True               # per-request span trees (obs.spans);
     #                                  bounded memory, on by default like
     #                                  the shard timeline
@@ -112,11 +118,8 @@ class ContinuousBatchingScheduler:
         self.health = health if health is not None else ShardHealthController(
             stepper.n_shards, stepper.erasure_budget)
         self.metrics = metrics if metrics is not None else RuntimeMetrics()
-        self.tracer = tracer if tracer is not None else NULL_RECORDER
-        self.tracer.bind_clock(self.clock)
-        if self.tracer.enabled and not stepper.tracer.enabled:
-            # adopt the stepper so code.resize lands in this stream too
-            stepper.tracer = self.tracer
+        self.tracer = NULL_RECORDER
+        self._timing_seen: dict[str, int] = {}
         # per-shard health timeline: always on (O(1) per health event)
         self.shardlog = ShardTimeline(stepper.n_shards,
                                       t0_ms=self.clock.now())
@@ -154,12 +157,57 @@ class ContinuousBatchingScheduler:
                 # roofline-anchored round attribution: costed at first
                 # harvest, achieved rates + counter-track events per round
                 from repro_torch.obs.perf import PerfMonitor
-                perf = PerfMonitor(metrics=self.metrics, tracer=self.tracer)
+                perf = PerfMonitor(metrics=self.metrics)
             self.executor = SlotPoolExecutor(
                 stepper, rcfg.n_slots, overlap=rcfg.overlap,
-                use_fused=rcfg.use_fused, metrics=self.metrics,
-                tracer=self.tracer, perf=perf, profile=rcfg.profile,
+                use_fused=rcfg.use_fused, metrics=self.metrics, perf=perf,
                 spans=self.spans)
+        self.attach_tracer(tracer)
+
+    # ------------------------------------------------------------ tracer ----
+    def attach_tracer(self, recorder: FlightRecorder | None):
+        """Bind ``recorder`` (None: the disabled one) to the scheduler,
+        its executor (and its perf monitor) and its stepper, in place of
+        the one they had. The stepper keeps a recorder of its own unless
+        it had this scheduler's, so code.resize lands in this stream. A
+        timing recorder also takes its device anchor here and registers
+        the timing counters."""
+        recorder = recorder if recorder is not None else NULL_RECORDER
+        old = self.tracer
+        if recorder is old:
+            return
+        old.detach()
+        self.tracer = recorder
+        recorder.bind_clock(self.clock)
+        if self.stepper.tracer is old or not self.stepper.tracer.enabled:
+            self.stepper.tracer = recorder
+        if self.executor is not None:
+            self.executor.tracer = recorder
+            if self.executor.perf is not None:
+                self.executor.perf.tracer = recorder
+        recorder.attach(self.stepper.device)
+        if recorder.timing:
+            self._timing_seen = self._timing_counts()
+            for name in self._timing_seen:
+                self.metrics.register(name)
+
+    def _timing_counts(self) -> dict[str, int]:
+        """Graph captures, replays and drops, and the caching
+        allocator's retries and device mallocs, so far."""
+        out = {}
+        if self.executor is not None:
+            vs = self.executor.vstep
+            out.update(graph_captures=vs.n_captures,
+                       graph_replays=vs.n_replays,
+                       graph_drops=vs.n_graph_drops)
+        out.update(alloc_counts(self.stepper.device))
+        return out
+
+    def _count_timing(self):
+        seen = self._timing_counts()
+        for name, n in seen.items():
+            self.metrics.count(name, n - self._timing_seen.get(name, n))
+        self._timing_seen = seen
 
     # --------------------------------------------------------- ingestion ----
     def submit(self, prompt, max_new_tokens: int,
@@ -212,38 +260,39 @@ class ContinuousBatchingScheduler:
 
     # ------------------------------------------------------------ health ----
     def _handle_health(self):
-        traced = self.tracer.enabled
-        for ev, action in self.health.poll_events(self.clock.now()):
-            track = f"shard:{ev.shard}" if ev.shard >= 0 else "rounds"
-            if action is HealthAction.CONTINUE:
-                # CDC path: mask flipped, decode recovers in-step.
-                self.metrics.count("erasures_recovered")
-                if traced:
-                    self.tracer.emit("fault.recovered", track=track,
+        with self.tracer.span("host.health"):
+            traced = self.tracer.enabled
+            for ev, action in self.health.poll_events(self.clock.now()):
+                track = f"shard:{ev.shard}" if ev.shard >= 0 else "rounds"
+                if action is HealthAction.CONTINUE:
+                    # CDC path: mask flipped, decode recovers in-step.
+                    self.metrics.count("erasures_recovered")
+                    if traced:
+                        self.tracer.emit("fault.recovered", track=track,
+                                         t_ms=ev.time_ms, shard=ev.shard,
+                                         n_dead=self.health.n_dead,
+                                         budget=self.health.budget)
+                elif action is HealthAction.REQUEUE:
+                    if traced:
+                        self.tracer.emit("fault.beyond_budget", track=track,
+                                         t_ms=ev.time_ms, shard=ev.shard,
+                                         fault=ev.kind.value,
+                                         n_dead=self.health.n_dead,
+                                         budget=self.health.budget)
+                    self._requeue_inflight(ev)
+                elif action is HealthAction.REENCODE:
+                    # a shard rejoined: fold it back into the code.
+                    self.metrics.count("shards_healed")
+                    if traced:
+                        self.tracer.emit("shard.heal", track=track,
+                                         t_ms=ev.time_ms, shard=ev.shard,
+                                         cause="recovery")
+                    self._reencode()
+                elif traced:
+                    # duplicate report: resolve the injected fault explicitly
+                    self.tracer.emit("fault.noop", track=track,
                                      t_ms=ev.time_ms, shard=ev.shard,
-                                     n_dead=self.health.n_dead,
-                                     budget=self.health.budget)
-            elif action is HealthAction.REQUEUE:
-                if traced:
-                    self.tracer.emit("fault.beyond_budget", track=track,
-                                     t_ms=ev.time_ms, shard=ev.shard,
-                                     fault=ev.kind.value,
-                                     n_dead=self.health.n_dead,
-                                     budget=self.health.budget)
-                self._requeue_inflight(ev)
-            elif action is HealthAction.REENCODE:
-                # a shard rejoined: fold it back into the code.
-                self.metrics.count("shards_healed")
-                if traced:
-                    self.tracer.emit("shard.heal", track=track,
-                                     t_ms=ev.time_ms, shard=ev.shard,
-                                     cause="recovery")
-                self._reencode()
-            elif traced:
-                # duplicate report: resolve the injected fault explicitly
-                self.tracer.emit("fault.noop", track=track,
-                                 t_ms=ev.time_ms, shard=ev.shard,
-                                 fault=ev.kind.value)
+                                     fault=ev.kind.value)
 
     def _reencode(self):
         """Offline parity re-encode + its telemetry (single emit point)."""
@@ -311,15 +360,24 @@ class ContinuousBatchingScheduler:
 
     # --------------------------------------------------------- admission ----
     def _admit(self):
-        mask = self.health.mask
-        for slot in self.slots:
-            if not slot.free or not self.queue:
-                continue
-            req = self.queue.pop()
-            now = self.clock.now()
-            req.state = RequestState.RUNNING
-            req.slot = slot.idx
-            req.admitted_ms = now
+        with self.tracer.span("host.admit_prefill"):
+            mask = self.health.mask
+            for slot in self.slots:
+                if not slot.free or not self.queue:
+                    continue
+                self._admit_one(slot, self.queue.pop(), mask)
+
+    def _admit_one(self, slot: _Slot, req: Request, mask):
+        """Prefill ``req`` into ``slot``. Its first token is stamped once
+        it is on the host, with the slot's row written."""
+        now = self.clock.now()
+        req.state = RequestState.RUNNING
+        req.slot = slot.idx
+        req.admitted_ms = now
+        with self.tracer.span("host.admit", rid=req.rid,
+                              prompt_len=int(req.prompt.size)) as span:
+            alloc = alloc_counts(self.stepper.device) if span else None
+            t0 = time.perf_counter()
             if self.executor is not None:
                 tok = self.executor.admit(slot.idx, req.prompt, mask,
                                           tag=req.rid, extras=req.extras)
@@ -327,28 +385,36 @@ class ContinuousBatchingScheduler:
             else:
                 logits, state = self.stepper.prefill(
                     request_batch(req.prompt, req.extras), mask)
-                t = self.stepper.greedy(logits)
+                with self.tracer.span("host.first_token"):
+                    t = self.stepper.greedy(logits)
+                    tok = int(t[0, 0])
                 slot.request, slot.state, slot.last_tok = req, state, t
-                tok = int(t[0, 0])
-            slot.occupancies += 1
-            req.tokens.append(tok)
-            req.first_token_ms = now
-            if self.spans is not None:
-                self.spans.on_admit(
-                    req, now,
-                    prefill_wall_ms=self.stepper.last_prefill_wall_ms)
-            self.metrics.count("requests_admitted")
-            self.metrics.count("tokens_generated")
-            if self.tracer.enabled:
-                self.tracer.emit("request.admit", track=f"slot:{slot.idx}",
-                                 t_ms=now, rid=req.rid,
-                                 queueing_ms=req.queueing_ms,
-                                 n_requeues=req.n_requeues)
-                self.tracer.emit("request.first_token",
-                                 track=f"slot:{slot.idx}", t_ms=now,
-                                 rid=req.rid, ttft_ms=req.ttft_ms)
-            if req.done:
-                self._complete(slot)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            if span:
+                span.wall_args.update(self.tracer.device_read(
+                    self.stepper.last_prefill_events))
+                span.wall_args.update(
+                    (name, n - alloc[name]) for name, n in
+                    alloc_counts(self.stepper.device).items())
+        first = self.clock.now()
+        slot.occupancies += 1
+        req.tokens.append(tok)
+        req.first_token_ms = first
+        if self.spans is not None:
+            self.spans.on_admit(req, now, prefill_wall_ms=wall_ms,
+                                t1_ms=first)
+        self.metrics.count("requests_admitted")
+        self.metrics.count("tokens_generated")
+        if self.tracer.enabled:
+            self.tracer.emit("request.admit", track=f"slot:{slot.idx}",
+                             t_ms=now, rid=req.rid,
+                             queueing_ms=req.queueing_ms,
+                             n_requeues=req.n_requeues)
+            self.tracer.emit("request.first_token",
+                             track=f"slot:{slot.idx}", t_ms=first,
+                             rid=req.rid, ttft_ms=req.ttft_ms)
+        if req.done:
+            self._complete(slot)
 
     def _complete(self, slot: _Slot):
         req = slot.request
@@ -391,6 +457,8 @@ class ContinuousBatchingScheduler:
             finished = self._step_sequential()
 
         self.metrics.count("decode_rounds")
+        if self.tracer.timing:
+            self._count_timing()
         self._advance_clock()
         self.metrics.sample_queue_depth(self.clock.now(), len(self.queue))
         self.metrics.mark(self.clock.now())

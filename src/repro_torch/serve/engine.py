@@ -52,9 +52,12 @@ class ModelStepper:
         spec = model.ctx.spec
         self.erasure_budget = int(spec.max_device_failures) if spec else 0
         # wall time of the last parity re-encode (on a CUDA device measured
-        # to the end of its kernels) and of the last prefill's dispatch
+        # to the end of its kernels)
         self.last_reencode_wall_ms: float = 0.0
-        self.last_prefill_wall_ms: float = 0.0
+        # the CUDA event pair around the last prefill (a timing recorder
+        # on a card; else None), read by its admitter once the first
+        # token is on the host
+        self.last_prefill_events: tuple | None = None
         # bumped by every parity encode after the first: what a round
         # captured against the old parity (a CUDA graph, the head cache)
         # keys on
@@ -86,7 +89,8 @@ class ModelStepper:
 
     def reencode(self):
         """Offline parity re-encode (paper §5.1), after a heal or swap."""
-        self._encode()
+        with self.tracer.span("host.reencode"):
+            self._encode()
 
     def set_code_r(self, code_r: int) -> bool:
         """Re-size the parity budget and re-encode; returns True iff the
@@ -125,15 +129,24 @@ class ModelStepper:
         """Run the prompt through the decode path into a fresh per-row
         state (an enc-dec's encoder runs over ``batch["frames"]`` under the
         same mask first). Returns (last-position logits [b, 1, V],
-        state)."""
-        t0 = time.perf_counter()
-        v = self._mask(valid) if self.coded else None
-        tokens = self._tokens(batch["tokens"])
-        state = self.model.init_decode(self.params, batch, tokens.shape[0],
-                                       self.max_len, self.cache_dtype,
-                                       valid=v)
-        logits, state = self.model.decode(self.params, state, tokens, v)
-        self.last_prefill_wall_ms = (time.perf_counter() - t0) * 1e3
+        state). A timing recorder spans the state's making and the
+        forward's enqueue, and on a card times the whole on the device
+        (``last_prefill_events``)."""
+        tr = self.tracer
+        with tr.span("host.prefill"):
+            events = tr.device_events()
+            v = self._mask(valid) if self.coded else None
+            tokens = self._tokens(batch["tokens"])
+            with tr.span("host.prefill.state"):
+                state = self.model.init_decode(
+                    self.params, batch, tokens.shape[0], self.max_len,
+                    self.cache_dtype, valid=v)
+            with tr.span("host.prefill.forward"):
+                logits, state = self.model.decode(self.params, state,
+                                                  tokens, v)
+            if events is not None:
+                events[1].record()
+            self.last_prefill_events = events
         return logits[:, -1:], state
 
     def decode_one(self, state, tok, valid=None) -> tuple[torch.Tensor, Any]:

@@ -20,6 +20,7 @@ from repro.serve import ModelStepper as JStepper
 from repro_torch.configs import get_arch, smoke_config
 from repro_torch.convert import params_from_jax
 from repro_torch.models import TPCtx, build
+from repro_torch.runtime.metrics import RuntimeMetrics
 from repro_torch.runtime.executor import (SlotPoolExecutor, read_slot,
                                           write_slot)
 from repro_torch.serve import ModelStepper
@@ -104,12 +105,13 @@ def test_batched_matches_sequential_staggered(steppers, overlap, dead):
     if dead is not None:
         valid[dead] = False
     arrivals = _arrivals(cfg)
+    metrics = RuntimeMetrics()
     pool = SlotPoolExecutor(stepper, N_SLOTS, overlap=overlap,
-                            use_fused=True)
+                            use_fused=True, metrics=metrics)
     got = _drive(pool, arrivals, lambda r: valid)
     assert got == _sequential(stepper, arrivals, valid)
     assert pool.vstep.last_variant == "fused"
-    assert len(pool.round_ms) > 0
+    assert metrics.round_ms.n > 0
 
 
 @pytest.mark.parametrize("use_fused", [True, False],

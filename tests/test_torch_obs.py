@@ -211,7 +211,7 @@ def test_snapshot_has_reference_keys_and_perf(pair):
     assert set(snap) == set(jmetrics.RuntimeMetrics().snapshot())
     perf = snap["perf"]
     assert perf["variant"] == "fused" and perf["custom_calls_uncosted"] == 0
-    assert perf["n_rounds_observed"] == len(sched.executor.round_ms)
+    assert perf["n_rounds_observed"] == sched.metrics.round_ms.n
     assert 0 < perf["roofline_utilization"] < 1
     assert perf["model_flops"] > 0 and perf["hbm_bytes"] > 0
     assert sched.executor.perf.n_attributions == 1
