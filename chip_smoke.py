@@ -965,10 +965,14 @@ def check_decode_merge() -> float:
     (wq), 100 (ragged; 104 folded at T=8, which needs m_l % 8 == 0)}; T =
     16 at granite's w1 / 16 (800; folded slices of 50 columns take the
     scalar path); the 2048-row shape [4, 2048, 3200] (float32 and bf16);
-    a column plan whose equations differ within a 16-byte group. The dead
-    shard's outputs are NaN: the select must keep them out. Both
-    instantiations (16-byte groups and scalar) must launch. 2 dead shards
-    must take the reference decode_and_merge, launching nothing."""
+    a column plan whose equations differ within a 16-byte group; the
+    serving prefill's shapes (T = 4, r = 2 folded): granite's prompts of
+    1020 and 3576 rows at wk/wv 256, wq 1024, w1/w3 3200 and the head
+    12292, and qwen2-moe's 1020 rows at wq/wk/wv 512, the shared experts'
+    1408 and the head 37984. The dead shard's outputs are NaN: the select
+    must keep them out. Both instantiations (16-byte groups and scalar)
+    must launch. 2 dead shards must take the reference decode_and_merge,
+    launching nothing."""
     from repro_torch.core.coded_layer import CodedDenseSpec, decode_and_merge
     from repro_torch.core.coding import CodeSpec
     from repro_torch.kernels import cdc_matmul, ops
@@ -986,6 +990,10 @@ def check_decode_merge() -> float:
               (4, 2, "folded", 2048, 3200, torch.float32),
               (4, 2, "dedicated", 2048, 3200, torch.float32),
               (4, 2, "folded", 2048, 3200, torch.bfloat16)]
+    cases += [(4, 2, "folded", rows, m_l, torch.float32)
+              for rows in (1020, 3576) for m_l in (256, 1024, 3200, 12292)]
+    cases += [(4, 2, "folded", 1020, m_l, torch.float32)
+              for m_l in (512, 1408, 37984)]
     cdc_matmul.cdc_decode_merge.variants.clear()
     for t, r, layout, rows, m_l, dt in cases:
         spec = CodedDenseSpec(CodeSpec(t, r), layout=layout)
@@ -1013,6 +1021,8 @@ def check_decode_merge() -> float:
             if dt == torch.float32:
                 worst = max(worst, float((got - want).abs().max()))
             n += 1
+            del yv, got, want
+        del ys, par
     # equations that differ from column to column inside a 16-byte group
     # (no plan of eq12_plan makes them): per-column parity reads
     spec = CodedDenseSpec(CodeSpec(4, 2), layout="dedicated")
@@ -1045,7 +1055,8 @@ def check_decode_merge() -> float:
         raise AssertionError("2 dead shards must take the reference "
                              "decode_and_merge without a kernel launch")
     log(f"kernel cdc_decode_merge: {n} cases (T = 2, 4, 8, 16; r = 1, 2; "
-        f"both layouts; rows 4, 64, 2048; m_l 3200, 1024, 800, ragged; NaN "
+        f"both layouts; rows 4, 64, 2048; m_l 3200, 1024, 800, ragged; the "
+        f"prefill's rows 1020 and 3576 at m_l 256 to 37984; NaN "
         f"in the dead shard; bf16 sets; mixed equations in a group) within "
         f"rtol=atol=1e-5 (bf16 2e-2) of the plain version, max abs err "
         f"{worst:.3e}; launches per instantiation {seen}; 2 dead -> the "
@@ -1977,14 +1988,35 @@ def serve_batch(vocab: int) -> dict:
     return {"tokens": np.random.default_rng(0).integers(0, vocab, (4, 16))}
 
 
+@contextlib.contextmanager
+def _reference_prefill_decode():
+    """The reference decode in kernel 3's place (``decode_and_merge(
+    use_fused=True)`` resolves ``ops.fused_decode_merge`` at each call):
+    a reference-variant engine's prefills then launch no kernel."""
+    from repro_torch.core.coded_layer import decode_and_merge
+    from repro_torch.kernels import ops
+    fused = ops.fused_decode_merge
+
+    def reference(ys, parity, spec, valid, *, valid_parity=None):
+        return decode_and_merge(ys, parity, spec, valid,
+                                valid_parity=valid_parity)
+
+    ops.fused_decode_merge = reference
+    try:
+        yield
+    finally:
+        ops.fused_decode_merge = fused
+
+
 def _serve_run(eng, batch, fail_at=None, n_tok: int = N_TOK) -> dict:
     """One ServingEngine.generate of the 4 requests (n_tok new tokens),
-    with the launch counts of kernels 1, 2 and 6 read around it (a
+    with the launch counts of kernels 1, 2, 3 and 6 read around it (a
     replayed graph's launches are credited to the counts) and VStep's
     round counters over the run."""
     from repro_torch.kernels import cdc_decode, cdc_matmul, rmsnorm
     counted = (cdc_matmul.cdc_coded_matmul,
-               cdc_decode.cdc_fused_head_argmax, rmsnorm.rmsnorm)
+               cdc_decode.cdc_fused_head_argmax, rmsnorm.rmsnorm,
+               cdc_matmul.cdc_decode_merge)
     for fn in counted:
         fn.launches = 0
         fn.variants.clear()
@@ -2007,7 +2039,7 @@ def _serve_run(eng, batch, fail_at=None, n_tok: int = N_TOK) -> dict:
            "variants": ex.vstep.last_variant, "graphs": vs.use_graphs,
            "vstep": {k: getattr(vs, k) - before[k]
                      for k in VSTEP_COUNTERS}}
-    for key, fn in zip(("k1", "k2", "k6"), counted):
+    for key, fn in zip(("k1", "k2", "k6", "k3"), counted):
         out[key] = fn.launches
         out[f"{key}_variants"] = dict(fn.variants)
     return out
@@ -2076,26 +2108,39 @@ def serve_full_width(cfg) -> dict:
                              f"erased:\n{faulty_eager['tokens']}\nvs\n"
                              f"{faulty['tokens']}")
     eng.use_graphs = True
+    # shard 2 dead before admission: every prefill recovers it through
+    # kernel 3
+    dead2 = np.array([d != 2 for d in range(T)])
+    eng.valid = dead2.copy()
+    dead_first = run(eng)
+    _check_graph_run("shard 2 dead before admission", dead_first, 1)
     vs = eng.executor(4).vstep
     graph_counts = {k: getattr(vs, k) for k in VSTEP_COUNTERS}
     del eng, vs
     ref_eng = ServingEngine(model, params, scfg, use_fused=False)
     reference = run(ref_eng)
     # the same reference variant with the norms on their plain version (the
-    # model resolves ``rmsnorm`` in the transformer module): a run with no
-    # kernel at all, the oracle for the fused tokens
+    # model resolves ``rmsnorm`` in the transformer module) and the
+    # reference decode in kernel 3's place: runs with no kernel at all, the
+    # oracle for the fused tokens, fault-free and with shard 2 dead before
+    # admission
     norm = transformer.rmsnorm
     transformer.rmsnorm = lambda p, x, eps: ref.rmsnorm_ref(x, p["g"], eps)
     try:
-        plain = run(ref_eng)
+        with _reference_prefill_decode():
+            plain = run(ref_eng)
+            ref_eng.valid = dead2.copy()
+            plain_dead = run(ref_eng)
     finally:
         transformer.rmsnorm = norm
+    recovery = prefill_recovery(ref_eng.stepper, cfg)
     del ref_eng
     peak = torch.cuda.max_memory_allocated()
     rounds = n_tok - 1
     gemms = 5 * cfg.n_layers          # wq, wk, wv, w1, w3 in every layer
     for name, res in (("fault-free", clean), ("shard 2 dead at step 4",
-                                              faulty)):
+                                              faulty),
+                      ("shard 2 dead before admission", dead_first)):
         if res["k1"] != gemms * rounds or res["k2"] != rounds:
             raise AssertionError(
                 f"{name}: {res['k1']} coded-GEMM and {res['k2']} head "
@@ -2113,21 +2158,36 @@ def serve_full_width(cfg) -> dict:
             raise AssertionError(f"{name}: fused-head instantiations "
                                  f"{res['k2_variants']}; want rb4-async "
                                  f"x {rounds}")
-    if plain["k1"] or plain["k2"] or plain["k6"]:
-        raise AssertionError(
-            f"the kernel-free run launched {plain['k1']} coded-GEMM, "
-            f"{plain['k2']} head and {plain['k6']} rmsnorm kernels")
+    for name, res in (("kernel-free", plain),
+                      ("kernel-free, shard 2 dead", plain_dead)):
+        if res["k1"] or res["k2"] or res["k6"] or res["k3"]:
+            raise AssertionError(
+                f"the {name} run launched {res['k1']} coded-GEMM, "
+                f"{res['k2']} head, {res['k6']} rmsnorm and {res['k3']} "
+                f"decode-merge kernels")
+    # every prefill (one per request) decodes each coded GEMM, the head's
+    # included, through kernel 3, in the fused and the reference variant
+    for name, res in (("fault-free", clean), ("erasure", faulty),
+                      ("dead before admission", dead_first),
+                      ("reference", reference)):
+        if res["k3"] != (gemms + 1) * 4:
+            raise AssertionError(
+                f"{name}: {res['k3']} decode-merge launches; expected "
+                f"{gemms + 1} per prefill x 4")
     # every round and every prefill (one per request) runs its norms
     # through kernel 6, in the fused and the reference variant alike
     norms = norms_per_pass(cfg)
     for name, res in (("fault-free", clean), ("erasure", faulty),
+                      ("dead before admission", dead_first),
                       ("reference", reference)):
         if res["k6"] != norms * (rounds + 4):
             raise AssertionError(
                 f"{name}: {res['k6']} rmsnorm launches; expected {norms} "
                 f"per round x {rounds} rounds + {norms} per prefill x 4")
     for name, res in (("erasure", faulty), ("reference", reference),
-                      ("kernel-free", plain)):
+                      ("kernel-free", plain),
+                      ("dead before admission", dead_first),
+                      ("kernel-free, dead before admission", plain_dead)):
         if not np.array_equal(res["tokens"], clean["tokens"]):
             raise AssertionError(
                 f"{name} run tokens differ from the fault-free fused run:\n"
@@ -2137,8 +2197,10 @@ def serve_full_width(cfg) -> dict:
         raise AssertionError(f"bad token stream {toks}")
     med = float(np.median(clean["round_ms"]))
     log(f"served 4 requests x {n_tok} tokens: identical streams fault-free, "
-        f"with shard 2 erased at step 4, on the reference variant, and on "
-        f"it with plain norms (no kernel launched)")
+        f"with shard 2 erased at step 4 and before admission, on the "
+        f"reference variant, and on it with plain norms and the reference "
+        f"decode (no kernel launched), fault-free and with shard 2 dead "
+        f"before admission")
     log("first stream:", toks[0].tolist())
     log(f"overlapped executor (dispatch N, then harvest N-1): same "
         f"streams, {overlapped['period_ms']:.3f} ms per round (wall time "
@@ -2147,7 +2209,8 @@ def serve_full_width(cfg) -> dict:
         f"({clean['k1_variants']}) + "
         f"{clean['k2'] // rounds} fused head ({clean['k2_variants']}) + "
         f"{norms} rmsnorm ({clean['k6_variants']}; and {norms} rmsnorm per "
-        f"prefill; the reference variant {norms} per round)")
+        f"prefill; the reference variant {norms} per round); per prefill "
+        f"{clean['k3'] // 4} decode-merge ({clean['k3_variants']})")
     log(f"graph rounds: {graph_counts['n_captures']} captures (fault-free, "
         f"shard 2 dead), {graph_counts['n_replays']} replays for "
         f"{graph_counts['n_fused_rounds']} fused rounds; tokens equal to "
@@ -2159,8 +2222,65 @@ def serve_full_width(cfg) -> dict:
         f"{4 * 1e3 / med:.1f} tokens/s at 4 slots; "
         f"max_memory_allocated {peak / 2 ** 30:.2f} GiB")
     return {"k1": clean["k1"], "k2": clean["k2"], "k6": clean["k6"],
+            "k3": clean["k3"], "prefill_recovery": recovery,
             "breakdown": graph_eager["breakdown"],
             "graph_vs_eager": graph_eager}
+
+
+def prefill_recovery(stepper, cfg, n: int = 1020) -> dict:
+    """One n-token prefill on a card's ``stepper`` (its coded GEMMs decode
+    through kernel 3) against the same prefill with the reference decode
+    in kernel 3's place, with every shard valid and each shard dead in
+    turn: kernel 3 launches once per coded GEMM (5 a layer and the head)
+    and never in the reference's; the logits are equal to the bit with
+    every shard valid, and with a dead shard kernel 3's lie no further
+    from the fault-free logits than twice the reference decode's (both
+    recoveries carry float32 rounding through every layer)."""
+    from repro_torch.kernels import cdc_matmul
+    launches = lambda: cdc_matmul.cdc_decode_merge.launches  # noqa: E731
+    gemms = 5 * cfg.n_layers + 1
+    batch = {"tokens": np.random.default_rng(1).integers(0, cfg.vocab,
+                                                         (1, n))}
+    max_len, stepper.max_len = stepper.max_len, n + 8
+    clean, errs = None, {}
+    try:
+        for valid in _masks():
+            v = np.array(valid)
+            before = launches()
+            got, _ = stepper.prefill(batch, v)
+            launched = launches() - before
+            with _reference_prefill_decode():
+                want, _ = stepper.prefill(batch, v)
+            torch.cuda.synchronize()
+            if launched != gemms or launches() - before != launched:
+                raise AssertionError(
+                    f"prefill mask={valid}: kernel 3 launched {launched} "
+                    f"times ({gemms} coded GEMMs), the reference decode's "
+                    f"{launches() - before - launched}")
+            if clean is None:
+                if not torch.equal(got, want):
+                    raise AssertionError("fault-free prefill: kernel 3's "
+                                         "logits differ from the reference "
+                                         "decode's")
+                clean = want
+                continue
+            e = {"kernel": float((got - clean).abs().max()),
+                 "reference": float((want - clean).abs().max()),
+                 "apart": float((got - want).abs().max())}
+            if not e["kernel"] <= 2 * e["reference"]:
+                raise AssertionError(f"prefill mask={valid}: kernel 3's "
+                                     f"recovery {e}")
+            errs[valid.index(False)] = e
+            del got, want
+    finally:
+        stepper.max_len = max_len
+    log(f"a {n}-token prefill at full width: kernel 3 {gemms} launches a "
+        f"prefill, logits equal to the reference decode's to the bit with "
+        f"every shard valid; each dead shard, max abs from the fault-free "
+        f"logits (kernel 3 / reference decode / apart): " + "; ".join(
+            f"{d}: {e['kernel']:.3e} / {e['reference']:.3e} / "
+            f"{e['apart']:.3e}" for d, e in errs.items()))
+    return {"rows": n, "launches": gemms, "dead": errs}
 
 
 def graph_vs_eager(eng, batch, first: dict, blocks: int = 3) -> dict:
@@ -2629,7 +2749,9 @@ def _row(out: list, kernel: str, shape: str, ms: float, plain: float,
 
 def time_small_kernels(gen, flush) -> list[dict]:
     """Kernels 3, 5, 6 and 7 at the shapes of their paths: the decode +
-    merge at granite w1 (T=4, r=2 folded, shard 2 dead), the r=1 decode
+    merge at granite w1 (T=4, r=2 folded, shard 2 dead) and at a serving
+    prefill's (1020 and 3576 rows of w1, 3576 of the head at m_l 12292,
+    every shard valid, and the head with shard 2 dead), the r=1 decode
     at the study's shape and at w1's, the norm at the serving round's 4
     and a prefill's 64 rows, the GEMM at the study's 512^3 and at
     granite's Wo with 4 rows. Bounds count the bytes these inputs need:
@@ -2642,13 +2764,16 @@ def time_small_kernels(gen, flush) -> list[dict]:
                                      rmsnorm)
     out: list[dict] = []
     spec = CodedDenseSpec(CodeSpec(T, R))
-    m_l = GEMMS["w1"]
+    w1 = GEMMS["w1"]
     dead2 = (True, True, False, True)
     floor_us = _profile_us(lambda: torch.cuda._sleep(0), "")
     log(f"an empty kernel (torch.cuda._sleep(0)): {floor_us:.3f} us of "
         f"device time a launch by the profiler (the launch floor)")
-    for rows, valid in ((4, dead2), (64, dead2), (2048, dead2),
-                        (2048, (True,) * T)):
+    full, head = (True,) * T, 12292
+    for rows, m_l, valid in ((4, w1, dead2), (64, w1, dead2),
+                             (2048, w1, dead2), (2048, w1, full),
+                             (1020, w1, full), (3576, w1, full),
+                             (3576, head, full), (3576, head, dead2)):
         vh, esel, coef, g = _dm_plan(spec, valid, m_l)
         ys = torch.randn((T, rows, m_l), generator=gen, device="cuda")
         par = torch.randn((T, rows, R * m_l // T), generator=gen,
@@ -3117,6 +3242,10 @@ OBS = {"fault-free": ["--perf", "--profile", str(SMOKE_OUT / "profile")],
        "chaos+adapt-r": ["--perf"]}
 
 
+# a timing recorder's scheduler counters besides the allocator's
+TIMING_COUNTERS = {"graph_captures", "graph_replays", "graph_drops"}
+
+
 def _kernel_wrappers():
     from repro_torch.kernels import (cdc_decode, cdc_encode, cdc_matmul,
                                      matmul, rmsnorm)
@@ -3126,6 +3255,28 @@ def _kernel_wrappers():
             "cdc_decode_merge": cdc_matmul.cdc_decode_merge,
             "cdc_decode": cdc_decode.cdc_decode,
             "rmsnorm": rmsnorm.rmsnorm, "matmul": matmul.matmul}
+
+
+def _matches_cpu_counters(c: dict, want: dict, timing=()) -> bool:
+    """The card's scheduler counters against the CPU run's, whose model is
+    built with ``TPCtx.fused_decode`` so that its prefills count the
+    decode they take (``prefill_fused_decode`` / ``_reference_decode``) as
+    the card's do: equal key for key, apart from ``timing``, a timing
+    recorder's own counters (a profiled run's only); every admission's
+    prefill counted by its decode."""
+    from repro_torch.runtime.scheduler import PREFILL_DECODE_COUNTERS
+    decoded = [c.get(k) for k in PREFILL_DECODE_COUNTERS]
+    return {k: v for k, v in c.items() if k not in timing} == want \
+        and set(timing) <= set(c) and None not in decoded \
+        and sum(decoded) == c["requests_admitted"]
+
+
+def _cpu_ctx(**kw):
+    """The ctx of a CPU run that gives the card's expected counters: its
+    prefills decode through kernel 3's plain version, as the card's
+    through the kernel."""
+    from repro_torch.models import TPCtx
+    return TPCtx(tp=T, mode="coded", code_r=R, fused_decode=True, **kw)
 
 
 def _scheduler_run(model, params, argv: list[str], device: str,
@@ -3152,9 +3303,9 @@ def scheduler_counters_cpu() -> dict:
     CPU: the schedule depends on the seed and the arrivals, not on the
     model's width, so the full-width runs must give the same ones."""
     from repro_torch.configs import get_arch, smoke_config
-    from repro_torch.models import TPCtx, build
+    from repro_torch.models import build
     cfg = smoke_config(get_arch("granite-3-8b"))
-    model = build(cfg, TPCtx(tp=T, mode="coded", code_r=R))
+    model = build(cfg, _cpu_ctx())
     params = model.init(0, device="cpu")
     out = {}
     for name, extra in RUNS.items():
@@ -3184,6 +3335,7 @@ def serve_scheduler(cfg, device: str = "cuda") -> dict:
     scheduler: fault-free, under seeded chaos, and under chaos with the
     adaptive planner, the same 8 requests each time."""
     from repro_torch.models import TPCtx, build
+    from repro_torch.obs.tracer import alloc_counts
     t0 = time.perf_counter()
     expect = scheduler_counters_cpu()
     log(f"scheduler, smoke size on the CPU ({time.perf_counter() - t0:.1f} "
@@ -3229,7 +3381,9 @@ def serve_scheduler(cfg, device: str = "cuda") -> dict:
         if len(done) != 8 or any(len(q.tokens) != 16 for q in done):
             raise AssertionError(f"{name}: {len(done)}/8 requests completed")
         # --profile's timing recorder adds counters the CPU run lacks
-        if {k: c[k] for k in want["counters"]} != want["counters"] \
+        timing = TIMING_COUNTERS | set(alloc_counts(device)) \
+            if "--profile" in OBS[name] else ()
+        if not _matches_cpu_counters(c, want["counters"], timing) \
                 or rs != want["r_series"]:
             raise AssertionError(
                 f"{name}: counters {c} / r series {rs} differ from the "
@@ -3617,7 +3771,8 @@ def _serve_every_way(tag: str, cfg, model, params, scfg, batch, t: int,
     norm = transformer.rmsnorm
     transformer.rmsnorm = lambda p, x, eps: ref.rmsnorm_ref(x, p["g"], eps)
     try:
-        runs["kernel-free"] = _serve_run(ref_eng, batch)
+        with _reference_prefill_decode():
+            runs["kernel-free"] = _serve_run(ref_eng, batch)
     finally:
         transformer.rmsnorm = norm
     del ref_eng
@@ -3631,8 +3786,9 @@ def _serve_every_way(tag: str, cfg, model, params, scfg, batch, t: int,
             raise AssertionError(f"{tag} {name} tokens differ from the "
                                  f"fault-free graph run:\n{res['tokens']}\n"
                                  f"vs\n{clean['tokens']}")
-    if runs["kernel-free"]["k6"]:
-        raise AssertionError(f"the {tag} kernel-free run launched kernel 6")
+    if runs["kernel-free"]["k6"] or runs["kernel-free"]["k3"]:
+        raise AssertionError(f"the {tag} kernel-free run launched kernel 6 "
+                             f"or 3")
     return {"runs": runs, "profile": prof, **extra}
 
 
@@ -3751,7 +3907,7 @@ def serve_h2o(device: str = "cuda") -> dict:
     cfg = get_arch(H2O)
     # (a) the serving entry point, against its CPU run at smoke size
     scfg_cpu = smoke_config(cfg)
-    m_cpu = build(scfg_cpu, TPCtx(tp=T, mode="coded", code_r=R))
+    m_cpu = build(scfg_cpu, _cpu_ctx())
     _, s_cpu, d_cpu, _ = _scheduler_run(m_cpu, m_cpu.init(0, device="cpu"),
                                         H2O_ARGS, "cpu")
     want = dict(s_cpu.metrics.counters)
@@ -3771,7 +3927,7 @@ def serve_h2o(device: str = "cuda") -> dict:
     c = dict(sched.metrics.counters)
     launches = {k: fn.launches for k, fn in wrappers.items()}
     if len(done) != 8 or any(len(q.tokens) != 16 for q in done) or \
-            c != want or len(d_cpu) != 8:
+            not _matches_cpu_counters(c, want) or len(d_cpu) != 8:
         raise AssertionError(f"h2o scheduler: {len(done)}/8 completed, "
                              f"counters {c} vs the CPU run's {want}")
     passes = sched.executor.vstep.n_dispatches + c["requests_admitted"]
@@ -3920,12 +4076,11 @@ def _family_scheduler(tag: str, cfg, model, params, argv: list[str],
     times per round and prefill, and the perf line's fused-round bound is
     within 5% of ``least_bytes(stepper, state)`` over the HBM rate."""
     from repro_torch.configs import smoke_config
-    from repro_torch.models import TPCtx, build
+    from repro_torch.models import build
     runs_args = {"fault-free": [], "chaos": ["--chaos", CHAOS]}
     obs_args = {"fault-free": ["--perf"], "chaos": []}   # the card's runs
     cfg_cpu = smoke_config(cfg)
-    m_cpu = build(cfg_cpu, TPCtx(tp=T, mode="coded", code_r=R,
-                                 moe_capacity=0))
+    m_cpu = build(cfg_cpu, _cpu_ctx(moe_capacity=0))
     p_cpu = m_cpu.init(0, device="cpu")
     want = {name: dict(_scheduler_run(m_cpu, p_cpu, argv + extra,
                                       "cpu")[1].metrics.counters)
@@ -3957,7 +4112,7 @@ def _family_scheduler(tag: str, cfg, model, params, argv: list[str],
                                             least_bytes=least))
             res["least_bytes"] = least
         if len(done) != 8 or any(len(q.tokens) != 16 for q in done) or \
-                c != want[name]:
+                not _matches_cpu_counters(c, want[name]):
             raise AssertionError(f"{tag} {name}: {len(done)}/8 completed, "
                                  f"counters {c} vs the CPU run's "
                                  f"{want[name]}")
@@ -4102,9 +4257,10 @@ def serve_whisper() -> dict:
         free_eng = ServingEngine(model, params, scfg, use_fused=False)
     finally:
         ops.cdc_encode = encode
-    runs["kernel-free"] = _serve_run(free_eng, batch)
-    runs[f"kernel-free, {down}"] = _serve_run(free_eng, batch,
-                                              fail_at={4: dead})
+    with _reference_prefill_decode():
+        runs["kernel-free"] = _serve_run(free_eng, batch)
+        runs[f"kernel-free, {down}"] = _serve_run(free_eng, batch,
+                                                  fail_at={4: dead})
     free_launches = {k: fn.launches for k, fn in wrappers.items()}
     del free_eng
     clean = runs["graph"]
@@ -4358,9 +4514,10 @@ def _serve_one_batch(tag: str, cfg, model, params, prompt_len: int,
     transformer.rmsnorm = lambda p, x, eps: ref.rmsnorm_ref(x, p["g"], eps)
     try:
         free_eng = ServingEngine(model, params, scfg, use_fused=False)
-        runs["kernel-free"] = _serve_run(free_eng, batch)
-        runs[f"kernel-free, {down}"] = _serve_run(free_eng, batch,
-                                                  fail_at={4: dead})
+        with _reference_prefill_decode():
+            runs["kernel-free"] = _serve_run(free_eng, batch)
+            runs[f"kernel-free, {down}"] = _serve_run(free_eng, batch,
+                                                      fail_at={4: dead})
     finally:
         ops.cdc_encode, transformer.rmsnorm = encode, norm
     free_launches = {k: fn.launches for k, fn in wrappers.items()}
@@ -6665,9 +6822,10 @@ def main() -> int:
                 "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"]}
 
-    # launches: kernels 1, 2 and 6 from the fused serving run (phase 3),
-    # kernel 4 from the chaos run (phase 5), kernels 5 and 7 from the
-    # study (phase 6), kernel 3 from its library entry (phase 7)
+    # launches: kernels 1, 2, 3 and 6 from the fused serving run (phase
+    # 3: kernel 3 in its prefills), kernel 4 from the chaos run (phase 5),
+    # kernels 5 and 7 from the study (phase 6); kernel 3's time at the
+    # largest call of a granite prefill (the head over 3576 prompt rows)
     kernels = [
         entry_of("cdc_coded_matmul", "coded_matmul.cuh",
                  "src/repro/kernels/cdc_matmul.py:130", served["k1"], err1,
@@ -6676,9 +6834,10 @@ def main() -> int:
                  "src/repro/kernels/cdc_decode.py:138", served["k2"], err2,
                  head),
         entry_of("cdc_decode_merge", "cdc_decode_merge.cu",
-                 "src/repro/kernels/cdc_matmul.py:208", entry["launches"],
+                 "src/repro/kernels/cdc_matmul.py:208", served["k3"],
                  err3, small[("cdc_decode_merge",
-                              f"[{T}, 4, {GEMMS['w1']}] r={R} folded")]),
+                              f"[{T}, 3576, 12292] r={R} folded all "
+                              f"valid")]),
         entry_of("cdc_encode", "cdc_encode.cu",
                  "src/repro/kernels/cdc_encode.py:30",
                  sched["runs"]["chaos"]["launches"]["cdc_encode"], err4,

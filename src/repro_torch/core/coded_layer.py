@@ -162,13 +162,16 @@ def decode_and_merge(ys: torch.Tensor, parity: torch.Tensor | None,
 def coded_matmul(x: torch.Tensor, w: torch.Tensor,
                  w_cdc: torch.Tensor | None, spec: CodedDenseSpec,
                  valid=None, *, valid_parity=None,
-                 use_fused: bool = False) -> torch.Tensor:
+                 use_fused: bool = False,
+                 fused_decode: bool = False) -> torch.Tensor:
     """Output-split GEMM with CDC protection (paper Eq. 7/11 + recovery 12).
 
     x: [..., k]; w: [k, m]; w_cdc: parity weights (None => uncoded);
     valid: [T] host mask (None => all valid). ``use_fused`` routes through
     ``kernels.ops.fused_coded_matmul`` (the coded-GEMM kernel on a CUDA
-    tensor, its plain version on a CPU tensor). Returns [..., m].
+    tensor, its plain version on a CPU tensor). Otherwise x @ w and the
+    parity products run here, and ``fused_decode`` decodes and merges
+    them through ``decode_and_merge(use_fused=True)``. Returns [..., m].
     """
     code = spec.code
     T = code.n_shards
@@ -186,7 +189,7 @@ def coded_matmul(x: torch.Tensor, w: torch.Tensor,
         return merge_shards(ys)
     parity = _shardwise_matmul(x, w_cdc)
     return decode_and_merge(ys, parity, spec, valid,
-                            valid_parity=valid_parity)
+                            valid_parity=valid_parity, use_fused=fused_decode)
 
 
 def decode_folded(ys: torch.Tensor, p_slots: torch.Tensor, valid,

@@ -44,6 +44,9 @@ class TPCtx:
     fused_body: bool = False       # route coded GEMMs through the fused
     #                                coded-GEMM kernel; only valid for
     #                                <= 1 erasure (the executor gates it)
+    fused_decode: bool = False     # keep the unfused products, decode and
+    #                                merge through the decode-and-merge
+    #                                kernel (the stepper's prefill sets it)
 
     @property
     def coded(self) -> bool:
@@ -108,7 +111,8 @@ def col_dense(ctx: TPCtx, p: Params, x: torch.Tensor, out_dim: int,
     w = p["w"]
     if ctx.coded and "cdc" in p:
         y = coded_matmul(x, w, p["cdc"], ctx.spec, valid,
-                         use_fused=ctx.fused_body)
+                         use_fused=ctx.fused_body,
+                         fused_decode=ctx.fused_decode)
     else:
         y = x @ w
     return y[..., :out_dim] if y.shape[-1] != out_dim else y

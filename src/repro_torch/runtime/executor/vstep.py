@@ -45,19 +45,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
-import numpy as np
 import torch
 
 from repro_torch.kernels import accounting, ops
 from repro_torch.kernels.cdc_decode import head_parity
 from repro_torch.runtime.executor.slotbatch import clone_state
-
-
-def _fused_supported(stepper) -> bool:
-    # the fused head consumes the all-ones sum-parity generator row
-    return (stepper.coded
-            and bool(np.allclose(stepper.model.ctx.spec.code.generator[0],
-                                 1.0)))
 
 
 class RoundGraph:
@@ -97,7 +89,8 @@ class VStep:
         self.stepper = stepper
         if use_fused == "auto":
             use_fused = stepper.device.type == "cuda"
-        self.use_fused = bool(use_fused) and _fused_supported(stepper)
+        # the fused head consumes the all-ones sum-parity generator row
+        self.use_fused = bool(use_fused) and stepper.sum_row
         if use_graphs == "auto":
             use_graphs = stepper.device.type == "cuda"
         self.use_graphs = bool(use_graphs) and self.use_fused

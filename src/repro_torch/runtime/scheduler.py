@@ -34,11 +34,14 @@ executor and its stepper, also after construction). A timing recorder
 (``FlightRecorder(timing=True)``) adds host spans around the health poll,
 the step's admissions and each admission, device times of each round and
 prefill, and counters of graph captures, replays and drops and of the
-caching allocator's retries and device mallocs. A request's first token
-is stamped once it is on the host (under a ``WallClock`` after its
-prefill). A request's ``extras`` (enc-dec ``frames``) reach its prefill
-on both paths; the batched one writes the encoder's cross K/V into the
-slot's row of the executor's bank.
+caching allocator's retries and device mallocs. Where the stepper may
+decode a prefill's coded GEMMs through the decode-and-merge kernel (on a
+card), ``prefill_fused_decode`` and ``prefill_reference_decode`` count
+which decode each admission's prefill took, timing recorder or not. A
+request's first token is stamped once it is on the host (under a
+``WallClock`` after its prefill). A request's ``extras`` (enc-dec
+``frames``) reach its prefill on both paths; the batched one writes the
+encoder's cross K/V into the slot's row of the executor's bank.
 """
 from __future__ import annotations
 
@@ -61,6 +64,13 @@ from repro_torch.runtime.metrics import RuntimeMetrics
 from repro_torch.runtime.queue import AdmissionQueue
 from repro_torch.runtime.request import Request, RequestState
 from repro_torch.serve.engine import ModelStepper
+
+#: which decode each prefill's coded GEMMs took (the decode-and-merge
+#: kernel, or the reference decode: 2+ dead shards, no sum-parity row),
+#: registered where the stepper's choice is on (on a card), so on the CPU
+#: the counters stay the reference package's
+PREFILL_DECODE_COUNTERS = ("prefill_fused_decode",
+                           "prefill_reference_decode")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,6 +128,9 @@ class ContinuousBatchingScheduler:
         self.health = health if health is not None else ShardHealthController(
             stepper.n_shards, stepper.erasure_budget)
         self.metrics = metrics if metrics is not None else RuntimeMetrics()
+        if stepper.fused_prefill_on:
+            for name in PREFILL_DECODE_COUNTERS:
+                self.metrics.register(name)
         self.tracer = NULL_RECORDER
         self._timing_seen: dict[str, int] = {}
         # per-shard health timeline: always on (O(1) per health event)
@@ -390,6 +403,9 @@ class ContinuousBatchingScheduler:
                     tok = int(t[0, 0])
                 slot.request, slot.state, slot.last_tok = req, state, t
             wall_ms = (time.perf_counter() - t0) * 1e3
+            decode = self.stepper.last_prefill_decode
+            if decode is not None:
+                self.metrics.count(f"prefill_{decode}_decode")
             if span:
                 span.wall_args.update(self.tracer.device_read(
                     self.stepper.last_prefill_events))

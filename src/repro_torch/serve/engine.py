@@ -8,8 +8,13 @@
     through the batched ``SlotPoolExecutor`` (the serving hot path), and
     ``_generate_sequential`` stays as the differential-test oracle.
 
-Prefill always runs the reference variant: the fused kernels serve decode
-rounds only.
+A prefill runs the model's unfused body (cuBLAS products for x @ w and
+the parity). On a CUDA device, with a code that has the all-ones sum row
+and at most one dead shard, each coded GEMM's decode and merge then runs
+as the decode-and-merge kernel (``ctx.fused_decode``: one launch from a
+cached plan, so the forward makes no host-device synchronisation); 2+
+dead shards, the CPU and a code without the sum row take the reference
+decode. The fused coded-GEMM and head kernels serve decode rounds only.
 """
 from __future__ import annotations
 
@@ -40,6 +45,9 @@ class ModelStepper:
     def __init__(self, model: Model, params, max_len: int,
                  cache_dtype: Any = torch.float32, tracer=None):
         self.model = model
+        # the decode the last prefill's coded GEMMs took where the choice
+        # is on: "fused" or "reference" (else None)
+        self.last_prefill_decode: str | None = None
         self.max_len = int(max_len)
         self.cache_dtype = cache_dtype
         # flight recorder; the scheduler re-binds its own so code-geometry
@@ -66,6 +74,36 @@ class ModelStepper:
     @property
     def device(self) -> torch.device:
         return self._raw_params["embed"].device
+
+    @property
+    def sum_row(self) -> bool:
+        """The code has the all-ones sum-parity generator row (what the
+        fused kernels decode with)."""
+        gen = self.model.ctx.spec.code.generator if self.coded else None
+        return gen is not None and len(gen) > 0 \
+            and bool(np.allclose(gen[0], 1.0))
+
+    @property
+    def fused_prefill_on(self) -> bool:
+        """A coded model whose prefill may decode through the kernel: its
+        params live on a CUDA device, or its ctx already asks for the
+        kernel (on the CPU its plain version runs)."""
+        return self.coded and (self.device.type == "cuda"
+                               or self.model.ctx.fused_decode)
+
+    def _prefill_model(self, v) -> Model:
+        """The model a prefill under the host mask ``v`` runs, and
+        ``last_prefill_decode`` set to the decode its coded GEMMs take
+        (None where the choice is off, or with no mask: no decode)."""
+        if v is None or not self.fused_prefill_on:
+            self.last_prefill_decode = None
+            return self.model
+        fused = self.sum_row and int(v.numel() - int(v.sum())) <= 1
+        self.last_prefill_decode = "fused" if fused else "reference"
+        if fused == self.model.ctx.fused_decode:
+            return self.model
+        ctx = dataclasses.replace(self.model.ctx, fused_decode=fused)
+        return dataclasses.replace(self.model, ctx=ctx)
 
     # ------------------------------------------------------------ coding ----
     def _encode(self):
@@ -136,14 +174,14 @@ class ModelStepper:
         with tr.span("host.prefill"):
             events = tr.device_events()
             v = self._mask(valid) if self.coded else None
+            model = self._prefill_model(v)
             tokens = self._tokens(batch["tokens"])
             with tr.span("host.prefill.state"):
-                state = self.model.init_decode(
+                state = model.init_decode(
                     self.params, batch, tokens.shape[0], self.max_len,
                     self.cache_dtype, valid=v)
             with tr.span("host.prefill.forward"):
-                logits, state = self.model.decode(self.params, state,
-                                                  tokens, v)
+                logits, state = model.decode(self.params, state, tokens, v)
             if events is not None:
                 events[1].record()
             self.last_prefill_events = events

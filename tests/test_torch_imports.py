@@ -20,7 +20,9 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_dist.py",
        ROOT / "tests" / "_torch_train_mesh.py",
-       ROOT / "tests" / "test_torch_timing_cuda.py"]
+       ROOT / "tests" / "test_torch_timing_cuda.py",
+       ROOT / "tests" / "test_torch_prefill_decode.py",
+       ROOT / "tests" / "test_torch_prefill_decode_cuda.py"]
 
 
 def _imports(path: Path) -> list[str]:
