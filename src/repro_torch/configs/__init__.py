@@ -1,6 +1,6 @@
-from repro_torch.configs.base import (SHAPES, ArchConfig, ShapeSpec,
-                                      all_archs, get_arch, runnable,
-                                      smoke_config)
+from repro_torch.configs.base import (PORT_ONLY, SHAPES, ArchConfig,
+                                      PatternConfig, ShapeSpec, all_archs,
+                                      get_arch, runnable, smoke_config)
 
-__all__ = ["ArchConfig", "SHAPES", "ShapeSpec", "all_archs", "get_arch",
-           "runnable", "smoke_config"]
+__all__ = ["ArchConfig", "PORT_ONLY", "PatternConfig", "SHAPES", "ShapeSpec",
+           "all_archs", "get_arch", "runnable", "smoke_config"]

@@ -11,6 +11,12 @@ sLSTM blocks), the hybrid hymba-1.5b (attention and a mamba branch in
 every layer) and the mixtures of experts qwen2-moe-a2.7b (60 routed
 experts, top-4, beside 4 shared ones) and qwen3-moe-235b-a22b (128
 routed experts, top-8, no shared one).
+
+The port also registers one architecture the reference does not have
+(``PORT_ONLY``): nemotron-h-47b, a ``PatternConfig`` whose layers differ
+in kind (Mamba-2, attention, MLP). Its own fields live on the subclass,
+so the ten configs shared with the reference keep exactly the
+reference's fields.
 """
 from __future__ import annotations
 
@@ -104,6 +110,68 @@ class ArchConfig:
         return self.param_count - inactive
 
 
+#: the layer kinds of a ``PatternConfig``'s pattern
+MAMBA2, ATTENTION, MLP = "M", "*", "-"
+
+
+@dataclasses.dataclass(frozen=True)
+class PatternConfig(ArchConfig):
+    """A decoder whose layers differ in kind: one mixer a layer, each
+    ``x + mixer(rmsnorm(x))``, in a published pattern (Nemotron-H's
+    ``hybrid_override_pattern``): ``M`` a Mamba-2 layer (arXiv:2405.21060),
+    ``*`` attention (GQA, no position encoding), ``-`` an ungated MLP
+    (``act``). A stack of ``n_layers`` takes the pattern's first
+    ``n_layers`` characters, so a depth cut keeps the published order.
+    ``ssm_state`` is the Mamba-2 state size N."""
+    pattern: str = ""
+    mamba_heads: int = 0           # H
+    mamba_head_dim: int = 0        # P
+    mamba_groups: int = 0          # G: B and C are shared by H / G heads
+    mamba_chunk: int = 128         # the prefill's SSD chunk
+    conv_kernel: int = 4
+
+    @property
+    def rope(self) -> bool:
+        """The attention layers rotate nothing (NoPE)."""
+        return False
+
+    @property
+    def layer_kinds(self) -> str:
+        if not 0 < self.n_layers <= len(self.pattern):
+            raise ValueError(f"{self.name}: {self.n_layers} layers of a "
+                             f"{len(self.pattern)}-layer pattern")
+        return self.pattern[:self.n_layers]
+
+    @property
+    def mamba_inner(self) -> int:
+        return self.mamba_heads * self.mamba_head_dim
+
+    @property
+    def mamba_conv_dim(self) -> int:
+        """The conv's channels: x, B and C."""
+        return self.mamba_inner + 2 * self.mamba_groups * self.ssm_state
+
+    @property
+    def param_count(self) -> int:
+        d, hd = self.d_model, self.hd
+        di, cd = self.mamba_inner, self.mamba_conv_dim
+        attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd \
+            + self.n_heads * hd * d
+        mamba = d * (di + cd + self.mamba_heads) \
+            + cd * (self.conv_kernel + 1) + 3 * self.mamba_heads + di + di * d
+        per = {MAMBA2: mamba, ATTENTION: attn, MLP: 2 * d * self.d_ff}
+        return sum(per[k] for k in self.layer_kinds) \
+            + self.vocab * d * (1 if self.tie_embeddings else 2)
+
+    def smoke(self) -> "PatternConfig":
+        """The CPU smoke size of the stack: one layer of each kind, small
+        Mamba-2 widths, chunks of 16 (``smoke_config`` calls it)."""
+        return dataclasses.replace(
+            self, n_layers=3, pattern=MAMBA2 + ATTENTION + MLP,
+            mamba_heads=8, mamba_head_dim=16, mamba_groups=2, ssm_state=16,
+            mamba_chunk=16)
+
+
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
     name: str
@@ -121,6 +189,8 @@ SHAPES: dict[str, ShapeSpec] = {
 
 
 _REGISTRY: dict[str, ArchConfig] = {}
+#: the registered names the reference package does not have
+PORT_ONLY = frozenset({"nemotron-h-47b"})
 
 
 def register(cfg: ArchConfig) -> ArchConfig:
@@ -145,7 +215,8 @@ def load_all() -> None:
     from repro_torch.configs import (chameleon_34b,  # noqa: F401
                                      deepseek_67b, granite_3_8b,
                                      h2o_danube_1_8b, h2o_danube_3_4b,
-                                     hymba_1_5b, qwen2_moe_a2_7b,
+                                     hymba_1_5b, nemotron_h_47b,
+                                     qwen2_moe_a2_7b,
                                      qwen3_moe_235b_a22b, whisper_medium,
                                      xlstm_125m)
 
@@ -160,8 +231,9 @@ def runnable(cfg: ArchConfig, shape: ShapeSpec) -> tuple[bool, str]:
 
 def smoke_config(cfg: ArchConfig) -> ArchConfig:
     """Reduced same-family config for CPU smoke tests (same reduction as
-    the reference's ``smoke_config``)."""
-    return dataclasses.replace(
+    the reference's ``smoke_config``; a ``PatternConfig`` then takes its
+    own ``smoke``)."""
+    smoke = dataclasses.replace(
         cfg,
         name=cfg.name + "-smoke",
         n_layers=min(cfg.n_layers, 2),
@@ -182,3 +254,4 @@ def smoke_config(cfg: ArchConfig) -> ArchConfig:
         enc_seq=min(cfg.enc_seq, 16) if cfg.enc_seq else 0,
         slstm_every=min(cfg.slstm_every, 2) if cfg.slstm_every else 0,
     )
+    return smoke.smoke() if isinstance(smoke, PatternConfig) else smoke

@@ -1,5 +1,6 @@
 """Attention: GQA, RoPE, causal/sliding/bidirectional masks, the per-row KV
-ring cache, cross-attention over external KV.
+ring cache, cross-attention over external KV. A config whose ``rope`` is
+false (a ``PatternConfig``'s NoPE layers) rotates nothing.
 
 The QKV projections are column-parallel, so coded in coded mode; Wo is
 row-parallel and never coded. Attention is written as the reference writes
@@ -213,13 +214,14 @@ def attention(ctx: TPCtx, p: Params, cfg, x: torch.Tensor, *, valid=None,
     hq_run, hkv_run, group = attn_dims(cfg, ctx.tp)
     if kind is None:
         kind = "swa" if cfg.attn_kind == "swa" else "causal"
+    rotate = kind != "bidir" and getattr(cfg, "rope", True)
     q = col_dense(ctx, p["wq"], x, hq_run * hd, valid) \
         .reshape(b, s, hq_run, hd)
     steps = torch.arange(s, device=x.device)
     per_row = isinstance(pos_offset, torch.Tensor) and pos_offset.ndim
     positions = pos_offset[:, None] + steps if per_row \
         else steps + pos_offset
-    if kind != "bidir":
+    if rotate:
         q = rope(q, positions, cfg.rope_theta)
     if kv_override is not None:
         k, v, k_pos = kv_override
@@ -228,7 +230,7 @@ def attention(ctx: TPCtx, p: Params, cfg, x: torch.Tensor, *, valid=None,
             .reshape(b, s, hkv_run, hd)
         v = col_dense(ctx, p["wv"], x, hkv_run * hd, valid) \
             .reshape(b, s, hkv_run, hd)
-        if kind != "bidir":
+        if rotate:
             k = rope(k, positions, cfg.rope_theta)
         k_pos = positions
         if cache is not None:

@@ -259,4 +259,7 @@ def activation(name: str, x: torch.Tensor) -> torch.Tensor:
     if name == "gelu":
         # jax.nn.gelu defaults to the tanh approximation
         return F.gelu(x, approximate="tanh")
+    if name == "relu2":
+        # squared ReLU (Nemotron-H's ungated MLP)
+        return torch.square(F.relu(x))
     raise ValueError(name)

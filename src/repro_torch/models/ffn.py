@@ -1,4 +1,4 @@
-"""FFN blocks: dense (SwiGLU / GELU) and Mixture-of-Experts.
+"""FFN blocks: dense (SwiGLU / GELU / squared ReLU) and Mixture-of-Experts.
 
 Dense: W1/W3 are column-parallel, so coded in coded mode; W2 is
 row-parallel and never coded (paper Table 1).

@@ -33,6 +33,8 @@ Event taxonomy (``kind``, dot-namespaced):
 
   host.*                                        — host spans of a
      timing recorder (``HOST_SPANS``; below)
+  prefill.mamba                                 — device time of a
+     prefill's Mamba-2 mixers (``PREFILL_MAMBA``; below)
 
 ``track`` names the Perfetto track the event renders on: ``requests``,
 ``rounds``, ``planner``, ``perf``, ``host``, ``slot:<i>``, ``shard:<i>``.
@@ -59,9 +61,14 @@ gives a CUDA event pair whose ``device_read`` (once its end event has
 completed) is the pair's device ms and its start on the bound clock
 (``device_ms``, ``device_t_ms``, kept in ``wall_args``): the executor
 times each round with one, the stepper each prefill, and neither adds a
-synchronise. ``obs.export.chrome_trace`` draws them on a ``device``
-track: the gaps between them are the device's idle time, and under a
-``WallClock`` they line up with the host spans.
+synchronise. Inside a prefill's forward the stepper opens
+``mamba_pairs``: each Mamba-2 mixer the model enters there
+(``mamba_range``) records a CUDA event pair, and the scheduler emits
+their sum as one ``prefill.mamba`` event once the first token is on the
+host. ``obs.export.chrome_trace`` draws the round
+and prefill pairs on a ``device`` track: the gaps between them are the
+device's idle time, and under a ``WallClock`` they line up with the host
+spans.
 """
 from __future__ import annotations
 
@@ -86,6 +93,10 @@ HOST_SPANS = frozenset({
     "host.round_dispatch", "host.harvest_wait", "host.reencode",
 })
 
+#: a prefill's Mamba-2 mixers on the device (a CUDA event pair around
+#: each), summed per prefill into one event
+PREFILL_MAMBA = "prefill.mamba"
+
 #: the full event taxonomy; ``emit`` rejects unknown kinds so a typo
 #: cannot create a phantom event stream (mirrors the counter registry).
 EVENT_KINDS = frozenset({
@@ -96,12 +107,15 @@ EVENT_KINDS = frozenset({
     "shard.heal", "shard.heal_all", "code.reencode", "code.resize",
     "planner.plan",
     "perf.attribution", "perf.counter",
-}) | HOST_SPANS
+}) | HOST_SPANS | {PREFILL_MAMBA}
 
 _NO_SPAN = contextlib.nullcontext()
 #: timing recorders attached in this process (``model_range`` is on while
 #: any is)
 _attached = 0
+#: the open ``mamba_pairs`` collection (a list of CUDA event pairs), or
+#: None (``mamba_range`` is then a no-op)
+_mamba_pairs: list | None = None
 
 
 def model_range(name: str):
@@ -110,6 +124,24 @@ def model_range(name: str):
     if _attached:
         return torch.profiler.record_function(name)
     return _NO_SPAN
+
+
+def mamba_range():
+    """A CUDA event pair around a Mamba-2 mixer, kept while a
+    ``mamba_pairs`` collection is open; else a shared no-op context."""
+    if _mamba_pairs is None:
+        return _NO_SPAN
+    return _event_pair(_mamba_pairs)
+
+
+@contextlib.contextmanager
+def _event_pair(pairs: list):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    yield
+    end.record()
+    pairs.append((start, end))
 
 
 def alloc_counts(device) -> dict[str, int]:
@@ -224,6 +256,21 @@ class FlightRecorder:
         start = torch.cuda.Event(enable_timing=True)
         start.record()
         return start, torch.cuda.Event(enable_timing=True)
+
+    @contextlib.contextmanager
+    def mamba_pairs(self):
+        """Collect the ``mamba_range`` pairs entered inside the block
+        where ``device_events`` would time (timing, on a card); yields
+        the list of pairs, or None where nothing is collected."""
+        global _mamba_pairs
+        if self._anchor is None or _mamba_pairs is not None:
+            yield None
+            return
+        pairs = _mamba_pairs = []
+        try:
+            yield pairs
+        finally:
+            _mamba_pairs = None
 
     def device_read(self, pair) -> dict:
         """``device_ms`` and ``device_t_ms`` (the start on the bound

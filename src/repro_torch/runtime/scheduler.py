@@ -37,7 +37,10 @@ prefill, and counters of graph captures, replays and drops and of the
 caching allocator's retries and device mallocs. Where the stepper may
 decode a prefill's coded GEMMs through the decode-and-merge kernel (on a
 card), ``prefill_fused_decode`` and ``prefill_reference_decode`` count
-which decode each admission's prefill took, timing recorder or not. A
+which decode each admission's prefill took, timing recorder or not; for a
+model with Mamba-2 layers ``mamba2_prefill_chunks`` counts the SSD chunks
+the prefills took through them, and a timing recorder on a card emits
+each prefill's ``prefill.mamba`` device ms (``obs.tracer``). A
 request's first token is stamped once it is on the host (under a
 ``WallClock`` after its prefill). A request's ``extras`` (enc-dec
 ``frames``) reach its prefill on both paths; the batched one writes the
@@ -55,7 +58,8 @@ import numpy as np
 from repro_torch.core.failure import StragglerModel, request_latency
 from repro_torch.core.seeds import stream_rng
 from repro_torch.obs.shardlog import ShardTimeline
-from repro_torch.obs.tracer import NULL_RECORDER, FlightRecorder, alloc_counts
+from repro_torch.obs.tracer import (NULL_RECORDER, PREFILL_MAMBA,
+                                    FlightRecorder, alloc_counts)
 from repro_torch.runtime.clock import Clock, SimClock
 from repro_torch.runtime.executor import (SlotPoolExecutor, request_batch,
                                           supports_slot_batching)
@@ -71,6 +75,9 @@ from repro_torch.serve.engine import ModelStepper
 #: the counters stay the reference package's
 PREFILL_DECODE_COUNTERS = ("prefill_fused_decode",
                            "prefill_reference_decode")
+#: SSD chunks a prefill takes through every Mamba-2 layer, registered for
+#: a model that has them
+MAMBA2_CHUNKS = "mamba2_prefill_chunks"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,6 +138,8 @@ class ContinuousBatchingScheduler:
         if stepper.fused_prefill_on:
             for name in PREFILL_DECODE_COUNTERS:
                 self.metrics.register(name)
+        if stepper.has_mamba2:
+            self.metrics.register(MAMBA2_CHUNKS)
         self.tracer = NULL_RECORDER
         self._timing_seen: dict[str, int] = {}
         # per-shard health timeline: always on (O(1) per health event)
@@ -406,9 +415,19 @@ class ContinuousBatchingScheduler:
             decode = self.stepper.last_prefill_decode
             if decode is not None:
                 self.metrics.count(f"prefill_{decode}_decode")
+            if self.stepper.last_prefill_chunks:
+                self.metrics.count(MAMBA2_CHUNKS,
+                                   self.stepper.last_prefill_chunks)
             if span:
                 span.wall_args.update(self.tracer.device_read(
                     self.stepper.last_prefill_events))
+                pairs = self.stepper.last_prefill_mamba
+                if pairs:
+                    self.tracer.emit(
+                        PREFILL_MAMBA, track="device", t_ms=now,
+                        wall_args={"device_ms": sum(s.elapsed_time(e)
+                                                    for s, e in pairs),
+                                   "n": len(pairs)})
                 span.wall_args.update(
                     (name, n - alloc[name]) for name, n in
                     alloc_counts(self.stepper.device).items())

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.failure import StragglerModel, request_latency
+from repro_torch.models.mamba2 import prefill_chunks
 from repro_torch.models.zoo import Model
 from repro_torch.obs.tracer import NULL_RECORDER
 
@@ -66,6 +67,12 @@ class ModelStepper:
         # on a card; else None), read by its admitter once the first
         # token is on the host
         self.last_prefill_events: tuple | None = None
+        # whether the model has Mamba-2 layers; the last prefill's CUDA
+        # event pair around each of its Mamba-2 mixers (a timing recorder
+        # on a card; else None), and the SSD chunks they took
+        self.has_mamba2 = prefill_chunks(model.cfg, 1) > 0
+        self.last_prefill_mamba: list | None = None
+        self.last_prefill_chunks: int = 0
         # bumped by every parity encode after the first: what a round
         # captured against the old parity (a CUDA graph, the head cache)
         # keys on
@@ -169,7 +176,8 @@ class ModelStepper:
         same mask first). Returns (last-position logits [b, 1, V],
         state). A timing recorder spans the state's making and the
         forward's enqueue, and on a card times the whole on the device
-        (``last_prefill_events``)."""
+        (``last_prefill_events``) and the forward's Mamba-2 mixers
+        (``last_prefill_mamba``)."""
         tr = self.tracer
         with tr.span("host.prefill"):
             events = tr.device_events()
@@ -180,8 +188,12 @@ class ModelStepper:
                 state = model.init_decode(
                     self.params, batch, tokens.shape[0], self.max_len,
                     self.cache_dtype, valid=v)
-            with tr.span("host.prefill.forward"):
+            with tr.span("host.prefill.forward"), \
+                    tr.mamba_pairs() as pairs:
                 logits, state = model.decode(self.params, state, tokens, v)
+            self.last_prefill_mamba = pairs
+            self.last_prefill_chunks = prefill_chunks(model.cfg,
+                                                      tokens.shape[1])
             if events is not None:
                 events[1].record()
             self.last_prefill_events = events

@@ -28,8 +28,8 @@ from repro.configs import smoke_config as jsmoke
 from repro.core.coding import CodeSpec as JCodeSpec
 from repro.models import TPCtx as JCtx, build as jbuild
 from repro.train import train_step as jtrain
-from repro_torch.configs import (SHAPES, all_archs, get_arch, runnable,
-                                 smoke_config)
+from repro_torch.configs import (PORT_ONLY, SHAPES, all_archs, get_arch,
+                                 runnable, smoke_config)
 from repro_torch.core.coding import CodeSpec
 from repro_torch.launch import dryrun
 from repro_torch.models import TPCtx, build
@@ -64,7 +64,14 @@ def _jdryrun():
 
 
 def test_every_config_is_registered_in_both_packages():
-    assert sorted(all_archs()) == NAMES and len(NAMES) == 10
+    """The reference's ten are in the port, field for field; the port's
+    other names are exactly its declared port-only set."""
+    port = all_archs()
+    assert len(NAMES) == 10 and set(NAMES) <= set(port)
+    assert set(port) - set(NAMES) == PORT_ONLY
+    for name in NAMES:
+        assert dataclasses.asdict(port[name]) == \
+            dataclasses.asdict(jget_arch(name)), name
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -142,8 +149,9 @@ def test_code_spec_total_shards_and_aux_loss_weight(t, r):
 
 def test_smoke_dry_run_ends_with_every_cell_ok(tmp_path, capsys):
     """``python -m repro_torch.launch.dryrun --smoke --coded --mesh both
-    --all``: 40 cells (10 configs x 2 smoke shapes x 2 meshes) on the
-    (2, 4) and (2, 2, 2) meshes, every one ``ok``, each with the census,
+    --all``: 44 cells (the 11 registered configs, the reference's ten and
+    the port's nemotron-h-47b, x 2 smoke shapes x 2 meshes) on the (2, 4)
+    and (2, 2, 2) meshes, every one ``ok``, each with the census,
     rank 0's bytes and the model FLOPs; exit code 0. A second run takes
     every cell from the cache."""
     out = tmp_path / "dryrun.json"
@@ -152,10 +160,12 @@ def test_smoke_dry_run_ends_with_every_cell_ok(tmp_path, capsys):
     with pytest.raises(SystemExit) as e:
         dryrun.main(argv)
     assert e.value.code == 0
-    assert "done: 40 ok, 0 structured skips, 0 errors" in \
+    n_cells = 4 * len(all_archs())
+    assert n_cells == 44
+    assert f"done: {n_cells} ok, 0 structured skips, 0 errors" in \
         capsys.readouterr().out
     cells = json.loads(out.read_text())
-    assert len(cells) == 40
+    assert len(cells) == n_cells
     assert all(rec["status"] == "ok" and rec["coded"]
                for rec in cells.values()), cells
     assert {rec["mesh"] for rec in cells.values()} == {"2x4", "pod2x2x2"}
@@ -183,7 +193,7 @@ def test_smoke_dry_run_ends_with_every_cell_ok(tmp_path, capsys):
     with pytest.raises(SystemExit) as e:
         dryrun.main(argv)
     assert e.value.code == 0
-    assert capsys.readouterr().out.count("[cached]") == 40
+    assert capsys.readouterr().out.count("[cached]") == n_cells
 
 
 def test_an_error_cell_makes_the_dry_run_exit_1(tmp_path, monkeypatch,

@@ -23,16 +23,18 @@ from repro.models import TPCtx as JCtx, build as jbuild
 from repro.models.attention import attn_dims as jattn_dims
 from repro.serve import ServeConfig as JServeConfig
 from repro.serve import ServingEngine as JEngine
-from repro_torch.configs import all_archs, get_arch, smoke_config
+from repro_torch.configs import PORT_ONLY, all_archs, get_arch, smoke_config
 from repro_torch.convert import params_from_jax
 from repro_torch.models import TPCtx, build
 from repro_torch.models.attention import attn_dims
 from repro_torch.serve import ServeConfig, ServingEngine
 
 TOL = dict(rtol=1e-4, atol=1e-4)
-# every config the port registers (whisper-medium's, xlstm-125m's and
-# hymba-1.5b's models are held against the reference in
-# tests/test_torch_encdec.py, test_torch_xlstm.py and test_torch_hybrid.py)
+# every config the port shares with the reference (whisper-medium's,
+# xlstm-125m's and hymba-1.5b's models are held against the reference in
+# tests/test_torch_encdec.py, test_torch_xlstm.py and test_torch_hybrid.py;
+# the port-only nemotron-h-47b against its plain reference in
+# tests/test_torch_nemotron_h.py)
 NAMES = ("granite-3-8b", "h2o-danube-1.8b", "h2o-danube-3-4b",
          "deepseek-67b", "chameleon-34b", "whisper-medium", "xlstm-125m",
          "hymba-1.5b", "qwen2-moe-a2.7b", "qwen3-moe-235b-a22b")
@@ -59,14 +61,16 @@ def _pair(name, t, r=2, layout="folded"):
 
 @pytest.mark.parametrize("name", NAMES)
 def test_config_copy_matches_reference(name):
-    """Every field of each registered config equals the reference's, and
-    so do the derived head width and ``sub_quadratic``."""
+    """Every field of each config shared with the reference equals the
+    reference's, and so do the derived head width and ``sub_quadratic``;
+    the port registers these and its declared port-only names."""
     cfg, jcfg = get_arch(name), jget_arch(name)
     for f in dataclasses.fields(cfg):
         assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
     assert cfg.hd == jcfg.hd and cfg.sub_quadratic == jcfg.sub_quadratic
     assert smoke_config(cfg) == smoke_config(cfg)
-    assert set(all_archs()) == set(NAMES) <= set(jbase.all_archs())
+    assert set(all_archs()) == set(NAMES) | PORT_ONLY
+    assert set(NAMES) == set(jbase.all_archs())
 
 
 def test_attn_dims_follow_the_reference():

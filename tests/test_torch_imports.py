@@ -22,7 +22,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
        ROOT / "tests" / "_torch_train_mesh.py",
        ROOT / "tests" / "test_torch_timing_cuda.py",
        ROOT / "tests" / "test_torch_prefill_decode.py",
-       ROOT / "tests" / "test_torch_prefill_decode_cuda.py"]
+       ROOT / "tests" / "test_torch_prefill_decode_cuda.py",
+       ROOT / "tests" / "test_torch_nemotron_h_cuda.py"]
 
 
 def _imports(path: Path) -> list[str]:
